@@ -1,0 +1,220 @@
+"""The cycle engine: composes routing, execution and ingestion into one
+``state -> state`` cycle, runs it to quiescence in K-cycle chunks, and
+exposes the streaming-increment API the experiments use.
+
+Cycle order (``cycle_body``, fixed-shape, vectorized over the cell grid):
+
+  1. hop_stage      channel heads advance one link (YX DOR, backpressure)
+  2. staging        active actions stage one ``propagate`` message
+  3. phase0         idle cells pop one action and run its compute step
+  4. io_stage       IO cells inject the next streamed edge
+
+Quiescence (the paper's Terminator object): no queued actions, no channel
+occupancy, no active action, no deferred future tasks, no pending IO.
+
+Each chunk is one call of ``kernels.cca_cycle.ops.cca_cycle_chunk``: one
+launch of the hand-written CUDA kernel for a state on the card, the plain
+PyTorch version (``kernels/cca_cycle/ref.py``, built on ``cycle_body``)
+for a state on the CPU.  The chunk loop runs on the host, one launch and
+one read of the launch record per chunk, and reproduces the JAX engine's
+device loop exactly: the cycle limit checked at chunk boundaries, the
+no-progress counter on ``stat_exec + stat_hops``, ``LIVELOCK_CHUNKS`` and
+the spill reload passes.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.alloc import rhizome_rcs
+from repro_torch.core.apps import APPS, DiffusionApp
+from repro_torch.core.config import EngineConfig
+from repro_torch.core.exec_stage import phase0_stage, staging_stage
+from repro_torch.core.ingest import io_stage, load_stream
+from repro_torch.core.routing import hop_stage
+from repro_torch.core.state import (MachineState, init_state,
+                                    resolve_device)
+
+# this many consecutive chunks with no executed action and no hop while
+# work is pending => message-dependent deadlock (DESIGN §4.2)
+LIVELOCK_CHUNKS = 8
+
+
+def _rc(cfg: EngineConfig, device):
+    rows = torch.arange(cfg.height, dtype=torch.int32, device=device)
+    cols = torch.arange(cfg.width, dtype=torch.int32, device=device)
+    return (rows[:, None].expand(cfg.height, cfg.width),
+            cols[None, :].expand(cfg.height, cfg.width))
+
+
+def quiescent(st: MachineState) -> torch.Tensor:
+    """0-d bool: no work left anywhere in the machine."""
+    return ((st.aq_n.sum() == 0) & (st.ch_n.sum() == 0)
+            & (st.pk_n.sum() == 0) & ~st.cvalid.any()
+            & (st.fq_n.sum() == 0) & ~st.fwd_pending.any()
+            & ((st.io_n - st.io_pos).sum() == 0))
+
+
+def cycle_body(cfg: EngineConfig, app: DiffusionApp, st: MachineState):
+    """One machine cycle: hop -> staging -> phase0 -> io.  Returns the new
+    state and the per-cell activity masks and hop count of the cycle."""
+    rows, cols = _rc(cfg, st.aq_n.device)
+    busy0 = st.cvalid
+    st, hops = hop_stage(cfg, st, rows, cols)
+    st, active_a = staging_stage(cfg, app, st, rows, cols)
+    st, popped = phase0_stage(cfg, app, st, rows, cols, busy0)
+    st = io_stage(cfg, st, rows, cols)
+    st = st._replace(cycle=st.cycle + 1, stat_hops=st.stat_hops + hops)
+    return st, (active_a, popped, hops)
+
+
+def _livelock_msg(cfg: EngineConfig) -> str:
+    return ("engine livelock: no action executed and no message hopped "
+            f"for {LIVELOCK_CHUNKS * cfg.chunk} cycles with work pending. "
+            "Increase chan_cap (>=4) / queue_cap (>= aq_reserve+sys_reserve"
+            f"+8 = {cfg.aq_reserve + cfg.sys_reserve + 8}) -- see "
+            "DESIGN.md §4.2 buffer-sizing rules.")
+
+
+class LivelockError(RuntimeError):
+    """Message-dependent deadlock detected (DESIGN §4.2): carries the
+    machine ``cycle`` count of the increment at detection and the
+    ``chunk`` index, like the JAX engine's error."""
+
+    def __init__(self, msg: str, *, cycle: int, chunk: int):
+        super().__init__(msg)
+        self.cycle = cycle
+        self.chunk = chunk
+
+
+class IncrementResult(NamedTuple):
+    cycles: int
+    hops: int
+    execs: int
+    stalls: int
+    allocs: int
+
+
+class StreamingEngine:
+    """Host-side driver: the accelerator-style main() of paper Listing 1.
+
+    ``device=None`` means the card (``cuda``); pass ``device="cpu"`` to
+    run the plain PyTorch version.
+    """
+
+    def __init__(self, cfg: EngineConfig, app: str = "bfs", device=None):
+        if app not in APPS:
+            raise NotImplementedError(
+                f"repro_torch ports the apps {sorted(APPS)}, not {app!r}")
+        self.app = APPS[app]
+        self.cfg = dataclasses.replace(cfg, n_vals=self.app.n_vals,
+                                       qbatch=self.app.qbatch)
+        self.device = resolve_device(device)
+        self.state = init_state(self.cfg, init_vals=self.app.init_val,
+                                fwd_init=self.app.fwd_neutral,
+                                device=self.device)
+        self.total_cycles = 0
+        self.totals = dict(hops=0, execs=0, stalls=0, allocs=0)
+        self.stream_pos = 0
+
+    def seed(self, vid: int, value: float, val_idx: int = 0):
+        """Host-write a value into the root of ``vid`` (e.g. the BFS
+        source gets level 0 before the stream)."""
+        r, c, s = rhizome_rcs(self.cfg, vid, 0)
+        self.state.vals[r, c, s, val_idx] = value
+
+    def run_increment(self, edges: np.ndarray, max_cycles: int | None = None,
+                      collect_traces: bool = False, recover=None,
+                      ckpt=None) -> IncrementResult:
+        """Ingest ``edges`` (int32 ``[m, 3]``: src, dst, weight bits) and
+        run to quiescence.  Raises :class:`LivelockError` on a detected
+        deadlock."""
+        for name, on in (("collect_traces", collect_traces),
+                         ("recover", recover is not None),
+                         ("ckpt", ckpt is not None)):
+            if on:
+                raise NotImplementedError(
+                    f"repro_torch does not port run_increment({name}=...) "
+                    "yet")
+        cfg = self.cfg
+        limit = max_cycles or cfg.max_cycles
+        self.state, spill = load_stream(cfg, self.state, edges)
+        zero = torch.zeros((), dtype=torch.int32, device=self.device)
+        self.state = self.state._replace(
+            stat_hops=zero.clone(), stat_exec=zero.clone(),
+            stat_stall=zero.clone(), stat_allocs=zero.clone())
+        cycles = 0
+        while True:
+            ran, q, noprog, counters = self._pass(limit - cycles)
+            cycles += ran
+            if q and len(spill):
+                # io_stream_cap overflow residue: the loaded prefix is
+                # consumed at quiescence, so reload the rest
+                self.state, spill = load_stream(cfg, self.state, spill)
+                continue
+            break
+        if not q and noprog >= LIVELOCK_CHUNKS:
+            raise LivelockError(_livelock_msg(cfg), cycle=cycles,
+                                chunk=cycles // cfg.chunk)
+        if len(spill):
+            raise RuntimeError(
+                f"cycle limit {limit} exhausted with {len(spill)} spilled "
+                "edges not yet ingested; raise max_cycles or io_stream_cap")
+        self.stream_pos += 1
+        self.total_cycles += cycles
+        res = IncrementResult(cycles, *counters)
+        for k, v in zip(("hops", "execs", "stalls", "allocs"), counters):
+            self.totals[k] += v
+        return res
+
+    def _pass(self, limit: int):
+        """Chunks until quiescence, the cycle ``limit`` (checked between
+        chunks) or ``LIVELOCK_CHUNKS`` chunks without progress.  Returns
+        ``(cycles run, quiescent, no-progress chunks, (hops, execs,
+        stalls, allocs))``; the counters are increment-cumulative."""
+        from repro_torch.kernels.cca_cycle.ops import cca_cycle_chunk
+        st = self.state
+        start, hops, execs, stalls, allocs = torch.stack(
+            [st.cycle, st.stat_hops, st.stat_exec, st.stat_stall,
+             st.stat_allocs]).tolist()
+        cycle, last, noprog, q = start, hops + execs, 0, None
+        while cycle - start < limit and noprog < LIVELOCK_CHUNKS:
+            st, qr = cca_cycle_chunk(self.cfg, self.app, st)
+            cycle, hops, execs, stalls, allocs, q, _ = torch.cat(
+                [torch.stack([st.cycle, st.stat_hops, st.stat_exec,
+                              st.stat_stall, st.stat_allocs]), qr]).tolist()
+            noprog = noprog + 1 if hops + execs == last else 0
+            last = hops + execs
+            if q:
+                break
+        if q is None:
+            q = bool(quiescent(st))
+        self.state = st
+        return cycle - start, bool(q), noprog, (hops, execs, stalls, allocs)
+
+    def values(self, n: int | None = None, val_idx: int = 0) -> np.ndarray:
+        """Vertex values read back from the roots, ``float32 [n]``."""
+        cfg = self.cfg
+        vids = np.arange(n or cfg.n_vertices, dtype=np.int64)
+        r, c, s = rhizome_rcs(cfg, vids, 0)
+        return self.state.vals[..., val_idx].cpu().numpy()[r, c, s]
+
+    def vertex_object_stats(self) -> dict:
+        """Ghost usage and locality of the hierarchical vertex objects."""
+        cfg, st = self.cfg, self.state
+        gs = st.gstate.cpu().numpy()
+        ga = st.gaddr.cpu().numpy()
+        used = int(np.sum(st.nfree.cpu().numpy() - cfg.primary_slots))
+        out = dict(ghosts=used, mean_hops=0.0, max_hops=0,
+                   rhizomes=0, multi_root_vertices=0, max_fanout=1,
+                   mean_rhizome_hops=0.0)
+        have = gs == 2
+        if have.any():
+            rr, cc, _ = np.nonzero(have)
+            tgt = ga[have] // cfg.slots
+            d = np.abs(rr - tgt // cfg.width) + np.abs(cc - tgt % cfg.width)
+            out.update(mean_hops=float(d.mean()), max_hops=int(d.max()))
+        return out

@@ -1,0 +1,189 @@
+"""YX dimension-ordered routing on the cell mesh (paper §4) with
+virtual-lane flow control on the physical links (DESIGN §7).
+
+Messages take vertical (row) hops first, then horizontal; one hop per
+cycle per link.  The hop stage is a masked ``torch.roll`` over the
+``[H, W]`` grid, one direction at a time in the fixed order N, S, W, E,
+so arrivals at one cell in one cycle are sequenced deterministically.
+The port carries ``lanes=1`` (every message rides lane 0); the lane axis
+stays in the layout.  ``park_stage`` (lanes>1) is not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import rings
+from repro_torch.core.config import EngineConfig
+from repro_torch.core.msg import (DIR_E, DIR_N, DIR_S, DIR_W, N_DIRS,
+                                  OP_ALLOC, OP_LINK_RHIZOME, OP_RHIZOME_FWD,
+                                  OP_SET_FUTURE, TB_AQ_SELF, TB_CHAN_E,
+                                  TB_CHAN_N, TB_CHAN_S, TB_CHAN_W)
+from repro_torch.core.state import MachineState
+
+
+def is_protocol(op):
+    """True where ``op`` is a system/continuation opcode: these get the
+    deeper ``aq_reserve``-only admission bound at the action queue and
+    the escape lane."""
+    return ((op == OP_ALLOC) | (op == OP_SET_FUTURE)
+            | (op == OP_LINK_RHIZOME) | (op == OP_RHIZOME_FWD))
+
+
+def msg_lane(cfg: EngineConfig, op, dst):
+    """Virtual-lane id of a message (all lane 0 at ``lanes=1``)."""
+    shape = torch.broadcast_shapes(op.shape, dst.shape)
+    if cfg.lanes == 1:
+        return torch.zeros(shape, dtype=torch.int32, device=dst.device)
+    data = 1 + dst % (cfg.lanes - 1)
+    return torch.where(is_protocol(op), 0, data).to(torch.int32)
+
+
+def yx_target_buffer(cfg: EngineConfig, dst_cell, rows, cols):
+    """Next-buffer code (``TB_*``) for a message at ``(rows, cols)``:
+    N/S while the row differs, W/E while only the column differs,
+    ``TB_AQ_SELF`` on arrival."""
+    dr = dst_cell // cfg.width
+    dc = dst_cell % cfg.width
+    vert = torch.where(dr < rows, TB_CHAN_N, TB_CHAN_S)
+    horiz = torch.where(dc < cols, TB_CHAN_W, TB_CHAN_E)
+    out = torch.where(dr != rows, vert,
+                      torch.where(dc != cols, horiz, TB_AQ_SELF))
+    return out.to(torch.int32)
+
+
+def deliver(cfg: EngineConfig, aq, aq_n, aq_head, ch, ch_n, ch_head,
+            msg, tb, lane, want, aq_room):
+    """Place ``msg`` into the local action queue (``tb == TB_AQ_SELF``,
+    gated by the caller's ``aq_room`` predicate) or lane ``lane`` of one
+    of the four outgoing channels (gated by ``lane_capacity``).
+
+    Operands share arbitrary leading batch dims ``*B`` (the ``[H, W]``
+    grid, or the ``[W]`` row-0 slice in the IO stage).  Returns
+    ``(aq, aq_n, ch, ch_n, ok)``; where ``want & ~ok`` the message stays
+    with the caller.
+    """
+    ok_aq = want & (tb == TB_AQ_SELF) & aq_room
+    aq, aq_n = rings.ring_push(aq, aq_n, aq_head, msg, ok_aq)
+    dev = msg.device
+    # one push over all (direction, lane) rings: a message targets at
+    # most one of them
+    ok = ((want & (tb >= 0) & (tb < N_DIRS))[..., None, None]
+          & (rings._iota(N_DIRS, dev)[:, None] == tb[..., None, None])
+          & (rings._iota(cfg.lanes, dev) == lane[..., None, None])
+          & rings.ring_free(ch_n, cfg.lane_capacity))           # [*B,4,L]
+    ch, ch_n = rings.ring_push(ch, ch_n, ch_head, msg[..., None, None, :],
+                               ok)
+    return aq, aq_n, ch, ch_n, ok_aq | ok.any(dim=-1).any(dim=-1)
+
+
+# direction -> (row shift, col shift) that moves a message ALONG d.
+_SHIFT = {DIR_N: (-1, 0), DIR_S: (1, 0), DIR_W: (0, -1), DIR_E: (0, 1)}
+
+
+def shift_to_receiver(arr, d):
+    """Align per-sender values ``[H, W, ...]`` with the receiving cell of
+    a hop along direction ``d`` (a torus roll; the caller masks the
+    wrapped edge with :func:`valid_receiver_mask`)."""
+    dy, dx = _SHIFT[d]
+    if dy:
+        arr = torch.roll(arr, dy, dims=0)
+    if dx:
+        arr = torch.roll(arr, dx, dims=1)
+    return arr
+
+
+def shift_to_sender(arr, d):
+    """Inverse of :func:`shift_to_receiver`."""
+    dy, dx = _SHIFT[d]
+    if dy:
+        arr = torch.roll(arr, -dy, dims=0)
+    if dx:
+        arr = torch.roll(arr, -dx, dims=1)
+    return arr
+
+
+def valid_receiver_mask(cfg: EngineConfig, d, device):
+    """``[H, W]`` bool: True where a receiver's direction-``d`` sender
+    exists on the mesh (not a torus wrap of the roll)."""
+    H, W = cfg.height, cfg.width
+    r = torch.arange(H, device=device)[:, None]
+    c = torch.arange(W, device=device)[None, :]
+    m = {DIR_N: r < H - 1, DIR_S: r > 0, DIR_W: c < W - 1, DIR_E: c > 0}[d]
+    return m.expand(H, W)
+
+
+def _aq_room(cfg: EngineConfig, op, aq_n):
+    """Hop/IO admission at the action queue: external pushes leave the
+    local-emission reserve free, application traffic also the system
+    headroom (DESIGN §4.2)."""
+    Q = cfg.queue_cap
+    return torch.where(is_protocol(op),
+                       rings.ring_free(aq_n, Q, cfg.aq_reserve),
+                       rings.ring_free(aq_n, Q, cfg.aq_reserve
+                                       + cfg.sys_reserve))
+
+
+def hop_stage(cfg: EngineConfig, st: MachineState, rows, cols):
+    """One routing cycle: every link carries at most one message, the
+    round-robin lane arbiter picks which.  Each direction round reads the
+    receivers' queue counts as the earlier rounds of this cycle left
+    them.  Returns ``(state, hops_this_cycle)``."""
+    L, LC = cfg.lanes, cfg.lane_capacity
+    dev = rows.device
+    hops = torch.zeros((), dtype=torch.int32, device=dev)
+    aq, aq_n, aq_head = st.aq, st.aq_n, st.aq_head
+    ch, ch_n, ch_head = st.ch, st.ch_n, st.ch_head
+    ch_rr = st.ch_rr
+    liota = rings._iota(L, dev)
+
+    for d in (DIR_N, DIR_S, DIR_W, DIR_E):
+        valid = valid_receiver_mask(cfg, d, dev)
+        heads = rings.ring_peek(ch[:, :, d], ch_head[:, :, d])  # [H,W,L,MSG]
+        occ = ch_n[:, :, d] > 0                                 # [H,W,L]
+        msg_r = shift_to_receiver(heads, d)
+        occ_r = shift_to_receiver(occ, d) & valid[..., None]
+        dst_cell = msg_r[..., 1] // cfg.slots                   # [H,W,L]
+        tb = yx_target_buffer(cfg, dst_cell, rows[..., None], cols[..., None])
+        adm = (tb == TB_AQ_SELF) & _aq_room(cfg, msg_r[..., 0],
+                                            aq_n[..., None])
+        for dd in range(N_DIRS):
+            adm = adm | ((tb == dd) & rings.ring_free(ch_n[:, :, dd], LC))
+        adm_s = shift_to_sender(occ_r & adm, d)                 # [H,W,L]
+
+        # round-robin grant: the admissible lane closest after ch_rr wins
+        rr = ch_rr[:, :, d]
+        pri = (liota - rr[..., None]) % L
+        key = torch.where(adm_s, pri, L)
+        kmin = key.min(dim=-1).values
+        granted = adm_s.any(dim=-1)                             # [H,W]
+        g = torch.where(
+            granted,
+            torch.where(key == kmin[..., None], liota, 0).sum(dim=-1),
+            0).to(torch.int32)
+        oh_g = liota == g[..., None]                            # [H,W,L]
+        sel = torch.where(oh_g[..., None], heads, 0).sum(dim=2).to(torch.int32)
+
+        # deliver the granted head at the receiver (granted implies
+        # admissible, so acceptance == grant)
+        msg_g = shift_to_receiver(sel, d)
+        want_r = shift_to_receiver(granted, d) & valid
+        lane_g = shift_to_receiver(g, d)
+        tb_g = yx_target_buffer(cfg, msg_g[..., 1] // cfg.slots, rows, cols)
+        aq, aq_n, ch, ch_n, accepted_r = deliver(
+            cfg, aq, aq_n, aq_head, ch, ch_n, ch_head, msg_g, tb_g, lane_g,
+            want_r, _aq_room(cfg, msg_g[..., 0], aq_n))
+        hops = hops + accepted_r.sum(dtype=torch.int32)
+        # pop the granted lane at the sender (after the push above: a
+        # cell that forwards straight on pushes with the pre-pop count)
+        acc_s = shift_to_sender(accepted_r, d)
+        n2, h2 = rings.ring_pop(ch_n[:, :, d], ch_head[:, :, d], LC,
+                                acc_s[..., None] & oh_g)
+        ch_n = ch_n.clone()
+        ch_head = ch_head.clone()
+        ch_rr = ch_rr.clone()
+        ch_n[:, :, d] = n2
+        ch_head[:, :, d] = h2
+        ch_rr[:, :, d] = torch.where(acc_s, (g + 1) % L, rr)
+
+    return st._replace(aq=aq, aq_n=aq_n, ch=ch, ch_n=ch_n, ch_head=ch_head,
+                       ch_rr=ch_rr), hops
