@@ -2,13 +2,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path -- ``StreamingEngine.seed -> run_increment ->
-values`` for BFS, every chunk one launch of the hand-written CUDA cycle
-kernel -- and fails (uncaught exception, non-zero exit) if any phase does:
+Drives the port's main paths through the hand-written CUDA kernels and
+fails (uncaught exception, non-zero exit) if any phase does.  The
+streaming engine (``StreamingEngine.seed -> run_increment -> values``,
+every chunk one launch of the cycle kernel):
 
   1. device: the card's name and power limit; no CUDA device -> exit 1
-  2. build: nvcc for sm_90a, with the ptxas register/spill report
-  3. kernel vs plain PyTorch version on the card, every leaf and the
+  2. build: nvcc for sm_90a, all three kernels at once, with the ptxas
+     register/spill report of the cycle kernel
+  3. cycle kernel vs plain PyTorch version on the card, every leaf and the
      launch record exactly equal (tolerance 0): (a) the pinned 8x8 config
      chunk by chunk to quiescence, (b) three mid-stream states of the
      2000-vertex stream on the 32x32 paper config, one K=512 chunk each
@@ -16,29 +18,80 @@ kernel -- and fails (uncaught exception, non-zero exit) if any phase does:
      and src/repro_torch/data/fingerprint_32x32.json, exactly
   5. the paper's 50K-vertex / 1M-edge stream (10 edge-sampled increments)
      on the paper config, BFS values exactly the oracle's
-  6. the kernels line (JSON), then the ok line (JSON, last)
+  6. one full-size K=512 chunk: kernel, plain version, byte bound
+
+The GNN and DLRM serving forwards (every aggregation a launch of the
+scatter-SpMM kernel, every DLRM lookup one launch of the EmbeddingBag
+kernel):
+
+  7. the ptxas reports of the scatter-SpMM and EmbeddingBag kernels
+  8. scatter-SpMM kernel vs plain on the card (max |d| <= 1e-4 max(1,
+     max |ref|)) at every aggregation shape of phase 9: GCN-Cora (D = 16,
+     7, gather and coeff fused), Cora edge messages (D = 70 gatedgcn, 128
+     meshgraphnet), ogb_products (D = 16, 7), and GraphCast's multimesh
+     at refinement 6, grid-to-mesh and mesh-to-grid sets (D = 512); the
+     kernel over the graph's row pointers timed beside the wrapper, the
+     plain version, ``torch.sparse.mm`` on the CSR matrix (yardstick
+     only) and the bound
+  9. GNN serving at published widths: gcn-cora on full_graph_sm and on
+     ogb_products, gatedgcn, meshgraphnet and graphcast on full_graph_sm;
+     finite outputs, equal to the CPU forward elementwise within 1e-4
+     (full_graph_sm; graphcast, whose f32 function cannot meet that at
+     random init, no farther from its f64 forward than twice the CPU's
+     f32 forward), spmm launches per forward, wall per forward, peak
+     memory
+ 10. EmbeddingBag kernel vs plain at RM2 widths on the 26 full-size tables
+     (36.8 GB, drawn on the card) for serve_p99 and serve_bulk (1e-5),
+     timed beside the plain version and ``F.embedding_bag`` per table
+ 11. DLRM-RM2 serving at full width: serve_p99 and serve_bulk forwards,
+     retrieval over 1,000,000 candidates; finite logits, top-100 shapes,
+     the serve_p99 logits and the retrieval's scores equal to the CPU
+     forward over the touched rows (elementwise, 1e-4), launches, wall,
+     peak memory
+
+It ends with the kernels line (JSON) and the ok line (JSON, last).
 """
+import dataclasses
 import json
 import pathlib
 import subprocess
 import sys
 import time
+import warnings
+from unittest import mock
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.configs import gnn_archs  # noqa: E402
+from repro_torch.configs.base import gnn_shapes, recsys_shapes  # noqa: E402
+from repro_torch.configs.recsys_archs import DLRM_RM2  # noqa: E402
 from repro_torch.core import EngineConfig, StreamingEngine  # noqa: E402
 from repro_torch.core.apps import BFS  # noqa: E402
 from repro_torch.core.ingest import load_stream  # noqa: E402
 from repro_torch.core.reference import bfs_levels  # noqa: E402
+from repro_torch.data.graphs import build_graph  # noqa: E402
+from repro_torch.data.pipeline import (RecSysBatchSpec,  # noqa: E402
+                                       recsys_batch)
+from repro_torch.graph.segment_ops import sym_norm_coeff  # noqa: E402
 from repro_torch.graph.streams import StreamSpec, make_stream  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cca_cycle import ops  # noqa: E402
 from repro_torch.kernels.cca_cycle.ref import cca_cycle_chunk_ref  # noqa: E402
+from repro_torch.kernels.embedding_bag import ops as bag_ops  # noqa: E402
+from repro_torch.kernels.embedding_bag.ref import (  # noqa: E402
+    embedding_bags_ref)
+from repro_torch.kernels.spmm import ops as spmm_ops  # noqa: E402
+from repro_torch.kernels.spmm.ref import (scatter_spmm_ref,  # noqa: E402
+                                          spmm_sorted_coo_ref)
+from repro_torch.models import dlrm, gnn  # noqa: E402
 
 H100_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (data sheet, 700 W)
+H100_F32_FLOPS = 67e12       # f32 outside the tensor cores (data sheet)
 PAPER_FULL = dict(n_vertices=50_000, n_edges=1_000_000)
 
 
@@ -103,6 +156,468 @@ def replay(ref):
     return rows, eng.values()
 
 
+def print_ptxas(report: str) -> None:
+    for line in report.splitlines():
+        if any(w in line for w in ("registers", "spill", "smem", "stack")):
+            print("  ptxas:", line.strip())
+
+
+def cuda_ms(fn, min_reps=3, budget_ms=300.0) -> float:
+    """Mean device time of ``fn()`` in ms by CUDA events: one warm call,
+    then as many calls as fit in ``budget_ms`` (at least ``min_reps``)."""
+    fn()
+    a, b = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    reps = max(min_reps, min(200, int(budget_ms / max(a.elapsed_time(b),
+                                                      1e-3))))
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def check(name, got, want, tol) -> float:
+    """Max |got - want|; raises unless it is at most tol x max(1, max
+    |want|) and NaN sits in the same places."""
+    got, want = got.float(), want.float()
+    if not torch.equal(torch.isnan(got), torch.isnan(want)):
+        raise AssertionError(f"{name}: NaN in different places")
+    err = float((got - want).abs().nan_to_num(0.0).max())
+    scale = max(1.0, float(want.nan_to_num(0.0).abs().max()))
+    if err > tol * scale:
+        raise AssertionError(f"{name}: max |d| {err} > {tol} x {scale}")
+    return err
+
+
+def scaled_err(got, want) -> tuple[float, float]:
+    """(max |got - want|, the largest |got - want| / (|want| + median
+    |want|) over the entries): elementwise, an entry near 0 held to the
+    output's typical size rather than to its largest."""
+    got, want = got.double(), want.double()
+    if got.shape != want.shape:
+        raise AssertionError(f"shape {got.shape} != {want.shape}")
+    d = (got - want).abs()
+    tol = want.abs() + float(want.abs().median())
+    return float(d.max()), float(torch.where(d == 0, 0.0, d / tol).max())
+
+
+def check_close(name, got, want, rtol) -> tuple[float, float]:
+    """``scaled_err``, raising unless the scaled error is at most rtol."""
+    err, rel = scaled_err(got, want)
+    if not rel <= rtol:
+        raise AssertionError(f"{name}: an entry is off by {rel:.3g} of "
+                             f"|ref| + median |ref| (limit {rtol}; max |d| "
+                             f"{err})")
+    return err, rel
+
+
+def f64_forward(cfg, params, g):
+    """GraphCast's ``gnn_forward`` on the CPU in float64, its segment sums
+    too (the port's sums run in f32, as the kernel's do).  Its MLPs run in
+    the activations' dtype and it has no layer norm, so nothing else
+    rounds to f32; a built graph's destinations are all in range, so a
+    plain ``index_add_`` sums them."""
+    assert cfg.kind == "graphcast"
+
+    def sum64(msgs, edge_index, n_nodes, rowptr=None):
+        out = torch.zeros((n_nodes, *msgs.shape[1:]), dtype=msgs.dtype)
+        return out.index_add_(0, edge_index[1].long(), msgs)
+
+    with mock.patch.object(gnn, "scatter_sum", sum64):
+        return gnn.gnn_forward(
+            dataclasses.replace(cfg, compute_dtype=torch.float64), params, g)
+
+
+def vs_cpu(arch, cfg, params, g, out) -> tuple[dict, str]:
+    """Hold the card's forward ``out`` to the CPU's, elementwise: within
+    1e-4 of |ref| + median |ref|.  GraphCast's 16 unnormalised residual
+    blocks reach 1e10 at random init, and its f32 function is then no
+    more accurate than that allows, on any device: it is held to its f64
+    forward instead, no farther from it than 1e-4 or twice the CPU's f32
+    forward, whichever is more."""
+    cpu_p, cpu_g = to_cpu(params), gnn.Graph(*to_cpu(tuple(g)))
+    want = gnn.gnn_forward(cfg, cpu_p, cpu_g)
+    if arch != "graphcast":
+        err, rel = check_close(f"{arch} vs CPU", out.cpu(), want, 1e-4)
+        return (dict(vs_cpu_max_abs_err=err, vs_cpu_scaled_err=rel),
+                f"== CPU forward elementwise (scaled error {rel:.3g} <= "
+                f"1e-4; max |d| {err:.3g})")
+    err, rel = scaled_err(out.cpu(), want)
+    want64 = f64_forward(cfg, cpu_p, cpu_g)
+    _, card64 = scaled_err(out.cpu(), want64)
+    _, cpu64 = scaled_err(want, want64)
+    limit = max(1e-4, 2 * cpu64)
+    if not card64 <= limit:
+        raise AssertionError(f"graphcast: the card is off its f64 forward "
+                             f"by {card64:.3g}, the CPU's f32 forward by "
+                             f"{cpu64:.3g} (limit {limit:.3g})")
+    return (dict(vs_cpu_max_abs_err=err, vs_cpu_scaled_err=rel,
+                 vs_f64_scaled_err=card64, cpu_vs_f64_scaled_err=cpu64),
+            f"off the f64 forward by {card64:.3g} (scaled), the CPU's f32 "
+            f"forward by {cpu64:.3g} (limit max(1e-4, 2x that)); card vs "
+            f"CPU f32 {rel:.3g} (max |d| {err:.3g} on max |ref| "
+            f"{float(want.abs().max()):.4g})")
+
+
+def forward_wall(fn, reps) -> tuple[float, int, int, object]:
+    """(mean host seconds per call, each ending in synchronize; peak bytes
+    allocated during the calls, resident inputs included; that peak less
+    what was resident before the calls; the last output), after one warm
+    call."""
+    out = fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.time()
+    for _ in range(reps):
+        out = fn()
+        torch.cuda.synchronize()
+    wall = (time.time() - t0) / reps
+    peak = torch.cuda.max_memory_allocated()
+    return wall, peak, peak - resident, out
+
+
+def to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_cpu(v) for v in tree)
+    return None if tree is None else tree.cpu()
+
+
+def spmm_phases(smi: str, dev: torch.device) -> dict:
+    """Phases 8 and 9: the scatter-SpMM kernel against its plain version
+    and the library call, then the GNN serving forwards through it."""
+    shapes = {s.name: s for s in gnn_shapes()}
+    gen = torch.Generator(device=dev)
+
+    # ---- 8. kernel vs plain at the main path's shapes ----
+    t0 = time.time()
+    d_feat = shapes["full_graph_sm"].dim("d_feat")   # d_in, as launch/steps
+    cora_cfg = dataclasses.replace(gnn_archs.GCN_CORA, d_in=d_feat)
+    ogb_cfg = dataclasses.replace(cora_cfg, d_in=shapes["ogb_products"].dim(
+        "d_feat"))
+    g_cora = build_graph(cora_cfg, shapes["full_graph_sm"], device=dev)
+    g_ogb = build_graph(ogb_cfg, shapes["ogb_products"], device=dev)
+    gc_cfg = dataclasses.replace(gnn_archs.GRAPHCAST, d_in=d_feat)
+    g_gc = build_graph(gc_cfg, shapes["full_graph_sm"], device=dev)
+    torch.cuda.synchronize()
+    print(f"[8] graphs built in {time.time() - t0:.1f}s: full_graph_sm "
+          f"{g_cora.edge_index.shape[1]} edges, ogb_products "
+          f"{g_ogb.edge_index.shape[1]} edges, multimesh "
+          f"{g_gc.mesh_edge_index.shape[1]} edges", flush=True)
+    rows, worst = [], 0.0
+    # (shape, edge set, D, gather): every aggregation shape of phase 9's
+    # forwards: gcn's two layers (gather and coeff fused), gatedgcn's and
+    # meshgraphnet's edge messages, graphcast's three edge sets
+    cases = [("full_graph_sm", g_cora, "edge_index", 16, True),
+             ("full_graph_sm", g_cora, "edge_index", 7, True),
+             ("full_graph_sm", g_cora, "edge_index", 70, False),
+             ("full_graph_sm", g_cora, "edge_index", 128, False),
+             ("ogb_products", g_ogb, "edge_index", 16, True),
+             ("ogb_products", g_ogb, "edge_index", 7, True),
+             ("multimesh_r6", g_gc, "mesh_edge_index", 512, False),
+             ("grid2mesh", g_gc, "g2m_edge_index", 512, False),
+             ("mesh2grid", g_gc, "m2g_edge_index", 512, False)]
+    for name, g, key, D, gather in cases:
+        gen.manual_seed(D)
+        ei, rowptr = getattr(g, key), g.rowptr[key]   # built once per graph
+        n, E = rowptr.shape[0] - 1, ei.shape[1]
+        src, dst = ei[0].contiguous(), ei[1].contiguous()
+        if gather:                     # spmm_sorted_coo, GCN layer shape
+            x = torch.randn((n, D), generator=gen, device=dev)
+            coeff = sym_norm_coeff(ei, n)
+            wrapper = lambda: spmm_ops.spmm_sorted_coo(  # noqa: E731
+                x, src, dst, n, coeff, rowptr)
+            plain = lambda: spmm_sorted_coo_ref(  # noqa: E731
+                x, src, dst, n, coeff)
+            # the library's CSR: columns sorted within each row
+            o = torch.argsort(dst.long() * n + src.long())
+            col, vals, dense, n_in = src[o], coeff[o], x, n
+            # src, coeff, rowptr, x, out; a multiply and an add an entry
+            nbytes, nops = E * 8 + (n + 1) * 4 + n * D * 8, 2 * E * D
+        else:                          # scatter_spmm of edge messages
+            msgs = torch.randn((E, D), generator=gen, device=dev)
+            src = coeff = None
+            wrapper = lambda: spmm_ops.scatter_spmm(  # noqa: E731
+                msgs, dst, n, rowptr)
+            plain = lambda: scatter_spmm_ref(msgs, dst, n)  # noqa: E731
+            col = torch.arange(E, dtype=torch.int32, device=dev)
+            vals = torch.ones(E, device=dev)
+            dense, n_in = msgs, E
+            # msgs, rowptr, out; an add an entry
+            nbytes, nops = E * D * 4 + (n + 1) * 4 + n * D * 4, E * D
+        # the kernel alone, over the graph's row pointers
+        kern = lambda: spmm_ops.launch(  # noqa: E731
+            dense, src, coeff, rowptr, n)
+        with warnings.catch_warnings():   # "sparse CSR is in beta", ...
+            warnings.simplefilter("ignore", UserWarning)
+            csr = torch.sparse_csr_tensor(rowptr, col, vals, size=(n, n_in))
+        got, want = wrapper(), plain()
+        torch.cuda.synchronize()
+        err = check(f"spmm {name} D={D}", got, want, 1e-4)
+        if not torch.equal(kern(), got):
+            raise AssertionError("a second launch gave other bits")
+        lib_err = check(f"torch.sparse.mm {name} D={D}",
+                        torch.sparse.mm(csr, dense), want, 1e-4)
+        worst = max(worst, err)
+        bytes_ms = 1e3 * nbytes / H100_BYTES_PER_S
+        ops_ms = 1e3 * nops / H100_F32_FLOPS
+        row = dict(shape=name, D=D, nodes=n, edges=E, gather=gather,
+                   max_abs_err=err, ms=cuda_ms(kern),
+                   wrapper_ms=cuda_ms(wrapper),
+                   row_pointers_ms=cuda_ms(
+                       lambda: spmm_ops.row_pointers(dst, n)),
+                   plain_ms=cuda_ms(plain),
+                   library_ms=cuda_ms(lambda: torch.sparse.mm(csr, dense)),
+                   bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                   bytes=nbytes, ops=nops, library_max_abs_err=lib_err)
+        rows.append(row)
+        print(f"[8] spmm {name} D={D} ({n} nodes, {E} edges, "
+              f"{'gather x coeff' if gather else 'messages'}): kernel "
+              f"{row['ms']:.4f} ms (wrapper over the row pointers "
+              f"{row['wrapper_ms']:.4f} ms; building them, once per graph, "
+              f"{row['row_pointers_ms']:.4f} ms), plain "
+              f"{row['plain_ms']:.4f} ms, torch.sparse.mm "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"by {row['bound_by']} ({nbytes / 1e9:.4f} GB over 3.35 TB/s,"
+              f" {nops / 1e9:.4f} Gflop over 67 TFLOP/s); max |d| "
+              f"{err:.3g}", flush=True)
+        del got, want, csr, col, vals
+    print(f"[8] done in {time.time() - t0:.1f}s", flush=True)
+
+    # ---- 9. GNN serving on the card at published widths ----
+    t0 = time.time()
+    runs = [("gcn-cora", cora_cfg, g_cora, 2),
+            ("gcn-cora", ogb_cfg, g_ogb, 2),
+            ("gatedgcn", dataclasses.replace(gnn_archs.GATEDGCN,
+                                             d_in=d_feat), g_cora, 32),
+            ("meshgraphnet", dataclasses.replace(gnn_archs.MESHGRAPHNET,
+                                                 d_in=d_feat), g_cora, 15),
+            ("graphcast", gc_cfg, g_gc, 18)]
+    spmm_ops.launches = 0
+    serving = []
+    for i, (arch, cfg, g, per_fwd) in enumerate(runs):
+        shape_name = "ogb_products" if g is g_ogb else "full_graph_sm"
+        params = gnn.init_gnn_params(cfg, gen.manual_seed(100 + i))
+        before = spmm_ops.launches
+        with torch.no_grad():
+            out = gnn.gnn_forward(cfg, params, g)
+            torch.cuda.synchronize()
+            if spmm_ops.launches - before != per_fwd:
+                raise AssertionError(f"{arch}: {spmm_ops.launches - before} "
+                                     f"spmm launches, expected {per_fwd}")
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"{arch} {shape_name}: non-finite")
+            cpu, note = {}, ""
+            if g is not g_ogb:
+                tc = time.time()
+                cpu, note = vs_cpu(arch, cfg, params, g, out)
+                note = f"; {note}; CPU {time.time() - tc:.1f}s"
+            reps = 3 if g is g_ogb or arch == "graphcast" else 10
+            wall, peak, peak_fwd, _ = forward_wall(
+                lambda: gnn.gnn_forward(cfg, params, g), reps)
+        serving.append(dict(arch=arch, shape=shape_name, wall_s=wall,
+                            peak_bytes=peak, peak_forward_bytes=peak_fwd,
+                            spmm_launches=per_fwd, out=list(out.shape),
+                            **cpu))
+        print(f"[9] {arch} on {shape_name}: out {list(out.shape)} finite; "
+              f"{per_fwd} spmm launches per forward; wall "
+              f"{1e3 * wall:.3f} ms per forward (host clock, ends in "
+              f"synchronize, mean of {reps}); peak {peak / 2**20:.1f} MiB "
+              f"({peak_fwd / 2**20:.1f} MiB above the resident graphs)"
+              f"{note}", flush=True)
+        del params, out
+    launches = spmm_ops.launches
+    if launches == 0:
+        raise AssertionError("the GNN path launched no spmm kernel")
+    print(f"[9] done in {time.time() - t0:.1f}s: {launches} spmm launches",
+          flush=True)
+    head = next(r for r in rows if r["shape"] == "ogb_products"
+                and r["D"] == 16)      # GCN layer 1
+    return {"name": "scatter_spmm", "route": "cuda",
+            "source": "src/repro_torch/kernels/spmm/csrc/spmm.cu",
+            "replaces": "src/repro/kernels/spmm/kernel.py:51",
+            "replaces_wrapper": "repro/kernels/spmm/ops.py::spmm_sorted_coo",
+            "launches": launches, "equal_to_plain": True,
+            "max_abs_err": worst, "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "library": "torch.sparse.mm (CSR)",
+            "headline_shape": "ogb_products D=16", "shapes": rows,
+            "serving": serving, "card": smi}
+
+
+def dlrm_phases(smi: str, dev: torch.device) -> dict:
+    """Phases 10 and 11: the EmbeddingBag kernel against its plain version
+    and the library call on the full RM2 tables, then DLRM serving."""
+    cfg = DLRM_RM2
+    shapes = {s.name: s for s in recsys_shapes()}
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    # ---- 10. kernel vs plain at RM2 widths, on the full tables ----
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    params = dlrm.init_dlrm_params(cfg, gen)
+    tables = params["tables"]
+    torch.cuda.synchronize()
+    table_bytes = sum(t.numel() * 4 for t in tables)
+    print(f"[10] {len(tables)} tables, {sum(t.shape[0] for t in tables)} "
+          f"rows x {cfg.embed_dim} f32 = {table_bytes / 1e9:.2f} GB drawn "
+          f"on the card in {time.time() - t0:.3f}s", flush=True)
+
+    def batch(name):
+        b = recsys_batch(RecSysBatchSpec(
+            shapes[name].dim("batch"), cfg.n_dense, cfg.n_sparse,
+            cfg.lookups_per_field, cfg.resolved_vocabs()), 0)
+        return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+    batches = {name: batch(name) for name in ("serve_p99", "serve_bulk")}
+    rows, worst = [], 0.0
+    for name, b in batches.items():
+        idx = b["sparse"]
+        B, Fn, L = idx.shape
+        kern = lambda: bag_ops.embedding_bags(tables, idx)  # noqa: E731
+        plain = lambda: embedding_bags_ref(tables, idx)  # noqa: E731
+        fields = [idx[:, f].long() for f in range(Fn)]
+
+        def library():
+            return [F.embedding_bag(fields[f], t, mode="sum")
+                    for f, t in enumerate(tables)]
+
+        got, want = kern(), plain()
+        err = check(f"embedding bag {name}", got, want, 1e-5)
+        check(f"F.embedding_bag {name}", torch.stack(library(), 1), want,
+              1e-5)
+        worst = max(worst, err)
+        distinct = sum(int(torch.unique(f).numel()) for f in fields)
+        nbytes = idx.numel() * 4 + distinct * cfg.embed_dim * 4 \
+            + got.numel() * 4
+        nops = idx.numel() * cfg.embed_dim       # an add a gathered entry
+        bytes_ms = 1e3 * nbytes / H100_BYTES_PER_S
+        ops_ms = 1e3 * nops / H100_F32_FLOPS
+        row = dict(shape=name, B=B, F=Fn, L=L, D=cfg.embed_dim,
+                   distinct_rows=distinct, max_abs_err=err,
+                   ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
+                   library_ms=cuda_ms(library),
+                   bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        rows.append(row)
+        print(f"[10] embedding bag {name} (B={B}, F={Fn}, L={L}, D="
+              f"{cfg.embed_dim}; {distinct} distinct rows): kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"F.embedding_bag x{Fn} {row['library_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms by {row['bound_by']} ("
+              f"{nbytes / 1e9:.4f} GB over 3.35 TB/s, {nops / 1e9:.4f} Gflop "
+              f"over 67 TFLOP/s); max |d| {err:.3g}", flush=True)
+        del got, want
+    print(f"[10] done in {time.time() - t0:.1f}s", flush=True)
+
+    # ---- 11. DLRM-RM2 serving at full width ----
+    t0 = time.time()
+    gen.manual_seed(8)
+    cand = torch.randn((shapes["retrieval_cand"].dim("n_candidates"),
+                        cfg.embed_dim), generator=gen, device=dev)
+    q = batch("serve_p99")
+    query = dict(dense=q["dense"][:1], sparse=q["sparse"][:1].contiguous(),
+                 candidates=cand)
+    bag_ops.launches = 0
+    serving = []
+    with torch.no_grad():
+        for name, fn, reps in (
+                ("serve_p99",
+                 lambda: dlrm.dlrm_forward(cfg, params, batches["serve_p99"]),
+                 20),
+                ("serve_bulk",
+                 lambda: dlrm.dlrm_forward(cfg, params,
+                                           batches["serve_bulk"]), 5),
+                ("retrieval_cand",
+                 lambda: dlrm.retrieval_score(cfg, params, query), 10)):
+            before = bag_ops.launches
+            wall, peak, peak_fwd, out = forward_wall(fn, reps)
+            per_fwd = (bag_ops.launches - before) / (reps + 1)
+            if per_fwd < 1:
+                raise AssertionError(f"{name}: no EmbeddingBag launch")
+            if name == "retrieval_cand":
+                scores, ids = out
+                assert scores.shape == ids.shape == (1, 100)
+                ok = bool(torch.isfinite(scores).all())
+            else:
+                assert out.shape == (batches[name]["dense"].shape[0],)
+                ok = bool(torch.isfinite(out).all())
+            if not ok:
+                raise AssertionError(f"{name}: non-finite output")
+            serving.append(dict(shape=name, wall_s=wall, peak_bytes=peak,
+                                peak_forward_bytes=peak_fwd,
+                                launches_per_forward=per_fwd))
+            shp = [list(o.shape) for o in out] \
+                if name == "retrieval_cand" else list(out.shape)
+            print(f"[11] {name}: out {shp} finite; {per_fwd:g} "
+                  f"EmbeddingBag launches per forward; "
+                  f"wall {1e3 * wall:.3f} ms per forward (host clock, ends "
+                  f"in synchronize, mean of {reps}); peak "
+                  f"{peak / 2**30:.2f} GiB allocated "
+                  f"({peak_fwd / 2**20:.1f} MiB above the resident tables "
+                  f"and batches)", flush=True)
+        launches = bag_ops.launches
+        # the same forwards on the CPU over the rows the batch touches
+        sub = cpu_subtables(tables, q["sparse"])
+        cpu_params = dict(tables=sub[0], bot=to_cpu(params["bot"]),
+                          top=to_cpu(params["top"]))
+        want = dlrm.dlrm_forward(cfg, cpu_params, dict(
+            dense=q["dense"].cpu(), sparse=sub[1]))
+        got = dlrm.dlrm_forward(cfg, params, q)
+        err, used = check_close("serve_p99 logits vs CPU", got.cpu(), want,
+                                1e-4)
+        w_scores, w_ids = dlrm.retrieval_score(cfg, cpu_params, dict(
+            dense=q["dense"][:1].cpu(), sparse=sub[1][:1].contiguous(),
+            candidates=cand.cpu()))
+        g_scores, g_ids = dlrm.retrieval_score(cfg, params, query)
+        s_err, s_used = check_close("retrieval scores vs CPU",
+                                    g_scores.cpu(), w_scores, 1e-4)
+        same_ids = float((g_ids.cpu() == w_ids).float().mean())
+        if same_ids < 0.95:
+            raise AssertionError(f"retrieval ids agree on {same_ids:.2%}")
+    print(f"[11] serve_p99 logits == CPU forward over the touched rows, "
+          f"elementwise (scaled error {used:.3g} <= 1e-4; max |d| "
+          f"{err:.3g}); retrieval top-100 scores == CPU (scaled error "
+          f"{s_used:.3g}; max |d| {s_err:.3g}), ids equal on "
+          f"{same_ids:.0%}; done in {time.time() - t0:.1f}s", flush=True)
+    del params, tables, cand, batches
+    torch.cuda.empty_cache()
+    head = rows[1]      # serve_bulk
+    return {"name": "embedding_bag_fwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/embedding_bag/csrc/"
+                      "embedding_bag.cu",
+            "replaces": "src/repro/kernels/embedding_bag/kernel.py:38",
+            "launches": launches, "equal_to_plain": True,
+            "max_abs_err": worst, "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "library": "torch.nn.functional.embedding_bag, one call per "
+                       "table (26)",
+            "headline_shape": "serve_bulk", "shapes": rows,
+            "serving": serving, "table_bytes": table_bytes, "card": smi}
+
+
+def cpu_subtables(tables, sparse):
+    """The rows of each table that ``sparse`` [B, F, L] touches, on the
+    CPU, and the indices renumbered into them."""
+    subs, idx = [], []
+    for f, t in enumerate(tables):
+        rows, inv = torch.unique(sparse[:, f], return_inverse=True)
+        subs.append(t[rows.long()].cpu())
+        idx.append(inv.to(torch.int32).cpu())
+    return subs, torch.stack(idx, 1).contiguous()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda is not "
@@ -117,15 +632,19 @@ def main() -> None:
     print(f"[device] {kind} x{count}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}", flush=True)
 
-    # ---- 2. build ----
+    # ---- 2. build: one nvcc per kernel, all started together ----
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 products in f32
+    torch.backends.cudnn.allow_tf32 = False
     t0 = time.time()
-    lib, report = ops.build()
-    print(f"[build] {lib.name} in {time.time() - t0:.1f}s")
-    for line in report.splitlines():
-        if any(w in line for w in ("registers", "spill", "smem", "stack")):
-            print("  ptxas:", line.strip())
+    builds = _build.build_all([ops.build, spmm_ops.build, bag_ops.build])
+    build_s = time.time() - t0
+    (lib, report) = builds[0]
+    print(f"[build] {', '.join(b[0].name for b in builds)} in "
+          f"{build_s:.1f}s (in parallel)")
+    print_ptxas(report)
 
     # ---- 3a. kernel vs plain, pinned 8x8, chunk by chunk ----
+    t0 = time.time()
     pinned = json.loads((ROOT / "tests" / "data"
                          / "pre_lanes_reference.json").read_text())
     eng = StreamingEngine(EngineConfig(**pinned["cfg"]), "bfs")
@@ -139,7 +658,7 @@ def main() -> None:
             d, st, q = kernel_vs_plain(cfg, BFS, st)
             worst, chunks = max(worst, d), chunks + 1
     print(f"[3a] 8x8 pinned: kernel == plain on every leaf over {chunks} "
-          f"chunks (max |d| {worst})", flush=True)
+          f"chunks (max |d| {worst}; {time.time() - t0:.1f}s)", flush=True)
 
     # ---- 3b. kernel vs plain, 32x32 paper config, mid-stream states ----
     ci = dict(n_vertices=2000, n_edges=20_000)
@@ -162,6 +681,7 @@ def main() -> None:
     assert (eng.values() == want).all(), "32x32 ci BFS != oracle"
 
     # ---- 4. fingerprints through the kernel ----
+    t0 = time.time()
     rows, vals = replay(pinned)
     assert rows == pinned["backends"]["jnp"]["increments"], rows
     assert (vals == np.float32(pinned["backends"]["jnp"]["values"])).all()
@@ -174,7 +694,8 @@ def main() -> None:
     assert rows == want_rows, rows
     assert (vals == np.float32(fp["values"])).all()
     print(f"[4] 32x32 fingerprint reproduced exactly "
-          f"({sum(r['cycles'] for r in rows)} cycles)", flush=True)
+          f"({sum(r['cycles'] for r in rows)} cycles; both fingerprints "
+          f"{time.time() - t0:.1f}s)", flush=True)
 
     # ---- 5. the paper's stream at full size, through the kernel ----
     t0 = time.time()
@@ -261,7 +782,7 @@ def main() -> None:
           f"{mutable / 2**20:.1f} MiB mutable state over 3.35 TB/s); "
           f"kernel == plain (max |d| {d})", flush=True)
 
-    print(json.dumps({"kernels": [{
+    cca_entry = {
         "name": "cca_cycle_chunk", "route": "cuda",
         "source": "src/repro_torch/kernels/cca_cycle/csrc/cca_cycle.cu",
         "replaces": "src/repro/kernels/cca_cycle/kernel.py:43",
@@ -270,7 +791,19 @@ def main() -> None:
         "max_abs_err": max(worst, d), "ms": t_kern,
         "ms_per_launch": kern_ms / launches, "plain_ms": t_plain,
         "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
-        "chunk_cycles": ran, "card": smi}]}))
+        "chunk_cycles": ran, "card": smi}
+    del eng, snapshot, st, s_kern, s_plain
+    torch.cuda.empty_cache()
+
+    # ---- 7. the new kernels' ptxas reports (built in phase 2) ----
+    for (path, rep) in builds[1:]:
+        print(f"[7] {path.name} (built with the others in {build_s:.1f}s)")
+        print_ptxas(rep)
+
+    spmm_entry = spmm_phases(smi, torch.device("cuda"))
+    torch.cuda.empty_cache()
+    bag_entry = dlrm_phases(smi, torch.device("cuda"))
+    print(json.dumps({"kernels": [cca_entry, spmm_entry, bag_entry]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))
 

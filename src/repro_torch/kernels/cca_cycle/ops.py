@@ -11,17 +11,13 @@ refused.
 
 The kernel is built with ``nvcc`` for ``sm_90a`` at first use, into
 ``build/<hash of source and flags>/`` beside this file, and loaded with
-``ctypes``.
+``ctypes`` (``kernels/_build.py``).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
 
 import torch
 
@@ -29,11 +25,11 @@ from repro_torch.core.alloc import vicinity_offsets
 from repro_torch.core.apps import DiffusionApp
 from repro_torch.core.config import EngineConfig
 from repro_torch.core.state import MachineState, init_state
+from repro_torch.kernels import _build
 from repro_torch.kernels.cca_cycle.ref import cca_cycle_chunk_ref
 
 HERE = pathlib.Path(__file__).resolve().parent
 SOURCE = HERE / "csrc" / "cca_cycle.cu"
-BUILD_DIR = HERE / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -50,36 +46,11 @@ KERNEL_LEAVES = (
     "cycle", "stat_hops", "stat_exec", "stat_stall", "stat_allocs")
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA cycle kernel is built "
-                       "from source at first use")
-
-
 def build() -> tuple[pathlib.Path, str]:
     """Compile the kernel library if this source and these flags have
     not been built yet.  Returns ``(library path, nvcc's -Xptxas -v
     report)``."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / digest[:16] / "libcca_cycle.so"
-    log = out.with_suffix(".log")
-    if out.exists() and log.exists():
-        return out, log.read_text()
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f".{os.getpid()}.so")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(SOURCE)], capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-    report = proc.stdout + proc.stderr
-    log.write_text(report)
-    os.replace(tmp, out)
-    return out, report
+    return _build.build(SOURCE, NVCC_FLAGS)
 
 
 @functools.cache

@@ -1,0 +1,78 @@
+"""The port's shared nvcc build helper (``repro_torch/kernels/_build.py``),
+driven on the CPU through a stand-in ``nvcc`` script: where the library
+lands, that a build is reused, that new flags or a new source rebuild,
+that a failed compile raises with the compiler's message, and that
+``build_all`` returns in the order given."""
+import pathlib
+
+import pytest
+
+from repro_torch.kernels import _build
+
+FAKE_NVCC = """#!/bin/sh
+# stand-in for nvcc: count the call, honour -o, fail on a source with FAIL
+echo call >> "$(dirname "$0")/calls"
+src=""; out=""
+while [ $# -gt 0 ]; do
+  case "$1" in -o) out="$2"; shift ;; *.cu) src="$1" ;; esac; shift
+done
+if grep -q FAIL "$src"; then echo "error: bad source" >&2; exit 2; fi
+echo "ptxas info    : Used 10 registers" >&2
+echo lib > "$out"
+"""
+
+
+@pytest.fixture
+def fake_cuda(tmp_path, monkeypatch):
+    home = tmp_path / "cuda"
+    (home / "bin").mkdir(parents=True)
+    nvcc = home / "bin" / "nvcc"
+    nvcc.write_text(FAKE_NVCC)
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(home))
+    return home / "bin" / "calls"
+
+
+def kernel_source(root: pathlib.Path, name: str, text: str) -> pathlib.Path:
+    src = root / name / "csrc" / f"{name}.cu"
+    src.parent.mkdir(parents=True)
+    src.write_text(text)
+    return src
+
+
+def test_build_places_reuses_and_rebuilds(tmp_path, fake_cuda):
+    src = kernel_source(tmp_path, "k", "__global__ void k() {}\n")
+    lib, report = _build.build(src, _build.SM90A_FLAGS)
+    assert lib.parent.parent == tmp_path / "k" / "build"
+    assert lib.name == "libk.so" and lib.exists()
+    assert "Used 10 registers" in report
+    assert _build.build(src, _build.SM90A_FLAGS) == (lib, report)
+    assert fake_cuda.read_text().count("call") == 1      # reused
+    lib2, _ = _build.build(src, _build.SM90A_FLAGS + ("--fmad=false",))
+    src.write_text("__global__ void k2() {}\n")
+    lib3, _ = _build.build(src, _build.SM90A_FLAGS)
+    assert len({lib, lib2, lib3}) == 3
+    assert fake_cuda.read_text().count("call") == 3
+
+
+def test_build_raises_with_the_compiler_message(tmp_path, fake_cuda):
+    src = kernel_source(tmp_path, "bad", "FAIL\n")
+    with pytest.raises(RuntimeError, match="bad source"):
+        _build.build(src, _build.SM90A_FLAGS)
+    assert not list((tmp_path / "bad" / "build").rglob("*.so"))
+
+
+def test_build_all_keeps_order(tmp_path, fake_cuda):
+    srcs = [kernel_source(tmp_path, n, f"// {n}\n") for n in ("a", "b", "c")]
+    out = _build.build_all([lambda s=s: _build.build(s, _build.SM90A_FLAGS)
+                            for s in srcs])
+    assert [lib.name for lib, _ in out] == ["liba.so", "libb.so", "libc.so"]
+
+
+def test_no_nvcc_raises(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "none"))
+    src = kernel_source(tmp_path, "k", "\n")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build(src, _build.SM90A_FLAGS)

@@ -1,9 +1,12 @@
-"""The hand-written CUDA cycle kernel on the card.
+"""The hand-written CUDA kernels on the card, against their plain
+PyTorch versions.
 
 A CUDA kernel has no CPU mode, so these tests carry the ``gpu`` marker
 and skip (from a fixture) where there is no card; ``chip_smoke.py`` runs
-the same comparisons on the card.  Tolerance is exact: every state leaf
-and the launch record equal the plain PyTorch version's.
+the same comparisons on the card at the main path's shapes.  Tolerances:
+the cycle kernel is exact (every state leaf and the launch record equal
+the plain version's); the scatter-SpMM 1e-4 and the EmbeddingBag 1e-5,
+relative to max(1, max |ref|), as their f32 sums run in another order.
 """
 import json
 import pathlib
@@ -12,11 +15,21 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import gnn_archs, recsys_archs
+from repro_torch.configs.base import shape
 from repro_torch.core import EngineConfig, StreamingEngine
 from repro_torch.core.ingest import load_stream
+from repro_torch.data.graphs import build_graph
+from repro_torch.data.pipeline import RecSysBatchSpec, recsys_batch
 from repro_torch.graph.streams import StreamSpec, make_stream
 from repro_torch.kernels.cca_cycle import ops
 from repro_torch.kernels.cca_cycle.ref import cca_cycle_chunk_ref
+from repro_torch.kernels.embedding_bag import ops as bag_ops
+from repro_torch.kernels.embedding_bag.ref import embedding_bags_ref
+from repro_torch.kernels.spmm import ops as spmm_ops
+from repro_torch.kernels.spmm.ref import (scatter_spmm_ref,
+                                          spmm_sorted_coo_ref)
+from repro_torch.models import dlrm, gnn
 
 pytestmark = pytest.mark.gpu
 PINNED = json.loads((pathlib.Path(__file__).parent / "data"
@@ -26,9 +39,19 @@ PINNED = json.loads((pathlib.Path(__file__).parent / "data"
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: the CUDA cycle kernel has no CPU "
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU "
                     "mode (chip_smoke.py runs these comparisons there)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+def close(got, want, tol):
+    got, want = got.cpu(), want.cpu()
+    assert got.shape == want.shape
+    scale = max(1.0, float(want.nan_to_num().abs().max()))
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol * scale,
+                               equal_nan=True)
 
 
 def clone(st):
@@ -84,3 +107,104 @@ def test_wrapper_rejects_malformed_state(card):
     bad = eng.state._replace(cvalid=eng.state.cvalid.cpu())
     with pytest.raises(ValueError, match="cvalid"):
         ops.cca_cycle_chunk(eng.cfg, eng.app, bad)
+
+
+@pytest.mark.parametrize("D", [1, 7, 16, 33, 70, 512])
+@pytest.mark.parametrize("with_coeff", [False, True])
+def test_spmm_kernel_matches_plain(card, D, with_coeff):
+    rng = np.random.default_rng(D)
+    n, e = 300, 5000
+    src = torch.from_numpy(rng.integers(-n, 2 * n, e).astype(np.int32))
+    dst = torch.from_numpy(np.sort(rng.integers(-20, n + 20, e)).astype(
+        np.int32))
+    x = torch.from_numpy(rng.standard_normal((n, D)).astype(np.float32))
+    coeff = torch.from_numpy(rng.standard_normal(e).astype(np.float32)) \
+        if with_coeff else None
+    before = spmm_ops.launches
+    on = [t if t is None else t.to(card) for t in (x, src, dst, coeff)]
+    got = spmm_ops.spmm_sorted_coo(on[0], on[1], on[2], n, on[3])
+    close(got, spmm_sorted_coo_ref(x, src, dst, n, coeff), 1e-4)
+    msgs = torch.from_numpy(rng.standard_normal((e, D)).astype(np.float32))
+    got = spmm_ops.scatter_spmm(msgs.to(card), on[2], n)
+    close(got, scatter_spmm_ref(msgs, dst, n), 1e-4)
+    assert spmm_ops.launches == before + 2
+    # deterministic (no atomics), also over row pointers built beforehand
+    rp = spmm_ops.row_pointers(on[2], n)
+    assert torch.equal(got, spmm_ops.scatter_spmm(msgs.to(card), on[2], n,
+                                                  rp))
+
+
+def test_spmm_kernel_clamps_row_pointers(card):
+    """Row pointers outside [0, E] (a stale set) give sums over the
+    clamped ranges, never a read outside the messages."""
+    msgs = torch.arange(12, dtype=torch.float32, device=card).view(6, 2)
+    dst = torch.zeros(6, dtype=torch.int32, device=card)
+    rp = torch.tensor([-3, 2, 2, 9, 9], dtype=torch.int32, device=card)
+    got = spmm_ops.scatter_spmm(msgs, dst, 4, rp)
+    want = torch.stack([msgs[:2].sum(0), msgs[:0].sum(0), msgs[2:].sum(0),
+                        msgs[:0].sum(0)])
+    assert torch.equal(got, want)
+
+
+def test_spmm_wrapper_rejects_on_the_card(card):
+    x = torch.zeros(4, 3, device=card)
+    src = torch.tensor([0, 1, 2], dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="sorted"):
+        spmm_ops.spmm_sorted_coo(x, src, src.flip(0), 4)
+    with pytest.raises(ValueError, match="src"):
+        spmm_ops.spmm_sorted_coo(x, src.cpu(), src, 4)
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("D", [8, 64, 70])
+def test_embedding_bag_kernel_matches_plain(card, combiner, weighted, D):
+    rng = np.random.default_rng(D)
+    vocabs, B, L = (1000, 7, 33), 129, 4
+    tables = [torch.from_numpy(rng.standard_normal((v, D)).astype(
+        np.float32)) for v in vocabs]
+    idx = torch.from_numpy(np.stack([rng.integers(-v - 2, v + 2, (B, L))
+                                     for v in vocabs], 1).astype(np.int32))
+    w = torch.from_numpy(rng.standard_normal(idx.shape).astype(np.float32)) \
+        if weighted else None
+    before = bag_ops.launches
+    got = bag_ops.embedding_bags([t.to(card) for t in tables], idx.to(card),
+                                 None if w is None else w.to(card), combiner)
+    want = embedding_bags_ref(tables, idx, w, combiner)
+    assert torch.isnan(want).any()   # out-of-range indices give NaN bags
+    close(got, want, 1e-5)
+    assert bag_ops.launches == before + 1
+
+
+def test_gnn_and_dlrm_forwards_on_the_card(card):
+    spec = shape("t", "gnn_full", n_nodes=300, n_edges=2000, d_feat=8)
+    for arch in (gnn_archs.GCN_CORA, gnn_archs.GATEDGCN,
+                 gnn_archs.MESHGRAPHNET, gnn_archs.GRAPHCAST):
+        cfg = gnn_archs._smoke(arch)
+        p = gnn.init_gnn_params(cfg, torch.Generator().manual_seed(0))
+        g = build_graph(cfg, spec, np.random.default_rng(0), device="cpu")
+        want = gnn.gnn_forward(cfg, p, g)
+        before = spmm_ops.launches
+        got = gnn.gnn_forward(
+            cfg, gnn.gnn_params_from_numpy(cfg, _numpy(p), card),
+            build_graph(cfg, spec, np.random.default_rng(0), device=card))
+        assert spmm_ops.launches > before
+        close(got, want, 1e-4)
+    cfg = recsys_archs._smoke(recsys_archs.DLRM_RM2)
+    p = dlrm.init_dlrm_params(cfg, torch.Generator().manual_seed(0))
+    batch = {k: torch.from_numpy(v) for k, v in recsys_batch(RecSysBatchSpec(
+        64, cfg.n_dense, cfg.n_sparse, cfg.lookups_per_field,
+        cfg.resolved_vocabs()), 0).items()}
+    before = bag_ops.launches
+    got = dlrm.dlrm_forward(cfg, dlrm.dlrm_params_from_numpy(
+        cfg, _numpy(p), card), {k: v.to(card) for k, v in batch.items()})
+    assert bag_ops.launches == before + 1
+    close(got, dlrm.dlrm_forward(cfg, p, batch), 1e-4)
+
+
+def _numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_numpy(v) for v in tree]
+    return tree.numpy()

@@ -218,7 +218,14 @@ def test_device_defaults_to_cuda(monkeypatch):
 def test_port_imports_nothing_of_jax_or_repro():
     code = ("import sys, repro_torch, repro_torch.core, "
             "repro_torch.core.reference, repro_torch.graph.streams, "
-            "repro_torch.kernels.cca_cycle.ops; "
+            "repro_torch.kernels.cca_cycle.ops, repro_torch.kernels._build, "
+            "repro_torch.kernels.spmm.ops, "
+            "repro_torch.kernels.embedding_bag.ops, "
+            "repro_torch.graph.segment_ops, repro_torch.models.common, "
+            "repro_torch.models.gnn, repro_torch.models.dlrm, "
+            "repro_torch.data.graphs, repro_torch.data.pipeline, "
+            "repro_torch.configs.base, repro_torch.configs.gnn_archs, "
+            "repro_torch.configs.recsys_archs; "
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
