@@ -8,7 +8,7 @@ streaming engine (``StreamingEngine.seed -> run_increment -> values``,
 every chunk one launch of the cycle kernel):
 
   1. device: the card's name and power limit; no CUDA device -> exit 1
-  2. build: nvcc for sm_90a, all three kernels at once, with the ptxas
+  2. build: nvcc for sm_90a, all four kernels at once, with the ptxas
      register/spill report of the cycle kernel
   3. cycle kernel vs plain PyTorch version on the card, every leaf and the
      launch record exactly equal (tolerance 0): (a) the pinned 8x8 config
@@ -49,6 +49,35 @@ kernel):
      forward over the touched rows (elementwise, 1e-4), launches, wall,
      peak memory
 
+The LM serving path (llama3.2-1b; every prefill attention one launch of
+the flash-attention kernel a layer, decode attention plain PyTorch):
+
+ 12. the ptxas report of the flash-attention kernel
+ 13. flash kernel vs plain on the card, entry by entry (``flash_excess``:
+     2e-2 x (|ref| + median |ref|) in bf16, 2e-5 x (|ref| + 1) in f32) at
+     T = 4096 at the heads of llama3.2-1b (32/8, dh 64), qwen3-1.7b (16/8,
+     128) and starcoder2-3b (24/2, 128), bf16 and f32, and at llama's
+     heads at T = 32768 in bf16 (the plain version head by head: its full
+     score matrix would be 137 GB); at each shape two planted faults (the
+     next KV head; each row blind to the keys more than T/2 back) must
+     fail the same limit; each timed beside the plain version,
+     ``F.scaled_dot_product_attention`` (yardstick only, on K/V repeated
+     to the query heads beforehand) and the bound
+ 14. prefill at full width: llama3.2-1b on prefill_32k at B = 1 and
+     T = 32768 (the main path whose flash launches the kernels line
+     reports), qwen3-1.7b at B = 1, T = 4096: finite logits, flash
+     launches per forward = n_layers, wall, tokens/s, the attention share
+     by CUDA events, peak memory; llama3.2-1b once more at B = 16 (its
+     own 32 runs out of memory): finite logits, wall, peak memory; at
+     T = 2048 the kernel path's bf16 logits no farther from an f32
+     forward than max(1e-3, 2x) the plain attention's bf16 forward; at
+     T = 128 the last-token logits of ``prefill`` equal those of 128
+     ``lm_decode_step`` calls within 5e-2
+ 15. serving at full width: ``serve()`` on llama3.2-1b at decode_32k with
+     32 slots (cut from 128) and max_len 32768, 64 requests of 16 prompt
+     and 24 generated tokens: every request answered, decode-step p50 /
+     p99, tokens/s, peak memory
+
 It ends with the kernels line (JSON) and the ok line (JSON, last).
 """
 import dataclasses
@@ -67,8 +96,10 @@ import torch.nn.functional as F
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.configs import gnn_archs  # noqa: E402
-from repro_torch.configs.base import gnn_shapes, recsys_shapes  # noqa: E402
+from repro_torch import kernels  # noqa: E402
+from repro_torch.configs import gnn_archs, lm_archs  # noqa: E402
+from repro_torch.configs.base import (gnn_shapes, lm_shapes,  # noqa: E402
+                                      recsys_shapes)
 from repro_torch.configs.recsys_archs import DLRM_RM2  # noqa: E402
 from repro_torch.core import EngineConfig, StreamingEngine  # noqa: E402
 from repro_torch.core.apps import BFS  # noqa: E402
@@ -79,19 +110,23 @@ from repro_torch.data.pipeline import (RecSysBatchSpec,  # noqa: E402
                                        recsys_batch)
 from repro_torch.graph.segment_ops import sym_norm_coeff  # noqa: E402
 from repro_torch.graph.streams import StreamSpec, make_stream  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cca_cycle import ops  # noqa: E402
 from repro_torch.kernels.cca_cycle.ref import cca_cycle_chunk_ref  # noqa: E402
 from repro_torch.kernels.embedding_bag import ops as bag_ops  # noqa: E402
 from repro_torch.kernels.embedding_bag.ref import (  # noqa: E402
     embedding_bags_ref)
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    flash_attention_ref)
 from repro_torch.kernels.spmm import ops as spmm_ops  # noqa: E402
 from repro_torch.kernels.spmm.ref import (scatter_spmm_ref,  # noqa: E402
                                           spmm_sorted_coo_ref)
-from repro_torch.models import dlrm, gnn  # noqa: E402
+from repro_torch.launch import serve as lm_serve  # noqa: E402
+from repro_torch.models import dlrm, gnn, transformer  # noqa: E402
 
 H100_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (data sheet, 700 W)
 H100_F32_FLOPS = 67e12       # f32 outside the tensor cores (data sheet)
+H100_BF16_FLOPS = 989e12     # bf16 tensor cores, dense (data sheet)
 PAPER_FULL = dict(n_vertices=50_000, n_edges=1_000_000)
 
 
@@ -618,7 +653,343 @@ def cpu_subtables(tables, sparse):
     return subs, torch.stack(idx, 1).contiguous()
 
 
+FLASH_SHAPES = [   # (config, B, T, H, Kh, dh): the dense LMs' attention
+    ("llama3.2-1b", 1, 4096, 32, 8, 64),
+    ("qwen3-1.7b", 1, 4096, 16, 8, 128),
+    ("starcoder2-3b", 1, 4096, 24, 2, 128)]
+FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+
+
+def flash_excess(got, want, dtype) -> tuple[float, float]:
+    """(max |got - want|, the largest |got - want| over its limit), entry
+    by entry; above 1 fails.  The limit is tol x (|want| + a): in f32 a = 1,
+    as ``tests/test_kernels.py`` holds the Pallas kernel (the two differ by
+    the order of f32 sums, a few 1e-7 whatever the entry's size); in bf16
+    a = median |want|, as the two differ by the output's one rounding (at
+    most 2^-7 |want|) and a row t averages some t / e keys, so at
+    T = 32768 a typical |out| is ~0.01 while the first rows reach 3 to 4:
+    a limit scaled by the largest |want| would pass a wrong kernel."""
+    d = (got.double() - want.double()).abs()
+    w = want.double().abs()
+    a = float(w.median()) if dtype == torch.bfloat16 else 1.0
+    return float(d.max()), float((d / (FLASH_TOL[dtype] * (w + a))).max())
+
+
+def flash_bound(B, T, H, Kh, dh, dtype) -> tuple[float, str, int, int]:
+    """(bound ms, what bounds it, bytes, flops) of a causal forward: q, k
+    and v read once, o written once; 4 dh flops a head and (row, col <=
+    row) pair, over the peak rate of the inputs' type (bf16 tensor cores,
+    or f32 outside them)."""
+    nbytes = 2 * B * T * (H + Kh) * dh * (torch.finfo(dtype).bits // 8)
+    flops = 4 * B * H * dh * (T * (T + 1) // 2)
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+    bytes_ms, ops_ms = 1e3 * nbytes / H100_BYTES_PER_S, 1e3 * flops / peak
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", nbytes, flops)
+
+
+def banded_ref(q, k, v, window):
+    """The plain version with each row's keys more than ``window`` back
+    masked too: a planted fault, a kernel that drops the far keys of the
+    late rows (rows within ``window`` of the start are unchanged)."""
+    B, T, H, dh = q.shape
+    G = H // k.shape[2]
+    qf = (q.float() * (1.0 / dh ** 0.5)).reshape(B, T, -1, G, dh)
+    s = torch.einsum("btkgd,bskd->bkgts", qf, k.float())
+    rows = torch.arange(T, device=q.device)[:, None]
+    cols = torch.arange(T, device=q.device)[None, :]
+    s = s.masked_fill((cols > rows) | (cols <= rows - window), -1e30)
+    out = torch.einsum("bkgts,bskd->btkgd", torch.softmax(s, dim=-1),
+                       v.float())
+    return out.reshape(B, T, H, dh).to(q.dtype)
+
+
+def flash_case(name, B, T, H, Kh, dh, dtype, gen, dev) -> dict:
+    """Phase 13 at one shape: the kernel against its plain version (head
+    by head above T = 8192, where the plain score matrix would not fit),
+    timed beside them, SDPA and the bound."""
+    q = torch.randn((B, T, H, dh), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((B, T, Kh, dh), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    G = H // Kh
+    kern = lambda: fa_ops.flash_attention(q, k, v)  # noqa: E731
+    by_head = T > 8192
+
+    def plain_of(q, k, v, fn=flash_attention_ref, *a):
+        if not by_head:
+            return fn(q, k, v, *a)
+        return torch.cat([fn(q[:, :, h:h + 1], k[:, :, h // G:h // G + 1],
+                             v[:, :, h // G:h // G + 1], *a)
+                          for h in range(H)], dim=2)
+
+    plain = lambda: plain_of(q, k, v)  # noqa: E731
+    # the yardstick, on K/V repeated to the query heads beforehand
+    qs, ks, vs = (t.transpose(1, 2) for t in (
+        q, k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)))
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qs, ks, vs, is_causal=True).transpose(1, 2)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    tag = f"flash {name} T={T} {dtype}"
+    if not torch.equal(torch.isnan(got), torch.isnan(want)):
+        raise AssertionError(f"{tag}: NaN in different places")
+    err, excess = flash_excess(got, want, dtype)
+    if not excess <= 1:
+        raise AssertionError(f"{tag}: an entry is off by {excess:.3g} x its "
+                             f"limit (max |d| {err})")
+    if not torch.equal(kern(), got):
+        raise AssertionError("a second launch gave other bits")
+    # planted faults the limit must reject: each query head reading the next
+    # KV head, and each row past T/2 blind to the keys more than T/2 back
+    faults = {"next_kv_head": plain_of(q, k.roll(1, dims=2),
+                                       v.roll(1, dims=2)),
+              "far_keys_dropped": plain_of(q, k, v, banded_ref, T // 2)}
+    fault_excess = {f: flash_excess(out, want, dtype)[1]
+                    for f, out in faults.items()}
+    # the same faults against a limit scaled by max(1, max |want|)
+    top = FLASH_TOL[dtype] * max(1.0, float(want.float().abs().max()))
+    fault_max_scaled = {f: float((out.float() - want.float()).abs().max())
+                        / top for f, out in faults.items()}
+    del faults
+    if not min(fault_excess.values()) > 1:
+        raise AssertionError(f"{tag}: the limit passes a planted fault "
+                             f"({fault_excess})")
+    lib_err = check(f"sdpa {name} T={T} {dtype}", library(), want, 2e-2)
+    del got, want
+    bound, by, nbytes, flops = flash_bound(B, T, H, Kh, dh, dtype)
+    row = dict(shape=name, B=B, T=T, H=H, Kh=Kh, dh=dh,
+               dtype=str(dtype).split(".")[-1], max_abs_err=err,
+               excess=excess, fault_excess=fault_excess,
+               fault_max_scaled=fault_max_scaled,
+               plain_by_head=by_head, ms=cuda_ms(kern),
+               plain_ms=cuda_ms(plain, min_reps=1),
+               library_ms=cuda_ms(library), bound_ms=bound, bound_by=by,
+               bytes=nbytes, flops=flops, library_max_abs_err=lib_err)
+    print(f"[13] flash {name} (B={B}, T={T}, H={H}, Kh={Kh}, dh={dh}, "
+          f"{row['dtype']}): kernel {row['ms']:.4f} ms "
+          f"({flops / row['ms'] / 1e9:.2f} TFLOP/s), plain "
+          f"{row['plain_ms']:.4f} ms{' (head by head)' if by_head else ''}, "
+          f"SDPA {row['library_ms']:.4f} ms, bound {bound:.4f} ms by {by} "
+          f"({nbytes / 1e9:.4f} GB over 3.35 TB/s, {flops / 1e9:.1f} Gflop "
+          f"over {'989' if dtype == torch.bfloat16 else '67'} TFLOP/s); "
+          f"max |d| {err:.3g}, {excess:.3g} x the elementwise limit; planted "
+          f"faults at {fault_excess['next_kv_head']:.3g} x (next KV head) and "
+          f"{fault_excess['far_keys_dropped']:.3g} x (far keys dropped) "
+          f"(against max(1, max |ref|) x tol: "
+          f"{fault_max_scaled['next_kv_head']:.3g} x and "
+          f"{fault_max_scaled['far_keys_dropped']:.3g} x); "
+          f"SDPA max |d| {lib_err:.3g}", flush=True)
+    return row
+
+
+def prefill_run(tag, cfg, params, tokens, reps) -> dict:
+    """Phase 14 at one config: ``prefill`` through the kernel, its
+    launches, finite logits, the attention share by CUDA events, wall and
+    peak memory."""
+    B, T = tokens.shape
+    before = fa_ops.launches
+    logits = lm_serve.prefill(cfg, params, tokens)
+    torch.cuda.synchronize()
+    per_fwd = fa_ops.launches - before
+    if per_fwd != cfg.n_layers:
+        raise AssertionError(f"{tag}: {per_fwd} flash launches a forward, "
+                             f"not {cfg.n_layers}")
+    if logits.shape != (B, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"{tag}: logits {list(logits.shape)} "
+                             f"not finite or not [B, vocab]")
+    events = []
+
+    def timed(*a, **kw):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = fa_ops.flash_attention(*a, **kw)
+        ev[1].record()
+        events.append(ev)
+        return out
+
+    whole = (torch.cuda.Event(enable_timing=True),
+             torch.cuda.Event(enable_timing=True))
+    with mock.patch.object(transformer, "flash_attention", timed):
+        whole[0].record()
+        lm_serve.prefill(cfg, params, tokens)
+        whole[1].record()
+    torch.cuda.synchronize()
+    attn_ms = sum(a.elapsed_time(b) for a, b in events)
+    device_ms = whole[0].elapsed_time(whole[1])
+    wall, peak, peak_fwd, _ = forward_wall(
+        lambda: lm_serve.prefill(cfg, params, tokens), reps)
+    row = dict(config=cfg.name, B=B, T=T, wall_s=wall,
+               tok_per_s=B * T / wall, flash_launches_per_forward=per_fwd,
+               attention_ms=attn_ms, prefill_device_ms=device_ms,
+               attention_share=attn_ms / device_ms, peak_bytes=peak,
+               peak_forward_bytes=peak_fwd)
+    print(f"[14] {tag}: logits {list(logits.shape)} finite; {per_fwd} flash "
+          f"launches a forward; wall {wall:.4f} s a prefill (host clock, "
+          f"ends in synchronize, mean of {reps}) = {B * T / wall:.1f} "
+          f"tokens/s; attention {attn_ms:.1f} of {device_ms:.1f} ms by CUDA "
+          f"events ({100 * attn_ms / device_ms:.1f}%); peak "
+          f"{peak / 2**30:.2f} GiB ({peak_fwd / 2**30:.2f} GiB above the "
+          f"resident weights)", flush=True)
+    return row
+
+
+def lm_phases(smi: str, dev: torch.device) -> dict:
+    """Phases 13 to 15: the flash kernel against its plain version and
+    SDPA, prefill at full width through it, and serving at full width."""
+    gen = torch.Generator(device=dev)
+
+    # ---- 13. flash kernel vs plain at the LMs' attention shapes ----
+    t0 = time.time()
+    rows = [flash_case(*shp, dtype, gen.manual_seed(13), dev)
+            for shp in FLASH_SHAPES
+            for dtype in (torch.bfloat16, torch.float32)]
+    rows.append(flash_case("llama3.2-1b", 1, 32768, 32, 8, 64,
+                           torch.bfloat16, gen.manual_seed(13), dev))
+    torch.cuda.empty_cache()
+    print(f"[13] done in {time.time() - t0:.1f}s", flush=True)
+
+    # ---- 14. prefill at full width ----
+    t0 = time.time()
+    shapes = {s.name: s for s in lm_shapes()}
+    cfg = lm_archs.LLAMA32_1B
+    T = shapes["prefill_32k"].dim("seq_len")        # B = 1; B = 16 once
+    params = transformer.init_lm_params(cfg, gen.manual_seed(14))
+    tokens = torch.randint(0, cfg.vocab, (1, T), generator=gen, device=dev,
+                           dtype=torch.int32)
+    fa_ops.launches = 0     # the main path: this run's forwards
+    prefills = [prefill_run(f"{cfg.name} prefill_32k B=1 T={T}", cfg,
+                            params, tokens, 2)]
+    launches = fa_ops.launches
+    if launches == 0:
+        raise AssertionError("the prefill path launched no flash kernel")
+    # the kernel path against an f32 forward and the plain attention, T=2048
+    tok = tokens[:, :2048].contiguous()
+    with mock.patch.object(transformer, "flash_attention",
+                           flash_attention_ref):
+        ref = transformer.lm_forward(dataclasses.replace(
+            cfg, compute_dtype=torch.float32), params, tok)[0]
+        base = transformer.lm_forward(cfg, params, tok)[0]
+    got = transformer.lm_forward(cfg, params, tok)[0]
+    scale = max(1.0, float(ref.abs().max()))
+    d_got = float((got.float() - ref).abs().max()) / scale
+    d_base = float((base.float() - ref).abs().max()) / scale
+    limit = max(1e-3, 2 * d_base)
+    if not d_got <= limit:
+        raise AssertionError(f"kernel path off the f32 forward by {d_got:.3g}"
+                             f", plain attention by {d_base:.3g}")
+    del ref, base, got
+    print(f"[14] T=2048: bf16 logits through the kernel off the f32 forward "
+          f"by {d_got:.3g} x max |ref| ({scale:.3g}), through the plain "
+          f"attention by {d_base:.3g} (limit max(1e-3, 2x) = {limit:.3g})",
+          flush=True)
+    # prefill's last-token logits against 128 decode steps, T = 128
+    tok = tokens[:, :128].contiguous()
+    want = lm_serve.prefill(cfg, params, tok).float()
+    cache = transformer.init_kv_cache(cfg, 1, 128, device=dev)
+    lengths = torch.zeros(1, dtype=torch.int32, device=dev)
+    for t in range(128):
+        logits, cache = transformer.lm_decode_step(cfg, params,
+                                                   tok[:, t:t + 1], cache,
+                                                   lengths)
+        lengths += 1
+    # both bf16 paths, rounding at other places (the decode rounds q * scale
+    # and p to bf16, the kernel keeps f32): at reduced widths on the CPU
+    # they differ by 1.0-1.5e-2 x max |logit|, as much as either differs
+    # from its f32 forward
+    dec_err = check("decode vs prefill", logits[:, -1], want, 5e-2)
+    print(f"[14] T=128: prefill's last-token logits == 128 decode steps "
+          f"within 5e-2 x max(1, max |ref|) (max |d| {dec_err:.3g} on max "
+          f"|ref| {float(want.abs().max()):.3g})", flush=True)
+    del cache, logits, want
+    # prefill_32k at the largest power-of-two batch that fits, once: its
+    # own B = 32 runs out of the card's memory (the gated FFN's four
+    # [B, T, 8192] bf16 temporaries alone are 64 GiB); the timings above
+    # run at B = 1, as at ~2.6 s a sequence five forwards at B = 16 would
+    # take some three and a half minutes
+    Bp = shapes["prefill_32k"].dim("global_batch") // 2
+    toks = torch.randint(0, cfg.vocab, (Bp, T), generator=gen, device=dev,
+                         dtype=torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before, t1 = fa_ops.launches, time.time()
+    logits = lm_serve.prefill(cfg, params, toks)
+    torch.cuda.synchronize()
+    wall = time.time() - t1
+    per_fwd = fa_ops.launches - before
+    if per_fwd != cfg.n_layers or logits.shape != (Bp, cfg.vocab) or not (
+            bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"prefill_32k B={Bp}: {per_fwd} flash launches, "
+                             f"logits {list(logits.shape)} not all finite")
+    full_batch = dict(config=cfg.name, B=Bp, T=T, wall_s=wall,
+                      tok_per_s=Bp * T / wall, flash_launches=per_fwd,
+                      peak_bytes=torch.cuda.max_memory_allocated())
+    print(f"[14] {cfg.name} prefill_32k B={Bp} T={T}, one forward: logits "
+          f"{list(logits.shape)} finite; {per_fwd} flash launches; wall "
+          f"{wall:.3f} s (host clock, ends in synchronize) = "
+          f"{Bp * T / wall:.1f} tokens/s; peak "
+          f"{full_batch['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+    del params, tokens, toks, logits
+    torch.cuda.empty_cache()
+    qcfg = lm_archs.QWEN3_1P7B
+    params = transformer.init_lm_params(qcfg, gen.manual_seed(15))
+    tokens = torch.randint(0, qcfg.vocab, (1, 4096), generator=gen,
+                           device=dev, dtype=torch.int32)
+    prefills.append(prefill_run(f"{qcfg.name} B=1 T=4096", qcfg, params,
+                                tokens, 3))
+    del params, tokens
+    torch.cuda.empty_cache()
+    print(f"[14] done in {time.time() - t0:.1f}s: {launches} flash launches "
+          f"in the main path's prefill_32k B=1 run "
+          f"({launches // cfg.n_layers} forwards)", flush=True)
+
+    # ---- 15. serving at full width ----
+    t0 = time.time()
+    dec = shapes["decode_32k"]                      # 128 slots cut to 32
+    torch.cuda.reset_peak_memory_stats()
+    out, tput, metrics = lm_serve.serve(cfg, 64, 32, prompt_len=16,
+                                        gen_len=24,
+                                        max_len=dec.dim("seq_len"), seed=16,
+                                        device=dev)
+    peak = torch.cuda.max_memory_allocated()
+    if sorted(out) != list(range(64)) or any(
+            len(v) != 24 or not all(0 <= x < cfg.vocab for x in v)
+            for v in out.values()):
+        raise AssertionError("serve did not answer every request with 24 "
+                             "tokens of the vocabulary")
+    serving = dict(metrics, requests=64, slots=32, max_len=dec.dim("seq_len"),
+                   peak_bytes=peak, wall_s=time.time() - t0)
+    print(f"[15] {cfg.name} serve: 64 requests answered (24 tokens each) "
+          f"through 32 slots, max_len {dec.dim('seq_len')}: "
+          f"{metrics['steps']} steps, decode step p50 {metrics['p50']:.2f} "
+          f"ms, p99 {metrics['p99']:.2f} ms (first "
+          f"{metrics['first_step_ms']:.1f} ms), {tput:.1f} tokens/s; peak "
+          f"{peak / 2**30:.2f} GiB; "
+          f"{serving['wall_s']:.1f}s", flush=True)
+    torch.cuda.empty_cache()
+    head = rows[-1]         # llama3.2-1b at prefill_32k's T, bf16
+    return {"name": "flash_attention_fwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:71",
+            "launches": launches,
+            "launches_per_forward": prefills[0]["flash_launches_per_forward"],
+            "equal_to_plain": True,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "excess": max(r["excess"] for r in rows),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "library": "torch.nn.functional.scaled_dot_product_attention "
+                       "(causal, K/V repeated to the query heads)",
+            "headline_shape": "llama3.2-1b T=32768 bf16", "shapes": rows,
+            "prefill": prefills, "prefill_full_batch": full_batch,
+            "serving": serving, "card": smi}
+
+
 def main() -> None:
+    t_start = time.time()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda is not "
                          "available); the port's smoke runs on the card")
@@ -636,7 +1007,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 products in f32
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.time()
-    builds = _build.build_all([ops.build, spmm_ops.build, bag_ops.build])
+    builds = kernels.build_all()      # in the order of kernels.KERNELS
     build_s = time.time() - t0
     (lib, report) = builds[0]
     print(f"[build] {', '.join(b[0].name for b in builds)} in "
@@ -796,14 +1167,23 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- 7. the new kernels' ptxas reports (built in phase 2) ----
-    for (path, rep) in builds[1:]:
+    for (path, rep) in builds[1:3]:
         print(f"[7] {path.name} (built with the others in {build_s:.1f}s)")
         print_ptxas(rep)
 
     spmm_entry = spmm_phases(smi, torch.device("cuda"))
     torch.cuda.empty_cache()
     bag_entry = dlrm_phases(smi, torch.device("cuda"))
-    print(json.dumps({"kernels": [cca_entry, spmm_entry, bag_entry]}))
+    torch.cuda.empty_cache()          # DLRM's ~42 GiB freed before the LM
+
+    # ---- 12. the flash-attention kernel's ptxas report ----
+    print(f"[12] {builds[3][0].name} (built with the others in "
+          f"{build_s:.1f}s)")
+    print_ptxas(builds[3][1])
+    flash_entry = lm_phases(smi, torch.device("cuda"))
+    print(f"[done] all phases in {time.time() - t_start:.1f}s", flush=True)
+    print(json.dumps({"kernels": [cca_entry, spmm_entry, bag_entry,
+                                  flash_entry]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))
 

@@ -1,5 +1,5 @@
 """Config/shape registry plumbing (the port's copy of
-``repro.configs.base``: the shapes of the GNN and recsys families).
+``repro.configs.base``: the shapes of the LM, GNN and recsys families).
 
 Every architecture contributes an ArchBundle: the exact published
 configuration, its shape set, and a reduced smoke config runnable on CPU.
@@ -13,7 +13,8 @@ from typing import Any, Callable
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
     name: str
-    kind: str          # gnn_full | gnn_minibatch | gnn_batched |
+    kind: str          # lm_train | lm_prefill | lm_decode |
+                       # gnn_full | gnn_minibatch | gnn_batched |
                        # recsys_train | recsys_serve | recsys_retrieval
     dims: tuple        # sorted (key, value) pairs
 
@@ -28,11 +29,23 @@ def shape(name, kind, **dims) -> ShapeSpec:
 @dataclasses.dataclass(frozen=True)
 class ArchBundle:
     arch_id: str
-    family: str        # gnn | recsys
+    family: str        # lm | gnn | recsys
     config: Any
     shapes: tuple
     smoke: Callable    # () -> reduced config (same family)
     notes: str = ""
+
+
+# ---- the common LM shape set (assigned to all 5 LM archs) ----
+
+def lm_shapes():
+    return (
+        shape("train_4k", "lm_train", seq_len=4096, global_batch=256),
+        shape("prefill_32k", "lm_prefill", seq_len=32768, global_batch=32),
+        shape("decode_32k", "lm_decode", seq_len=32768, global_batch=128),
+        # decode against a 512k KV cache is linear in seq_len (one query)
+        shape("long_500k", "lm_decode", seq_len=524288, global_batch=1),
+    )
 
 
 def gnn_shapes():

@@ -30,9 +30,7 @@ from repro_torch.kernels.cca_cycle.ref import cca_cycle_chunk_ref
 
 HERE = pathlib.Path(__file__).resolve().parent
 SOURCE = HERE / "csrc" / "cca_cycle.cu"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+NVCC_FLAGS = _build.SM90A_FLAGS + ("--fmad=false",)   # bit-exact f32 sums
 
 launches = 0   # kernel launches made by cca_cycle_chunk
 

@@ -1,0 +1,103 @@
+"""Host wrapper of the CUDA flash-attention forward
+(``csrc/flash_attention.cu``).
+
+``flash_attention(q, k, v, causal=True)`` keeps the JAX package's
+contract (``q [B, Tq, H, dh]``, ``k``/``v`` ``[B, Tk, Kh, dh]``, ``H %
+Kh == 0`` -> ``[B, Tq, H, dh]`` in q's dtype).  The TPU tile knobs ``bq``
+and ``bk`` and the ``interpret`` switch have no counterpart here and are
+dropped; unlike the Pallas wrapper, T need not be a multiple of the tile.
+On a CUDA tensor the wrapper launches the kernel (or raises); on a CPU
+tensor it runs the plain version (``ref.py``).  Both devices get the
+same checks: q, k and v contiguous, all float32 or all bfloat16, on one
+device, ``dh`` one of the head widths the kernel is built for.  The
+kernel is built with ``nvcc`` for ``sm_90a`` at first use
+(``kernels/_build.py``) and loaded with ``ctypes``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+import pathlib
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+HERE = pathlib.Path(__file__).resolve().parent
+SOURCE = HERE / "csrc" / "flash_attention.cu"
+NVCC_FLAGS = _build.SM90A_FLAGS
+HEAD_DIMS = (16, 32, 64, 128)     # the kernel's instantiations
+DTYPES = (torch.float32, torch.bfloat16)
+
+launches = 0   # kernel launches made by flash_attention
+
+
+def build() -> tuple[pathlib.Path, str]:
+    """Compile the kernel library unless built; ``(path, ptxas report)``."""
+    return _build.build(SOURCE, NVCC_FLAGS)
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()[0]))
+    lib.flash_attention_launch.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    lib.flash_attention_launch.restype = ctypes.c_int
+    lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Check what the kernel takes; raises ValueError otherwise."""
+    dev = q.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash attention runs on cuda or cpu, not {dev}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype not in DTYPES or t.dtype != q.dtype or t.device != dev \
+                or t.dim() != 4 or not t.is_contiguous():
+            raise ValueError(
+                f"{name} is {t.dtype}{list(t.shape)} on {t.device} "
+                f"(contiguous={t.is_contiguous()}); the kernel needs "
+                f"contiguous 4-D tensors of one dtype (float32 or bfloat16) "
+                f"on {dev}")
+    B, Tq, H, dh = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != dh:
+        raise ValueError(f"k {list(k.shape)} and v {list(v.shape)} do not "
+                         f"fit q {list(q.shape)}: need [B, Tk, Kh, dh]")
+    Tk, Kh = k.shape[1], k.shape[2]
+    if Kh == 0 or H % Kh:
+        raise ValueError(f"{H} query heads do not group over {Kh} KV heads")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"head width {dh}: the kernel is built for "
+                         f"{HEAD_DIMS}")
+    if min(B, Tq, Tk, H) == 0:
+        raise ValueError(f"empty attention: q {list(q.shape)}, k "
+                         f"{list(k.shape)}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """q: [B, Tq, H, dh]; k/v: [B, Tk, Kh, dh] -> [B, Tq, H, dh] in q's
+    dtype.  Each kernel launch adds one to the module's ``launches``."""
+    global launches
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal)
+    B, Tq, H, dh = q.shape
+    Tk, Kh = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Tq,
+            Tk, H, Kh, dh, int(q.dtype == torch.bfloat16),
+            1.0 / math.sqrt(dh), int(causal), stream)
+    if err:
+        raise RuntimeError("flash_attention kernel launch failed: "
+                           + lib.flash_attention_error_string(err).decode())
+    launches += 1
+    return out

@@ -1,12 +1,15 @@
 """The port's shared nvcc build helper (``repro_torch/kernels/_build.py``),
 driven on the CPU through a stand-in ``nvcc`` script: where the library
 lands, that a build is reused, that new flags or a new source rebuild,
-that a failed compile raises with the compiler's message, and that
-``build_all`` returns in the order given."""
+that a failed compile raises with the compiler's message, that
+``build_all`` returns in the order given, and that every kernel of the
+port builds through it for sm_90a."""
+import importlib
 import pathlib
 
 import pytest
 
+from repro_torch import kernels
 from repro_torch.kernels import _build
 
 FAKE_NVCC = """#!/bin/sh
@@ -76,3 +79,20 @@ def test_no_nvcc_raises(tmp_path, monkeypatch):
     src = kernel_source(tmp_path, "k", "\n")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build(src, _build.SM90A_FLAGS)
+
+
+@pytest.mark.parametrize("name", kernels.KERNELS)
+def test_every_kernel_builds_for_sm90a(name, tmp_path, fake_cuda,
+                                       monkeypatch):
+    """Each kernel's ``ops.build`` compiles its ``SOURCE`` with flags that
+    start with the shared sm_90a set (a copy of the source, built under
+    the test's directory)."""
+    ops = importlib.import_module(f"repro_torch.kernels.{name}.ops")
+    assert ops.SOURCE.exists()
+    assert ops.NVCC_FLAGS[:len(_build.SM90A_FLAGS)] == _build.SM90A_FLAGS
+    src = kernel_source(tmp_path, name, ops.SOURCE.read_text())
+    monkeypatch.setattr(ops, "SOURCE", src)
+    lib, report = ops.build()
+    assert lib.parent.parent == tmp_path / name / "build"
+    assert lib.name == f"lib{name}.so" and lib.exists()
+    assert "registers" in report

@@ -6,8 +6,14 @@ and skip (from a fixture) where there is no card; ``chip_smoke.py`` runs
 the same comparisons on the card at the main path's shapes.  Tolerances:
 the cycle kernel is exact (every state leaf and the launch record equal
 the plain version's); the scatter-SpMM 1e-4 and the EmbeddingBag 1e-5,
-relative to max(1, max |ref|), as their f32 sums run in another order.
+relative to max(1, max |ref|), as their f32 sums run in another order;
+the flash-attention kernel entry by entry (``flash_close``), 2e-5 x (|ref|
++ 1) in f32 (its sums and exponentials run in another order), as
+``tests/test_kernels.py`` holds the Pallas kernel, and 2e-2 x (|ref| +
+median |ref|) in bf16 (one rounding of the output, held to the typical
+output rather than the largest).
 """
+import dataclasses
 import json
 import pathlib
 
@@ -15,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import gnn_archs, recsys_archs
+from repro_torch.configs import gnn_archs, lm_archs, recsys_archs
 from repro_torch.configs.base import shape
 from repro_torch.core import EngineConfig, StreamingEngine
 from repro_torch.core.ingest import load_stream
@@ -26,10 +32,12 @@ from repro_torch.kernels.cca_cycle import ops
 from repro_torch.kernels.cca_cycle.ref import cca_cycle_chunk_ref
 from repro_torch.kernels.embedding_bag import ops as bag_ops
 from repro_torch.kernels.embedding_bag.ref import embedding_bags_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.spmm import ops as spmm_ops
 from repro_torch.kernels.spmm.ref import (scatter_spmm_ref,
                                           spmm_sorted_coo_ref)
-from repro_torch.models import dlrm, gnn
+from repro_torch.models import dlrm, gnn, transformer
 
 pytestmark = pytest.mark.gpu
 PINNED = json.loads((pathlib.Path(__file__).parent / "data"
@@ -52,6 +60,17 @@ def close(got, want, tol):
     scale = max(1.0, float(want.nan_to_num().abs().max()))
     torch.testing.assert_close(got, want, rtol=tol, atol=tol * scale,
                                equal_nan=True)
+
+
+def flash_close(got, want, dtype):
+    """|got - want| <= tol x (|want| + a) entry by entry: a = 1 in f32,
+    median |want| in bf16, where the largest |want| (the first rows) is
+    many times the typical one."""
+    got, want = got.cpu().double(), want.cpu().double()
+    assert got.shape == want.shape
+    a = float(want.abs().median()) if dtype == torch.bfloat16 else 1.0
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol * a)
 
 
 def clone(st):
@@ -208,3 +227,77 @@ def _numpy(tree):
     if isinstance(tree, list):
         return [_numpy(v) for v in tree]
     return tree.numpy()
+
+
+@pytest.mark.parametrize("B,Tq,Tk,H,Kh,dh", [
+    (1, 128, 128, 4, 4, 64),     # MHA
+    (2, 256, 256, 8, 2, 64),     # GQA 4:1
+    (1, 256, 256, 4, 1, 128),    # MQA
+    (2, 128, 128, 8, 4, 32),
+    (1, 130, 130, 4, 2, 16),     # ragged: T not a tile multiple
+    (1, 200, 200, 32, 8, 64),    # llama3.2-1b heads
+    (1, 96, 160, 16, 8, 128),    # qwen3-1.7b heads, Tq < Tk
+    (1, 160, 96, 24, 2, 128),    # starcoder2-3b heads, Tq > Tk
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_matches_plain(card, B, Tq, Tk, H, Kh, dh, dtype,
+                                    causal):
+    rng = np.random.default_rng(Tq + Tk + dh)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(dtype) for s in ((B, Tq, H, dh), (B, Tk, Kh, dh),
+                                    (B, Tk, Kh, dh)))
+    before = fa_ops.launches
+    got = fa_ops.flash_attention(q.to(card), k.to(card), v.to(card), causal)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    flash_close(got, flash_attention_ref(q, k, v, causal), dtype)
+
+
+def test_flash_wrapper_rejects_on_the_card(card):
+    q = torch.zeros(1, 8, 4, 64, device=card)
+    k = torch.zeros(1, 8, 2, 64, device=card)
+    with pytest.raises(ValueError, match="one dtype"):
+        fa_ops.flash_attention(q, k.bfloat16(), k.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_ops.flash_attention(q.transpose(1, 2), k, k)
+    with pytest.raises(ValueError, match="head width"):
+        fa_ops.flash_attention(q[..., :48].contiguous(),
+                               k[..., :48].contiguous(),
+                               k[..., :48].contiguous())
+    k3 = torch.zeros(1, 8, 3, 64, device=card)
+    with pytest.raises(ValueError, match="group"):
+        fa_ops.flash_attention(q, k3, k3)
+
+
+@pytest.mark.parametrize("arch", ["LLAMA32_1B", "QWEN3_1P7B",
+                                  "STARCODER2_3B"])
+def test_lm_forward_and_decode_on_the_card(card, arch):
+    """The model's forward through the kernel (one launch a layer) equals
+    its CPU forward through the plain version, in f32 (1e-4); a decode
+    step equals the CPU's."""
+    cfg = dataclasses.replace(lm_archs._smoke(getattr(lm_archs, arch)),
+                              compute_dtype=torch.float32)
+    p = transformer.init_lm_params(cfg, torch.Generator().manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 40)).astype(np.int32))
+    want = transformer.lm_forward(cfg, p, tokens)[0]
+    pc = transformer.lm_params_from_numpy(cfg, _numpy(p), card)
+    before = fa_ops.launches
+    got = transformer.lm_forward(cfg, pc, tokens.to(card))[0]
+    assert fa_ops.launches == before + cfg.n_layers
+    close(got, want, 1e-4)
+    lengths = torch.tensor([3, 7], dtype=torch.int32)
+    caches = [transformer.init_kv_cache(cfg, 2, 16, device=d)
+              for d in ("cpu", card)]
+    for c in caches:
+        for t in c:
+            t.copy_(torch.from_numpy(np.random.default_rng(1).standard_normal(
+                t.shape).astype(np.float32)))
+    want, _ = transformer.lm_decode_step(cfg, p, tokens[:, :1], caches[0],
+                                         lengths)
+    got, _ = transformer.lm_decode_step(cfg, pc, tokens[:, :1].to(card),
+                                        caches[1], lengths.to(card))
+    close(got, want, 1e-4)
+    close(caches[1][0].float(), caches[0][0].float(), 1e-2)   # bf16 cache

@@ -225,7 +225,10 @@ def test_port_imports_nothing_of_jax_or_repro():
             "repro_torch.models.gnn, repro_torch.models.dlrm, "
             "repro_torch.data.graphs, repro_torch.data.pipeline, "
             "repro_torch.configs.base, repro_torch.configs.gnn_archs, "
-            "repro_torch.configs.recsys_archs; "
+            "repro_torch.configs.recsys_archs, "
+            "repro_torch.kernels.flash_attention.ops, "
+            "repro_torch.models.transformer, repro_torch.configs.lm_archs, "
+            "repro_torch.obs.metrics, repro_torch.launch.serve; "
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
