@@ -50,9 +50,12 @@ kernel):
      peak memory
 
 The LM serving path (llama3.2-1b; every prefill attention one launch of
-the flash-attention kernel a layer, decode attention plain PyTorch):
+the flash-attention kernel a layer, the bf16 prefill on its tensor-core
+path, decode attention plain PyTorch):
 
- 12. the ptxas report of the flash-attention kernel
+ 12. the ptxas report of each flash-attention instantiation (registers,
+     spills, shared memory); the tensor-core kernels at dh 64 and 128
+     must not spill
  13. flash kernel vs plain on the card, entry by entry (``flash_excess``:
      2e-2 x (|ref| + median |ref|) in bf16, 2e-5 x (|ref| + 1) in f32) at
      T = 4096 at the heads of llama3.2-1b (32/8, dh 64), qwen3-1.7b (16/8,
@@ -62,10 +65,13 @@ the flash-attention kernel a layer, decode attention plain PyTorch):
      next KV head; each row blind to the keys more than T/2 back) must
      fail the same limit; each timed beside the plain version,
      ``F.scaled_dot_product_attention`` (yardstick only, on K/V repeated
-     to the query heads beforehand) and the bound
+     to the query heads beforehand) and the bound, with the kernel's
+     TFLOP/s, its time over SDPA's and the bound's share of its time, and
+     the path it took (bf16: tensor cores; f32: CUDA cores)
  14. prefill at full width: llama3.2-1b on prefill_32k at B = 1 and
      T = 32768 (the main path whose flash launches the kernels line
-     reports), qwen3-1.7b at B = 1, T = 4096: finite logits, flash
+     reports: 80, all on the tensor-core path), qwen3-1.7b at B = 1,
+     T = 4096: finite logits, flash
      launches per forward = n_layers, wall, tokens/s, the attention share
      by CUDA events, peak memory; llama3.2-1b once more at B = 16 (its
      own 32 runs out of memory): finite logits, wall, peak memory; at
@@ -83,6 +89,7 @@ It ends with the kernels line (JSON) and the ok line (JSON, last).
 import dataclasses
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -97,6 +104,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import kernels  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.configs import gnn_archs, lm_archs  # noqa: E402
 from repro_torch.configs.base import (gnn_shapes, lm_shapes,  # noqa: E402
                                       recsys_shapes)
@@ -195,6 +203,34 @@ def print_ptxas(report: str) -> None:
     for line in report.splitlines():
         if any(w in line for w in ("registers", "spill", "smem", "stack")):
             print("  ptxas:", line.strip())
+
+
+def flash_ptxas(report: str) -> list[dict]:
+    """Phase 12: one row a flash-attention instantiation (its path, head
+    width and dtype read from the mangled name), printed; raises if the
+    tensor-core kernel spills at dh 64 or 128."""
+    rows = []
+    for name, info in _build.ptxas_functions(report).items():
+        m = re.search(r"(fa_fwd_tc|fa_fwd_kernel)ILi(\d+)E", name)
+        if not m:
+            continue
+        tc = m[1] == "fa_fwd_tc"
+        row = dict(path="tensor_core" if tc else "cuda_core",
+                   dtype="bf16" if tc else "f32", dh=int(m[2]), **info)
+        rows.append(row)
+        print(f"[12] {row['path']} {row['dtype']} dh={row['dh']}: "
+              f"{info.get('registers')} registers at entry, "
+              f"{info.get('spill_stores')} bytes spill stores, "
+              f"{info.get('spill_loads')} bytes spill loads, "
+              f"{info.get('stack')} bytes stack, static smem "
+              f"{info.get('smem', 0)} bytes", flush=True)
+    tc = {r["dh"]: r for r in rows if r["path"] == "tensor_core"}
+    for dh in (64, 128):
+        if dh not in tc or tc[dh].get("spill_stores", 1) or tc[dh].get(
+                "spill_loads", 1):
+            raise AssertionError(f"tensor-core flash kernel at dh {dh}: "
+                                 f"spills or no report ({tc.get(dh)})")
+    return rows
 
 
 def cuda_ms(fn, min_reps=3, budget_ms=300.0) -> float:
@@ -728,9 +764,14 @@ def flash_case(name, B, T, H, Kh, dh, dtype, gen, dev) -> dict:
         q, k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)))
     library = lambda: F.scaled_dot_product_attention(  # noqa: E731
         qs, ks, vs, is_causal=True).transpose(1, 2)
+    before = dict(fa_ops.path_launches)
     got, want = kern(), plain()
     torch.cuda.synchronize()
+    path = [p for p, n in fa_ops.path_launches.items() if n != before[p]]
     tag = f"flash {name} T={T} {dtype}"
+    want_path = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+    if path != [want_path]:
+        raise AssertionError(f"{tag}: launched on {path}, not {want_path}")
     if not torch.equal(torch.isnan(got), torch.isnan(want)):
         raise AssertionError(f"{tag}: NaN in different places")
     err, excess = flash_excess(got, want, dtype)
@@ -764,10 +805,15 @@ def flash_case(name, B, T, H, Kh, dh, dtype, gen, dev) -> dict:
                plain_by_head=by_head, ms=cuda_ms(kern),
                plain_ms=cuda_ms(plain, min_reps=1),
                library_ms=cuda_ms(library), bound_ms=bound, bound_by=by,
-               bytes=nbytes, flops=flops, library_max_abs_err=lib_err)
+               bytes=nbytes, flops=flops, library_max_abs_err=lib_err,
+               path=want_path)
+    row.update(tflops=flops / row["ms"] / 1e9,
+               vs_library=row["ms"] / row["library_ms"],
+               bound_share=bound / row["ms"])
     print(f"[13] flash {name} (B={B}, T={T}, H={H}, Kh={Kh}, dh={dh}, "
-          f"{row['dtype']}): kernel {row['ms']:.4f} ms "
-          f"({flops / row['ms'] / 1e9:.2f} TFLOP/s), plain "
+          f"{row['dtype']}, {want_path}): kernel {row['ms']:.4f} ms "
+          f"({row['tflops']:.2f} TFLOP/s, {row['vs_library']:.3f}x SDPA, "
+          f"{100 * row['bound_share']:.1f}% of the bound), plain "
           f"{row['plain_ms']:.4f} ms{' (head by head)' if by_head else ''}, "
           f"SDPA {row['library_ms']:.4f} ms, bound {bound:.4f} ms by {by} "
           f"({nbytes / 1e9:.4f} GB over 3.35 TB/s, {flops / 1e9:.1f} Gflop "
@@ -835,7 +881,7 @@ def prefill_run(tag, cfg, params, tokens, reps) -> dict:
     return row
 
 
-def lm_phases(smi: str, dev: torch.device) -> dict:
+def lm_phases(smi: str, dev: torch.device, ptxas: list) -> dict:
     """Phases 13 to 15: the flash kernel against its plain version and
     SDPA, prefill at full width through it, and serving at full width."""
     gen = torch.Generator(device=dev)
@@ -859,11 +905,15 @@ def lm_phases(smi: str, dev: torch.device) -> dict:
     tokens = torch.randint(0, cfg.vocab, (1, T), generator=gen, device=dev,
                            dtype=torch.int32)
     fa_ops.launches = 0     # the main path: this run's forwards
+    fa_ops.path_launches = dict.fromkeys(fa_ops.PATHS, 0)
     prefills = [prefill_run(f"{cfg.name} prefill_32k B=1 T={T}", cfg,
                             params, tokens, 2)]
-    launches = fa_ops.launches
-    if launches == 0:
-        raise AssertionError("the prefill path launched no flash kernel")
+    launches, by_path = fa_ops.launches, dict(fa_ops.path_launches)
+    # prefill_run's forwards: a check, a timed one, a warm one and 2 reps
+    if launches != 5 * cfg.n_layers or by_path["tensor_core"] != launches:
+        raise AssertionError(f"the main path made {launches} flash launches "
+                             f"({by_path}), not {5 * cfg.n_layers} on the "
+                             f"tensor-core path")
     # the kernel path against an f32 forward and the plain attention, T=2048
     tok = tokens[:, :2048].contiguous()
     with mock.patch.object(transformer, "flash_attention",
@@ -942,7 +992,8 @@ def lm_phases(smi: str, dev: torch.device) -> dict:
     torch.cuda.empty_cache()
     print(f"[14] done in {time.time() - t0:.1f}s: {launches} flash launches "
           f"in the main path's prefill_32k B=1 run "
-          f"({launches // cfg.n_layers} forwards)", flush=True)
+          f"({launches // cfg.n_layers} forwards), by path {by_path}",
+          flush=True)
 
     # ---- 15. serving at full width ----
     t0 = time.time()
@@ -971,16 +1022,21 @@ def lm_phases(smi: str, dev: torch.device) -> dict:
     head = rows[-1]         # llama3.2-1b at prefill_32k's T, bf16
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                      "flash_attention.cu",
+                      "flash_attention_tc.cuh",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:71",
-            "launches": launches,
+            "path": "tensor_core", "launches": launches,
+            "launches_by_path": by_path,
+            "f32_source": "src/repro_torch/kernels/flash_attention/csrc/"
+                          "flash_attention.cu",
             "launches_per_forward": prefills[0]["flash_launches_per_forward"],
             "equal_to_plain": True,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "excess": max(r["excess"] for r in rows),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": head["library_ms"],
+            "library_ms": head["library_ms"], "tflops": head["tflops"],
+            "vs_library": head["vs_library"],
+            "bound_share": head["bound_share"], "ptxas": ptxas,
             "library": "torch.nn.functional.scaled_dot_product_attention "
                        "(causal, K/V repeated to the query heads)",
             "headline_shape": "llama3.2-1b T=32768 bf16", "shapes": rows,
@@ -1176,11 +1232,11 @@ def main() -> None:
     bag_entry = dlrm_phases(smi, torch.device("cuda"))
     torch.cuda.empty_cache()          # DLRM's ~42 GiB freed before the LM
 
-    # ---- 12. the flash-attention kernel's ptxas report ----
+    # ---- 12. the flash-attention kernels' ptxas reports ----
     print(f"[12] {builds[3][0].name} (built with the others in "
           f"{build_s:.1f}s)")
-    print_ptxas(builds[3][1])
-    flash_entry = lm_phases(smi, torch.device("cuda"))
+    ptxas = flash_ptxas(builds[3][1])
+    flash_entry = lm_phases(smi, torch.device("cuda"), ptxas)
     print(f"[done] all phases in {time.time() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": [cca_entry, spmm_entry, bag_entry,
                                   flash_entry]}))

@@ -1,10 +1,11 @@
 """nvcc-to-ctypes build shared by the port's CUDA kernels.
 
-Each kernel is one ``csrc/*.cu`` file with a plain C interface.  It is
-compiled by ``nvcc`` into a shared library at first use, under
-``build/<hash of source and flags>/`` beside the kernel's ``ops.py``, and
-loaded with ``ctypes`` by that wrapper.  A build already on disk for the
-same source and flags is reused.
+Each kernel is one ``csrc/*.cu`` file with a plain C interface (it may
+include headers beside it in ``csrc/``).  It is compiled by ``nvcc`` into
+a shared library at first use, under ``build/<hash>/`` beside the
+kernel's ``ops.py``, the hash taken over every file in ``csrc/`` (names
+and contents) and the flags, and loaded with ``ctypes`` by that wrapper.
+A build already on disk for the same sources and flags is reused.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import concurrent.futures
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 
@@ -34,8 +36,11 @@ def build(source: pathlib.Path, flags: tuple[str, ...]
           ) -> tuple[pathlib.Path, str]:
     """Compile ``source`` with ``flags`` unless that build exists.
     Returns ``(library path, nvcc's -Xptxas -v report)``."""
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(flags).encode()).hexdigest()
+    h = hashlib.sha256(" ".join(flags).encode())
+    for f in sorted(p for p in source.parent.rglob("*") if p.is_file()):
+        h.update(str(f.relative_to(source.parent)).encode() + b"\0")
+        h.update(f.read_bytes())
+    digest = h.hexdigest()
     out = (source.parent.parent / "build" / digest[:16]
            / f"lib{source.stem}.so")
     log = out.with_suffix(".log")
@@ -51,6 +56,33 @@ def build(source: pathlib.Path, flags: tuple[str, ...]
     log.write_text(report)
     os.replace(tmp, out)
     return out, report
+
+
+def ptxas_functions(report: str) -> dict[str, dict[str, int]]:
+    """{mangled kernel name: {registers, stack, spill_stores, spill_loads,
+    smem}} from an ``-Xptxas -v`` report, the keys each function's lines
+    give."""
+    out: dict[str, dict[str, int]] = {}
+    cur = None
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([^' ]+)", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m[1]), spill_stores=int(m[2]),
+                       spill_loads=int(m[3]))
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("smem", r"(\d+) bytes smem")):
+            m = re.search(pat, line)
+            if m:
+                cur[key] = int(m[1])
+    return out
 
 
 def build_all(builds) -> list[tuple[pathlib.Path, str]]:

@@ -1,5 +1,7 @@
 // Causal GQA flash-attention forward: online softmax in f32, one block a
-// (query tile, head, batch).
+// (query tile, head, batch).  Two kernels: bf16 inputs go to the Hopper
+// tensor-core kernel of flash_attention_tc.cuh (wgmma on TMA-staged K/V,
+// every head width 16-128), f32 inputs to the CUDA-core kernel below.
 //
 // Replaces the TPU kernel `repro/kernels/flash_attention/kernel.py::
 // flash_attention_fwd` (`_fa_kernel`).  It computes what `_fa_kernel`
@@ -23,28 +25,29 @@
 // 0), the kernel masks the ragged edge: rows past Tq are not written, keys
 // past Tk score NEG_INF and load as zero.
 //
-// The design is the simple one that is right: f32 FMAs on the CUDA cores,
-// as `_fa_kernel` multiplies in f32.  A block of 256 threads holds a 64-row
-// query tile in shared memory, transposed and pre-scaled; for each 64-key
-// tile it stages K (transposed) and V in shared memory, each thread
-// computes a 4 x 4 patch of the scores from float4 reads, the row max is
-// reduced over the 16 threads that share the rows by warp shuffles, the
-// probabilities P go back through shared memory (over the K tile), and
-// each thread accumulates a 4 x dh/16 patch of P V.  The row sums stay
-// per-thread partials (every thread of a row scales by the same
-// correction) and are reduced once at the end.
+// The CUDA-core kernel (f32): f32 FMAs, as `_fa_kernel` multiplies in f32;
+// the tensor cores would compute f32 in TF32, some 1e-3 off.  A block of
+// 256 threads holds a 64-row query tile in shared memory, transposed and
+// pre-scaled; for each 64-key tile it stages K (transposed) and V in
+// shared memory, each thread computes a 4 x 4 patch of the scores from
+// float4 reads, the row max is reduced over the 16 threads that share the
+// rows by warp shuffles, the probabilities P go back through shared memory
+// (over the K tile), and each thread accumulates a 4 x dh/16 patch of P V.
+// The row sums stay per-thread partials (every thread of a row scales by
+// the same correction) and are reduced once at the end.
 //
 // What bounds it on this card: operations.  A causal forward needs
 // 4 B H dh T(T+1)/2 flops against 2 B T (H + Kh) dh elements moved (q, k,
 // v read once, o written once); for llama3.2-1b at T = 4096 that is 68.7
-// Gflop against 41.9 MB in bf16, 0.069 ms at the tensor cores' 989
-// TFLOP/s and 0.0125 ms at 3.35 TB/s.
-// Running on the CUDA cores (67 TFLOP/s in f32) with shared-memory reads
-// feeding every 8-16 FMAs, this kernel sits far above that bound by
-// design; the tensor-core kernel (wgmma, TMA) is the later redesign.
+// Gflop against 83.9 MB in f32, 1.03 ms at the CUDA cores' 67 TFLOP/s and
+// 0.025 ms at 3.35 TB/s.  With shared-memory reads feeding every 8-16
+// FMAs, this kernel sits above that bound by design.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdio.h>
+
+#include "flash_attention_tc.cuh"
 
 namespace {
 
@@ -54,25 +57,16 @@ constexpr int THREADS = 256;    // 16 x 16: ty owns 4 rows, tx 4 keys / dh/16 co
 constexpr int LD = BQ + 4;      // padded row of the transposed tiles (floats)
 constexpr float NEG_INF = -1e30f;   // `kernel.py:28`
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
 template <int DH>
 constexpr int smem_floats() {
   // qT [DH][LD], kT [max(DH, BK)][LD] (K^T, then P^T), vs [BK][DH]
   return DH * LD + (DH > BK ? DH : BK) * LD + BK * DH;
 }
 
-template <int DH, typename T>
+template <int DH>
 __global__ void __launch_bounds__(THREADS)
-fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, int Tq, int Tk,
+fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, int Tq, int Tk,
               int H, int Kh, float scale, int causal) {
   constexpr int DV = DH / 16;   // output columns a thread
   extern __shared__ float4 smem4[];
@@ -86,14 +80,14 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kh = h / (H / Kh);
   const long long q_stride = (long long)H * DH;       // between rows t
   const long long kv_stride = (long long)Kh * DH;
-  const T* qb = q + ((long long)b * Tq * H + h) * DH;
-  const T* kb = k + ((long long)b * Tk * Kh + kh) * DH;
-  const T* vb = v + ((long long)b * Tk * Kh + kh) * DH;
+  const float* qb = q + ((long long)b * Tq * H + h) * DH;
+  const float* kb = k + ((long long)b * Tk * Kh + kh) * DH;
+  const float* vb = v + ((long long)b * Tk * Kh + kh) * DH;
 
   for (int e = tid; e < BQ * DH; e += THREADS) {
     const int r = e / DH, d = e % DH;
     qT[d * LD + r] = q0 + r < Tq
-        ? to_f(qb[(long long)(q0 + r) * q_stride + d]) * scale : 0.f;
+        ? qb[(long long)(q0 + r) * q_stride + d] * scale : 0.f;
   }
 
   float m[4], l[4], acc[4][DV];
@@ -113,8 +107,8 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int c = e / DH, d = e % DH;
       const bool in = k0 + c < Tk;
       const long long off = (long long)(k0 + c) * kv_stride + d;
-      kT[d * LD + c] = in ? to_f(kb[off]) : 0.f;
-      vs[c * DH + d] = in ? to_f(vb[off]) : 0.f;
+      kT[d * LD + c] = in ? kb[off] : 0.f;
+      vs[c * DH + d] = in ? vb[off] : 0.f;
     }
     __syncthreads();
 
@@ -201,38 +195,49 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + ty * 4 + i;
     if (row >= Tq) continue;
     const float den = fmaxf(ls, 1e-30f);
-    T* orow = o + (((long long)b * Tq + row) * H + h) * DH + tx * DV;
+    float* orow = o + (((long long)b * Tq + row) * H + h) * DH + tx * DV;
 #pragma unroll
-    for (int j = 0; j < DV; ++j) store(orow + j, __fdiv_rn(acc[i][j], den));
+    for (int j = 0; j < DV; ++j) orow[j] = __fdiv_rn(acc[i][j], den);
   }
 }
 
-template <int DH, typename T>
+template <int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int Tq, int Tk, int H, int Kh, float scale,
                    int causal, cudaStream_t s) {
   constexpr int bytes = smem_floats<DH>() * 4;
-  auto kern = fa_fwd_kernel<DH, T>;
+  auto kern = fa_fwd_kernel<DH>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((Tq + BQ - 1) / BQ, H, B);
   kern<<<grid, THREADS, bytes, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Tq, Tk, H, Kh, scale,
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Tq, Tk, H, Kh, scale,
       causal);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dh(int dh, const void* q, const void* k, const void* v,
-                      void* o, int B, int Tq, int Tk, int H, int Kh,
-                      float scale, int causal, cudaStream_t s) {
+cudaError_t launch_f32(int dh, const void* q, const void* k, const void* v,
+                       void* o, int B, int Tq, int Tk, int H, int Kh,
+                       float scale, int causal, cudaStream_t s) {
   switch (dh) {
-    case 16: return launch<16, T>(q, k, v, o, B, Tq, Tk, H, Kh, scale, causal, s);
-    case 32: return launch<32, T>(q, k, v, o, B, Tq, Tk, H, Kh, scale, causal, s);
-    case 64: return launch<64, T>(q, k, v, o, B, Tq, Tk, H, Kh, scale, causal, s);
-    case 128: return launch<128, T>(q, k, v, o, B, Tq, Tk, H, Kh, scale, causal, s);
+    case 16: return launch<16>(q, k, v, o, B, Tq, Tk, H, Kh, scale, causal, s);
+    case 32: return launch<32>(q, k, v, o, B, Tq, Tk, H, Kh, scale, causal, s);
+    case 64: return launch<64>(q, k, v, o, B, Tq, Tk, H, Kh, scale, causal, s);
+    case 128: return launch<128>(q, k, v, o, B, Tq, Tk, H, Kh, scale, causal, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+int launch_bf16(int dh, const void* q, const void* k, const void* v, void* o,
+                int B, int Tq, int Tk, int H, int Kh, float scale, int causal,
+                cudaStream_t s) {
+  switch (dh) {
+    case 16: return fa_tc::launch<16>(q, k, v, o, B, Tq, Tk, H, Kh, scale, causal, s);
+    case 32: return fa_tc::launch<32>(q, k, v, o, B, Tq, Tk, H, Kh, scale, causal, s);
+    case 64: return fa_tc::launch<64>(q, k, v, o, B, Tq, Tk, H, Kh, scale, causal, s);
+    case 128: return fa_tc::launch<128>(q, k, v, o, B, Tq, Tk, H, Kh, scale, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -240,24 +245,34 @@ cudaError_t launch_dh(int dh, const void* q, const void* k, const void* v,
 }  // namespace
 
 // o [B, Tq, H, dh] = attention(q [B, Tq, H, dh], k, v [B, Tk, Kh, dh]),
-// all contiguous and of one dtype (bf16 != 0: bfloat16, else float32);
-// dh one of 16, 32, 64, 128.  Returns the launch's error code.
+// all contiguous, 16-byte aligned and of one dtype (bf16 != 0: bfloat16,
+// else float32); dh one of 16, 32, 64, 128.  Sets *path to the kernel it
+// launches (1: tensor cores, bf16; 0: CUDA cores, f32) and returns the
+// launch's error code: a cudaError_t, or a negative code of the tensor-map
+// encoding (see flash_attention_error_string).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Tq,
                                       int Tk, int H, int Kh, int dh,
                                       int bf16, float scale, int causal,
-                                      void* stream) {
+                                      void* stream, int* path) {
   if (B <= 0 || Tq <= 0 || Tk <= 0 || Kh <= 0 || H % Kh != 0 ||
       B > 65535 || H > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_dh<__nv_bfloat16>(dh, q, k, v, o, B, Tq, Tk, H, Kh,
-                                         scale, causal, s)
-              : launch_dh<float>(dh, q, k, v, o, B, Tq, Tk, H, Kh, scale,
-                                 causal, s);
+  *path = bf16 ? 1 : 0;
+  return bf16 ? launch_bf16(dh, q, k, v, o, B, Tq, Tk, H, Kh, scale, causal, s)
+              : launch_f32(dh, q, k, v, o, B, Tq, Tk, H, Kh, scale, causal, s);
 }
 
 // Text of a launch error code, for the wrapper's exception.
 extern "C" const char* flash_attention_error_string(int err) {
+  static thread_local char buf[96];
+  if (err == fa_tc::kNoEncoder)
+    return "the CUDA driver offers no cuTensorMapEncodeTiled";
+  if (err <= fa_tc::kEncodeFailed) {
+    snprintf(buf, sizeof buf, "cuTensorMapEncodeTiled failed (CUresult %d)",
+             fa_tc::kEncodeFailed - err);
+    return buf;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -6,11 +6,14 @@ contract (``q [B, Tq, H, dh]``, ``k``/``v`` ``[B, Tk, Kh, dh]``, ``H %
 Kh == 0`` -> ``[B, Tq, H, dh]`` in q's dtype).  The TPU tile knobs ``bq``
 and ``bk`` and the ``interpret`` switch have no counterpart here and are
 dropped; unlike the Pallas wrapper, T need not be a multiple of the tile.
-On a CUDA tensor the wrapper launches the kernel (or raises); on a CPU
-tensor it runs the plain version (``ref.py``).  Both devices get the
-same checks: q, k and v contiguous, all float32 or all bfloat16, on one
-device, ``dh`` one of the head widths the kernel is built for.  The
-kernel is built with ``nvcc`` for ``sm_90a`` at first use
+On a CUDA tensor the wrapper launches a kernel (or raises): bfloat16
+inputs the tensor-core kernel (``csrc/flash_attention_tc.cuh``: wgmma on
+TMA-staged tiles), float32 inputs the CUDA-core kernel
+(``csrc/flash_attention.cu``); on a CPU tensor it runs the plain version
+(``ref.py``).  Both devices get the same checks: q, k and v contiguous,
+16-byte aligned (TMA reads nothing else), all float32 or all bfloat16, on
+one device, ``dh`` one of the head widths the kernels are built for.  The
+library is built with ``nvcc`` for ``sm_90a`` at first use
 (``kernels/_build.py``) and loaded with ``ctypes``.
 """
 from __future__ import annotations
@@ -31,7 +34,10 @@ NVCC_FLAGS = _build.SM90A_FLAGS
 HEAD_DIMS = (16, 32, 64, 128)     # the kernel's instantiations
 DTYPES = (torch.float32, torch.bfloat16)
 
-launches = 0   # kernel launches made by flash_attention
+PATHS = ("cuda_core", "tensor_core")   # the C entry's path codes 0, 1
+
+launches = 0   # kernel launches made by flash_attention, both paths
+path_launches = dict.fromkeys(PATHS, 0)   # the same launches by kernel
 
 
 def build() -> tuple[pathlib.Path, str]:
@@ -39,15 +45,21 @@ def build() -> tuple[pathlib.Path, str]:
     return _build.build(SOURCE, NVCC_FLAGS)
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()[0]))
+def load(path: pathlib.Path) -> ctypes.CDLL:
+    """The kernel library at ``path`` with its C entry points typed."""
+    lib = ctypes.CDLL(str(path))
     lib.flash_attention_launch.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+                             ctypes.POINTER(ctypes.c_int)]
     lib.flash_attention_launch.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    return load(build()[0])
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -76,12 +88,18 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if min(B, Tq, Tk, H) == 0:
         raise ValueError(f"empty attention: q {list(q.shape)}, k "
                          f"{list(k.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} starts at {t.data_ptr():#x}, not on a "
+                             f"16-byte boundary: the kernel's tensor-map "
+                             f"loads need one")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """q: [B, Tq, H, dh]; k/v: [B, Tk, Kh, dh] -> [B, Tq, H, dh] in q's
-    dtype.  Each kernel launch adds one to the module's ``launches``."""
+    dtype.  Each kernel launch adds one to the module's ``launches`` and
+    to its kernel's entry of ``path_launches``."""
     global launches
     _check(q, k, v)
     if q.device.type == "cpu":
@@ -90,14 +108,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Tk, Kh = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lib = _library()
+    path = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Tq,
             Tk, H, Kh, dh, int(q.dtype == torch.bfloat16),
-            1.0 / math.sqrt(dh), int(causal), stream)
+            1.0 / math.sqrt(dh), int(causal), stream, ctypes.byref(path))
     if err:
         raise RuntimeError("flash_attention kernel launch failed: "
                            + lib.flash_attention_error_string(err).decode())
     launches += 1
+    path_launches[PATHS[path.value]] += 1
     return out

@@ -1,7 +1,7 @@
 """The port's shared nvcc build helper (``repro_torch/kernels/_build.py``),
 driven on the CPU through a stand-in ``nvcc`` script: where the library
-lands, that a build is reused, that new flags or a new source rebuild,
-that a failed compile raises with the compiler's message, that
+lands, that a build is reused, that new flags, a new source or an edited
+header beside it rebuild, that a failed compile raises with the compiler's message, that
 ``build_all`` returns in the order given, and that every kernel of the
 port builds through it for sm_90a."""
 import importlib
@@ -59,6 +59,23 @@ def test_build_places_reuses_and_rebuilds(tmp_path, fake_cuda):
     assert fake_cuda.read_text().count("call") == 3
 
 
+def test_header_edit_rebuilds(tmp_path, fake_cuda):
+    """The hash covers every file in ``csrc/``: a header the source
+    includes, edited, gives a new build; a new header does too."""
+    src = kernel_source(tmp_path, "k", '#include "k_impl.cuh"\n')
+    header = src.parent / "k_impl.cuh"
+    header.write_text("// first\n")
+    lib, _ = _build.build(src, _build.SM90A_FLAGS)
+    assert _build.build(src, _build.SM90A_FLAGS)[0] == lib
+    assert fake_cuda.read_text().count("call") == 1      # reused
+    header.write_text("// second\n")
+    lib2, _ = _build.build(src, _build.SM90A_FLAGS)
+    (src.parent / "k_more.cuh").write_text("// new\n")
+    lib3, _ = _build.build(src, _build.SM90A_FLAGS)
+    assert len({lib, lib2, lib3}) == 3 and lib3.exists()
+    assert fake_cuda.read_text().count("call") == 3
+
+
 def test_build_raises_with_the_compiler_message(tmp_path, fake_cuda):
     src = kernel_source(tmp_path, "bad", "FAIL\n")
     with pytest.raises(RuntimeError, match="bad source"):
@@ -79,6 +96,27 @@ def test_no_nvcc_raises(tmp_path, monkeypatch):
     src = kernel_source(tmp_path, "k", "\n")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build(src, _build.SM90A_FLAGS)
+
+
+REPORT = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN5fa_tc9fa_fwd_tcILi128EEEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN5fa_tc9fa_fwd_tcILi128EEEv
+    16 bytes stack frame, 16 bytes spill stores, 24 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 16 bytes cumulative stack size
+ptxas info    : Compiling entry function '_Z1kPf' for 'sm_90a'
+ptxas info    : Function properties for _Z1kPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 16 bytes smem, 392 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_by_function():
+    assert _build.ptxas_functions(REPORT) == {
+        "_ZN5fa_tc9fa_fwd_tcILi128EEEv": dict(
+            stack=16, spill_stores=16, spill_loads=24, registers=168),
+        "_Z1kPf": dict(stack=0, spill_stores=0, spill_loads=0,
+                       registers=64, smem=16)}
+    assert _build.ptxas_functions("no report") == {}
 
 
 @pytest.mark.parametrize("name", kernels.KERNELS)

@@ -7,11 +7,15 @@ the same comparisons on the card at the main path's shapes.  Tolerances:
 the cycle kernel is exact (every state leaf and the launch record equal
 the plain version's); the scatter-SpMM 1e-4 and the EmbeddingBag 1e-5,
 relative to max(1, max |ref|), as their f32 sums run in another order;
-the flash-attention kernel entry by entry (``flash_close``), 2e-5 x (|ref|
-+ 1) in f32 (its sums and exponentials run in another order), as
-``tests/test_kernels.py`` holds the Pallas kernel, and 2e-2 x (|ref| +
-median |ref|) in bf16 (one rounding of the output, held to the typical
-output rather than the largest).
+the flash-attention kernels entry by entry (``flash_close``), 2e-5 x
+(|ref| + 1) in f32 (the CUDA-core kernel: its sums and exponentials run in
+another order), as ``tests/test_kernels.py`` holds the Pallas kernel, and
+2e-2 x (|ref| + median |ref|) in bf16 (the tensor-core kernel: one
+rounding of the output, held to the typical output rather than the
+largest).  The flash shapes cover the tensor-core kernel's 128-row tiles
+(T = 127, 129, 1000), Tq != Tk either way, B = 2 with one KV head and
+G = 4; ``test_flash_wrapper_records_the_path`` checks which kernel each
+dtype takes.
 """
 import dataclasses
 import json
@@ -238,6 +242,17 @@ def _numpy(tree):
     (1, 200, 200, 32, 8, 64),    # llama3.2-1b heads
     (1, 96, 160, 16, 8, 128),    # qwen3-1.7b heads, Tq < Tk
     (1, 160, 96, 24, 2, 128),    # starcoder2-3b heads, Tq > Tk
+    # the tensor-core kernel's 128-row tiles: one short, one over, many
+    (1, 127, 127, 8, 2, 64),
+    (1, 129, 129, 8, 2, 128),
+    (1, 1000, 1000, 8, 2, 64),
+    (1, 1000, 1000, 4, 2, 128),
+    (1, 100, 300, 8, 2, 64),     # Tq < Tk across tiles
+    (1, 300, 100, 8, 2, 64),     # Tq > Tk across tiles
+    (2, 200, 200, 4, 1, 128),    # B = 2, one KV head
+    (2, 257, 257, 16, 4, 64),    # G = 4, ragged
+    (1, 129, 129, 4, 2, 32),
+    (1, 129, 129, 4, 2, 16),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
@@ -255,6 +270,23 @@ def test_flash_kernel_matches_plain(card, B, Tq, Tk, H, Kh, dh, dtype,
     flash_close(got, flash_attention_ref(q, k, v, causal), dtype)
 
 
+@pytest.mark.parametrize("dtype,dh,path", [
+    (torch.bfloat16, 16, "tensor_core"), (torch.bfloat16, 32, "tensor_core"),
+    (torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 128, "tensor_core"),
+    (torch.float32, 64, "cuda_core"), (torch.float32, 128, "cuda_core")])
+def test_flash_wrapper_records_the_path(card, dtype, dh, path):
+    """bf16 goes to the tensor-core kernel, f32 to the CUDA-core kernel;
+    ``launches`` counts both, ``path_launches`` each."""
+    q = torch.randn(1, 130, 8, dh, device=card).to(dtype)
+    k = torch.randn(1, 130, 2, dh, device=card).to(dtype)
+    total, before = fa_ops.launches, dict(fa_ops.path_launches)
+    fa_ops.flash_attention(q, k, k)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == total + 1
+    assert fa_ops.path_launches == {
+        p: n + (p == path) for p, n in before.items()}
+
+
 def test_flash_wrapper_rejects_on_the_card(card):
     q = torch.zeros(1, 8, 4, 64, device=card)
     k = torch.zeros(1, 8, 2, 64, device=card)
@@ -269,6 +301,10 @@ def test_flash_wrapper_rejects_on_the_card(card):
     k3 = torch.zeros(1, 8, 3, 64, device=card)
     with pytest.raises(ValueError, match="group"):
         fa_ops.flash_attention(q, k3, k3)
+    odd = torch.zeros(1 + q.numel(), device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fa_ops.flash_attention(odd[1:].view(q.shape), k.bfloat16(),
+                               k.bfloat16())
 
 
 @pytest.mark.parametrize("arch", ["LLAMA32_1B", "QWEN3_1P7B",
