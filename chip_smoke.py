@@ -5,20 +5,30 @@
 Drives the port's main paths through the hand-written CUDA kernels and
 fails (uncaught exception, non-zero exit) if any phase does.  The
 streaming engine (``StreamingEngine.seed -> run_increment -> values``,
-every chunk one launch of the cycle kernel):
+every chunk one launch of the cycle kernel: the cluster kernel, the grid
+in row bands over a thread-block cluster, wherever a band fits, as it
+does on every config here):
 
   1. device: the card's name and power limit; no CUDA device -> exit 1
   2. build: nvcc for sm_90a, all four kernels at once, with the ptxas
-     register/spill report of the cycle kernel
+     registers, spills and static shared memory of both cycle kernels;
+     fails if the cluster kernel spills
   3. cycle kernel vs plain PyTorch version on the card, every leaf and the
-     launch record exactly equal (tolerance 0): (a) the pinned 8x8 config
-     chunk by chunk to quiescence, (b) three mid-stream states of the
-     2000-vertex stream on the 32x32 paper config, one K=512 chunk each
+     launch record exactly equal (tolerance 0), each launch counted on the
+     kernel it took: (a) the pinned 8x8 config chunk by chunk to
+     quiescence, (b) three mid-stream states of the 2000-vertex stream on
+     the 32x32 paper config, one K=512 chunk each, on the cluster kernel
+     and again forced onto the one-block kernel
   4. fingerprints through the kernel: tests/data/pre_lanes_reference.json
      and src/repro_torch/data/fingerprint_32x32.json, exactly
   5. the paper's 50K-vertex / 1M-edge stream (10 edge-sampled increments)
-     on the paper config, BFS values exactly the oracle's
-  6. one full-size K=512 chunk: kernel, plain version, byte bound
+     on the paper config, BFS values exactly the oracle's: its 102
+     launches and 50,030 cycles, every launch on the cluster kernel; ns a
+     machine cycle and the wall
+  6. one full-size K=512 chunk through the cluster kernel and the
+     one-block kernel in turns (cluster, block, block, cluster), each
+     equal to the plain version: both times, the plain version's, the
+     byte bound and the cluster geometry
 
 The GNN and DLRM serving forwards (every aggregation a launch of the
 scatter-SpMM kernel, every DLRM lookup one launch of the EmbeddingBag
@@ -167,15 +177,54 @@ def leaf_diff(a, b) -> float:
     return worst
 
 
-def kernel_vs_plain(cfg, app, st, n_cycles=None):
-    """One chunk through the kernel and the plain version from the same
-    input; returns the max abs difference (0) or raises."""
-    sk, ck = ops.cca_cycle_chunk(cfg, app, clone(st), n_cycles)
+def kernel_vs_plain(cfg, app, st, n_cycles=None, paths=("auto",)):
+    """One chunk through the kernel (once for each of ``paths``) and the
+    plain version from the same input; returns the max abs difference (0)
+    or raises."""
+    runs = [ops.cca_cycle_chunk(cfg, app, clone(st), n_cycles, path=p)
+            for p in paths]
     sr, cr = cca_cycle_chunk_ref(cfg, app, st, n_cycles)
     torch.cuda.synchronize()
-    if not torch.equal(ck, cr):
-        raise AssertionError(f"launch record {ck.tolist()} != {cr.tolist()}")
-    return leaf_diff(sk, sr), sr, bool(cr[0])
+    worst = 0.0
+    for sk, ck in runs:
+        if not torch.equal(ck, cr):
+            raise AssertionError(f"launch record {ck.tolist()} != "
+                                 f"{cr.tolist()}")
+        worst = max(worst, leaf_diff(sk, sr))
+    return worst, sr, bool(cr[0])
+
+
+def on_path(before, path, n):
+    """Raise unless the cycle-kernel launches since ``before`` (a copy of
+    ``ops.path_launches``) were all on ``path``: ``n`` of them, or at
+    least one where ``n`` is None."""
+    got = {p: ops.path_launches[p] - before[p] for p in ops.PATHS}
+    ok = got[path] > 0 if n is None else got[path] == n
+    if not ok or sum(got.values()) != got[path]:
+        raise AssertionError(f"cycle-kernel launches {got}, not all on the "
+                             f"{path} kernel")
+
+
+def cycle_ptxas(report: str) -> dict:
+    """Phase 2: the registers, spills and static shared memory of both
+    cycle kernels, printed; raises if the cluster kernel spills."""
+    out = {}
+    for name, info in _build.ptxas_functions(report).items():
+        m = re.search(r"(cca_cycle_cluster_kernel|cca_cycle_kernel)", name)
+        if not m:
+            continue
+        kind = "cluster" if "cluster" in m[1] else "block"
+        out[kind] = info
+        print(f"[2] {kind} kernel: {info.get('registers')} registers, "
+              f"{info.get('spill_stores')} bytes spill stores, "
+              f"{info.get('spill_loads')} bytes spill loads, "
+              f"{info.get('stack')} bytes stack, static smem "
+              f"{info.get('smem', 0)} bytes", flush=True)
+    c = out.get("cluster", {})
+    if not c or c.get("spill_stores", 1) or c.get("spill_loads", 1):
+        raise AssertionError(f"cluster cycle kernel: spills or no report "
+                             f"({c})")
+    return out
 
 
 def fresh_stats(st):
@@ -1068,7 +1117,7 @@ def main() -> None:
     (lib, report) = builds[0]
     print(f"[build] {', '.join(b[0].name for b in builds)} in "
           f"{build_s:.1f}s (in parallel)")
-    print_ptxas(report)
+    cca_ptxas = cycle_ptxas(report)
 
     # ---- 3a. kernel vs plain, pinned 8x8, chunk by chunk ----
     t0 = time.time()
@@ -1077,6 +1126,7 @@ def main() -> None:
     eng = StreamingEngine(EngineConfig(**pinned["cfg"]), "bfs")
     eng.seed(0, 0.0)
     cfg, st, chunks, worst = eng.cfg, eng.state, 0, 0.0
+    before = dict(ops.path_launches)
     for e in make_stream(StreamSpec(**pinned["spec"])):
         st, spill = load_stream(cfg, st, e)
         assert len(spill) == 0
@@ -1084,8 +1134,11 @@ def main() -> None:
         while not q:
             d, st, q = kernel_vs_plain(cfg, BFS, st)
             worst, chunks = max(worst, d), chunks + 1
-    print(f"[3a] 8x8 pinned: kernel == plain on every leaf over {chunks} "
-          f"chunks (max |d| {worst}; {time.time() - t0:.1f}s)", flush=True)
+    on_path(before, "cluster", chunks)
+    print(f"[3a] 8x8 pinned, cluster kernel {ops.cluster_geometry(cfg)} "
+          f"(n_ctas, rows, bytes a CTA): kernel == plain on every leaf over "
+          f"{chunks} chunks (max |d| {worst}; {time.time() - t0:.1f}s)",
+          flush=True)
 
     # ---- 3b. kernel vs plain, 32x32 paper config, mid-stream states ----
     ci = dict(n_vertices=2000, n_edges=20_000)
@@ -1098,19 +1151,26 @@ def main() -> None:
         if i in (2, 5, 8):
             st, _ = load_stream(eng.cfg, clone(eng.state), e)
             t0 = time.time()
-            d, sr, q = kernel_vs_plain(eng.cfg, BFS, fresh_stats(st), 512)
+            before = dict(ops.path_launches)
+            d, sr, q = kernel_vs_plain(eng.cfg, BFS, fresh_stats(st), 512,
+                                       ("cluster", "block"))
+            if {p: ops.path_launches[p] - before[p] for p in ops.PATHS} \
+                    != {"cluster": 1, "block": 1}:
+                raise AssertionError("3b: not one launch on each kernel")
             worst = max(worst, d)
-            print(f"[3b] 32x32 ci increment {i}: one K=512 chunk, kernel == "
-                  f"plain on every leaf (cycle {int(sr.cycle)}, quiescent "
-                  f"{q}, {time.time() - t0:.1f}s)", flush=True)
+            print(f"[3b] 32x32 ci increment {i}: one K=512 chunk, the "
+                  f"cluster kernel and the one-block kernel == plain on "
+                  f"every leaf (cycle {int(sr.cycle)}, quiescent {q}, "
+                  f"{time.time() - t0:.1f}s)", flush=True)
         eng.run_increment(e, max_cycles=2_000_000)
     want = bfs_levels(ci["n_vertices"], np.concatenate(incs), 0)
     assert (eng.values() == want).all(), "32x32 ci BFS != oracle"
 
     # ---- 4. fingerprints through the kernel ----
     t0 = time.time()
+    before = dict(ops.path_launches)
     rows, vals = replay(pinned)
-    assert rows == pinned["backends"]["jnp"]["increments"], rows
+    assert rows == pinned["backends"]["jnp"]["increments"]
     assert (vals == np.float32(pinned["backends"]["jnp"]["values"])).all()
     print("[4] pinned 8x8 fingerprint reproduced exactly")
     fp = json.loads((ROOT / "src" / "repro_torch" / "data"
@@ -1120,9 +1180,11 @@ def main() -> None:
                                      "allocs")} for r in fp["increments"]]
     assert rows == want_rows, rows
     assert (vals == np.float32(fp["values"])).all()
+    on_path(before, "cluster", None)
     print(f"[4] 32x32 fingerprint reproduced exactly "
           f"({sum(r['cycles'] for r in rows)} cycles; both fingerprints "
-          f"{time.time() - t0:.1f}s)", flush=True)
+          f"{time.time() - t0:.1f}s, every launch on the cluster kernel)",
+          flush=True)
 
     # ---- 5. the paper's stream at full size, through the kernel ----
     t0 = time.time()
@@ -1131,6 +1193,7 @@ def main() -> None:
     print(f"[5] stream generated in {time.time() - t0:.1f}s: "
           f"{sum(len(e) for e in incs)} edges", flush=True)
     cfg_p = paper_cfg(**PAPER_FULL)
+    geometry = ops.cluster_geometry(cfg_p)
     eng = StreamingEngine(cfg_p, "bfs")
     eng.seed(0, 0.0)
     events = []
@@ -1149,6 +1212,7 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     ops.cca_cycle_chunk = timed_chunk
     ops.launches = 0
+    ops.path_launches = dict.fromkeys(ops.PATHS, 0)
     t0 = time.time()
     cycles = 0
     snapshot = None
@@ -1162,10 +1226,16 @@ def main() -> None:
               f"{r.allocs} allocs", flush=True)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = ops.launches
+    launches, by_path = ops.launches, dict(ops.path_launches)
     ops.cca_cycle_chunk = launch
     if launches == 0:
         raise AssertionError("the main path launched no cycle kernel")
+    if by_path != {"block": 0, "cluster": launches}:
+        raise AssertionError(f"main-path launches by kernel {by_path}: not "
+                             f"all on the cluster kernel")
+    if (launches, cycles) != (102, 50_030):
+        raise AssertionError(f"{launches} launches, {cycles} cycles: the "
+                             f"paper stream runs 50,030 cycles in 102")
     kern_ms = sum(a.elapsed_time(b) for a, b in events)
     peak = torch.cuda.max_memory_allocated()
     got = eng.values()
@@ -1175,50 +1245,70 @@ def main() -> None:
     cells = cfg_p.n_cells
     print(f"[5] 50K/1M paper stream: {cycles} cycles in {wall:.3f}s wall "
           f"(host clock, ends in synchronize) = "
-          f"{cycles * cells / wall:.4g} cell-cycles/s; {launches} launches, "
-          f"{kern_ms / launches:.4f} ms per launch by CUDA events "
-          f"({1e6 * kern_ms / cycles:.1f} ns per machine cycle); peak "
+          f"{cycles * cells / wall:.4g} cell-cycles/s; {launches} launches "
+          f"{by_path}, {kern_ms / launches:.4f} ms per launch by CUDA events "
+          f"({1e6 * kern_ms / cycles:.1f} ns per machine cycle; kernel "
+          f"{kern_ms / 1e3:.4f}s of the wall); peak "
           f"{peak / 2**20:.1f} MiB allocated; BFS == oracle", flush=True)
 
-    # ---- 6. one K=512 chunk at full size: kernel, plain, bound ----
+    # ---- 6. one K=512 chunk at full size: both kernels, plain, bound ----
     st, _ = load_stream(cfg_p, snapshot, incs[-1])
     st = fresh_stats(st)
     mutable = sum(t.numel() * t.element_size()
                   for k, t in st._asdict().items() if k != "io_edges")
 
-    def time_chunk(fn):
+    def time_chunk(fn, **kw):
         s = clone(st)
         torch.cuda.synchronize()
         a, b = (torch.cuda.Event(enable_timing=True),
                 torch.cuda.Event(enable_timing=True))
         a.record()
-        s2, qr = fn(cfg_p, BFS, s, 512)
+        s2, qr = fn(cfg_p, BFS, s, 512, **kw)
         b.record()
         torch.cuda.synchronize()
         return a.elapsed_time(b), s2, qr
 
     t_plain, s_plain, q_plain = time_chunk(cca_cycle_chunk_ref)
-    t_kern, s_kern, q_kern = time_chunk(launch)
+    times, d = {"cluster": [], "block": []}, 0.0
+    for path in ("cluster", "block", "block", "cluster"):
+        before = dict(ops.path_launches)
+        t, s_kern, q_kern = time_chunk(launch, path=path)
+        on_path(before, path, 1)
+        assert torch.equal(q_kern, q_plain)
+        d = max(d, leaf_diff(s_kern, s_plain))
+        times[path].append(t)
     ran = int(q_kern[1])
-    d = leaf_diff(s_kern, s_plain)
-    assert torch.equal(q_kern, q_plain)
+    t_kern, t_block = (float(np.mean(times[p])) for p in ("cluster",
+                                                          "block"))
     consumed = int((s_kern.io_pos - st.io_pos).sum()) * 3 * 4
     bound_ms = 1e3 * (2 * mutable + consumed) / H100_BYTES_PER_S
-    print(f"[6] full-size chunk ({ran} cycles): kernel {t_kern:.4f} ms, "
-          f"plain {t_plain:.1f} ms, bound {bound_ms:.4f} ms (2 x "
-          f"{mutable / 2**20:.1f} MiB mutable state over 3.35 TB/s); "
-          f"kernel == plain (max |d| {d})", flush=True)
+    print(f"[6] full-size chunk ({ran} cycles), in turns cluster, block, "
+          f"block, cluster: cluster kernel {geometry} (n_ctas, rows, bytes "
+          f"a CTA) {times['cluster'][0]:.4f} / {times['cluster'][1]:.4f} ms "
+          f"({1e6 * t_kern / ran:.1f} ns a cycle), one-block kernel "
+          f"{times['block'][0]:.4f} / {times['block'][1]:.4f} ms "
+          f"({1e6 * t_block / ran:.1f} ns a cycle; {t_block / t_kern:.2f}x "
+          f"the cluster kernel), plain {t_plain:.1f} ms, bound "
+          f"{bound_ms:.4f} ms (2 x {mutable / 2**20:.1f} MiB mutable state "
+          f"over 3.35 TB/s); both kernels == plain (max |d| {d})",
+          flush=True)
 
     cca_entry = {
         "name": "cca_cycle_chunk", "route": "cuda",
-        "source": "src/repro_torch/kernels/cca_cycle/csrc/cca_cycle.cu",
+        "source": "src/repro_torch/kernels/cca_cycle/csrc/"
+                  "cca_cycle_cluster.cuh",
+        "source_block": "src/repro_torch/kernels/cca_cycle/csrc/"
+                        "cca_cycle.cu",
         "replaces": "src/repro/kernels/cca_cycle/kernel.py:43",
         "replaces_wrapper": "repro/kernels/cca_cycle/ops.py::cca_cycle_chunk",
-        "launches": launches, "equal_to_plain": True,
+        "path": "cluster", "n_ctas": geometry[0], "rows_per_cta": geometry[1],
+        "smem_bytes_per_cta": geometry[2], "launches": launches,
+        "launches_by_path": by_path, "equal_to_plain": True,
         "max_abs_err": max(worst, d), "ms": t_kern,
-        "ms_per_launch": kern_ms / launches, "plain_ms": t_plain,
-        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
-        "chunk_cycles": ran, "card": smi}
+        "ms_per_launch": kern_ms / launches, "block_ms": t_block,
+        "plain_ms": t_plain, "bound_ms": bound_ms, "bound_by": "bytes",
+        "library_ms": None, "chunk_cycles": ran, "ptxas": cca_ptxas,
+        "card": smi}
     del eng, snapshot, st, s_kern, s_plain
     torch.cuda.empty_cache()
 

@@ -1,12 +1,12 @@
-// Fused cycle kernel of the AM-CCA machine: up to K engine cycles per launch.
+// Fused cycle kernels of the AM-CCA machine: up to K engine cycles per launch.
 //
-// Replaces the TPU kernel `repro/kernels/cca_cycle/kernel.py::cycle_megakernel`
+// Replace the TPU kernel `repro/kernels/cca_cycle/kernel.py::cycle_megakernel`
 // (launched by `repro/kernels/cca_cycle/ops.py::cca_cycle_chunk`), whose
 // semantics are `repro/kernels/cca_cycle/ref.py::frozen_cycles`: run K =
 // cfg.chunk cycles of `engine.cycle_body` (hop -> staging -> phase0 -> io),
 // freeze at quiescence, and report an int32 record [cycle, stat_hops,
 // stat_exec, stat_stall, stat_allocs, quiescent, cycles_run, 0].  Its plain
-// PyTorch version is `repro_torch/kernels/cca_cycle/ref.py`; running this
+// PyTorch version is `repro_torch/kernels/cca_cycle/ref.py`; running either
 // kernel equals it leaf for leaf and bit for bit.  Scope: lanes=1,
 // rhizome_cap=1 (the rhizome handlers are carried but unreachable there),
 // qbatch=1, no telemetry, no faults, apps bfs/sssp/cc.
@@ -15,33 +15,59 @@
 // 50K-vertex config, 7.8 MiB at 2000 vertices) is read and written once per
 // launch at best, ~54 us over 3.35 TB/s, while a launch runs up to 512
 // dependent machine cycles, each a chain of scattered single-word loads and
-// stores per cell with ~10 block barriers between its phases.  Latency of
-// that chain and the barriers bound it.
+// stores per cell with ~10 barriers between its phases.  Latency of that
+// chain and the barriers bound it.
 //
-// Why one block.  Every stage of the reference is a whole-grid array
-// operation that reads the state as it stood before the stage, so a cycle
-// needs a barrier between each read phase and its write phase.  One thread
-// block of up to 1024 threads -- one thread per cell, a thread striding over
-// cells on grids above 1024 cells -- gets that from __syncthreads() with no
-// grid-wide synchronisation; the state stays in device memory (in L2 at the
-// small configs).  The hop stage runs four direction rounds N, S, W, E, each
-// a read phase (phase A: every sender checks admissibility at its receiver
-// and copies its granted head into the outbox) and a write phase (phase B:
-// every receiver pushes its neighbour's outbox message, then pops its own
-// granted lane -- push before pop on one ring, as the reference does).
-// Staging, phase 0 and io touch only the thread's own cell (io only row-0
-// cell i for IO cell i), so they run back to back without barriers.
-// Quiescence is one __syncthreads_or per cycle over per-cell work flags;
-// the per-cell sum of fq_n and fwd_pending over the slots is kept
-// incrementally in `qwork` so the test does not rescan S slots per cycle.
+// Two kernels, one C entry (`cca_cycle_launch`), chosen by the wrapper:
+//
+//  * the cluster kernel (`cca_cycle_cluster.cuh`), for grids whose per-cell
+//    state fits: the grid cut into row bands over the CTAs of one
+//    thread-block cluster, each band's per-cell leaves (action queue,
+//    channels, active-action registers, counters) held in shared memory
+//    across the K cycles, neighbours' leaves read through distributed shared
+//    memory;
+//  * the one-block kernel (below), for any grid: one thread block of up to
+//    1024 threads, one thread per cell (striding over cells on grids above
+//    1024 cells), every leaf in device memory, every phase split by
+//    __syncthreads().
+//
+// Every stage of the reference is a whole-grid array operation that reads
+// the state as it stood before the stage, so a cycle needs a barrier between
+// each read phase and its write phase.  The hop stage runs four direction
+// rounds N, S, W, E, each a read phase (`hop_read`: every sender checks
+// admissibility at its receiver and copies its granted head into the
+// outbox) and a write phase (`hop_write`: every receiver pushes its
+// neighbour's outbox message, then pops its own granted lane -- push before
+// pop on one ring, as the reference does).  Staging, phase 0 and io touch
+// only the thread's own cell (io only row-0 cell i for IO cell i), so they
+// run back to back without barriers.  Quiescence is one OR over per-cell
+// work flags a cycle; the per-cell sum of fq_n and fwd_pending over the
+// slots is kept incrementally in `qwork` so the test does not rescan S slots
+// per cycle.
+//
+// The per-cell device functions are shared by both kernels and templated on
+// where the per-cell leaves live (`Cells<false>`: device memory, indexed by
+// cell; `Cells<true>`: this CTA's shared memory, indexed by cell within the
+// band, a neighbour band's cells through the cluster's shared memory
+// window).  The slot-indexed leaves (vals .. fwd_pending), the vicinity
+// table and the IO streams stay in device memory for both.
 //
 // Arithmetic is the reference's: floor division and modulo (fdiv/fmod),
 // float payloads moved only by bit-cast, min-relax as `inc < v ? inc : v`,
 // single IEEE adds (built with --fmad=false).  Bool leaves are torch.bool
 // (one byte, 0 or 1) and are updated in place as bytes.
+//
+// Built with -DCCA_PHASE_CLOCKS, thread 0 of each CTA sums clock64() stamps
+// over the phases of a launch (`cca_cycle_clocks` reads them back); with
+// -DCCA_SKELETON as well, the loop keeps its barriers and drops its phases
+// (`tools/cca_cycle_variants.py`).  Neither is defined in the wrapper's
+// build.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -52,12 +78,16 @@ enum { G_NULL = 0, G_PENDING = 1, G_SET = 2 };
 enum { APP_BFS = 0, APP_SSSP = 1, APP_CC = 2 };
 constexpr int MSGW = 5;
 constexpr float INF = 1e9f;
+constexpr int MAX_CTAS = 16;   // the largest (non-portable) cluster
 
-// Scalar geometry, in the order of ops.py::_dims.
+// Scalar geometry, in the order of ops.py::_dims.  n_ctas 0 takes the
+// one-block kernel; otherwise the cluster kernel with n_ctas CTAs, whose
+// shared memory a CTA the wrapper has reckoned as smem_bytes.
 struct Dims {
   int H, W, S, E, Q, FQ, LC, IO, IOL;
   int root_slots, primary_slots, rhizome_cap, rhizome_stride;
   int aq_reserve, sys_reserve, n_offs, app, n_cycles;
+  int n_ctas, smem_bytes;
 };
 constexpr int N_DIMS = sizeof(Dims) / sizeof(int);
 
@@ -82,6 +112,38 @@ struct Leaves {
   int* rec;          // [8] the launch record
 };
 constexpr int N_PTRS = sizeof(Leaves) / sizeof(void*);
+
+// Phase clocks (probe builds only): 0 the quiescence test, 1 + 2d the read
+// and 2 + 2d the write of hop direction d (N, S, W, E), 9 exec, 10 the
+// prologue (band load, qwork), 11 the epilogue (write-back, record).
+constexpr int N_PHASES = 12;
+#ifdef CCA_PHASE_CLOCKS
+__device__ long long cca_clocks[MAX_CTAS][N_PHASES];
+struct PhaseClock {
+  long long t, acc[N_PHASES];
+  __device__ void start() {
+    t = clock64();
+    for (int k = 0; k < N_PHASES; ++k) acc[k] = 0;
+  }
+  __device__ void stamp(int k) {
+    if (threadIdx.x == 0) {
+      long long now = clock64();
+      acc[k] += now - t;
+      t = now;
+    }
+  }
+  __device__ void flush(int rank) {
+    if (threadIdx.x == 0)
+      for (int k = 0; k < N_PHASES; ++k) cca_clocks[rank][k] = acc[k];
+  }
+};
+#else
+struct PhaseClock {
+  __device__ void start() {}
+  __device__ void stamp(int) {}
+  __device__ void flush(int) {}
+};
+#endif
 
 __device__ __forceinline__ int fdiv(int a, int b) {
   int q = a / b;
@@ -125,25 +187,93 @@ __device__ __forceinline__ void copy_msg(int* dst, const int* src) {
   for (int w = 0; w < MSGW; ++w) dst[w] = src[w];
 }
 
+// Where the per-cell leaves of a kernel live.  Each pointer holds one
+// entry per cell of the band [c0, c0 + nb), at local index l(c); the
+// one-block kernel's band is the whole grid in device memory (c0 = 0), the
+// cluster kernel's a row band in shared memory.  `outbox` and `grant` hold
+// one buffer per hop direction, `box_dir` / `grant_dir` entries apart (0:
+// one buffer shared by the four rounds).  `io_n` / `io_pos` are indexed by
+// IO cell.
+template <bool kCluster>
+struct Cells {
+  int *aq, *aq_n, *aq_head, *ch, *ch_n, *ch_head, *ch_rr, *pk_n, *cmsg;
+  bool* cvalid;
+  int *cphase, *cT;
+  float* cemit;
+  int *cout, *cdrain, *arot, *nfree, *io_n, *io_pos, *qwork, *outbox,
+      *grant;
+  int c0, nb, box_dir, grant_dir;
+  int rank, n_ctas;   // cluster kernel: this CTA's rank, the CTA count
+  int* qflag;         // cluster kernel: [MAX_CTAS] each CTA's busy flag
+
+  __device__ __forceinline__ int l(int c) const {
+    return kCluster ? c - c0 : c;
+  }
+  // Entry `off` of cell c's `width`-wide row of leaf p, c in any band.
+  template <class T>
+  __device__ __forceinline__ T* peer(T* p, int c, int width, int off) const {
+    if constexpr (!kCluster) return p + (size_t)c * width + off;
+    int r = c / nb;
+    T* at = p + (size_t)(c - r * nb) * width + off;
+    return r == rank ? at : cg::this_cluster().map_shared_rank(at, r);
+  }
+  __device__ __forceinline__ int* box(int d, int c) const {
+    return outbox + d * box_dir + l(c) * MSGW;
+  }
+  __device__ __forceinline__ int& granted(int d, int c) const {
+    return grant[d * grant_dir + l(c)];
+  }
+  // OR of `busy` over every thread of the kernel.  Also orders the
+  // previous cycle's writes before the next cycle's reads, across CTAs.
+  __device__ __forceinline__ bool any(int busy) const {
+    int b = __syncthreads_or(busy);
+    if constexpr (!kCluster) return b;
+    if ((int)threadIdx.x < n_ctas)
+      *cg::this_cluster().map_shared_rank(qflag + rank, threadIdx.x) = b;
+    cg::this_cluster().sync();
+    b = 0;
+    for (int r = 0; r < n_ctas; ++r) b |= qflag[r];
+    return b;
+  }
+  // The barrier after hop phase `k` (2d: read of direction d, 2d + 1: its
+  // write).  The one-block kernel: always its block.  The cluster kernel:
+  // N and S reach the neighbour band (N read, N write, S read end at a
+  // cluster barrier; S write at a CTA one, since the W round reads only its
+  // own band and no band reads a neighbour's leaves again before the next
+  // quiescence test); W and E stay inside the band; exec after the E write
+  // touches only the thread's own cell.
+  __device__ __forceinline__ void sync(int k) const {
+    if constexpr (!kCluster) {
+      __syncthreads();
+    } else if (k <= 2) {
+      cg::this_cluster().sync();
+    } else if (k < 7) {
+      __syncthreads();
+    }
+  }
+};
+
 // routing.deliver for one cell: the local action queue (tb == TB_AQ, gated
 // by aq_room) or lane 0 of channel tb (gated by lane capacity).
-__device__ bool deliver(const Dims& D, const Leaves& P, int c,
-                        const int* msg, int tb, bool aq_room) {
+template <class C>
+__device__ bool deliver(const Dims& D, const C& X, int c, const int* msg,
+                        int tb, bool aq_room) {
+  int l = X.l(c);
   if (tb == TB_AQ) {
     if (!aq_room) return false;
-    int n = P.aq_n[c];
-    int tail = fmod_(P.aq_head[c] + n, D.Q);
-    copy_msg(P.aq + ((size_t)c * D.Q + tail) * MSGW, msg);
-    P.aq_n[c] = n + 1;
+    int n = X.aq_n[l];
+    int tail = fmod_(X.aq_head[l] + n, D.Q);
+    copy_msg(X.aq + ((size_t)l * D.Q + tail) * MSGW, msg);
+    X.aq_n[l] = n + 1;
     return true;
   }
   if (tb < 0 || tb > 3) return false;
-  int k = c * 4 + tb;
-  int n = P.ch_n[k];
+  int k = l * 4 + tb;
+  int n = X.ch_n[k];
   if (n >= D.LC) return false;
-  int tail = fmod_(P.ch_head[k] + n, D.LC);
-  copy_msg(P.ch + ((size_t)k * D.LC + tail) * MSGW, msg);
-  P.ch_n[k] = n + 1;
+  int tail = fmod_(X.ch_head[k] + n, D.LC);
+  copy_msg(X.ch + ((size_t)k * D.LC + tail) * MSGW, msg);
+  X.ch_n[k] = n + 1;
   return true;
 }
 
@@ -151,45 +281,48 @@ __constant__ int kDy[4] = {-1, 1, 0, 0};  // N, S, W, E
 __constant__ int kDx[4] = {0, 0, -1, 1};
 
 // Hop phase A: cell c as the sender on link d.
-__device__ void hop_read(const Dims& D, const Leaves& P, int c, int d) {
+template <class C>
+__device__ void hop_read(const Dims& D, const C& X, int c, int d) {
   int row = c / D.W, col = c % D.W;
   int rr = row + kDy[d], rc = col + kDx[d];
-  int k = c * 4 + d;
+  int k = X.l(c) * 4 + d;
   bool granted = false;
-  if (rr >= 0 && rr < D.H && rc >= 0 && rc < D.W && P.ch_n[k] > 0) {
+  if (rr >= 0 && rr < D.H && rc >= 0 && rc < D.W && X.ch_n[k] > 0) {
     int recv = rr * D.W + rc;
     const int* head =
-        P.ch + ((size_t)k * D.LC + fmod_(P.ch_head[k], D.LC)) * MSGW;
+        X.ch + ((size_t)k * D.LC + fmod_(X.ch_head[k], D.LC)) * MSGW;
     int tb = yx_tb(D, fdiv(head[1], D.S), rr, rc);
-    bool adm = tb == TB_AQ ? ext_room(D, head[0], P.aq_n[recv])
-                           : P.ch_n[recv * 4 + tb] < D.LC;
+    bool adm = tb == TB_AQ ? ext_room(D, head[0], *X.peer(X.aq_n, recv, 1, 0))
+                           : *X.peer(X.ch_n, recv, 4, tb) < D.LC;
     if (adm) {
       granted = true;
-      copy_msg(P.outbox + (size_t)c * MSGW, head);
+      copy_msg(X.box(d, c), head);
     }
   }
-  P.grant[c] = granted;
+  X.granted(d, c) = granted;
 }
 
 // Hop phase B: cell c receives its link-d neighbour's granted head, then
 // pops its own granted head.  Returns the flits accepted here.
-__device__ int hop_write(const Dims& D, const Leaves& P, int c, int d) {
+template <class C>
+__device__ int hop_write(const Dims& D, const C& X, int c, int d) {
   int row = c / D.W, col = c % D.W;
   int sr = row - kDy[d], sc = col - kDx[d];
   int hops = 0;
   if (sr >= 0 && sr < D.H && sc >= 0 && sc < D.W) {
     int snd = sr * D.W + sc;
-    if (P.grant[snd]) {
-      const int* msg = P.outbox + (size_t)snd * MSGW;
+    if (*X.peer(X.grant + d * X.grant_dir, snd, 1, 0)) {
+      int msg[MSGW];
+      copy_msg(msg, X.peer(X.outbox + d * X.box_dir, snd, MSGW, 0));
       int tb = yx_tb(D, fdiv(msg[1], D.S), row, col);
-      hops = deliver(D, P, c, msg, tb, ext_room(D, msg[0], P.aq_n[c]));
+      hops = deliver(D, X, c, msg, tb, ext_room(D, msg[0], X.aq_n[X.l(c)]));
     }
   }
-  if (P.grant[c]) {
-    int k = c * 4 + d;
-    P.ch_n[k] -= 1;
-    P.ch_head[k] = fmod_(P.ch_head[k] + 1, D.LC);
-    P.ch_rr[k] = 0;  // (granted lane + 1) % lanes, lanes == 1
+  if (X.granted(d, c)) {
+    int k = X.l(c) * 4 + d;
+    X.ch_n[k] -= 1;
+    X.ch_head[k] = fmod_(X.ch_head[k] + 1, D.LC);
+    X.ch_rr[k] = 0;  // (granted lane + 1) % lanes, lanes == 1
   }
   return hops;
 }
@@ -198,16 +331,19 @@ struct Counts { int hops, exec, stall, allocs; };
 
 // exec_stage.staging_stage for cell c: the active action stages its next
 // emission.
-__device__ void staging(const Dims& D, const Leaves& P, int c, Counts& n) {
-  if (!P.cvalid[c]) return;
-  int cphase = P.cphase[c], cT = P.cT[c];
+template <class C>
+__device__ void staging(const Dims& D, const Leaves& P, const C& X, int c,
+                        Counts& n) {
+  int l = X.l(c);
+  if (!X.cvalid[l]) return;
+  int cphase = X.cphase[l], cT = X.cT[l];
   if (cphase < 1 || cphase > cT) return;
-  const int* cm = P.cmsg + (size_t)c * MSGW;
+  const int* cm = X.cmsg + (size_t)l * MSGW;
   int op = cm[0], dst = cm[1];
   int S = D.S, slot = fmod_(dst, S);
   size_t idx = (size_t)c * S + slot;
-  int k = cphase - 1, cdrain = P.cdrain[c];
-  float cemit = P.cemit[c];
+  int k = cphase - 1, cdrain = X.cdrain[l];
+  float cemit = X.cemit[l];
   bool is_app = op == OP_APP, is_sf = op == OP_SET_FUTURE,
        is_rf = op == OP_RHIZOME_FWD, is_appl = is_app || is_rf;
   int kd = k - cdrain;
@@ -254,7 +390,7 @@ __device__ void staging(const Dims& D, const Leaves& P, int c, Counts& n) {
       emis[0] = OP_APP; emis[1] = ga; emis[2] = f2i(P.fwd_val[idx]);
     }
   } else {
-    copy_msg(emis, P.cout + (size_t)c * MSGW);
+    copy_msg(emis, X.cout + (size_t)l * MSGW);
   }
 
   // an app forward onto a pending future coalesces into the monotone
@@ -264,37 +400,39 @@ __device__ void staging(const Dims& D, const Leaves& P, int c, Counts& n) {
   if (to_reg) {
     float fv = P.fwd_val[idx];
     P.fwd_val[idx] = cemit < fv ? cemit : fv;
-    if (!P.fwd_pending[idx]) { P.fwd_pending[idx] = true; P.qwork[c] += 1; }
+    if (!P.fwd_pending[idx]) { P.fwd_pending[idx] = true; X.qwork[l] += 1; }
     ok_total = true;
   } else {
     int tb = yx_tb(D, fdiv(emis[1], S), c / D.W, c % D.W);
-    ok_total = deliver(D, P, c, emis, tb, P.aq_n[c] < D.Q);
+    ok_total = deliver(D, X, c, emis, tb, X.aq_n[l] < D.Q);
   }
   if (ok_total && (sf_from_fq || rf_drain)) {
     P.fq_n[idx] = fqn - 1;
     P.fq_head[idx] = fmod_(fqh + 1, D.FQ);
-    P.qwork[c] -= 1;
+    X.qwork[l] -= 1;
   }
   if (ok_total && sf_from_fwd) {
     P.fwd_val[idx] = INF;
-    if (P.fwd_pending[idx]) { P.fwd_pending[idx] = false; P.qwork[c] -= 1; }
+    if (P.fwd_pending[idx]) { P.fwd_pending[idx] = false; X.qwork[l] -= 1; }
   }
   int new_phase = cphase + (ok_total ? 1 : 0);
-  P.cphase[c] = new_phase;
-  if (ok_total && new_phase > cT) { P.cvalid[c] = false; n.exec += 1; }
+  X.cphase[l] = new_phase;
+  if (ok_total && new_phase > cT) { X.cvalid[l] = false; n.exec += 1; }
   if (!ok_total) n.stall += 1;
 }
 
 // exec_stage.phase0_stage for cell c: an idle cell pops one action and runs
 // its computing instruction.
-__device__ void phase0(const Dims& D, const Leaves& P, int c, bool busy0,
-                       Counts& n) {
-  int aqn = P.aq_n[c];
+template <class C>
+__device__ void phase0(const Dims& D, const Leaves& P, const C& X, int c,
+                       bool busy0, Counts& n) {
+  int l = X.l(c);
+  int aqn = X.aq_n[l];
   if (busy0 || aqn <= 0) return;
   int S = D.S, NC = D.H * D.W, Q = D.Q;
-  int aqh = P.aq_head[c];
+  int aqh = X.aq_head[l];
   int m[MSGW];
-  copy_msg(m, P.aq + ((size_t)c * Q + fmod_(aqh, Q)) * MSGW);
+  copy_msg(m, X.aq + ((size_t)l * Q + fmod_(aqh, Q)) * MSGW);
   int op = m[0], dst = m[1], a0 = m[2], a1 = m[3];
   int slot = fmod_(dst, S);
   size_t idx = (size_t)c * S + slot;
@@ -319,8 +457,8 @@ __device__ void phase0(const Dims& D, const Leaves& P, int c, bool busy0,
 
   // a deferred insert with a full future queue rotates to the queue tail
   if ((p_defer || p_rlink || p_rdef) && fqn >= D.FQ) {
-    copy_msg(P.aq + ((size_t)c * Q + fmod_(aqh + aqn, Q)) * MSGW, m);
-    P.aq_head[c] = fmod_(aqh + 1, Q);
+    copy_msg(X.aq + ((size_t)l * Q + fmod_(aqh + aqn, Q)) * MSGW, m);
+    X.aq_head[l] = fmod_(aqh + 1, Q);
     n.stall += 1;
     return;
   }
@@ -347,14 +485,14 @@ __device__ void phase0(const Dims& D, const Leaves& P, int c, bool busy0,
     int* ent = P.fq + (idx * D.FQ + tq) * 3;
     ent[0] = OP_INSERT_EDGE; ent[1] = a0; ent[2] = a1;
     P.fq_n[idx] = fqn + 1;
-    P.qwork[c] += 1;
+    X.qwork[l] += 1;
     if (p_null) {
       P.gstate[idx] = G_PENDING;
-      int arot = P.arot[c];
+      int arot = X.arot[l];
       int kk = fmod_(arot, D.n_offs);
       int r = min(max(c / D.W + P.offs[2 * kk], 0), D.H - 1);
       int cc = min(max(c % D.W + P.offs[2 * kk + 1], 0), D.W - 1);
-      P.arot[c] = arot + 1;
+      X.arot[l] = arot + 1;
       T = 1;
       out[0] = OP_ALLOC; out[1] = (r * D.W + cc) * S; out[2] = dst;
       out[3] = f2i(vs);
@@ -373,7 +511,7 @@ __device__ void phase0(const Dims& D, const Leaves& P, int c, bool busy0,
     float inc = i2f(a0);
     bool changed = inc < vs;
     P.vals[idx] = changed ? inc : vs;
-    P.cemit[c] = changed ? inc : vs;
+    X.cemit[l] = changed ? inc : vs;
     int gl = gs != G_NULL ? 1 : 0;
     if (is_app) {
       int n_bcast = (slot < D.root_slots && rs == G_SET) ? D.rhizome_cap - 1
@@ -390,7 +528,7 @@ __device__ void phase0(const Dims& D, const Leaves& P, int c, bool busy0,
     out[0] = OP_RHIZOME_FWD; out[1] = a0; out[2] = f2i(vs);
     set_out = true;
   } else if (is_alc) {
-    int g = P.nfree[c];
+    int g = X.nfree[l];
     T = 1;
     if (g < S) {
       size_t gi = (size_t)c * S + g;
@@ -398,12 +536,12 @@ __device__ void phase0(const Dims& D, const Leaves& P, int c, bool busy0,
       P.nedges[gi] = 0;
       P.gaddr[gi] = -1;
       P.gstate[gi] = G_NULL;
-      P.qwork[c] -= P.fq_n[gi] + (P.fwd_pending[gi] ? 1 : 0);
+      X.qwork[l] -= P.fq_n[gi] + (P.fwd_pending[gi] ? 1 : 0);
       P.fq_n[gi] = 0;
       P.fq_head[gi] = 0;
       P.fwd_val[gi] = INF;
       P.fwd_pending[gi] = false;
-      P.nfree[c] = g + 1;
+      X.nfree[l] = g + 1;
       n.allocs += 1;
       out[0] = OP_SET_FUTURE; out[1] = a0; out[2] = c * S + g;
     } else {
@@ -417,20 +555,21 @@ __device__ void phase0(const Dims& D, const Leaves& P, int c, bool busy0,
     T = fqn + (fwdp ? 1 : 0);
   }
 
-  if (set_out) copy_msg(P.cout + (size_t)c * MSGW, out);
-  P.aq_n[c] = aqn - 1;
-  P.aq_head[c] = fmod_(aqh + 1, Q);
-  if (T > 0) P.cvalid[c] = true; else n.exec += 1;
-  copy_msg(P.cmsg + (size_t)c * MSGW, m);
-  P.cphase[c] = 1;
-  P.cT[c] = T;
-  P.cdrain[c] = is_rf ? drain_n : 0;
+  if (set_out) copy_msg(X.cout + (size_t)l * MSGW, out);
+  X.aq_n[l] = aqn - 1;
+  X.aq_head[l] = fmod_(aqh + 1, Q);
+  if (T > 0) X.cvalid[l] = true; else n.exec += 1;
+  copy_msg(X.cmsg + (size_t)l * MSGW, m);
+  X.cphase[l] = 1;
+  X.cT[l] = T;
+  X.cdrain[l] = is_rf ? drain_n : 0;
 }
 
 // ingest.io_stage for IO cell i (attached to row-0 cell i).
-__device__ void io(const Dims& D, const Leaves& P, int i) {
-  int pos = P.io_pos[i];
-  if (pos >= P.io_n[i]) return;
+template <class C>
+__device__ void io(const Dims& D, const Leaves& P, const C& X, int i) {
+  int pos = X.io_pos[i];
+  if (pos >= X.io_n[i]) return;
   const int* e = P.io_edges + ((size_t)i * D.IOL + min(pos, D.IOL - 1)) * 3;
   int NC = D.H * D.W;
   int msg[MSGW];
@@ -440,53 +579,110 @@ __device__ void io(const Dims& D, const Leaves& P, int i) {
   msg[3] = e[2];
   msg[4] = 0;
   int tb = yx_tb(D, fdiv(msg[1], D.S), 0, i);
-  if (deliver(D, P, i, msg, tb,
-              P.aq_n[i] < D.Q - D.aq_reserve - D.sys_reserve))
-    P.io_pos[i] = pos + 1;
+  if (deliver(D, X, i, msg, tb,
+              X.aq_n[X.l(i)] < D.Q - D.aq_reserve - D.sys_reserve))
+    X.io_pos[i] = pos + 1;
 }
 
 // engine.quiescent, per cell: any queued, in-flight, active, deferred or
 // streamed work left at cell c.
-__device__ __forceinline__ bool cell_busy(const Dims& D, const Leaves& P,
-                                          int c) {
-  const int* chn = P.ch_n + c * 4;
-  return P.aq_n[c] != 0 || P.pk_n[c] != 0 || chn[0] != 0 || chn[1] != 0 ||
-         chn[2] != 0 || chn[3] != 0 || P.cvalid[c] || P.qwork[c] != 0 ||
-         (c < D.IO && P.io_n[c] != P.io_pos[c]);
+template <class C>
+__device__ __forceinline__ bool cell_busy(const Dims& D, const C& X, int c) {
+  int l = X.l(c);
+  const int* chn = X.ch_n + l * 4;
+  return X.aq_n[l] != 0 || X.pk_n[l] != 0 || chn[0] != 0 || chn[1] != 0 ||
+         chn[2] != 0 || chn[3] != 0 || X.cvalid[l] || X.qwork[l] != 0 ||
+         (c < D.IO && X.io_n[c] != X.io_pos[c]);
+}
+
+// Sum over cell c's slots of fq_n + fwd_pending: the deferred work that
+// quiescence waits for, kept per cell in qwork over the launch.
+template <class C>
+__device__ void init_qwork(const Dims& D, const Leaves& P, const C& X,
+                           int c) {
+  int w = 0;
+  for (int s = 0; s < D.S; ++s) {
+    size_t idx = (size_t)c * D.S + s;
+    w += P.fq_n[idx] + (P.fwd_pending[idx] ? 1 : 0);
+  }
+  X.qwork[X.l(c)] = w;
+}
+
+// Up to D.n_cycles machine cycles over the band of X, frozen at quiescence;
+// the schedule of both kernels.  Returns the cycles run; `quiet` is the
+// quiescence test's last value.
+template <bool kCluster>
+__device__ int run_cycles(const Dims& D, const Leaves& P,
+                          const Cells<kCluster>& X, Counts& n, int& quiet,
+                          PhaseClock& clk) {
+  const int first = X.c0 + threadIdx.x, end = X.c0 + X.nb,
+            nt = blockDim.x;
+  int ran = 0;
+  for (;;) {
+    int busy = 0;
+#ifdef CCA_SKELETON
+    busy = 1;
+#else
+    for (int c = first; c < end; c += nt) busy |= cell_busy(D, X, c);
+#endif
+    quiet = !X.any(busy);
+    clk.stamp(0);
+    if (quiet || ran == D.n_cycles) break;
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+#ifndef CCA_SKELETON
+      for (int c = first; c < end; c += nt) hop_read(D, X, c, d);
+#endif
+      X.sync(2 * d);
+      clk.stamp(1 + 2 * d);
+#ifndef CCA_SKELETON
+      for (int c = first; c < end; c += nt) n.hops += hop_write(D, X, c, d);
+#endif
+      X.sync(2 * d + 1);
+      clk.stamp(2 + 2 * d);
+    }
+#ifndef CCA_SKELETON
+    for (int c = first; c < end; c += nt) {
+      bool busy0 = X.cvalid[X.l(c)];
+      staging(D, P, X, c, n);
+      phase0(D, P, X, c, busy0, n);
+      if (c < D.IO) io(D, P, X, c);
+    }
+#endif
+    clk.stamp(9);
+    ++ran;
+  }
+  return ran;
+}
+
+// The one-block kernel's view of the per-cell leaves: the whole grid in
+// device memory, one outbox and grant buffer for the four rounds.  Built on
+// the host and passed as a kernel parameter, as the leaves are, so its
+// pointers are read from parameter space and held in no register.
+Cells<false> device_cells(const Dims& D, const Leaves& P) {
+  Cells<false> X;
+  X.aq = P.aq; X.aq_n = P.aq_n; X.aq_head = P.aq_head;
+  X.ch = P.ch; X.ch_n = P.ch_n; X.ch_head = P.ch_head; X.ch_rr = P.ch_rr;
+  X.pk_n = P.pk_n; X.cmsg = P.cmsg; X.cvalid = P.cvalid;
+  X.cphase = P.cphase; X.cT = P.cT; X.cemit = P.cemit; X.cout = P.cout;
+  X.cdrain = P.cdrain; X.arot = P.arot; X.nfree = P.nfree;
+  X.io_n = P.io_n; X.io_pos = P.io_pos; X.qwork = P.qwork;
+  X.outbox = P.outbox; X.grant = P.grant;
+  X.c0 = 0; X.nb = D.H * D.W; X.box_dir = 0; X.grant_dir = 0;
+  X.rank = 0; X.n_ctas = 1; X.qflag = nullptr;
+  return X;
 }
 
 __global__ void __launch_bounds__(1024, 1)
-cca_cycle_kernel(const Dims D, const Leaves P) {
+cca_cycle_kernel(const Dims D, const Leaves P, const Cells<false> X) {
+  PhaseClock clk;
+  clk.start();
   const int NC = D.H * D.W, tid = threadIdx.x, nt = blockDim.x;
-  for (int c = tid; c < NC; c += nt) {
-    int w = 0;
-    for (int s = 0; s < D.S; ++s) {
-      size_t idx = (size_t)c * D.S + s;
-      w += P.fq_n[idx] + (P.fwd_pending[idx] ? 1 : 0);
-    }
-    P.qwork[c] = w;
-  }
+  for (int c = tid; c < NC; c += nt) init_qwork(D, P, X, c);
+  clk.stamp(10);
   Counts n = {0, 0, 0, 0};
-  int ran = 0, quiet;
-  for (;;) {
-    int busy = 0;
-    for (int c = tid; c < NC; c += nt) busy |= cell_busy(D, P, c);
-    quiet = !__syncthreads_or(busy);   // also orders the previous cycle
-    if (quiet || ran == D.n_cycles) break;
-    for (int d = 0; d < 4; ++d) {
-      for (int c = tid; c < NC; c += nt) hop_read(D, P, c, d);
-      __syncthreads();
-      for (int c = tid; c < NC; c += nt) n.hops += hop_write(D, P, c, d);
-      __syncthreads();
-    }
-    for (int c = tid; c < NC; c += nt) {
-      bool busy0 = P.cvalid[c];
-      staging(D, P, c, n);
-      phase0(D, P, c, busy0, n);
-      if (c < D.IO) io(D, P, c);
-    }
-    ++ran;
-  }
+  int quiet;
+  int ran = run_cycles(D, P, X, n, quiet, clk);
   __shared__ int sum[4];
   if (tid < 4) sum[tid] = 0;
   __syncthreads();
@@ -510,28 +706,63 @@ cca_cycle_kernel(const Dims D, const Leaves P) {
     P.rec[6] = ran;
     P.rec[7] = 0;
   }
+  clk.stamp(11);
+  clk.flush(0);
 }
 
 }  // namespace
 
+#include "cca_cycle_cluster.cuh"
+
 // Launch one chunk on `stream`.  `ptrs` holds N_PTRS device pointers in the
-// order of Leaves, `dims` N_DIMS ints in the order of Dims.  Returns the
-// launch's error code (cudaSuccess when the kernel was queued).
-extern "C" cudaError_t cca_cycle_launch(void* const* ptrs, int n_ptrs,
-                                        const int* dims, int n_dims,
-                                        void* stream) {
+// order of Leaves, `dims` N_DIMS ints in the order of Dims.  Writes the
+// kernel launched to `*path` (0 the one-block kernel, 1 the cluster
+// kernel).  Returns 0 when the kernel was queued, a CUDA error code, or a
+// negative code of this file (`cca_cycle_error_string`).
+extern "C" int cca_cycle_launch(void* const* ptrs, int n_ptrs,
+                                const int* dims, int n_dims, void* stream,
+                                int* path) {
   if (n_ptrs != N_PTRS || n_dims != N_DIMS) return cudaErrorInvalidValue;
   Dims D;
   Leaves P;
   memcpy(&D, dims, sizeof(D));
   memcpy(&P, ptrs, sizeof(P));
+  if (D.n_ctas > 0) {
+    int err = cluster_launch(D, P, (cudaStream_t)stream);
+    if (err) return err;
+    *path = 1;
+    return 0;
+  }
   int cells = D.H * D.W;
   int threads = cells < 1024 ? cells : 1024;
-  cca_cycle_kernel<<<1, threads, 0, (cudaStream_t)stream>>>(D, P);
-  return cudaGetLastError();
+  cca_cycle_kernel<<<1, threads, 0, (cudaStream_t)stream>>>(
+      D, P, device_cells(D, P));
+  int err = cudaGetLastError();
+  if (!err) *path = 0;
+  return err;
 }
 
-// Text of a launch error code, for the wrapper's exception.
+// Shared memory a CTA of the cluster kernel takes for `dims`' geometry, in
+// bytes (the layout of `cluster_layout`), or a negative code if the
+// geometry is not one the cluster kernel runs.
+extern "C" int cca_cycle_cluster_smem(const int* dims, int n_dims) {
+  if (n_dims != N_DIMS) return ERR_GEOMETRY;
+  Dims D;
+  memcpy(&D, dims, sizeof(D));
+  if (!cluster_geometry_ok(D)) return ERR_GEOMETRY;
+  return cluster_layout(D).bytes;
+}
+
+// Text of a code returned by cca_cycle_launch, for the wrapper's exception.
 extern "C" const char* cca_cycle_error_string(int err) {
+  if (err < 0) return cluster_error_string(err);
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+#ifdef CCA_PHASE_CLOCKS
+// Copy the last launch's phase clocks, [MAX_CTAS][N_PHASES] int64, to
+// `out` on the host (synchronising).  Returns a CUDA error code.
+extern "C" int cca_cycle_clocks(long long* out) {
+  return cudaMemcpyFromSymbol(out, cca_clocks, sizeof(cca_clocks));
+}
+#endif

@@ -1,22 +1,36 @@
-"""Host wrapper of the CUDA cycle kernel (``csrc/cca_cycle.cu``).
+"""Host wrapper of the CUDA cycle kernels (``csrc/cca_cycle.cu``).
 
 ``cca_cycle_chunk`` runs up to ``n_cycles`` (default ``cfg.chunk``)
 engine cycles with freeze-at-quiescence and returns ``(state, int32
 [quiescent, cycles_run])``, the contract of the JAX package's
-``cca_cycle_chunk``.  For a state on the card it launches the kernel,
-which updates every leaf **in place** (the returned state is the same
-object); for a state on the CPU it runs the plain version
-(``ref.cca_cycle_chunk_ref``), which returns a new state.  Any other device is
-refused.
+``cca_cycle_chunk``.  For a state on the card it launches a kernel, which
+updates every leaf **in place** (the returned state is the same object);
+for a state on the CPU it runs the plain version
+(``ref.cca_cycle_chunk_ref``), which returns a new state.  Any other device
+is refused.
 
-The kernel is built with ``nvcc`` for ``sm_90a`` at first use, into
-``build/<hash of source and flags>/`` beside this file, and loaded with
+Two kernels compute the same chunk (``path``):
+
+  cluster  the grid in row bands over the CTAs of one thread-block
+           cluster, each band's per-cell leaves in shared memory
+           (``csrc/cca_cycle_cluster.cuh``), where ``cluster_geometry``
+           finds a band that fits;
+  block    one thread block, every leaf in device memory, for any grid.
+
+``path="auto"`` takes the cluster kernel wherever ``cluster_geometry``
+returns one and the one-block kernel only where it returns ``None``;
+``"cluster"`` or ``"block"`` forces one (``"cluster"`` raises where no band
+fits).  Nothing falls back: a refused launch raises.
+
+The kernels are built with ``nvcc`` for ``sm_90a`` at first use, into
+``build/<hash of sources and flags>/`` beside this file, and loaded with
 ``ctypes`` (``kernels/_build.py``).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import pathlib
 
 import torch
@@ -32,7 +46,10 @@ HERE = pathlib.Path(__file__).resolve().parent
 SOURCE = HERE / "csrc" / "cca_cycle.cu"
 NVCC_FLAGS = _build.SM90A_FLAGS + ("--fmad=false",)   # bit-exact f32 sums
 
-launches = 0   # kernel launches made by cca_cycle_chunk
+PATHS = ("block", "cluster")   # the C entry's path codes 0, 1
+
+launches = 0   # kernel launches made by cca_cycle_chunk, both paths
+path_launches = dict.fromkeys(PATHS, 0)   # the same launches by kernel
 
 # state leaves handed to the kernel, in the order of `struct Leaves`
 KERNEL_LEAVES = (
@@ -43,24 +60,39 @@ KERNEL_LEAVES = (
     "io_edges", "io_n", "io_pos", "arot",
     "cycle", "stat_hops", "stat_exec", "stat_stall", "stat_allocs")
 
+# the per-cell leaves the cluster kernel holds in shared memory, a band of
+# rows of each ([H, W, ...] leaves; `cluster_layout` in the .cuh)
+CLUSTER_LEAVES = ("aq", "aq_n", "aq_head", "ch", "ch_n", "ch_head", "ch_rr",
+                  "pk_n", "cmsg", "cvalid", "cphase", "cT", "cemit", "cout",
+                  "cdrain", "arot", "nfree")
+MAX_CTAS = 16             # the largest (non-portable) cluster on sm_90
+SMEM_LIMIT = 232_448      # opt-in shared memory of one CTA on sm_90
+
 
 def build() -> tuple[pathlib.Path, str]:
-    """Compile the kernel library if this source and these flags have
-    not been built yet.  Returns ``(library path, nvcc's -Xptxas -v
+    """Compile the kernel library if these sources and flags have not
+    been built yet.  Returns ``(library path, nvcc's -Xptxas -v
     report)``."""
     return _build.build(SOURCE, NVCC_FLAGS)
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()[0]))
-    lib.cca_cycle_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                     ctypes.c_void_p, ctypes.c_int,
-                                     ctypes.c_void_p]
+def load(path: pathlib.Path) -> ctypes.CDLL:
+    """The kernel library at ``path`` with its C entry points typed."""
+    lib = ctypes.CDLL(str(path))
+    lib.cca_cycle_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
     lib.cca_cycle_launch.restype = ctypes.c_int
+    lib.cca_cycle_cluster_smem.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.cca_cycle_cluster_smem.restype = ctypes.c_int
     lib.cca_cycle_error_string.argtypes = [ctypes.c_int]
     lib.cca_cycle_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    return load(build()[0])
 
 
 @functools.cache
@@ -70,18 +102,59 @@ def _layout(cfg: EngineConfig) -> dict:
             init_state(cfg, device="meta")._asdict().items()}
 
 
+def cluster_cell_bytes(cfg: EngineConfig) -> int:
+    """Shared memory one cell takes in the cluster kernel: its row of each
+    ``CLUSTER_LEAVES`` leaf, from the state's layout, and its scratch
+    (``qwork``, and ``outbox`` and ``grant`` for each of the 4 hop
+    directions)."""
+    lay = _layout(cfg)
+    leaves = sum(math.prod(lay[k][0][2:]) * lay[k][1].itemsize
+                 for k in CLUSTER_LEAVES)
+    return leaves + 4 * (1 + 4 * cfg.msg_words + 4)
+
+
+def cluster_geometry(cfg: EngineConfig, n_ctas: int | None = None
+                     ) -> tuple[int, int, int] | None:
+    """``(n_ctas, rows a band, shared-memory bytes a CTA)`` of the cluster
+    kernel for ``cfg``, or ``None`` where no band fits.
+
+    A geometry is ``n`` CTAs of ``H / n`` rows each: ``n`` divides the
+    height and is at most 16, and a CTA's bytes fit the 232,448 a CTA may
+    opt into: its band's cells (``cluster_cell_bytes`` each), the IO
+    cursors (``io_n``, ``io_pos``) and the cluster's words (a busy flag
+    and 4 counters for each of up to 16 CTAs).  Given ``n_ctas``, that
+    geometry or ``None``; else the largest ``n`` that fits: the most SMs,
+    the least shared memory each.  (On the H100, 8 CTAs of 4 rows and 16
+    of 2 ran the fingerprint config's chunk within 1% of each other, and
+    on the pinned 8x8 config 1 CTA was the slowest: nothing measured
+    favours fewer CTAs; PERF.md section 6.)
+    """
+    H = cfg.height
+    cands = [n_ctas] if n_ctas is not None else range(MAX_CTAS, 0, -1)
+    for n in cands:
+        if 1 <= n <= MAX_CTAS and H % n == 0:
+            nbytes = (H // n * cfg.width * cluster_cell_bytes(cfg)
+                      + 2 * 4 * cfg.io_cells + 4 * 5 * MAX_CTAS)
+            if nbytes <= SMEM_LIMIT:
+                return n, H // n, nbytes
+    return None
+
+
 def _dims(cfg: EngineConfig, app: DiffusionApp, n_offs: int,
-          n_cycles: int) -> list[int]:
-    """Scalar geometry, in the order of `struct Dims`."""
+          n_cycles: int, geometry: tuple[int, int, int] | None
+          ) -> list[int]:
+    """Scalar geometry, in the order of `struct Dims` (``n_ctas`` and the
+    bytes a CTA 0 for the one-block kernel)."""
+    n_ctas, _, nbytes = geometry or (0, 0, 0)
     return [cfg.height, cfg.width, cfg.slots, cfg.edge_cap, cfg.queue_cap,
             cfg.futq_cap, cfg.lane_capacity, cfg.io_cells, cfg.io_stream_cap,
             cfg.root_slots, cfg.primary_slots, cfg.rhizome_cap,
             cfg.rhizome_stride, cfg.aq_reserve, cfg.sys_reserve, n_offs,
-            app.code, n_cycles]
+            app.code, n_cycles, n_ctas, nbytes]
 
 
 def _launch_args(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
-                 n_cycles: int):
+                 n_cycles: int, geometry=None):
     """The kernel's tensors, in the order of `struct Leaves` (the state
     leaves, the vicinity table, the per-cell scratch, the record last),
     and its `struct Dims`."""
@@ -91,11 +164,12 @@ def _launch_args(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
     def scratch(n):
         return torch.empty(n, dtype=torch.int32, device=dev)
 
-    cells = cfg.n_cells
+    # the cluster kernel keeps its scratch in shared memory
+    cells = 1 if geometry else cfg.n_cells
     tensors = [getattr(st, k) for k in KERNEL_LEAVES] + [
         offs, scratch(cells * cfg.msg_words), scratch(cells), scratch(cells),
         scratch(8)]
-    return tensors, _dims(cfg, app, len(offs), n_cycles)
+    return tensors, _dims(cfg, app, len(offs), n_cycles, geometry)
 
 
 def _check(cfg: EngineConfig, st: MachineState) -> torch.device:
@@ -111,35 +185,66 @@ def _check(cfg: EngineConfig, st: MachineState) -> torch.device:
     return dev
 
 
+def route(cfg: EngineConfig, path: str = "auto",
+          n_ctas: int | None = None) -> tuple[int, int, int] | None:
+    """The cluster geometry a launch takes, or ``None`` for the one-block
+    kernel.  ``n_ctas`` forces the cluster's size (and the cluster path).
+    Raises on an unknown ``path`` and where a forced cluster does not
+    fit."""
+    if path not in ("auto",) + PATHS:
+        raise ValueError(f"path must be 'auto', 'cluster' or 'block', not "
+                         f"{path!r}")
+    if path == "block":
+        if n_ctas is not None:
+            raise ValueError("n_ctas sizes the cluster; path='block' has "
+                             "none")
+        return None
+    geometry = cluster_geometry(cfg, n_ctas)
+    if geometry is None and (path == "cluster" or n_ctas is not None):
+        raise ValueError(
+            f"no cluster band fits a {cfg.height}x{cfg.width} grid"
+            + (f" in {n_ctas} CTAs" if n_ctas is not None else "")
+            + f": a cell takes {cluster_cell_bytes(cfg)} bytes of shared "
+            f"memory, a CTA at most {SMEM_LIMIT}, at most {MAX_CTAS} CTAs "
+            f"dividing the height")
+    return geometry
+
+
 def cca_cycle_chunk(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
-                    n_cycles: int | None = None):
+                    n_cycles: int | None = None, path: str = "auto",
+                    n_ctas: int | None = None):
     """Run up to ``n_cycles`` engine cycles, frozen at quiescence.
 
     Returns ``(state, counters)`` with ``counters`` int32 ``[quiescent at
-    end, cycles run]`` on the state's device.  Each kernel launch adds
-    one to the module's ``launches``.
+    end, cycles run]`` on the state's device.  ``path`` and ``n_ctas``
+    choose the kernel (``route``); they are checked on the CPU too, where
+    the plain version runs.  Each kernel launch adds one to the module's
+    ``launches`` and to its kernel's entry of ``path_launches``.
     """
     global launches
     cfg.validate()
     n_cycles = cfg.chunk if n_cycles is None else int(n_cycles)
     if n_cycles < 0:
         raise ValueError(f"n_cycles must be >= 0, got {n_cycles}")
+    geometry = route(cfg, path, n_ctas)
     dev = _check(cfg, st)
     if dev.type == "cpu":
         return cca_cycle_chunk_ref(cfg, app, st, n_cycles)
     if dev.type != "cuda":
         raise ValueError(f"cca_cycle_chunk runs on cuda or cpu, not {dev}")
     lib = _library()
-    tensors, dims = _launch_args(cfg, app, st, n_cycles)
+    tensors, dims = _launch_args(cfg, app, st, n_cycles, geometry)
     rec = tensors[-1]
     ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
     dims_c = (ctypes.c_int * len(dims))(*dims)
+    kernel = ctypes.c_int(-1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.cca_cycle_launch(ptrs, len(tensors), dims_c, len(dims),
-                                   stream)
+                                   stream, ctypes.byref(kernel))
     if err:
         raise RuntimeError("cca_cycle kernel launch failed: "
                            + lib.cca_cycle_error_string(err).decode())
     launches += 1
+    path_launches[PATHS[kernel.value]] += 1
     return st, rec[5:7]

@@ -4,8 +4,9 @@ PyTorch versions.
 A CUDA kernel has no CPU mode, so these tests carry the ``gpu`` marker
 and skip (from a fixture) where there is no card; ``chip_smoke.py`` runs
 the same comparisons on the card at the main path's shapes.  Tolerances:
-the cycle kernel is exact (every state leaf and the launch record equal
-the plain version's); the scatter-SpMM 1e-4 and the EmbeddingBag 1e-5,
+the cycle kernels are exact (every state leaf and the launch record equal
+the plain version's, on the cluster kernel and on the one-block kernel);
+the scatter-SpMM 1e-4 and the EmbeddingBag 1e-5,
 relative to max(1, max |ref|), as their f32 sums run in another order;
 the flash-attention kernels entry by entry (``flash_close``), 2e-5 x
 (|ref| + 1) in f32 (the CUDA-core kernel: its sums and exponentials run in
@@ -17,6 +18,7 @@ largest).  The flash shapes cover the tensor-core kernel's 128-row tiles
 G = 4; ``test_flash_wrapper_records_the_path`` checks which kernel each
 dtype takes.
 """
+import ctypes
 import dataclasses
 import json
 import pathlib
@@ -28,6 +30,9 @@ import torch
 from repro_torch.configs import gnn_archs, lm_archs, recsys_archs
 from repro_torch.configs.base import shape
 from repro_torch.core import EngineConfig, StreamingEngine
+from repro_torch.core.apps import BFS
+from repro_torch.core.engine import LivelockError
+from repro_torch.core.state import init_state
 from repro_torch.core.ingest import load_stream
 from repro_torch.data.graphs import build_graph
 from repro_torch.data.pipeline import RecSysBatchSpec, recsys_batch
@@ -89,21 +94,179 @@ def assert_same(a, b, ctx):
         assert torch.equal(x, y), f"{ctx}: leaf {k!r}"
 
 
-def test_kernel_matches_plain_chunk_by_chunk(card):
+@pytest.mark.parametrize("path", ["block", "cluster"])
+def test_kernel_matches_plain_chunk_by_chunk(card, path):
     eng = StreamingEngine(EngineConfig(**PINNED["cfg"]), "bfs", device=card)
     eng.seed(0, 0.0)
     cfg, st = eng.cfg, eng.state
-    before = ops.launches
+    before, by_path = ops.launches, dict(ops.path_launches)
     for i, e in enumerate(make_stream(StreamSpec(**PINNED["spec"]))):
         st, _ = load_stream(cfg, st, e)
         for c in range(50):
-            sk, ck = ops.cca_cycle_chunk(cfg, eng.app, clone(st), 16)
+            sk, ck = ops.cca_cycle_chunk(cfg, eng.app, clone(st), 16,
+                                         path=path)
             st, cr = cca_cycle_chunk_ref(cfg, eng.app, st, 16)
             assert torch.equal(ck, cr), (i, c)
             assert_same(sk, st, f"increment {i}, chunk {c}")
             if int(cr[0]):
                 break
-    assert ops.launches > before
+    n = ops.launches - before
+    assert n > 0
+    assert ops.path_launches == {p: k + n * (p == path)
+                                 for p, k in by_path.items()}
+
+
+def paper_cfg(n_vertices, n_edges):
+    """``benchmarks/paper_experiments.py::_engine``'s config formula."""
+    ghosts = max(64, 2 * n_edges // (8 * 1024), 3 * n_vertices // 1024)
+    return EngineConfig(height=32, width=32, n_vertices=n_vertices,
+                        edge_cap=8, ghost_slots=ghosts, queue_cap=64,
+                        chan_cap=16, futq_cap=16, io_stream_cap=2 ** 21,
+                        chunk=512)
+
+
+@pytest.fixture(scope="module")
+def ci_states():
+    """The 2000-vertex stream on the 32x32 paper config: the states with
+    increments 2, 5 and 8 loaded (as chip_smoke.py's phase 3b)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    ci = dict(n_vertices=2000, n_edges=20_000)
+    cfg = paper_cfg(**ci)
+    eng = StreamingEngine(cfg, "bfs", device="cuda")
+    eng.seed(0, 0.0)
+    out = {}
+    for i, e in enumerate(make_stream(StreamSpec(increments=10,
+                                                 sampling="edge", seed=1,
+                                                 **ci))[:9]):
+        if i in (2, 5, 8):
+            st, _ = load_stream(cfg, clone(eng.state), e)
+            out[i] = st._replace(**{k: torch.zeros_like(getattr(st, k))
+                                    for k in ("stat_hops", "stat_exec",
+                                              "stat_stall", "stat_allocs")})
+        eng.run_increment(e, max_cycles=2_000_000)
+    return cfg, out
+
+
+@pytest.mark.parametrize("at", [2, 5, 8])
+def test_cluster_kernel_matches_plain_mid_stream(card, ci_states, at):
+    cfg, states = ci_states
+    assert ops.cluster_geometry(cfg)[:2] == (16, 2)
+    st = states[at]
+    before = ops.path_launches["cluster"]
+    sk, ck = ops.cca_cycle_chunk(cfg, BFS, clone(st), 512)
+    sr, cr = cca_cycle_chunk_ref(cfg, BFS, st, 512)
+    assert ops.path_launches["cluster"] == before + 1
+    assert torch.equal(ck, cr) and int(cr[1]) > 0
+    assert_same(sk, sr, f"increment {at}")
+
+
+def test_cluster_kernel_gives_the_same_bits_twice(card, ci_states):
+    cfg, states = ci_states
+    a, ca = ops.cca_cycle_chunk(cfg, BFS, clone(states[5]), 512)
+    b, cb = ops.cca_cycle_chunk(cfg, BFS, clone(states[5]), 512)
+    assert torch.equal(ca, cb)
+    assert_same(a, b, "second launch")
+
+
+@pytest.mark.parametrize("n_ctas,rows", [(None, 2), (8, 3), (6, 4)])
+def test_cluster_kernel_on_a_24x16_grid(card, n_ctas, rows):
+    """24 rows: bands of 2 rows in 12 CTAs, 3 in 8, 4 in 6, chunk by
+    chunk to quiescence."""
+    cfg = EngineConfig(height=24, width=16, n_vertices=1000, edge_cap=4,
+                       ghost_slots=32, queue_cap=64, chan_cap=16,
+                       futq_cap=8, io_stream_cap=4096, chunk=128)
+    assert ops.route(cfg, n_ctas=n_ctas)[1] == rows
+    eng = StreamingEngine(cfg, "bfs", device=card)
+    eng.seed(0, 0.0)
+    st, chunks = eng.state, 0
+    for e in make_stream(StreamSpec(n_vertices=1000, n_edges=3000,
+                                    increments=2, seed=5)):
+        st, _ = load_stream(cfg, st, e)
+        for c in range(100):
+            sk, ck = ops.cca_cycle_chunk(cfg, BFS, clone(st), 128,
+                                         n_ctas=n_ctas)
+            st, cr = cca_cycle_chunk_ref(cfg, BFS, st, 128)
+            assert torch.equal(ck, cr), c
+            assert_same(sk, st, f"chunk {c}")
+            chunks += 1
+            if int(cr[0]):
+                break
+    assert chunks > 2
+
+
+@pytest.mark.parametrize("n_cycles", [0, 1])
+def test_cluster_kernel_runs_zero_and_one_cycle(card, n_cycles):
+    eng = StreamingEngine(EngineConfig(**PINNED["cfg"]), "bfs", device=card)
+    eng.seed(0, 0.0)
+    e = make_stream(StreamSpec(**PINNED["spec"]))[0]
+    st, _ = load_stream(eng.cfg, eng.state, e)
+    sk, ck = ops.cca_cycle_chunk(eng.cfg, BFS, clone(st), n_cycles,
+                                 path="cluster")
+    sr, cr = cca_cycle_chunk_ref(eng.cfg, BFS, st, n_cycles)
+    assert ck.tolist() == cr.tolist() == [0, n_cycles]
+    assert_same(sk, sr, f"n_cycles={n_cycles}")
+
+
+def test_cluster_kernel_on_a_quiescent_state(card):
+    cfg = EngineConfig(**PINNED["cfg"])
+    st = init_state(cfg, device=card)
+    sk, ck = ops.cca_cycle_chunk(cfg, BFS, clone(st), 64, path="cluster")
+    assert ck.tolist() == [1, 0]
+    assert_same(sk, st, "quiescent on entry")
+
+
+def test_livelock_on_the_card_as_on_the_cpu(card):
+    """``tests/test_torch_engine.py``'s undersized buffers: the engine on
+    the cluster kernel raises at the same cycle and chunk as on the CPU,
+    holding the same state."""
+    kw = dict(height=8, width=8, n_vertices=64, edge_cap=2, ghost_slots=48,
+              queue_cap=8, chan_cap=2, futq_cap=2, io_stream_cap=2048,
+              chunk=64)
+    assert ops.cluster_geometry(EngineConfig(**kw)) is not None
+    incs = make_stream(StreamSpec(n_vertices=64, n_edges=400, increments=2,
+                                  seed=21))
+    got = []
+    before = ops.path_launches["cluster"]
+    for dev in ("cpu", card):
+        eng = StreamingEngine(EngineConfig(**kw), "bfs", device=dev)
+        eng.seed(0, 0.0)
+        with pytest.raises(LivelockError) as err:
+            for e in incs:
+                eng.run_increment(e, max_cycles=500_000)
+        got.append((err.value.cycle, err.value.chunk, eng.stream_pos,
+                    eng.state))
+    assert got[0][:3] == got[1][:3]
+    assert ops.path_launches["cluster"] > before
+    assert_same(got[1][3]._replace(**{k: getattr(got[1][3], k).cpu()
+                                      for k in got[1][3]._fields}),
+                got[0][3], "livelock state")
+
+
+def test_wrapper_counts_launches_by_path(card):
+    """auto takes the cluster kernel where a band fits and the one-block
+    kernel where none does; ``launches`` counts both, ``path_launches``
+    each; the C entry's byte count is the wrapper's."""
+    fits = EngineConfig(**PINNED["cfg"])
+    big = EngineConfig(height=64, width=64, n_vertices=4096, queue_cap=64,
+                       chan_cap=16)
+    lib = ops._library()
+    for cfg, path in ((fits, "cluster"), (big, "block")):
+        st = init_state(cfg, device=card)
+        total, before = ops.launches, dict(ops.path_launches)
+        ops.cca_cycle_chunk(cfg, BFS, st, 4)
+        torch.cuda.synchronize()
+        assert ops.launches == total + 1
+        assert ops.path_launches == {p: n + (p == path)
+                                     for p, n in before.items()}
+    with pytest.raises(ValueError, match="no cluster band fits"):
+        ops.cca_cycle_chunk(big, BFS, init_state(big, device=card),
+                            path="cluster")
+    for n in (1, 2, 4, 8):
+        geo = ops.cluster_geometry(fits, n)
+        dims = ops._dims(fits, BFS, 9, 16, geo)
+        assert lib.cca_cycle_cluster_smem(
+            (ctypes.c_int * len(dims))(*dims), len(dims)) == geo[2]
 
 
 def test_engine_replays_pinned_fingerprint(card):
