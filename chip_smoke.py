@@ -39,10 +39,13 @@ kernel):
      max |ref|)) at every aggregation shape of phase 9: GCN-Cora (D = 16,
      7, gather and coeff fused), Cora edge messages (D = 70 gatedgcn, 128
      meshgraphnet), ogb_products (D = 16, 7), and GraphCast's multimesh
-     at refinement 6, grid-to-mesh and mesh-to-grid sets (D = 512); the
-     kernel over the graph's row pointers timed beside the wrapper, the
-     plain version, ``torch.sparse.mm`` on the CSR matrix (yardstick
-     only) and the bound
+     at refinement 6, grid-to-mesh and mesh-to-grid sets (D = 512), and
+     equal bit for bit to ``spmm_ordered``, the order of the warp shape
+     ``ops.geometry`` picks; the kernel over the graph's row pointers
+     timed in turns with the old wide shape (old, new, new, old, twice), beside
+     the wrapper, the plain version, ``torch.sparse.mm`` on the CSR matrix
+     (yardstick only), the bound and the gather floor (the 32-byte
+     sectors of x the edges touch)
   9. GNN serving at published widths: gcn-cora on full_graph_sm and on
      ogb_products, gatedgcn, meshgraphnet and graphcast on full_graph_sm;
      finite outputs, equal to the CPU forward elementwise within 1e-4
@@ -64,8 +67,8 @@ the flash-attention kernel a layer, the bf16 prefill on its tensor-core
 path, decode attention plain PyTorch):
 
  12. the ptxas report of each flash-attention instantiation (registers,
-     spills, shared memory); the tensor-core kernels at dh 64 and 128
-     must not spill
+     spills, shared memory); the tensor-core kernels, bf16 and 3xTF32, at
+     dh 64 and 128 must not spill
  13. flash kernel vs plain on the card, entry by entry (``flash_excess``:
      2e-2 x (|ref| + median |ref|) in bf16, 2e-5 x (|ref| + 1) in f32) at
      T = 4096 at the heads of llama3.2-1b (32/8, dh 64), qwen3-1.7b (16/8,
@@ -75,9 +78,12 @@ path, decode attention plain PyTorch):
      next KV head; each row blind to the keys more than T/2 back) must
      fail the same limit; each timed beside the plain version,
      ``F.scaled_dot_product_attention`` (yardstick only, on K/V repeated
-     to the query heads beforehand) and the bound, with the kernel's
-     TFLOP/s, its time over SDPA's and the bound's share of its time, and
-     the path it took (bf16: tensor cores; f32: CUDA cores)
+     to the query heads beforehand; the backend its dispatcher picks, its
+     time held to EFFICIENT_ATTENTION, and its own excess over the same
+     limit) and the bound (f32: three TF32 products at 165 TFLOP/s, the
+     CUDA cores' 67 beside it), with the kernel's TFLOP/s, its time over
+     SDPA's and the bound's share of its time, and the path it took
+     (bf16: tensor cores; f32: tensor cores as 3xTF32)
  14. prefill at full width: llama3.2-1b on prefill_32k at B = 1 and
      T = 32768 (the main path whose flash launches the kernels line
      reports: 80, all on the tensor-core path), qwen3-1.7b at B = 1,
@@ -109,6 +115,7 @@ from unittest import mock
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -138,13 +145,16 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     flash_attention_ref)
 from repro_torch.kernels.spmm import ops as spmm_ops  # noqa: E402
 from repro_torch.kernels.spmm.ref import (scatter_spmm_ref,  # noqa: E402
-                                          spmm_sorted_coo_ref)
+                                          spmm_ordered, spmm_sorted_coo_ref)
 from repro_torch.launch import serve as lm_serve  # noqa: E402
 from repro_torch.models import dlrm, gnn, transformer  # noqa: E402
 
 H100_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (data sheet, 700 W)
 H100_F32_FLOPS = 67e12       # f32 outside the tensor cores (data sheet)
 H100_BF16_FLOPS = 989e12     # bf16 tensor cores, dense (data sheet)
+H100_TF32_FLOPS = 495e12     # tf32 tensor cores, dense (data sheet)
+# f32 accuracy on the tensor cores: three TF32 products (3xTF32) each
+H100_F32_TC_FLOPS = H100_TF32_FLOPS / 3
 PAPER_FULL = dict(n_vertices=50_000, n_edges=1_000_000)
 
 
@@ -254,18 +264,21 @@ def print_ptxas(report: str) -> None:
             print("  ptxas:", line.strip())
 
 
+FLASH_KERNELS = {"fa_fwd_tc": ("tensor_core", "bf16"),
+                 "fa_fwd_tf32": ("tensor_core_tf32x3", "f32")}
+
+
 def flash_ptxas(report: str) -> list[dict]:
     """Phase 12: one row a flash-attention instantiation (its path, head
-    width and dtype read from the mangled name), printed; raises if the
-    tensor-core kernel spills at dh 64 or 128."""
+    width and dtype read from the mangled name), printed; raises if a
+    tensor-core kernel (bf16, or f32 as 3xTF32) spills at dh 64 or 128."""
     rows = []
     for name, info in _build.ptxas_functions(report).items():
-        m = re.search(r"(fa_fwd_tc|fa_fwd_kernel)ILi(\d+)E", name)
+        m = re.search(r"(fa_fwd_tc|fa_fwd_tf32)ILi(\d+)E", name)
         if not m:
             continue
-        tc = m[1] == "fa_fwd_tc"
-        row = dict(path="tensor_core" if tc else "cuda_core",
-                   dtype="bf16" if tc else "f32", dh=int(m[2]), **info)
+        path, dtype = FLASH_KERNELS[m[1]]
+        row = dict(path=path, dtype=dtype, dh=int(m[2]), **info)
         rows.append(row)
         print(f"[12] {row['path']} {row['dtype']} dh={row['dh']}: "
               f"{info.get('registers')} registers at entry, "
@@ -273,12 +286,13 @@ def flash_ptxas(report: str) -> list[dict]:
               f"{info.get('spill_loads')} bytes spill loads, "
               f"{info.get('stack')} bytes stack, static smem "
               f"{info.get('smem', 0)} bytes", flush=True)
-    tc = {r["dh"]: r for r in rows if r["path"] == "tensor_core"}
-    for dh in (64, 128):
-        if dh not in tc or tc[dh].get("spill_stores", 1) or tc[dh].get(
-                "spill_loads", 1):
-            raise AssertionError(f"tensor-core flash kernel at dh {dh}: "
-                                 f"spills or no report ({tc.get(dh)})")
+    for path in ("tensor_core", "tensor_core_tf32x3"):
+        tc = {r["dh"]: r for r in rows if r["path"] == path}
+        for dh in (64, 128):
+            if dh not in tc or tc[dh].get("spill_stores", 1) or tc[dh].get(
+                    "spill_loads", 1):
+                raise AssertionError(f"{path} flash kernel at dh {dh}: "
+                                     f"spills or no report ({tc.get(dh)})")
     return rows
 
 
@@ -462,6 +476,12 @@ def spmm_phases(smi: str, dev: torch.device) -> dict:
             col, vals, dense, n_in = src[o], coeff[o], x, n
             # src, coeff, rowptr, x, out; a multiply and an add an entry
             nbytes, nops = E * 8 + (n + 1) * 4 + n * D * 8, 2 * E * D
+            # the gather floor: the 32-byte sectors of x each edge's row
+            # touches, none found in L2, beside src, coeff, rowptr and out
+            first = src.long() * D * 4
+            sectors = int(((first + D * 4 - 1) // 32 - first // 32 + 1).sum())
+            floor_bytes = 32 * sectors + nbytes - n * D * 4
+            del first
         else:                          # scatter_spmm of edge messages
             msgs = torch.randn((E, D), generator=gen, device=dev)
             src = coeff = None
@@ -473,9 +493,16 @@ def spmm_phases(smi: str, dev: torch.device) -> dict:
             dense, n_in = msgs, E
             # msgs, rowptr, out; an add an entry
             nbytes, nops = E * D * 4 + (n + 1) * 4 + n * D * 4, E * D
-        # the kernel alone, over the graph's row pointers
+            floor_bytes = nbytes     # the messages stream in order
+        # the kernel alone, over the graph's row pointers, in the warp
+        # shape the wrapper picks, and in the wide shape (lanes over the
+        # columns, the kernel's only shape before the narrow ones) for the
+        # old kernel's time
+        shape = spmm_ops.geometry(D, dense.data_ptr() % 16 == 0)
         kern = lambda: spmm_ops.launch(  # noqa: E731
             dense, src, coeff, rowptr, n)
+        old = lambda: spmm_ops.launch(  # noqa: E731
+            dense, src, coeff, rowptr, n, shape=spmm_ops.WIDE)
         with warnings.catch_warnings():   # "sparse CSR is in beta", ...
             warnings.simplefilter("ignore", UserWarning)
             csr = torch.sparse_csr_tensor(rowptr, col, vals, size=(n, n_in))
@@ -484,13 +511,30 @@ def spmm_phases(smi: str, dev: torch.device) -> dict:
         err = check(f"spmm {name} D={D}", got, want, 1e-4)
         if not torch.equal(kern(), got):
             raise AssertionError("a second launch gave other bits")
+        # the kernel's own order of sums, in plain PyTorch: the same bits
+        if not torch.equal(got, spmm_ordered(dense, src, dst, n, coeff,
+                                             32 // shape[0])):
+            raise AssertionError(f"spmm {name} D={D}: not the bits of its "
+                                 f"order ({shape})")
+        old_err = check(f"spmm wide shape {name} D={D}", old(), want, 1e-4)
+        # twice old, new, new, old: the small shapes are host-bound, and
+        # their times spread by some 10% from one turn to the next
+        turns = {"old": [], "new": []}
+        for which in ("old", "new", "new", "old") * 2:
+            turns[which].append(cuda_ms(kern if which == "new" else old))
         lib_err = check(f"torch.sparse.mm {name} D={D}",
                         torch.sparse.mm(csr, dense), want, 1e-4)
         worst = max(worst, err)
         bytes_ms = 1e3 * nbytes / H100_BYTES_PER_S
         ops_ms = 1e3 * nops / H100_F32_FLOPS
+        floor_ms = 1e3 * floor_bytes / H100_BYTES_PER_S
         row = dict(shape=name, D=D, nodes=n, edges=E, gather=gather,
-                   max_abs_err=err, ms=cuda_ms(kern),
+                   geometry=list(shape), max_abs_err=err,
+                   ms=float(np.mean(turns["new"])), ms_turns=turns["new"],
+                   old_ms=float(np.mean(turns["old"])),
+                   old_ms_turns=turns["old"], old_max_abs_err=old_err,
+                   gather_floor_ms=floor_ms, gather_floor_bytes=floor_bytes,
+                   equal_to_ordered=True,
                    wrapper_ms=cuda_ms(wrapper),
                    row_pointers_ms=cuda_ms(
                        lambda: spmm_ops.row_pointers(dst, n)),
@@ -502,7 +546,14 @@ def spmm_phases(smi: str, dev: torch.device) -> dict:
         rows.append(row)
         print(f"[8] spmm {name} D={D} ({n} nodes, {E} edges, "
               f"{'gather x coeff' if gather else 'messages'}): kernel "
-              f"{row['ms']:.4f} ms (wrapper over the row pointers "
+              f"(lanes, vec) = {shape} "
+              f"{' / '.join(f'{t:.4f}' for t in turns['new'])} ms, the old "
+              f"wide shape in turns "
+              f"{' / '.join(f'{t:.4f}' for t in turns['old'])} ms "
+              f"({row['old_ms'] / row['ms']:.2f}x); bits == its ordered "
+              f"sum; gather floor {floor_ms:.4f} ms ({floor_bytes / 1e9:.4f} "
+              f"GB of sectors and streams over 3.35 TB/s) (wrapper over the "
+              f"row pointers "
               f"{row['wrapper_ms']:.4f} ms; building them, once per graph, "
               f"{row['row_pointers_ms']:.4f} ms), plain "
               f"{row['plain_ms']:.4f} ms, torch.sparse.mm "
@@ -567,6 +618,8 @@ def spmm_phases(smi: str, dev: torch.device) -> dict:
             "replaces": "src/repro/kernels/spmm/kernel.py:51",
             "replaces_wrapper": "repro/kernels/spmm/ops.py::spmm_sorted_coo",
             "launches": launches, "equal_to_plain": True,
+            "geometry": head["geometry"], "old_ms": head["old_ms"],
+            "gather_floor_ms": head["gather_floor_ms"],
             "max_abs_err": worst, "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
@@ -748,8 +801,10 @@ FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 def flash_excess(got, want, dtype) -> tuple[float, float]:
     """(max |got - want|, the largest |got - want| over its limit), entry
     by entry; above 1 fails.  The limit is tol x (|want| + a): in f32 a = 1,
-    as ``tests/test_kernels.py`` holds the Pallas kernel (the two differ by
-    the order of f32 sums, a few 1e-7 whatever the entry's size); in bf16
+    as ``tests/test_kernels.py`` holds the Pallas kernel (the 3xTF32
+    kernel's split operands and order of sums put it a few 1e-6 off,
+    whatever the entry's size; one TF32 product would be ~40-90x the
+    limit, ``tests/test_torch_flash_tf32.py``); in bf16
     a = median |want|, as the two differ by the output's one rounding (at
     most 2^-7 |want|) and a row t averages some t / e keys, so at
     T = 32768 a typical |out| is ~0.01 while the first rows reach 3 to 4:
@@ -763,11 +818,12 @@ def flash_excess(got, want, dtype) -> tuple[float, float]:
 def flash_bound(B, T, H, Kh, dh, dtype) -> tuple[float, str, int, int]:
     """(bound ms, what bounds it, bytes, flops) of a causal forward: q, k
     and v read once, o written once; 4 dh flops a head and (row, col <=
-    row) pair, over the peak rate of the inputs' type (bf16 tensor cores,
-    or f32 outside them)."""
+    row) pair, over the best rate at which the card reaches the inputs'
+    accuracy: the bf16 tensor cores, or for f32 three TF32 tensor-core
+    products (165 TFLOP/s; the CUDA cores' 67 are printed beside it)."""
     nbytes = 2 * B * T * (H + Kh) * dh * (torch.finfo(dtype).bits // 8)
     flops = 4 * B * H * dh * (T * (T + 1) // 2)
-    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_TC_FLOPS
     bytes_ms, ops_ms = 1e3 * nbytes / H100_BYTES_PER_S, 1e3 * flops / peak
     return (max(bytes_ms, ops_ms),
             "bytes" if bytes_ms >= ops_ms else "operations", nbytes, flops)
@@ -813,12 +869,17 @@ def flash_case(name, B, T, H, Kh, dh, dtype, gen, dev) -> dict:
         q, k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)))
     library = lambda: F.scaled_dot_product_attention(  # noqa: E731
         qs, ks, vs, is_causal=True).transpose(1, 2)
+
+    def efficient():      # SDPA held to its memory-efficient backend
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return library()
     before = dict(fa_ops.path_launches)
     got, want = kern(), plain()
     torch.cuda.synchronize()
     path = [p for p, n in fa_ops.path_launches.items() if n != before[p]]
     tag = f"flash {name} T={T} {dtype}"
-    want_path = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+    want_path = ("tensor_core" if dtype == torch.bfloat16
+                 else "tensor_core_tf32x3")
     if path != [want_path]:
         raise AssertionError(f"{tag}: launched on {path}, not {want_path}")
     if not torch.equal(torch.isnan(got), torch.isnan(want)):
@@ -844,8 +905,14 @@ def flash_case(name, B, T, H, Kh, dh, dtype, gen, dev) -> dict:
     if not min(fault_excess.values()) > 1:
         raise AssertionError(f"{tag}: the limit passes a planted fault "
                              f"({fault_excess})")
-    lib_err = check(f"sdpa {name} T={T} {dtype}", library(), want, 2e-2)
-    del got, want
+    lib_out = library()
+    lib_err = check(f"sdpa {name} T={T} {dtype}", lib_out, want, 2e-2)
+    # the yardstick's own precision, under the kernel's limit, and the
+    # backend the dispatcher picks
+    lib_excess = flash_excess(lib_out, want, dtype)[1]
+    eff_excess = flash_excess(efficient(), want, dtype)[1]
+    backend = sdpa_backend(qs, ks, vs)
+    del got, want, lib_out
     bound, by, nbytes, flops = flash_bound(B, T, H, Kh, dh, dtype)
     row = dict(shape=name, B=B, T=T, H=H, Kh=Kh, dh=dh,
                dtype=str(dtype).split(".")[-1], max_abs_err=err,
@@ -855,7 +922,11 @@ def flash_case(name, B, T, H, Kh, dh, dtype, gen, dev) -> dict:
                plain_ms=cuda_ms(plain, min_reps=1),
                library_ms=cuda_ms(library), bound_ms=bound, bound_by=by,
                bytes=nbytes, flops=flops, library_max_abs_err=lib_err,
+               library_excess=lib_excess, sdpa_backend=backend,
+               efficient_ms=cuda_ms(efficient), efficient_excess=eff_excess,
                path=want_path)
+    if dtype == torch.float32:     # the CUDA cores' bound, named as such
+        row["cuda_core_bound_ms"] = 1e3 * flops / H100_F32_FLOPS
     row.update(tflops=flops / row["ms"] / 1e9,
                vs_library=row["ms"] / row["library_ms"],
                bound_share=bound / row["ms"])
@@ -864,17 +935,29 @@ def flash_case(name, B, T, H, Kh, dh, dtype, gen, dev) -> dict:
           f"({row['tflops']:.2f} TFLOP/s, {row['vs_library']:.3f}x SDPA, "
           f"{100 * row['bound_share']:.1f}% of the bound), plain "
           f"{row['plain_ms']:.4f} ms{' (head by head)' if by_head else ''}, "
-          f"SDPA {row['library_ms']:.4f} ms, bound {bound:.4f} ms by {by} "
-          f"({nbytes / 1e9:.4f} GB over 3.35 TB/s, {flops / 1e9:.1f} Gflop "
-          f"over {'989' if dtype == torch.bfloat16 else '67'} TFLOP/s); "
+          f"SDPA {row['library_ms']:.4f} ms ({backend}; under "
+          f"EFFICIENT_ATTENTION {row['efficient_ms']:.4f} ms), bound "
+          f"{bound:.4f} ms by {by} ({nbytes / 1e9:.4f} GB over 3.35 TB/s, "
+          f"{flops / 1e9:.1f} Gflop over "
+          f"{'989' if dtype == torch.bfloat16 else '165 (3xTF32)'} TFLOP/s"
+          + (f"; CUDA-core bound at 67 TFLOP/s {row['cuda_core_bound_ms']:.4f}"
+             f" ms" if dtype == torch.float32 else "") + "); "
           f"max |d| {err:.3g}, {excess:.3g} x the elementwise limit; planted "
           f"faults at {fault_excess['next_kv_head']:.3g} x (next KV head) and "
           f"{fault_excess['far_keys_dropped']:.3g} x (far keys dropped) "
           f"(against max(1, max |ref|) x tol: "
           f"{fault_max_scaled['next_kv_head']:.3g} x and "
           f"{fault_max_scaled['far_keys_dropped']:.3g} x); "
-          f"SDPA max |d| {lib_err:.3g}", flush=True)
+          f"SDPA max |d| {lib_err:.3g}, {lib_excess:.3g} x the elementwise "
+          f"limit (EFFICIENT_ATTENTION {eff_excess:.3g} x)", flush=True)
     return row
+
+
+def sdpa_backend(q, k, v) -> str:
+    """The name of the backend SDPA's dispatcher picks for these inputs
+    (causal), by ``torch._fused_sdp_choice``."""
+    names = {b.value: n for n, b in SDPBackend.__members__.items()}
+    return names[int(torch._fused_sdp_choice(q, k, v, is_causal=True))]
 
 
 def prefill_run(tag, cfg, params, tokens, reps) -> dict:
@@ -1076,7 +1159,8 @@ def lm_phases(smi: str, dev: torch.device, ptxas: list) -> dict:
             "path": "tensor_core", "launches": launches,
             "launches_by_path": by_path,
             "f32_source": "src/repro_torch/kernels/flash_attention/csrc/"
-                          "flash_attention.cu",
+                          "flash_attention_tf32.cuh",
+            "f32_path": "tensor_core_tf32x3",
             "launches_per_forward": prefills[0]["flash_launches_per_forward"],
             "equal_to_plain": True,
             "max_abs_err": max(r["max_abs_err"] for r in rows),

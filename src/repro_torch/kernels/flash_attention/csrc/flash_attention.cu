@@ -1,7 +1,12 @@
 // Causal GQA flash-attention forward: online softmax in f32, one block a
-// (query tile, head, batch).  Two kernels: bf16 inputs go to the Hopper
-// tensor-core kernel of flash_attention_tc.cuh (wgmma on TMA-staged K/V,
-// every head width 16-128), f32 inputs to the CUDA-core kernel below.
+// (query tile, head, batch).  bf16 inputs go to the Hopper tensor-core
+// kernel of flash_attention_tc.cuh (wgmma on TMA-staged K/V), f32 inputs
+// to the 3xTF32 tensor-core kernel of flash_attention_tf32.cuh (each
+// product as three TF32 wgmma products of split operands), both at every
+// head width 16-128.  The CUDA-core f32 kernel below (the first port of
+// this kernel) is built only with -DFA_CUDA_CORE_F32, then in place of
+// the 3xTF32 one, for the A/B of tools/flash_spmm_variants.py: the
+// wrapper never routes to it.
 //
 // Replaces the TPU kernel `repro/kernels/flash_attention/kernel.py::
 // flash_attention_fwd` (`_fa_kernel`).  It computes what `_fa_kernel`
@@ -25,8 +30,7 @@
 // 0), the kernel masks the ragged edge: rows past Tq are not written, keys
 // past Tk score NEG_INF and load as zero.
 //
-// The CUDA-core kernel (f32): f32 FMAs, as `_fa_kernel` multiplies in f32;
-// the tensor cores would compute f32 in TF32, some 1e-3 off.  A block of
+// The CUDA-core kernel (f32, the A/B variant): f32 FMAs.  A block of
 // 256 threads holds a 64-row query tile in shared memory, transposed and
 // pre-scaled; for each 64-key tile it stages K (transposed) and V in
 // shared memory, each thread computes a 4 x 4 patch of the scores from
@@ -39,15 +43,16 @@
 // What bounds it on this card: operations.  A causal forward needs
 // 4 B H dh T(T+1)/2 flops against 2 B T (H + Kh) dh elements moved (q, k,
 // v read once, o written once); for llama3.2-1b at T = 4096 that is 68.7
-// Gflop against 83.9 MB in f32, 1.03 ms at the CUDA cores' 67 TFLOP/s and
-// 0.025 ms at 3.35 TB/s.  With shared-memory reads feeding every 8-16
-// FMAs, this kernel sits above that bound by design.
+// Gflop against 83.9 MB in f32: 0.4166 ms at 165 TFLOP/s (three TF32
+// tensor-core products, the best rate at f32 accuracy here), 1.03 ms at
+// the CUDA cores' 67, 0.025 ms for the bytes at 3.35 TB/s.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdio.h>
 
 #include "flash_attention_tc.cuh"
+#include "flash_attention_tf32.cuh"
 
 namespace {
 
@@ -218,9 +223,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-cudaError_t launch_f32(int dh, const void* q, const void* k, const void* v,
-                       void* o, int B, int Tq, int Tk, int H, int Kh,
-                       float scale, int causal, cudaStream_t s) {
+// the f32 kernel: 3xTF32 on the tensor cores (path 2), or with
+// -DFA_CUDA_CORE_F32 the CUDA-core kernel (path 0)
+#ifdef FA_CUDA_CORE_F32
+constexpr int kF32Path = 0;
+int launch_f32(int dh, const void* q, const void* k, const void* v, void* o,
+               void*, int B, int Tq, int Tk, int H, int Kh, float scale,
+               int causal, cudaStream_t s) {
   switch (dh) {
     case 16: return launch<16>(q, k, v, o, B, Tq, Tk, H, Kh, scale, causal, s);
     case 32: return launch<32>(q, k, v, o, B, Tq, Tk, H, Kh, scale, causal, s);
@@ -229,6 +238,20 @@ cudaError_t launch_f32(int dh, const void* q, const void* k, const void* v,
     default: return cudaErrorInvalidValue;
   }
 }
+#else
+constexpr int kF32Path = 2;
+int launch_f32(int dh, const void* q, const void* k, const void* v, void* o,
+               void* scratch, int B, int Tq, int Tk, int H, int Kh,
+               float scale, int causal, cudaStream_t s) {
+  switch (dh) {
+    case 16: return fa_tf32::launch<16>(q, k, v, o, scratch, B, Tq, Tk, H, Kh, scale, causal, s);
+    case 32: return fa_tf32::launch<32>(q, k, v, o, scratch, B, Tq, Tk, H, Kh, scale, causal, s);
+    case 64: return fa_tf32::launch<64>(q, k, v, o, scratch, B, Tq, Tk, H, Kh, scale, causal, s);
+    case 128: return fa_tf32::launch<128>(q, k, v, o, scratch, B, Tq, Tk, H, Kh, scale, causal, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+#endif
 
 int launch_bf16(int dh, const void* q, const void* k, const void* v, void* o,
                 int B, int Tq, int Tk, int H, int Kh, float scale, int causal,
@@ -244,34 +267,44 @@ int launch_bf16(int dh, const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
+// Bytes of scratch the launch needs for these shapes (the f32 split
+// pass's K and V^T hi and lo; 0 for bf16).
+extern "C" long long flash_attention_scratch_bytes(int B, int Tk, int Kh,
+                                                   int dh, int bf16) {
+  return bf16 ? 0 : fa_tf32::scratch_bytes(B, Tk, Kh, dh);
+}
+
 // o [B, Tq, H, dh] = attention(q [B, Tq, H, dh], k, v [B, Tk, Kh, dh]),
 // all contiguous, 16-byte aligned and of one dtype (bf16 != 0: bfloat16,
-// else float32); dh one of 16, 32, 64, 128.  Sets *path to the kernel it
-// launches (1: tensor cores, bf16; 0: CUDA cores, f32) and returns the
-// launch's error code: a cudaError_t, or a negative code of the tensor-map
+// else float32); dh one of 16, 32, 64, 128; scratch 16-byte aligned, of
+// flash_attention_scratch_bytes.  Sets *path to the kernel it launches
+// (1: tensor cores, bf16; 2: tensor cores, f32 as 3xTF32; 0: CUDA cores,
+// f32, in the -DFA_CUDA_CORE_F32 build only) and returns the launch's
+// error code: a cudaError_t, or a negative code of the tensor-map
 // encoding (see flash_attention_error_string).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int B, int Tq,
-                                      int Tk, int H, int Kh, int dh,
-                                      int bf16, float scale, int causal,
-                                      void* stream, int* path) {
+                                      const void* v, void* o, void* scratch,
+                                      int B, int Tq, int Tk, int H, int Kh,
+                                      int dh, int bf16, float scale,
+                                      int causal, void* stream, int* path) {
   if (B <= 0 || Tq <= 0 || Tk <= 0 || Kh <= 0 || H % Kh != 0 ||
-      B > 65535 || H > 65535)
+      B > 65535 || H > 65535 || (!bf16 && !scratch))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  *path = bf16 ? 1 : 0;
+  *path = bf16 ? 1 : kF32Path;
   return bf16 ? launch_bf16(dh, q, k, v, o, B, Tq, Tk, H, Kh, scale, causal, s)
-              : launch_f32(dh, q, k, v, o, B, Tq, Tk, H, Kh, scale, causal, s);
+              : launch_f32(dh, q, k, v, o, scratch, B, Tq, Tk, H, Kh, scale,
+                           causal, s);
 }
 
 // Text of a launch error code, for the wrapper's exception.
 extern "C" const char* flash_attention_error_string(int err) {
   static thread_local char buf[96];
-  if (err == fa_tc::kNoEncoder)
+  if (err == hopper::kNoEncoder)
     return "the CUDA driver offers no cuTensorMapEncodeTiled";
-  if (err <= fa_tc::kEncodeFailed) {
+  if (err <= hopper::kEncodeFailed) {
     snprintf(buf, sizeof buf, "cuTensorMapEncodeTiled failed (CUresult %d)",
-             fa_tc::kEncodeFailed - err);
+             hopper::kEncodeFailed - err);
     return buf;
   }
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -55,12 +55,13 @@
 // memory and TMA.
 #pragma once
 
-#include <cuda.h>   // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace fa_tc {
+
+using namespace hopper;
 
 constexpr int BQ = 128;          // query rows a block: two consumer warpgroups
 constexpr int BK = 128;          // keys a tile
@@ -78,7 +79,7 @@ struct Geom {
   static constexpr int SW = DH * 2 >= 128 ? 128 : DH * 2;
   static constexpr int COLS = SW / 2;
   static constexpr int CHUNKS = DH / COLS;
-  static constexpr int LAYOUT = SW == 128 ? 1 : SW == 64 ? 2 : 3;
+  static constexpr int LAYOUT = layout_of(SW);
   static constexpr int Q_BYTES = BQ * DH * 2;
   static constexpr int KV_BYTES = BK * DH * 2;     // one of K, V a slot
   static constexpr int BAR_OFF = Q_BYTES + 2 * STAGES * KV_BYTES;
@@ -86,82 +87,6 @@ struct Geom {
   // repeat)
   static constexpr int SMEM = BAR_OFF + 64 + 1024;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- mbarriers ----
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-// Wait until the phase of parity `parity` has completed.  A wait that
-// lasts some 10 s of clock traps (the launch then fails and the wrapper
-// raises) instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  const long long t0 = clock64();
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (!done && clock64() - t0 > (1LL << 34)) asm volatile("trap;");
-  } while (!done);
-}
-
-// ---- TMA: a 4-D box into shared memory, completing on `bar` ----
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-      "r"(c1), "r"(c2), "r"(c3) : "memory");
-}
-
-// ---- wgmma ----
-// Shared-memory matrix descriptor: start address, leading and stride byte
-// offsets (16 B units) and the swizzle layout type.  K-major operands (Q,
-// K): the stride offset is the step between 8-row groups (8 rows of SW
-// bytes), the leading offset unused under swizzle.  V as MN-major B: the
-// stride offset is the step between groups of 8 keys, the leading offset
-// the step between column chunks.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, int layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
-         | static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16
-         | static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32
-         | static_cast<uint64_t>(layout) << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from moving reads or writes of a register that an
-// async wgmma owns across the wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
 
 // S (64 x 128, f32) (+)= A (64 x 16, shared) B (16 x 128, shared), both K-major
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
@@ -467,43 +392,12 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap tq,
 
 // ---- host: tensor maps and the launch ----
 
-// cuTensorMapEncodeTiled, from the CUDA driver through the runtime (no -lcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &res);
-#endif
-    return err == cudaSuccess && res == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// Errors of this path that are not a cudaError_t: returned as negative
-// codes, spelled out by error_string.
-constexpr int kNoEncoder = -1;   // the CUDA driver has no cuTensorMapEncodeTiled
-constexpr int kEncodeFailed = -1000;    // - CUresult of a failed encode
-
 // A map over x [B, T, heads, DH] bf16 as it lies (innermost first: DH,
 // heads, T, B), boxes of (COLS, 1, rows, 1) with the swizzle of the row
 // width; rows past T are filled with zeros.
 template <int DH>
 int encode(CUtensorMap* map, const void* x, int B, int T, int heads, int rows) {
   using G = Geom<DH>;
-  EncodeTiled fn = encoder();
-  if (!fn) return kNoEncoder;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(DH),
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(T),
@@ -513,16 +407,8 @@ int encode(CUtensorMap* map, const void* x, int B, int T, int heads, int rows) {
                                  static_cast<cuuint64_t>(T) * heads * DH * 2};
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(G::COLS), 1,
                              static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle sw = G::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                : G::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                              : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(x), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kEncodeFailed - static_cast<int>(r);
+  return encode_4d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, dims, strides,
+                   box, swizzle_of(G::SW));
 }
 
 template <int DH>

@@ -8,8 +8,10 @@ and ``bk`` and the ``interpret`` switch have no counterpart here and are
 dropped; unlike the Pallas wrapper, T need not be a multiple of the tile.
 On a CUDA tensor the wrapper launches a kernel (or raises): bfloat16
 inputs the tensor-core kernel (``csrc/flash_attention_tc.cuh``: wgmma on
-TMA-staged tiles), float32 inputs the CUDA-core kernel
-(``csrc/flash_attention.cu``); on a CPU tensor it runs the plain version
+TMA-staged tiles), float32 inputs the 3xTF32 tensor-core kernel
+(``csrc/flash_attention_tf32.cuh``: each product as three TF32 products
+of split operands, after a split pass over K and V into scratch that the
+wrapper allocates); on a CPU tensor it runs the plain version
 (``ref.py``).  Both devices get the same checks: q, k and v contiguous,
 16-byte aligned (TMA reads nothing else), all float32 or all bfloat16, on
 one device, ``dh`` one of the head widths the kernels are built for.  The
@@ -34,9 +36,11 @@ NVCC_FLAGS = _build.SM90A_FLAGS
 HEAD_DIMS = (16, 32, 64, 128)     # the kernel's instantiations
 DTYPES = (torch.float32, torch.bfloat16)
 
-PATHS = ("cuda_core", "tensor_core")   # the C entry's path codes 0, 1
+# the C entry's path codes 0, 1, 2: "cuda_core" (f32 on the CUDA cores)
+# only from a library built with -DFA_CUDA_CORE_F32, for an A/B
+PATHS = ("cuda_core", "tensor_core", "tensor_core_tf32x3")
 
-launches = 0   # kernel launches made by flash_attention, both paths
+launches = 0   # kernel launches made by flash_attention, every path
 path_launches = dict.fromkeys(PATHS, 0)   # the same launches by kernel
 
 
@@ -48,10 +52,12 @@ def build() -> tuple[pathlib.Path, str]:
 def load(path: pathlib.Path) -> ctypes.CDLL:
     """The kernel library at ``path`` with its C entry points typed."""
     lib = ctypes.CDLL(str(path))
-    lib.flash_attention_launch.argtypes = [ctypes.c_void_p] * 4 + [
+    lib.flash_attention_launch.argtypes = [ctypes.c_void_p] * 5 + [
         ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
                              ctypes.POINTER(ctypes.c_int)]
     lib.flash_attention_launch.restype = ctypes.c_int
+    lib.flash_attention_scratch_bytes.argtypes = [ctypes.c_int] * 5
+    lib.flash_attention_scratch_bytes.restype = ctypes.c_longlong
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -108,13 +114,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Tk, Kh = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lib = _library()
+    bf16 = int(q.dtype == torch.bfloat16)
+    scratch = torch.empty(lib.flash_attention_scratch_bytes(B, Tk, Kh, dh,
+                                                            bf16),
+                          dtype=torch.uint8, device=q.device)
     path = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Tq,
-            Tk, H, Kh, dh, int(q.dtype == torch.bfloat16),
-            1.0 / math.sqrt(dh), int(causal), stream, ctypes.byref(path))
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            scratch.data_ptr() if scratch.numel() else None, B, Tq, Tk, H,
+            Kh, dh, bf16, 1.0 / math.sqrt(dh), int(causal), stream,
+            ctypes.byref(path))
     if err:
         raise RuntimeError("flash_attention kernel launch failed: "
                            + lib.flash_attention_error_string(err).decode())

@@ -15,7 +15,12 @@ read of ``dst`` and a host sync) and binary-searches it on the device,
 so a destination outside ``[0, n_nodes)`` falls outside every row and is
 dropped.  A caller that sums over one edge set many times builds them
 once and passes ``rowptr=``; the call then makes neither the check nor
-the search (``models.gnn.sort_edges`` does so once per graph).  The
+the search (``models.gnn.sort_edges`` does so once per graph).
+
+The warp's shape comes from ``geometry(D, aligned)``: lanes over the
+columns for ``D >= 32``, else edge groups of a few lanes (float4 loads
+where ``D % 4 == 0`` and x is 16-byte aligned), as ``csrc/spmm.cu`` says;
+``ref.py::spmm_ordered`` sums in the order each shape sums.  The
 kernel is built with ``nvcc`` for ``sm_90a`` at first use
 (``kernels/_build.py``) and loaded with ``ctypes``.
 """
@@ -46,7 +51,7 @@ def build() -> tuple[pathlib.Path, str]:
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[0]))
     lib.spmm_csr_launch.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_int] * 4 + [ctypes.c_void_p]
+        ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.spmm_csr_launch.restype = ctypes.c_int
     lib.spmm_error_string.argtypes = [ctypes.c_int]
     lib.spmm_error_string.restype = ctypes.c_char_p
@@ -108,9 +113,29 @@ def row_pointers(dst: torch.Tensor, n_nodes: int) -> torch.Tensor:
         out_int32=True)
 
 
-def launch(x, src, coeff, rowptr, n_nodes: int) -> torch.Tensor:
+WIDE = (32, 1)   # lanes over the columns, one edge at a time
+
+
+def geometry(D: int, aligned: bool = True) -> tuple[int, int]:
+    """(lanes an edge, floats a lane load) of the kernel's warp at width
+    ``D``: the wide shape ``WIDE`` for ``D >= 32``; below it, the fewest
+    lanes (a power of two) whose float4 loads cover ``D`` when ``D % 4 ==
+    0`` and x is 16-byte ``aligned``, else whose scalar loads do (the
+    wide shape again if that takes 32).  The warp is then ``32 / lanes``
+    edge groups."""
+    if D >= 32:
+        return WIDE
+    vec = 4 if D % 4 == 0 and aligned else 1
+    lanes = 1 << (-(-D // vec) - 1).bit_length()
+    return (lanes, vec) if lanes < 32 else WIDE
+
+
+def launch(x, src, coeff, rowptr, n_nodes: int,
+           shape: tuple[int, int] | None = None) -> torch.Tensor:
     """One launch of the kernel on checked CUDA inputs and their row
-    pointers: [n_nodes, D] f32."""
+    pointers: [n_nodes, D] f32, with the warp ``shape`` (lanes, vec) that
+    ``geometry`` picks unless given (the C entry refuses one it was not
+    built for)."""
     global launches
     dev = x.device
     if dev.type != "cuda":
@@ -120,6 +145,7 @@ def launch(x, src, coeff, rowptr, n_nodes: int) -> torch.Tensor:
         return out
     lib = _library()
     n_edges = x.shape[0] if src is None else src.shape[0]
+    lanes, vec = shape or geometry(x.shape[1], x.data_ptr() % 16 == 0)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -128,7 +154,7 @@ def launch(x, src, coeff, rowptr, n_nodes: int) -> torch.Tensor:
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.spmm_csr_launch(ptr(x), ptr(src), ptr(coeff), ptr(rowptr),
                                   ptr(out), n_nodes, x.shape[0], n_edges,
-                                  x.shape[1], stream)
+                                  x.shape[1], lanes, vec, stream)
     if err:
         raise RuntimeError("spmm kernel launch failed: "
                            + lib.spmm_error_string(err).decode())

@@ -7,10 +7,14 @@ the same comparisons on the card at the main path's shapes.  Tolerances:
 the cycle kernels are exact (every state leaf and the launch record equal
 the plain version's, on the cluster kernel and on the one-block kernel);
 the scatter-SpMM 1e-4 and the EmbeddingBag 1e-5,
-relative to max(1, max |ref|), as their f32 sums run in another order;
+relative to max(1, max |ref|), as their f32 sums run in another order
+(the scatter-SpMM also equal, bit for bit, to ``ref.spmm_ordered``, the
+order of the warp shape ``ops.geometry`` picks: narrow shapes at D = 1-20,
+one row of 10,000 edges);
 the flash-attention kernels entry by entry (``flash_close``), 2e-5 x
-(|ref| + 1) in f32 (the CUDA-core kernel: its sums and exponentials run in
-another order), as ``tests/test_kernels.py`` holds the Pallas kernel, and
+(|ref| + 1) in f32 (the 3xTF32 tensor-core kernel: split operands, and
+sums and exponentials in another order), as ``tests/test_kernels.py``
+holds the Pallas kernel, and
 2e-2 x (|ref| + median |ref|) in bf16 (the tensor-core kernel: one
 rounding of the output, held to the typical output rather than the
 largest).  The flash shapes cover the tensor-core kernel's 128-row tiles
@@ -44,7 +48,7 @@ from repro_torch.kernels.embedding_bag.ref import embedding_bags_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.spmm import ops as spmm_ops
-from repro_torch.kernels.spmm.ref import (scatter_spmm_ref,
+from repro_torch.kernels.spmm.ref import (scatter_spmm_ref, spmm_ordered,
                                           spmm_sorted_coo_ref)
 from repro_torch.models import dlrm, gnn, transformer
 
@@ -295,7 +299,13 @@ def test_wrapper_rejects_malformed_state(card):
         ops.cca_cycle_chunk(eng.cfg, eng.app, bad)
 
 
-@pytest.mark.parametrize("D", [1, 7, 16, 33, 70, 512])
+def groups(D):
+    return 32 // spmm_ops.geometry(D)[0]
+
+
+# D = 4, 8, 12, 20: the edge of each narrow shape, rows not a multiple of
+# 16 bytes where D % 4 != 0
+@pytest.mark.parametrize("D", [1, 4, 7, 8, 12, 16, 20, 33, 70, 512])
 @pytest.mark.parametrize("with_coeff", [False, True])
 def test_spmm_kernel_matches_plain(card, D, with_coeff):
     rng = np.random.default_rng(D)
@@ -310,14 +320,49 @@ def test_spmm_kernel_matches_plain(card, D, with_coeff):
     on = [t if t is None else t.to(card) for t in (x, src, dst, coeff)]
     got = spmm_ops.spmm_sorted_coo(on[0], on[1], on[2], n, on[3])
     close(got, spmm_sorted_coo_ref(x, src, dst, n, coeff), 1e-4)
+    assert torch.equal(got, spmm_ordered(*on[:3], n, on[3], groups(D)))
     msgs = torch.from_numpy(rng.standard_normal((e, D)).astype(np.float32))
     got = spmm_ops.scatter_spmm(msgs.to(card), on[2], n)
     close(got, scatter_spmm_ref(msgs, dst, n), 1e-4)
+    assert torch.equal(got, spmm_ordered(msgs.to(card), None, on[2], n,
+                                         groups=groups(D)))
     assert spmm_ops.launches == before + 2
     # deterministic (no atomics), also over row pointers built beforehand
     rp = spmm_ops.row_pointers(on[2], n)
     assert torch.equal(got, spmm_ops.scatter_spmm(msgs.to(card), on[2], n,
                                                   rp))
+
+
+@pytest.mark.parametrize("D", [7, 16, 128])
+def test_spmm_kernel_high_degree_row(card, D):
+    """One row of 10,000 edges among rows of a few: equal bits to the
+    ordered sum of its warp shape, within 1e-4 of the plain version."""
+    rng = np.random.default_rng(100 + D)
+    n = 64
+    dst = np.sort(np.concatenate([np.full(10_000, 9),
+                                  rng.integers(0, n, 2000)])).astype(np.int32)
+    e = dst.shape[0]
+    src = rng.integers(0, n, e).astype(np.int32)
+    x = rng.standard_normal((n, D)).astype(np.float32)
+    coeff = rng.standard_normal(e).astype(np.float32)
+    on = [torch.from_numpy(a).to(card) for a in (x, src, dst, coeff)]
+    got = spmm_ops.spmm_sorted_coo(*on[:3], n, on[3])
+    assert torch.equal(got, spmm_ordered(*on[:3], n, on[3], groups(D)))
+    close(got, spmm_sorted_coo_ref(*(t.cpu() for t in on[:3]), n,
+                                   on[3].cpu()), 1e-4)
+
+
+def test_spmm_kernel_refuses_a_shape_it_lacks(card):
+    """The C entry takes the wide shape at any D and refuses a narrow one
+    that does not cover D or float4 loads where D % 4 != 0."""
+    x = torch.randn(8, 7, device=card)
+    dst = torch.arange(8, dtype=torch.int32, device=card)
+    rp = spmm_ops.row_pointers(dst, 8)
+    assert torch.equal(spmm_ops.launch(x, None, None, rp, 8,
+                                       shape=spmm_ops.WIDE), x)
+    for shape in [(4, 1), (2, 4), (8, 2), (64, 1)]:
+        with pytest.raises(RuntimeError, match="spmm kernel launch failed"):
+            spmm_ops.launch(x, None, None, rp, 8, shape=shape)
 
 
 def test_spmm_kernel_clamps_row_pointers(card):
@@ -425,10 +470,12 @@ def test_flash_kernel_matches_plain(card, B, Tq, Tk, H, Kh, dh, dtype,
     q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
                .to(dtype) for s in ((B, Tq, H, dh), (B, Tk, Kh, dh),
                                     (B, Tk, Kh, dh)))
-    before = fa_ops.launches
+    before, on_path = fa_ops.launches, dict(fa_ops.path_launches)
     got = fa_ops.flash_attention(q.to(card), k.to(card), v.to(card), causal)
     torch.cuda.synchronize()
     assert fa_ops.launches == before + 1
+    path = "tensor_core" if dtype == torch.bfloat16 else "tensor_core_tf32x3"
+    assert fa_ops.path_launches[path] == on_path[path] + 1
     assert got.dtype == dtype and got.shape == q.shape
     flash_close(got, flash_attention_ref(q, k, v, causal), dtype)
 
@@ -436,10 +483,13 @@ def test_flash_kernel_matches_plain(card, B, Tq, Tk, H, Kh, dh, dtype,
 @pytest.mark.parametrize("dtype,dh,path", [
     (torch.bfloat16, 16, "tensor_core"), (torch.bfloat16, 32, "tensor_core"),
     (torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 128, "tensor_core"),
-    (torch.float32, 64, "cuda_core"), (torch.float32, 128, "cuda_core")])
+    (torch.float32, 16, "tensor_core_tf32x3"),
+    (torch.float32, 32, "tensor_core_tf32x3"),
+    (torch.float32, 64, "tensor_core_tf32x3"),
+    (torch.float32, 128, "tensor_core_tf32x3")])
 def test_flash_wrapper_records_the_path(card, dtype, dh, path):
-    """bf16 goes to the tensor-core kernel, f32 to the CUDA-core kernel;
-    ``launches`` counts both, ``path_launches`` each."""
+    """bf16 goes to the tensor-core kernel, f32 to the 3xTF32 tensor-core
+    kernel; ``launches`` counts both, ``path_launches`` each."""
     q = torch.randn(1, 130, 8, dh, device=card).to(dtype)
     k = torch.randn(1, 130, 2, dh, device=card).to(dtype)
     total, before = fa_ops.launches, dict(fa_ops.path_launches)
