@@ -54,13 +54,21 @@ kernel):
      f32 forward), spmm launches per forward, wall per forward, peak
      memory
  10. EmbeddingBag kernel vs plain at RM2 widths on the 26 full-size tables
-     (36.8 GB, drawn on the card) for serve_p99 and serve_bulk (1e-5),
-     timed beside the plain version and ``F.embedding_bag`` per table
+     (36.8 GB, drawn on the card, checked once by
+     ``dlrm.prepare_dlrm_params`` as serving does) for serve_p99 and
+     serve_bulk (1e-5), and
+     equal bit for bit to ``embedding_bags_ordered`` (the kernel's order
+     of sums); the warp shape ``ops.geometry`` picked; timed beside the
+     plain version and ``F.embedding_bag`` per table, the byte bound, its
+     share of the kernel's time, and the gather floor (every lookup into a
+     table larger than the L2 read from memory); serve_p99 both by the
+     call rate and as device time from a CUDA graph of its one launch
  11. DLRM-RM2 serving at full width: serve_p99 and serve_bulk forwards,
      retrieval over 1,000,000 candidates; finite logits, top-100 shapes,
      the serve_p99 logits and the retrieval's scores equal to the CPU
-     forward over the touched rows (elementwise, 1e-4), launches, wall,
-     peak memory
+     forward over the touched rows (elementwise, 1e-4), launches (every
+     one in the warp shape ``ops.geometry`` picks at RM2), wall, peak
+     memory
 
 The LM serving path (llama3.2-1b; every prefill attention one launch of
 the flash-attention kernel a layer, the bf16 prefill on its tensor-core
@@ -139,7 +147,7 @@ from repro_torch.kernels.cca_cycle import ops  # noqa: E402
 from repro_torch.kernels.cca_cycle.ref import cca_cycle_chunk_ref  # noqa: E402
 from repro_torch.kernels.embedding_bag import ops as bag_ops  # noqa: E402
 from repro_torch.kernels.embedding_bag.ref import (  # noqa: E402
-    embedding_bags_ref)
+    embedding_bags_ordered, embedding_bags_ref)
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     flash_attention_ref)
@@ -150,6 +158,7 @@ from repro_torch.launch import serve as lm_serve  # noqa: E402
 from repro_torch.models import dlrm, gnn, transformer  # noqa: E402
 
 H100_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (data sheet, 700 W)
+H100_L2_BYTES = 50e6         # H100 L2 (data sheet)
 H100_F32_FLOPS = 67e12       # f32 outside the tensor cores (data sheet)
 H100_BF16_FLOPS = 989e12     # bf16 tensor cores, dense (data sheet)
 H100_TF32_FLOPS = 495e12     # tf32 tensor cores, dense (data sheet)
@@ -264,6 +273,17 @@ def print_ptxas(report: str) -> None:
             print("  ptxas:", line.strip())
 
 
+def bag_ptxas(lib: str, report: str) -> None:
+    """Phase 7: the EmbeddingBag kernel's instantiations, its shape at RM2
+    (``bag_tile_kernel<16, 4, 4>``) line by line and the worst spill of
+    the rest."""
+    funcs = _build.ptxas_functions(report)
+    rm2 = [i for n, i in funcs.items() if "bag_tile_kernelILi16ELi4ELi4E" in n]
+    worst = max(funcs.values(), key=lambda i: i.get("spill_stores", 0))
+    print(f"[7] {lib}: {len(funcs)} kernels; at RM2 (16 lanes x float4, "
+          f"L = 4): {rm2}; the most spill of any: {worst}", flush=True)
+
+
 FLASH_KERNELS = {"fa_fwd_tc": ("tensor_core", "bf16"),
                  "fa_fwd_tf32": ("tensor_core_tf32x3", "f32")}
 
@@ -314,6 +334,33 @@ def cuda_ms(fn, min_reps=3, budget_ms=300.0) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def graph_ms(fn, reps=100) -> float:
+    """Device time of ``fn``'s launches in ms: a CUDA graph of one call,
+    captured after a warm call, replayed ``reps`` times between two
+    events (so the host's call rate does not count)."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    g.replay()
+    a, b = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    a.record()
+    for _ in range(reps):
+        g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def same_bits(got, want) -> bool:
+    """Equal as f32 bits, NaN in the same places."""
+    nan = torch.isnan(want)
+    return torch.equal(torch.isnan(got), nan) and torch.equal(
+        got.view(torch.int32)[~nan], want.view(torch.int32)[~nan])
 
 
 def check(name, got, want, tol) -> float:
@@ -533,7 +580,6 @@ def spmm_phases(smi: str, dev: torch.device) -> dict:
                    ms=float(np.mean(turns["new"])), ms_turns=turns["new"],
                    old_ms=float(np.mean(turns["old"])),
                    old_ms_turns=turns["old"], old_max_abs_err=old_err,
-                   gather_floor_ms=floor_ms, gather_floor_bytes=floor_bytes,
                    equal_to_ordered=True,
                    wrapper_ms=cuda_ms(wrapper),
                    row_pointers_ms=cuda_ms(
@@ -619,7 +665,6 @@ def spmm_phases(smi: str, dev: torch.device) -> dict:
             "replaces_wrapper": "repro/kernels/spmm/ops.py::spmm_sorted_coo",
             "launches": launches, "equal_to_plain": True,
             "geometry": head["geometry"], "old_ms": head["old_ms"],
-            "gather_floor_ms": head["gather_floor_ms"],
             "max_abs_err": worst, "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
@@ -638,8 +683,8 @@ def dlrm_phases(smi: str, dev: torch.device) -> dict:
     # ---- 10. kernel vs plain at RM2 widths, on the full tables ----
     t0 = time.time()
     torch.cuda.reset_peak_memory_stats()
-    params = dlrm.init_dlrm_params(cfg, gen)
-    tables = params["tables"]
+    params = dlrm.prepare_dlrm_params(dlrm.init_dlrm_params(cfg, gen))
+    tables = params["tables"]          # checked once: a BagTables
     torch.cuda.synchronize()
     table_bytes = sum(t.numel() * 4 for t in tables)
     print(f"[10] {len(tables)} tables, {sum(t.shape[0] for t in tables)} "
@@ -665,31 +710,59 @@ def dlrm_phases(smi: str, dev: torch.device) -> dict:
             return [F.embedding_bag(fields[f], t, mode="sum")
                     for f, t in enumerate(tables)]
 
+        before = dict(bag_ops.shape_launches)
         got, want = kern(), plain()
+        shape = [g for g, n in bag_ops.shape_launches.items()
+                 if n != before.get(g, 0)]
+        if len(shape) != 1:
+            raise AssertionError(f"bag {name}: launches on {shape}")
+        shape = shape[0]
         err = check(f"embedding bag {name}", got, want, 1e-5)
+        # the kernel's own order of sums, in plain PyTorch: the same bits
+        if not same_bits(got, embedding_bags_ordered(tables, idx)):
+            raise AssertionError(f"embedding bag {name}: not the bits of "
+                                 f"its ordered sum ({shape})")
         check(f"F.embedding_bag {name}", torch.stack(library(), 1), want,
               1e-5)
         worst = max(worst, err)
-        distinct = sum(int(torch.unique(f).numel()) for f in fields)
-        nbytes = idx.numel() * 4 + distinct * cfg.embed_dim * 4 \
-            + got.numel() * 4
+        # the bound counts each distinct row once; the gather floor every
+        # lookup into a table larger than the L2 (no reuse found there)
+        distinct = floor_rows = 0
+        for f, t in zip(fields, tables):
+            n = int(torch.unique(f).numel())
+            distinct += n
+            floor_rows += f.numel() if t.numel() * 4 > H100_L2_BYTES else n
+        row_bytes = cfg.embed_dim * 4
+        nbytes = idx.numel() * 4 + distinct * row_bytes + got.numel() * 4
+        floor_bytes = nbytes + (floor_rows - distinct) * row_bytes
         nops = idx.numel() * cfg.embed_dim       # an add a gathered entry
         bytes_ms = 1e3 * nbytes / H100_BYTES_PER_S
         ops_ms = 1e3 * nops / H100_F32_FLOPS
         row = dict(shape=name, B=B, F=Fn, L=L, D=cfg.embed_dim,
-                   distinct_rows=distinct, max_abs_err=err,
-                   ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
-                   library_ms=cuda_ms(library),
+                   geometry=list(shape), distinct_rows=distinct,
+                   max_abs_err=err, equal_to_ordered=True,
+                   ms=cuda_ms(kern), graph_ms=graph_ms(kern),
+                   plain_ms=cuda_ms(plain), library_ms=cuda_ms(library),
                    bound_ms=max(bytes_ms, ops_ms),
                    bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        floor_ms = 1e3 * floor_bytes / H100_BYTES_PER_S
+        share = row["bound_ms"] / row["ms"]
         rows.append(row)
         print(f"[10] embedding bag {name} (B={B}, F={Fn}, L={L}, D="
               f"{cfg.embed_dim}; {distinct} distinct rows): kernel "
-              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-              f"F.embedding_bag x{Fn} {row['library_ms']:.4f} ms, bound "
-              f"{row['bound_ms']:.4f} ms by {row['bound_by']} ("
-              f"{nbytes / 1e9:.4f} GB over 3.35 TB/s, {nops / 1e9:.4f} Gflop "
-              f"over 67 TFLOP/s); max |d| {err:.3g}", flush=True)
+              f"(lanes, vec, lt, rounds) = {tuple(shape)}, "
+              f"{shape.bags} bags a warp; {row['ms']:.4f} ms by the call "
+              f"rate, {row['graph_ms']:.4f} ms of device time (a CUDA "
+              f"graph of the launch replayed); bits == its ordered sum; "
+              f"plain {row['plain_ms']:.4f} ms, F.embedding_bag x{Fn} "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"by {row['bound_by']} ({nbytes / 1e9:.4f} GB over 3.35 TB/s, "
+              f"{nops / 1e9:.4f} Gflop over 67 TFLOP/s; "
+              f"{100 * share:.1f}% of the kernel's time), "
+              f"gather floor {floor_ms:.4f} ms "
+              f"({floor_bytes / 1e9:.4f} GB: every lookup into a table "
+              f"above the 50 MB L2 from memory); max |d| {err:.3g}",
+              flush=True)
         del got, want
     print(f"[10] done in {time.time() - t0:.1f}s", flush=True)
 
@@ -702,6 +775,7 @@ def dlrm_phases(smi: str, dev: torch.device) -> dict:
     query = dict(dense=q["dense"][:1], sparse=q["sparse"][:1].contiguous(),
                  candidates=cand)
     bag_ops.launches = 0
+    bag_ops.shape_launches.clear()
     serving = []
     with torch.no_grad():
         for name, fn, reps in (
@@ -740,6 +814,11 @@ def dlrm_phases(smi: str, dev: torch.device) -> dict:
                   f"({peak_fwd / 2**20:.1f} MiB above the resident tables "
                   f"and batches)", flush=True)
         launches = bag_ops.launches
+        by_shape = dict(bag_ops.shape_launches)
+        main_shape = bag_ops.geometry(cfg.embed_dim, cfg.lookups_per_field)
+        if by_shape != {main_shape: launches}:
+            raise AssertionError(f"main-path bag launches by shape "
+                                 f"{by_shape}, not all on {main_shape}")
         # the same forwards on the CPU over the rows the batch touches
         sub = cpu_subtables(tables, q["sparse"])
         cpu_params = dict(tables=sub[0], bot=to_cpu(params["bot"]),
@@ -762,15 +841,22 @@ def dlrm_phases(smi: str, dev: torch.device) -> dict:
           f"elementwise (scaled error {used:.3g} <= 1e-4; max |d| "
           f"{err:.3g}); retrieval top-100 scores == CPU (scaled error "
           f"{s_used:.3g}; max |d| {s_err:.3g}), ids equal on "
-          f"{same_ids:.0%}; done in {time.time() - t0:.1f}s", flush=True)
+          f"{same_ids:.0%}; {launches} bag launches, all in the shape "
+          f"{tuple(main_shape)}; done in {time.time() - t0:.1f}s",
+          flush=True)
     del params, tables, cand, batches
     torch.cuda.empty_cache()
-    head = rows[1]      # serve_bulk
+    head, p99 = rows[1], rows[0]      # serve_bulk, serve_p99
     return {"name": "embedding_bag_fwd", "route": "cuda",
             "source": "src/repro_torch/kernels/embedding_bag/csrc/"
                       "embedding_bag.cu",
             "replaces": "src/repro/kernels/embedding_bag/kernel.py:38",
-            "launches": launches, "equal_to_plain": True,
+            "launches": launches, "launches_by_shape": {
+                str(tuple(k)): v for k, v in by_shape.items()},
+            "equal_to_plain": True, "equal_to_ordered": True,
+            "geometry": head["geometry"],
+            "graph_ms": head["graph_ms"], "p99_ms": p99["ms"],
+            "p99_graph_ms": p99["graph_ms"],
             "max_abs_err": worst, "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
@@ -1397,9 +1483,10 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- 7. the new kernels' ptxas reports (built in phase 2) ----
-    for (path, rep) in builds[1:3]:
-        print(f"[7] {path.name} (built with the others in {build_s:.1f}s)")
-        print_ptxas(rep)
+    print(f"[7] {builds[1][0].name} (built with the others in "
+          f"{build_s:.1f}s)")
+    print_ptxas(builds[1][1])
+    bag_ptxas(builds[2][0].name, builds[2][1])
 
     spmm_entry = spmm_phases(smi, torch.device("cuda"))
     torch.cuda.empty_cache()

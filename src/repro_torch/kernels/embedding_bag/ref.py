@@ -6,16 +6,25 @@ from __future__ import annotations
 import torch
 
 
-def embedding_bag_ref(table: torch.Tensor, indices: torch.Tensor,
-                      weights: torch.Tensor | None = None,
-                      combiner: str = "sum") -> torch.Tensor:
-    """table: [V, D]; indices: [B, L]; weights: [B, L] or None -> [B, D]."""
+def take_rows(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """``table[indices]`` as ``jnp.take`` reads it, f32: [..., D], a NaN
+    row for an index outside ``[-V, V)``."""
     V = table.shape[0]
     idx = indices.long()
     idx = torch.where(idx < 0, idx + V, idx)
     valid = (idx >= 0) & (idx < V)
-    rows = table[idx.clamp(0, max(V - 1, 0))].float()       # [B, L, D]
-    rows = torch.where(valid[..., None], rows, float("nan"))
+    if V == 0:
+        return torch.full((*idx.shape, table.shape[1]), float("nan"),
+                          device=table.device)
+    rows = table[idx.clamp(0, V - 1)].float()
+    return torch.where(valid[..., None], rows, float("nan"))
+
+
+def embedding_bag_ref(table: torch.Tensor, indices: torch.Tensor,
+                      weights: torch.Tensor | None = None,
+                      combiner: str = "sum") -> torch.Tensor:
+    """table: [V, D]; indices: [B, L]; weights: [B, L] or None -> [B, D]."""
+    rows = take_rows(table, indices)                          # [B, L, D]
     if weights is not None:
         rows = rows * weights[..., None]
     out = rows.sum(dim=1)
@@ -32,3 +41,28 @@ def embedding_bags_ref(tables, indices: torch.Tensor,
         [embedding_bag_ref(t, indices[:, f],
                            None if weights is None else weights[:, f],
                            combiner) for f, t in enumerate(tables)], dim=1)
+
+
+def embedding_bags_ordered(tables, indices: torch.Tensor,
+                           weights: torch.Tensor | None = None,
+                           combiner: str = "sum") -> torch.Tensor:
+    """``embedding_bags_ref`` in the kernel's order and rounding
+    (``csrc/embedding_bag.cu``), for tests and ``chip_smoke.py``: each bag
+    starts from 0 and adds its lookups l = 0 .. L-1 one at a time, each
+    row (times its weight, one rounding) rounded into the sum, and the
+    mean divides the sum by L in one rounding.  The divisor is a tensor on
+    the sum's device: PyTorch's CUDA division by a host scalar multiplies
+    by its reciprocal, which is not the kernel's rounding."""
+    B, F, L = indices.shape
+    out = []
+    for f, t in enumerate(tables):
+        rows = take_rows(t, indices[:, f])                    # [B, L, D]
+        if weights is not None:
+            rows = rows * weights[:, f, :, None]
+        acc = torch.zeros((B, t.shape[1]), device=rows.device)
+        for l in range(L):
+            acc = acc + rows[:, l]
+        if combiner == "mean":
+            acc = acc / torch.tensor(float(L), device=acc.device)
+        out.append(acc)
+    return torch.stack(out, dim=1)

@@ -83,6 +83,14 @@ def dlrm_params_from_numpy(cfg: DLRMConfig, tree, device=None):
     return tree_from_numpy(tree, resolve_device(device))
 
 
+def prepare_dlrm_params(params):
+    """``params`` with its tables checked once for the EmbeddingBag kernel
+    (``bag_ops.prepare_tables``), for serving: a forward over them skips
+    the per-table checks of every call.  Prepare again after resizing a
+    table or giving it other storage."""
+    return dict(params, tables=bag_ops.prepare_tables(params["tables"]))
+
+
 def embedding_bag(table, indices, weights=None, combiner="sum"):
     """table: [V, D]; indices: [B, L] -> [B, D] (the kernel's F = 1 case)."""
     return bag_ops.embedding_bag_fwd(table, indices, weights, combiner)
