@@ -30,6 +30,34 @@ does on every config here):
      equal to the plain version: both times, the plain version's, the
      byte bound and the cluster geometry
 
+The paper's experiments (``launch/paper_experiments.py``; the same cycle
+kernel, in its branches for per-cycle traces, ``app="ingest_only"`` and
+``allocator="random"``), right after phase 6:
+
+ 16. the new branches against the plain version on both cycle kernels
+     (cluster, and forced onto the one-block kernel), every leaf, the
+     launch record and every trace row equal: (a) the pinned 8x8 config
+     chunk by chunk, traced, bfs and ingest_only; (b) three mid-stream
+     states of the 2000-vertex stream on the 32x32 paper config, one
+     traced K=512 chunk each, for bfs, ingest_only and bfs under the
+     random allocator
+ 17. the experiments at 50K vertices / 1M edges (nothing cut), the counts
+     set to 0 before and every launch on the cluster kernel: ingest_only
+     and bfs over edge and snowball sampling, bfs under the random
+     allocator, ingest_only and bfs traced; every bfs stream's values the
+     oracle's, ingest_only's all 1e9, the traced streams' totals those of
+     the untraced ones increment by increment with one trace row a cycle,
+     the bfs edge stream 102 launches and 50,030 cycles; the wall of each
+     stream; then Fig. 8/9, Table 2, Fig. 5 and the Fig. 6/7 summary from
+     the runner's cache
+ 18. replays: ``src/repro_torch/data/paper_ci_fingerprint.json`` (the JAX
+     engine's five ci streams: counters, values, vertex_object_stats and
+     both traces) and the ``engine_ci`` / ``engine_mid`` counters of
+     ``results/bench_engine.json``, exactly
+ 19. the trace rows' cost: phase 6's K=512 chunk on the cluster kernel
+     untraced and traced in turns (untraced, traced, traced, untraced),
+     each equal to the plain version, the trace rows too
+
 The GNN and DLRM serving forwards (every aggregation a launch of the
 scatter-SpMM kernel, every DLRM lookup one launch of the EmbeddingBag
 kernel):
@@ -154,6 +182,7 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
 from repro_torch.kernels.spmm import ops as spmm_ops  # noqa: E402
 from repro_torch.kernels.spmm.ref import (scatter_spmm_ref,  # noqa: E402
                                           spmm_ordered, spmm_sorted_coo_ref)
+from repro_torch.launch import paper_experiments as pe  # noqa: E402
 from repro_torch.launch import serve as lm_serve  # noqa: E402
 from repro_torch.models import dlrm, gnn, transformer  # noqa: E402
 
@@ -196,20 +225,36 @@ def leaf_diff(a, b) -> float:
     return worst
 
 
-def kernel_vs_plain(cfg, app, st, n_cycles=None, paths=("auto",)):
+def kernel_vs_plain(cfg, app, st, n_cycles=None, paths=("auto",),
+                    traced=False):
     """One chunk through the kernel (once for each of ``paths``) and the
     plain version from the same input; returns the max abs difference (0)
-    or raises."""
-    runs = [ops.cca_cycle_chunk(cfg, app, clone(st), n_cycles, path=p)
-            for p in paths]
-    sr, cr = cca_cycle_chunk_ref(cfg, app, st, n_cycles)
+    or raises.  ``traced``: each call fills a trace tensor, and the
+    kernel's rows of the cycles run must equal the plain version's."""
+    n = cfg.chunk if n_cycles is None else n_cycles
+
+    def rows():
+        return torch.full((n, 2), -1, dtype=torch.int32,
+                          device=st.aq.device) if traced else None
+
+    runs = []
+    for p in paths:
+        tr = rows()
+        runs.append(ops.cca_cycle_chunk(cfg, app, clone(st), n_cycles,
+                                        path=p, trace=tr) + (tr,))
+    want = rows()
+    sr, cr = cca_cycle_chunk_ref(cfg, app, st, n_cycles, want)
     torch.cuda.synchronize()
-    worst = 0.0
-    for sk, ck in runs:
+    worst, ran = 0.0, int(cr[1])
+    for sk, ck, tk in runs:
         if not torch.equal(ck, cr):
             raise AssertionError(f"launch record {ck.tolist()} != "
                                  f"{cr.tolist()}")
         worst = max(worst, leaf_diff(sk, sr))
+        if traced and not torch.equal(tk[:ran], want[:ran]):
+            bad = int((tk[:ran] != want[:ran]).any(1).nonzero()[0])
+            raise AssertionError(f"trace row {bad}: {tk[bad].tolist()} != "
+                                 f"{want[bad].tolist()}")
     return worst, sr, bool(cr[0])
 
 
@@ -265,6 +310,215 @@ def replay(ref):
         rows.append(dict(cycles=r.cycles, hops=r.hops, execs=r.execs,
                          stalls=r.stalls, allocs=r.allocs))
     return rows, eng.values()
+
+
+def branch_phases(pinned) -> float:
+    """Phase 16: the cycle kernel's branches of the paper experiments
+    against the plain version, every launch on both kernels (cluster, then
+    forced onto the one-block kernel), every leaf, the record and every
+    trace row equal; returns the max abs difference (0)."""
+    worst = 0.0
+    # (a) the pinned 8x8 config chunk by chunk, traced, bfs and ingest_only
+    for app in ("bfs", "ingest_only"):
+        t0 = time.time()
+        eng = StreamingEngine(EngineConfig(**pinned["cfg"]), app)
+        if app == "bfs":
+            eng.seed(0, 0.0)
+        cfg, st, chunks = eng.cfg, eng.state, 0
+        before = dict(ops.path_launches)
+        for e in make_stream(StreamSpec(**pinned["spec"])):
+            st, spill = load_stream(cfg, st, e)
+            assert len(spill) == 0
+            st, q = fresh_stats(st), False
+            while not q:
+                d, st, q = kernel_vs_plain(cfg, eng.app, st,
+                                           paths=("cluster", "block"),
+                                           traced=True)
+                worst, chunks = max(worst, d), chunks + 1
+        got = {p: ops.path_launches[p] - before[p] for p in ops.PATHS}
+        if got != {"block": chunks, "cluster": chunks}:
+            raise AssertionError(f"16a {app}: launches {got}, {chunks} chunks")
+        print(f"[16a] 8x8 pinned, {app}, traced: both kernels == plain on "
+              f"every leaf, the record and every trace row over {chunks} "
+              f"chunks (max |d| {worst}; {time.time() - t0:.1f}s)",
+              flush=True)
+    # (b) the 32x32 ci stream: three mid-stream states, one K=512 chunk each
+    ci = pe.SCALES["ci"]
+    incs = pe.stream_increments("edge", "ci")
+    for app, alloc in (("bfs", "vicinity"), ("ingest_only", "vicinity"),
+                       ("bfs", "random")):
+        eng = pe._engine(ci["n_vertices"], app, alloc, n_edges=ci["n_edges"])
+        for i, e in enumerate(incs):
+            if i in (2, 5, 8):
+                st, _ = load_stream(eng.cfg, clone(eng.state), e)
+                t0 = time.time()
+                before = dict(ops.path_launches)
+                d, sr, q = kernel_vs_plain(eng.cfg, eng.app, fresh_stats(st),
+                                           512, ("cluster", "block"),
+                                           traced=True)
+                if {p: ops.path_launches[p] - before[p] for p in ops.PATHS} \
+                        != {"cluster": 1, "block": 1}:
+                    raise AssertionError("16b: not one launch on each kernel")
+                worst = max(worst, d)
+                print(f"[16b] 32x32 ci {app} {alloc} increment {i}: one "
+                      f"traced K=512 chunk, both kernels == plain on every "
+                      f"leaf, the record and every trace row (cycle "
+                      f"{int(sr.cycle)}, quiescent {q}, "
+                      f"{time.time() - t0:.1f}s)", flush=True)
+            eng.run_increment(e, max_cycles=2_000_000)
+    return worst
+
+
+PAPER_STREAMS = (  # (app, sampling, allocator, traced), in the order run
+    ("ingest_only", "edge", "vicinity", False),
+    ("bfs", "edge", "vicinity", False),
+    ("ingest_only", "snowball", "vicinity", False),
+    ("bfs", "snowball", "vicinity", False),
+    ("bfs", "edge", "random", False),
+    ("ingest_only", "edge", "vicinity", True),
+    ("bfs", "edge", "vicinity", True))
+TOTALS = ("edges", "cycles", "hops", "execs", "stalls", "allocs")
+
+
+def experiment_phases(smi: str) -> dict:
+    """Phase 17: the paper's experiments at 50K vertices / 1M edges through
+    ``launch/paper_experiments.py``, every launch on the cluster kernel
+    (the counts set to 0 before and read after), checked by the repo's own
+    means; then the tables, read from its cache."""
+    t_all = time.time()
+    ops.launches = 0
+    ops.path_launches = dict.fromkeys(ops.PATHS, 0)
+    n = pe.SCALES["paper"]["n_vertices"]
+    oracle, streams = {}, []
+    for app, sampling, alloc, traced in PAPER_STREAMS:
+        t0 = time.time()
+        incs = pe.stream_increments(sampling, "paper")
+        gen_s = time.time() - t0
+        before = dict(ops.path_launches)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        rows, eng = pe.run_stream(app, sampling, "paper", allocator=alloc,
+                                  collect_traces=traced)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        got = {p: ops.path_launches[p] - before[p] for p in ops.PATHS}
+        if got["block"] or not got["cluster"]:
+            raise AssertionError(f"17 {app} {sampling}: launches {got}")
+        key = (app, sampling, "paper", alloc, traced, "cuda")
+        cycles = sum(r["cycles"] for r in rows)
+        vals = eng.values()
+        if app == "bfs":
+            if sampling not in oracle:
+                oracle[sampling] = bfs_levels(n, np.concatenate(incs), 0)
+            assert (vals == oracle[sampling]).all(), \
+                f"17 {sampling} {alloc}: BFS != oracle"
+        elif not (vals == np.float32(1e9)).all():
+            raise AssertionError(f"17 ingest_only {sampling}: values moved")
+        if traced:
+            plain = pe._CACHE[key[:4] + (False, "cuda")][0]
+            for a, b in zip(plain, rows):
+                if {k: a[k] for k in TOTALS} != {k: b[k] for k in TOTALS} \
+                        or len(a["active"]) or len(b["active"]) != b["cycles"]:
+                    raise AssertionError(f"17 traced {app}: increment "
+                                         f"{b['increment']} {b} != {a}")
+        if (app, sampling, alloc, traced) == ("bfs", "edge", "vicinity",
+                                              False) \
+                and (got["cluster"], cycles) != (102, 50_030):
+            raise AssertionError(f"17 bfs edge: {got['cluster']} launches, "
+                                 f"{cycles} cycles, not 102 and 50,030")
+        streams.append(dict(app=app, sampling=sampling, allocator=alloc,
+                            traced=traced, cycles=cycles,
+                            launches=got["cluster"], wall_s=wall,
+                            per_increment=[r["cycles"] for r in rows]))
+        print(f"[17] {app} {sampling} {alloc}{' traced' if traced else ''}: "
+              f"{cycles} cycles in {got['cluster']} launches (cluster "
+              f"kernel), wall {wall:.4f}s (host clock, the engine's set-up "
+              f"included, ends in synchronize; "
+              f"{1e3 * wall / got['cluster']:.4f} ms a launch); "
+              + ("BFS == oracle" if app == "bfs" else "values all 1e9")
+              + ("; every increment's totals == the untraced run's, one "
+                 "trace row a cycle" if traced else "")
+              + f" (stream generated in {gen_s:.1f}s)", flush=True)
+    launches = dict(ops.path_launches)
+    tables = dict(
+        fig8_9={s: pe.bench_cycles_per_increment("paper", s)[0]
+                for s in ("edge", "snowball")},
+        table2=pe.bench_energy("paper"),
+        fig5=pe.bench_allocator("paper"),
+        fig6_7=pe.bench_activation("paper", "edge"))
+    if dict(ops.path_launches) != launches:
+        raise AssertionError("17: the tables ran streams of their own")
+    for name, rows in tables.items():
+        print(f"[17] {name}: {json.dumps(rows)}", flush=True)
+    print(f"[17] done in {time.time() - t_all:.1f}s: {launches['cluster']} "
+          f"launches, all on the cluster kernel", flush=True)
+    return dict(streams=streams, tables=tables, launches=launches)
+
+
+def ci_stream(run: dict) -> tuple[list, object, np.ndarray, np.ndarray]:
+    """One stream of the ci fingerprint through the engine on the card:
+    (per-increment totals, engine, active, in-flight traces)."""
+    ci = pe.SCALES["ci"]
+    eng = pe._engine(ci["n_vertices"], run["app"], run["allocator"],
+                     n_edges=ci["n_edges"])
+    rows, act, flt = [], [], []
+    for e in pe.stream_increments(run["sampling"], "ci"):
+        r = eng.run_increment(e, max_cycles=2_000_000,
+                              collect_traces=run["traced"])
+        rows.append(dict(edges=len(e), cycles=r.cycles, hops=r.hops,
+                         execs=r.execs, stalls=r.stalls, allocs=r.allocs))
+        act.append(r.active_per_cycle)
+        flt.append(r.in_flight_per_cycle)
+    return rows, eng, np.concatenate(act), np.concatenate(flt)
+
+
+def replay_phases() -> dict:
+    """Phase 18: the ci fingerprint recorded from the JAX engine, and the
+    ``engine_ci`` / ``engine_mid`` counters of results/bench_engine.json,
+    exactly."""
+    t0 = time.time()
+    fp = json.loads((ROOT / "src" / "repro_torch" / "data"
+                     / "paper_ci_fingerprint.json").read_text())
+    before = dict(ops.path_launches)
+    for run in fp["streams"]:
+        rows, eng, act, flt = ci_stream(run)
+        cfg = dataclasses.asdict(eng.cfg)
+        want_cfg = {k: v for k, v in run["cfg"].items() if k in cfg}
+        name = f"{run['app']} {run['sampling']} {run['allocator']}"
+        if cfg != want_cfg or rows != run["increments"]:
+            raise AssertionError(f"18 {name}: {rows} != {run['increments']}")
+        if not (eng.values() == np.float32(run["values"])).all():
+            raise AssertionError(f"18 {name}: values differ")
+        if eng.vertex_object_stats() != run["vertex_object_stats"]:
+            raise AssertionError(f"18 {name}: vertex_object_stats differ")
+        if run["traced"] and not (
+                act.tolist() == run["active_per_cycle"]
+                and flt.tolist() == run["in_flight_per_cycle"]):
+            raise AssertionError(f"18 {name}: traces differ")
+        print(f"[18] ci fingerprint {name}"
+              f"{' traced' if run['traced'] else ''}: "
+              f"{sum(r['cycles'] for r in rows)} cycles, counters, values, "
+              f"vertex_object_stats{', every trace row' if run['traced'] else ''}"
+              f" == the JAX engine's", flush=True)
+    bench = json.loads((ROOT / "results" / "bench_engine.json").read_text())
+    engine = {}
+    for scale in ("ci", "mid"):
+        got = pe.bench_engine(scale)
+        want = bench[f"engine_{scale}"]["backends"]["jnp"]
+        keys = ("cycles", "execs", "hops", "total_cycles")
+        if {k: got[k] for k in keys} != {k: want[k] for k in keys}:
+            raise AssertionError(f"18 engine_{scale}: {got} != {want}")
+        engine[scale] = got
+        print(f"[18] engine_{scale} ({got['grid']}): cycles {got['cycles']}, "
+              f"execs {got['execs']}, hops {got['hops']}, total cycles "
+              f"{got['total_cycles']} == results/bench_engine.json; wall "
+              f"{got['wall_s']:.4f}s for the second increment "
+              f"({got['cell_cycles_per_s']:.4g} cell-cycles/s)", flush=True)
+    got = {p: ops.path_launches[p] - before[p] for p in ops.PATHS}
+    if got["block"] or not got["cluster"]:
+        raise AssertionError(f"18: launches {got}")
+    print(f"[18] done in {time.time() - t0:.1f}s", flush=True)
+    return engine
 
 
 def print_ptxas(report: str) -> None:
@@ -1463,6 +1717,39 @@ def main() -> None:
           f"over 3.35 TB/s); both kernels == plain (max |d| {d})",
           flush=True)
 
+    # ---- 16-18. the paper experiments' branches, the experiments, replays
+    worst = max(worst, branch_phases(pinned))
+    experiments = experiment_phases(smi)
+    pe._CACHE.clear()                 # seven engines' 0.8 GB IO buffers
+    torch.cuda.empty_cache()
+    engine_bench = replay_phases()
+
+    # ---- 19. the trace rows' cost: the K=512 chunk of phase 6, in turns ----
+    trace = torch.empty((512, 2), dtype=torch.int32, device=st.aq.device)
+    turns = {"untraced": [], "traced": []}
+    for which in ("untraced", "traced", "traced", "untraced"):
+        before = dict(ops.path_launches)
+        t, s_kern, q_kern = time_chunk(
+            launch, path="cluster",
+            trace=trace if which == "traced" else None)
+        on_path(before, "cluster", 1)
+        assert torch.equal(q_kern, q_plain)
+        d = max(d, leaf_diff(s_kern, s_plain))
+        turns[which].append(t)
+    want_rows = torch.full_like(trace, -1)
+    cca_cycle_chunk_ref(cfg_p, BFS, clone(st), 512, want_rows)
+    if not torch.equal(trace[:ran], want_rows[:ran]):
+        raise AssertionError("19: the full-size chunk's trace rows differ "
+                             "from the plain version's")
+    t_traced, t_untraced = (float(np.mean(turns[k]))
+                            for k in ("traced", "untraced"))
+    print(f"[19] full-size chunk ({ran} cycles), in turns untraced, traced, "
+          f"traced, untraced on the cluster kernel: untraced "
+          f"{turns['untraced'][0]:.4f} / {turns['untraced'][1]:.4f} ms, "
+          f"traced {turns['traced'][0]:.4f} / {turns['traced'][1]:.4f} ms "
+          f"({t_traced / t_untraced:.4f}x); both == plain on every leaf, "
+          f"the trace rows == the plain version's", flush=True)
+
     cca_entry = {
         "name": "cca_cycle_chunk", "route": "cuda",
         "source": "src/repro_torch/kernels/cca_cycle/csrc/"
@@ -1478,6 +1765,14 @@ def main() -> None:
         "ms_per_launch": kern_ms / launches, "block_ms": t_block,
         "plain_ms": t_plain, "bound_ms": bound_ms, "bound_by": "bytes",
         "library_ms": None, "chunk_cycles": ran, "ptxas": cca_ptxas,
+        "branches": ["traces", "ingest_only", "random_allocator"],
+        "traced_ms": t_traced, "untraced_ms_in_turns": t_untraced,
+        "paper_experiments": {
+            "launches": experiments["launches"],
+            "streams": [{k: v for k, v in r.items() if k != "per_increment"}
+                        for r in experiments["streams"]]},
+        "engine_bench": {k: {m: v[m] for m in ("cycles", "wall_s")}
+                         for k, v in engine_bench.items()},
         "card": smi}
     del eng, snapshot, st, s_kern, s_plain
     torch.cuda.empty_cache()

@@ -15,7 +15,8 @@ class ShapeSpec:
     name: str
     kind: str          # lm_train | lm_prefill | lm_decode |
                        # gnn_full | gnn_minibatch | gnn_batched |
-                       # recsys_train | recsys_serve | recsys_retrieval
+                       # recsys_train | recsys_serve | recsys_retrieval |
+                       # cca_stream
     dims: tuple        # sorted (key, value) pairs
 
     def dim(self, k, default=None):

@@ -3,8 +3,9 @@
 The *vicinity allocator* keeps ghost vertices within ``vicinity_hops``
 (default 2) of the requesting cell: a rotating per-cell counter walks a
 nearest-first table of ring offsets, so the choice is deterministic yet
-spread out.  If the chosen cell is full, its ``allocate`` handler
-forwards the request to the next cell (linear probe).
+spread out.  The *random allocator* hashes (cell, counter) to any cell of
+the chip.  If the chosen cell is full, its ``allocate`` handler forwards
+the request to the next cell (linear probe).
 """
 from __future__ import annotations
 
@@ -49,9 +50,28 @@ def vicinity_offsets(hops: int) -> np.ndarray:
     return np.asarray(offs, np.int32)
 
 
+U32 = 0xFFFFFFFF
+
+
+def random_alloc_cell(cfg: EngineConfig, cell, arot):
+    """The random allocator's splitmix-style hash of (cell, ``arot``) to
+    a flat cell id, in uint32 arithmetic as the JAX engine computes it.
+    torch has no general uint32 arithmetic: this computes in int64 and
+    keeps the low 32 bits after every multiply and add (an int64 product
+    of two 32-bit values may wrap, its low 32 bits stay right)."""
+    x = (cell.long() & U32) * 0x9E3779B9 & U32
+    x = (x + (arot.long() & U32) * 0x85EBCA6B) & U32
+    x = x ^ (x >> 16)
+    x = x * 0xC2B2AE35 & U32
+    x = x ^ (x >> 13)
+    return (x % cfg.n_cells).to(torch.int32)
+
+
 def choose_alloc_cell(cfg: EngineConfig, rows, cols, arot):
-    """Vicinity target-cell choice; rows/cols/arot ``[H,W]`` int32 ->
-    ``[H,W]`` flat cell ids."""
+    """Target-cell choice of ``cfg.allocator``; rows/cols/arot ``[H,W]``
+    int32 -> ``[H,W]`` flat cell ids."""
+    if cfg.allocator == "random":
+        return random_alloc_cell(cfg, rows * cfg.width + cols, arot)
     offs = torch.as_tensor(vicinity_offsets(cfg.vicinity_hops),
                            device=arot.device)
     k = (arot % len(offs)).long()

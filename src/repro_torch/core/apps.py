@@ -1,9 +1,10 @@
-"""Diffusion applications: the paper's ``bfs-action`` plus SSSP and CC.
+"""Diffusion applications: the paper's ``bfs-action``, SSSP, CC and the
+ingestion-only mode.
 
 Each app is a *monotone relaxation* (``core/apps.py`` of the JAX
 package): ``relax(vals, incoming) -> (new_vals, changed)`` at the
 target, ``edge_value(src_val, w)`` along an edge, and
-``propagate_on_insert(vals)`` (Listing 4, line 7).  All three are
+``propagate_on_insert(vals)`` (Listing 4, line 7).  All four are
 min-monotone with ``1e9`` as "unreached".  ``code`` is the app's number
 in the CUDA cycle kernel (``kernels/cca_cycle/csrc/cca_cycle.cu``).
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
 
 INF = 1e9
@@ -21,32 +23,53 @@ INF = 1e9
 class DiffusionApp:
     name: str
     code: int
-    edge_value: Callable          # (src value, edge weight) -> value
+    # (vals[..., VN], incoming [...]) -> (new vals, changed bool [...])
+    relax: Callable
+    # (emit source value, edge weight) -> value
+    edge_value: Callable
+    # vals[..., VN] -> bool [...]: propagate on edge-insert?
+    propagate_on_insert: Callable
     init_val: float = INF
     n_vals: int = 1
-    qbatch: int = 1
+    # host-side merge of one vertex's values across its rhizome roots
+    combine: Callable = np.minimum
+    # coalescing rule of the deferred app-forward register, and the
+    # element that loses every merge
+    fwd_merge: Callable = torch.minimum
     fwd_neutral: float = INF
-
-    @staticmethod
-    def relax(vals, incoming):
-        """Min-relax of value 0: ``(new vals, changed)``."""
-        v = vals[..., 0]
-        changed = incoming < v
-        new = vals.clone()
-        new[..., 0] = torch.where(changed, incoming, v)
-        return new, changed
-
-    @staticmethod
-    def propagate_on_insert(vals):
-        return vals[..., 0] < INF
-
-    @staticmethod
-    def fwd_merge(a, b):
-        return torch.minimum(a, b)
+    qbatch: int = 1
 
 
-BFS = DiffusionApp(name="bfs", code=0, edge_value=lambda v, w: v + 1.0)
-SSSP = DiffusionApp(name="sssp", code=1, edge_value=lambda v, w: v + w)
-CC = DiffusionApp(name="cc", code=2, edge_value=lambda v, w: v)
+def _min_relax(vals, incoming):
+    """Min-relax of value 0: ``(new vals, changed)``."""
+    v = vals[..., 0]
+    changed = incoming < v
+    new = vals.clone()
+    new[..., 0] = torch.where(changed, incoming, v)
+    return new, changed
 
-APPS = {a.name: a for a in (BFS, SSSP, CC)}
+
+def _reached(vals):
+    return vals[..., 0] < INF
+
+
+def _never(vals):
+    return torch.zeros(vals.shape[:-1], dtype=torch.bool, device=vals.device)
+
+
+BFS = DiffusionApp(name="bfs", code=0, relax=_min_relax,
+                   edge_value=lambda v, w: v + 1.0,
+                   propagate_on_insert=_reached)
+SSSP = DiffusionApp(name="sssp", code=1, relax=_min_relax,
+                    edge_value=lambda v, w: v + w,
+                    propagate_on_insert=_reached)
+CC = DiffusionApp(name="cc", code=2, relax=_min_relax,
+                  edge_value=lambda v, w: v, propagate_on_insert=_reached)
+# Ingestion only: the paper's experiment with bfs-action propagation off
+# (§5), to isolate streaming-insert time.  Values never change.
+INGEST_ONLY = DiffusionApp(name="ingest_only", code=3,
+                           relax=lambda vals, incoming: (vals, _never(vals)),
+                           edge_value=lambda v, w: v,
+                           propagate_on_insert=_never)
+
+APPS = {a.name: a for a in (BFS, SSSP, CC, INGEST_ONLY)}

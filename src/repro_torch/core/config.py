@@ -120,7 +120,6 @@ class EngineConfig:
             ("ingest_guard", not self.ingest_guard),
             ("qbatch>1", self.qbatch == 1),
             ("n_vals>1", self.n_vals == 1),
-            ('allocator="random"', self.allocator != "random"),
             ("n_io_cells other than width",
              self.n_io_cells in (0, self.width)),
         ) if not off]
@@ -129,7 +128,7 @@ class EngineConfig:
                 f"repro_torch does not port {', '.join(not_yet)} yet")
         checks = (
             (self.height >= 2 and self.width >= 2, "grid must be >= 2x2"),
-            (self.allocator == "vicinity",
+            (self.allocator in ("vicinity", "random"),
              f"unknown allocator {self.allocator!r}"),
             (self.queue_cap > self.aq_reserve + self.sys_reserve + 1,
              "queue too small for reserves (DESIGN §4.2): need queue_cap > "

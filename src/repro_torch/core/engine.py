@@ -19,7 +19,9 @@ for a state on the CPU.  The chunk loop runs on the host, one launch and
 one read of the launch record per chunk, and reproduces the JAX engine's
 device loop exactly: the cycle limit checked at chunk boundaries, the
 no-progress counter on ``stat_exec + stat_hops``, ``LIVELOCK_CHUNKS`` and
-the spill reload passes.
+the spill reload passes.  ``collect_traces=True`` takes the JAX engine's
+traced host loop instead, with the kernel filling one ``(active,
+in_flight)`` row a cycle.
 """
 from __future__ import annotations
 
@@ -41,6 +43,14 @@ from repro_torch.core.state import (MachineState, init_state,
 # this many consecutive chunks with no executed action and no hop while
 # work is pending => message-dependent deadlock (DESIGN §4.2)
 LIVELOCK_CHUNKS = 8
+
+
+class CycleStats(NamedTuple):
+    active: torch.Tensor      # cells doing compute/staging work this cycle
+    in_flight: torch.Tensor   # messages sitting in channels
+    backlog: torch.Tensor     # queued actions
+    hops: torch.Tensor        # link traversals this cycle
+    quiescent: torch.Tensor   # bool
 
 
 def _rc(cfg: EngineConfig, device):
@@ -71,6 +81,20 @@ def cycle_body(cfg: EngineConfig, app: DiffusionApp, st: MachineState):
     return st, (active_a, popped, hops)
 
 
+def cycle_step(cfg: EngineConfig, app: DiffusionApp, st: MachineState):
+    """``cycle_body`` and the cycle's :class:`CycleStats`: active is the
+    count of cells that staged or popped an action, in-flight the channel
+    and park occupancy after the cycle."""
+    st, (active_a, popped, hops) = cycle_body(cfg, app, st)
+    stats = CycleStats(
+        active=(active_a | popped).sum(dtype=torch.int32),
+        in_flight=st.ch_n.sum(dtype=torch.int32)
+        + st.pk_n.sum(dtype=torch.int32),
+        backlog=st.aq_n.sum(dtype=torch.int32),
+        hops=hops, quiescent=quiescent(st))
+    return st, stats
+
+
 def _livelock_msg(cfg: EngineConfig) -> str:
     return ("engine livelock: no action executed and no message hopped "
             f"for {LIVELOCK_CHUNKS * cfg.chunk} cycles with work pending. "
@@ -90,12 +114,17 @@ class LivelockError(RuntimeError):
         self.chunk = chunk
 
 
-class IncrementResult(NamedTuple):
+@dataclasses.dataclass
+class IncrementResult:
     cycles: int
+    # per-cycle traces (``collect_traces=True``; empty int32 otherwise)
+    active_per_cycle: np.ndarray
+    in_flight_per_cycle: np.ndarray
     hops: int
     execs: int
     stalls: int
     allocs: int
+    frames: None = None        # telemetry frames: not ported
 
 
 class StreamingEngine:
@@ -131,9 +160,10 @@ class StreamingEngine:
                       ckpt=None) -> IncrementResult:
         """Ingest ``edges`` (int32 ``[m, 3]``: src, dst, weight bits) and
         run to quiescence.  Raises :class:`LivelockError` on a detected
-        deadlock."""
-        for name, on in (("collect_traces", collect_traces),
-                         ("recover", recover is not None),
+        deadlock.  ``collect_traces=True`` returns the per-cycle
+        ``active_per_cycle`` and ``in_flight_per_cycle`` (the same state
+        and totals either way)."""
+        for name, on in (("recover", recover is not None),
                          ("ckpt", ckpt is not None)):
             if on:
                 raise NotImplementedError(
@@ -146,6 +176,32 @@ class StreamingEngine:
         self.state = self.state._replace(
             stat_hops=zero.clone(), stat_exec=zero.clone(),
             stat_stall=zero.clone(), stat_allocs=zero.clone())
+        if collect_traces:
+            cycles, spill, traces = self._run_traced(spill, limit)
+            counters = tuple(torch.stack(
+                [self.state.stat_hops, self.state.stat_exec,
+                 self.state.stat_stall, self.state.stat_allocs]).tolist())
+        else:
+            cycles, q, noprog, counters, spill = self._passes(spill, limit)
+            if not q and noprog >= LIVELOCK_CHUNKS:
+                raise LivelockError(_livelock_msg(cfg), cycle=cycles,
+                                    chunk=cycles // cfg.chunk)
+            traces = (np.zeros(0, np.int32), np.zeros(0, np.int32))
+        if len(spill):
+            raise RuntimeError(
+                f"cycle limit {limit} exhausted with {len(spill)} spilled "
+                "edges not yet ingested; raise max_cycles or io_stream_cap")
+        self.stream_pos += 1
+        self.total_cycles += cycles
+        res = IncrementResult(cycles, *traces, *counters)
+        for k, v in zip(("hops", "execs", "stalls", "allocs"), counters):
+            self.totals[k] += v
+        return res
+
+    def _passes(self, spill, limit: int):
+        """The device loop's passes until quiescence with the spill
+        drained, or the cycle or livelock budget.  Returns ``(cycles,
+        quiescent, no-progress chunks, counters, spill)``."""
         cycles = 0
         while True:
             ran, q, noprog, counters = self._pass(limit - cycles)
@@ -153,22 +209,52 @@ class StreamingEngine:
             if q and len(spill):
                 # io_stream_cap overflow residue: the loaded prefix is
                 # consumed at quiescence, so reload the rest
-                self.state, spill = load_stream(cfg, self.state, spill)
+                self.state, spill = load_stream(self.cfg, self.state, spill)
                 continue
-            break
-        if not q and noprog >= LIVELOCK_CHUNKS:
-            raise LivelockError(_livelock_msg(cfg), cycle=cycles,
-                                chunk=cycles // cfg.chunk)
-        if len(spill):
-            raise RuntimeError(
-                f"cycle limit {limit} exhausted with {len(spill)} spilled "
-                "edges not yet ingested; raise max_cycles or io_stream_cap")
-        self.stream_pos += 1
-        self.total_cycles += cycles
-        res = IncrementResult(cycles, *counters)
-        for k, v in zip(("hops", "execs", "stalls", "allocs"), counters):
-            self.totals[k] += v
-        return res
+            return cycles, q, noprog, counters, spill
+
+    def _run_traced(self, spill, limit: int):
+        """The JAX engine's traced host loop (``_run_increment_traced``):
+        the cycle limit checked before each chunk over the whole
+        increment, the no-progress count on ``stat_exec + stat_hops``
+        taken on chunks that ran in full and kept across spill reloads.
+        Each chunk is one ``cca_cycle_chunk`` call that fills a trace row
+        a cycle, read back with the launch record (this is the debug path:
+        one host read a chunk).  Returns ``(cycles, spill, (active,
+        in_flight))``."""
+        from repro_torch.kernels.cca_cycle.ops import cca_cycle_chunk
+        cfg = self.cfg
+        trace = torch.empty((cfg.chunk, 2), dtype=torch.int32,
+                            device=self.device)
+        rows = []
+        cycles, last, noprog, quiet = 0, 0, 0, False
+        while cycles < limit:
+            ran = 0
+            if not quiet:
+                # (a state quiescent at the end of a full chunk runs no
+                # cycle in the next: JAX's chunk freezes at once)
+                st, qr = cca_cycle_chunk(cfg, self.app, self.state,
+                                         trace=trace)
+                self.state = st
+                buf = torch.cat([qr, (st.stat_exec + st.stat_hops)[None],
+                                 trace.view(-1)]).cpu().numpy()
+                quiet, ran, prog = bool(buf[0]), int(buf[1]), int(buf[2])
+                rows.append(buf[3:3 + 2 * ran].reshape(ran, 2))
+            cycles += ran
+            if ran < cfg.chunk:          # quiescent within this chunk
+                if len(spill):
+                    self.state, spill = load_stream(cfg, self.state, spill)
+                    quiet = False
+                    continue
+                break
+            noprog = noprog + 1 if prog == last else 0
+            last = prog
+            if noprog >= LIVELOCK_CHUNKS:
+                raise LivelockError(_livelock_msg(cfg), cycle=cycles,
+                                    chunk=cycles // cfg.chunk)
+        rows = np.concatenate(rows) if rows else np.zeros((0, 2), np.int32)
+        return cycles, spill, (np.ascontiguousarray(rows[:, 0]),
+                               np.ascontiguousarray(rows[:, 1]))
 
     def _pass(self, limit: int):
         """Chunks until quiescence, the cycle ``limit`` (checked between

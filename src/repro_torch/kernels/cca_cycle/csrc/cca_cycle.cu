@@ -9,7 +9,10 @@
 // PyTorch version is `repro_torch/kernels/cca_cycle/ref.py`; running either
 // kernel equals it leaf for leaf and bit for bit.  Scope: lanes=1,
 // rhizome_cap=1 (the rhizome handlers are carried but unreachable there),
-// qbatch=1, no telemetry, no faults, apps bfs/sssp/cc.
+// qbatch=1, no telemetry, no faults, apps bfs/sssp/cc/ingest_only, the
+// vicinity and random allocators.  Given a trace pointer, a launch also
+// fills the row (active cells, messages in flight after the cycle) of each
+// cycle it runs, the stats of `engine.cycle_step`.
 //
 // What bounds it.  Not bytes: the mutable state (85.6 MiB at the paper's
 // 50K-vertex config, 7.8 MiB at 2000 vertices) is read and written once per
@@ -75,7 +78,8 @@ enum { OP_NOP = 0, OP_INSERT_EDGE = 1, OP_APP = 2, OP_ALLOC = 3,
        OP_SET_FUTURE = 4, OP_RHIZOME_FWD = 5, OP_LINK_RHIZOME = 6 };
 enum { TB_N = 0, TB_S = 1, TB_W = 2, TB_E = 3, TB_AQ = 4 };
 enum { G_NULL = 0, G_PENDING = 1, G_SET = 2 };
-enum { APP_BFS = 0, APP_SSSP = 1, APP_CC = 2 };
+enum { APP_BFS = 0, APP_SSSP = 1, APP_CC = 2, APP_INGEST_ONLY = 3 };
+enum { ALLOC_VICINITY = 0, ALLOC_RANDOM = 1 };
 constexpr int MSGW = 5;
 constexpr float INF = 1e9f;
 constexpr int MAX_CTAS = 16;   // the largest (non-portable) cluster
@@ -86,7 +90,7 @@ constexpr int MAX_CTAS = 16;   // the largest (non-portable) cluster
 struct Dims {
   int H, W, S, E, Q, FQ, LC, IO, IOL;
   int root_slots, primary_slots, rhizome_cap, rhizome_stride;
-  int aq_reserve, sys_reserve, n_offs, app, n_cycles;
+  int aq_reserve, sys_reserve, n_offs, app, allocator, n_cycles;
   int n_ctas, smem_bytes;
 };
 constexpr int N_DIMS = sizeof(Dims) / sizeof(int);
@@ -110,6 +114,7 @@ struct Leaves {
   int* grant;        // [cells]
   int* qwork;        // [cells] sum over slots of fq_n + fwd_pending
   int* rec;          // [8] the launch record
+  int* trace;        // [n_cycles, 2] (active, in_flight) a cycle, or null
 };
 constexpr int N_PTRS = sizeof(Leaves) / sizeof(void*);
 
@@ -179,7 +184,16 @@ __device__ __forceinline__ bool ext_room(const Dims& D, int op, int aq_n) {
 __device__ __forceinline__ float edge_value(int app, float v, float w) {
   if (app == APP_BFS) return __fadd_rn(v, 1.0f);
   if (app == APP_SSSP) return __fadd_rn(v, w);
-  return v;
+  return v;   // cc, ingest_only
+}
+
+// Add `v`, summed over the warp, into *at (one atomic a warp).  The lanes
+// of a partial last warp are named exactly.
+__device__ __forceinline__ void trace_add(int* at, int v) {
+  const int lanes = min(32, (int)blockDim.x - (int)(threadIdx.x & ~31u));
+  const unsigned mask = lanes == 32 ? 0xffffffffu : (1u << lanes) - 1u;
+  v = __reduce_add_sync(mask, v);
+  if ((threadIdx.x & 31) == 0 && v) atomicAdd(at, v);
 }
 
 __device__ __forceinline__ void copy_msg(int* dst, const int* src) {
@@ -330,14 +344,14 @@ __device__ int hop_write(const Dims& D, const C& X, int c, int d) {
 struct Counts { int hops, exec, stall, allocs; };
 
 // exec_stage.staging_stage for cell c: the active action stages its next
-// emission.
+// emission.  Returns whether the cell had one (staging's `active`).
 template <class C>
-__device__ void staging(const Dims& D, const Leaves& P, const C& X, int c,
+__device__ bool staging(const Dims& D, const Leaves& P, const C& X, int c,
                         Counts& n) {
   int l = X.l(c);
-  if (!X.cvalid[l]) return;
+  if (!X.cvalid[l]) return false;
   int cphase = X.cphase[l], cT = X.cT[l];
-  if (cphase < 1 || cphase > cT) return;
+  if (cphase < 1 || cphase > cT) return false;
   const int* cm = X.cmsg + (size_t)l * MSGW;
   int op = cm[0], dst = cm[1];
   int S = D.S, slot = fmod_(dst, S);
@@ -419,16 +433,18 @@ __device__ void staging(const Dims& D, const Leaves& P, const C& X, int c,
   X.cphase[l] = new_phase;
   if (ok_total && new_phase > cT) { X.cvalid[l] = false; n.exec += 1; }
   if (!ok_total) n.stall += 1;
+  return true;
 }
 
 // exec_stage.phase0_stage for cell c: an idle cell pops one action and runs
-// its computing instruction.
+// its computing instruction.  Returns whether it popped one (phase 0's
+// `pop`; a rotated head is no pop).
 template <class C>
-__device__ void phase0(const Dims& D, const Leaves& P, const C& X, int c,
+__device__ bool phase0(const Dims& D, const Leaves& P, const C& X, int c,
                        bool busy0, Counts& n) {
   int l = X.l(c);
   int aqn = X.aq_n[l];
-  if (busy0 || aqn <= 0) return;
+  if (busy0 || aqn <= 0) return false;
   int S = D.S, NC = D.H * D.W, Q = D.Q;
   int aqh = X.aq_head[l];
   int m[MSGW];
@@ -460,7 +476,7 @@ __device__ void phase0(const Dims& D, const Leaves& P, const C& X, int c,
     copy_msg(X.aq + ((size_t)l * Q + fmod_(aqh + aqn, Q)) * MSGW, m);
     X.aq_head[l] = fmod_(aqh + 1, Q);
     n.stall += 1;
-    return;
+    return false;
   }
 
   int T = 0;
@@ -472,7 +488,8 @@ __device__ void phase0(const Dims& D, const Leaves& P, const C& X, int c,
     P.edst[e] = a0;
     P.ew[e] = i2f(a1);
     P.nedges[idx] = ne + 1;
-    T = vs < INF ? 1 : 0;
+    // propagate on insert (Listing 4, line 7); never for ingest_only
+    T = D.app != APP_INGEST_ONLY && vs < INF ? 1 : 0;
     out[0] = OP_APP; out[1] = a0;
     out[2] = f2i(edge_value(D.app, vs, i2f(a1)));
     set_out = true;
@@ -489,12 +506,24 @@ __device__ void phase0(const Dims& D, const Leaves& P, const C& X, int c,
     if (p_null) {
       P.gstate[idx] = G_PENDING;
       int arot = X.arot[l];
-      int kk = fmod_(arot, D.n_offs);
-      int r = min(max(c / D.W + P.offs[2 * kk], 0), D.H - 1);
-      int cc = min(max(c % D.W + P.offs[2 * kk + 1], 0), D.W - 1);
+      int tgt;
+      if (D.allocator == ALLOC_RANDOM) {
+        // alloc.choose_alloc_cell's hash of (cell, arot), uint32 arithmetic
+        unsigned x = (unsigned)c * 0x9E3779B9u;
+        x += (unsigned)arot * 0x85EBCA6Bu;
+        x ^= x >> 16;
+        x *= 0xC2B2AE35u;
+        x ^= x >> 13;
+        tgt = (int)(x % (unsigned)NC);
+      } else {
+        int kk = fmod_(arot, D.n_offs);
+        int r = min(max(c / D.W + P.offs[2 * kk], 0), D.H - 1);
+        int cc = min(max(c % D.W + P.offs[2 * kk + 1], 0), D.W - 1);
+        tgt = r * D.W + cc;
+      }
       X.arot[l] = arot + 1;
       T = 1;
-      out[0] = OP_ALLOC; out[1] = (r * D.W + cc) * S; out[2] = dst;
+      out[0] = OP_ALLOC; out[1] = tgt * S; out[2] = dst;
       out[3] = f2i(vs);
       set_out = true;
     } else if (p_rlink) {
@@ -509,7 +538,8 @@ __device__ void phase0(const Dims& D, const Leaves& P, const C& X, int c,
     }
   } else if (is_app || is_rf) {
     float inc = i2f(a0);
-    bool changed = inc < vs;
+    // the app's relax: a min, or for ingest_only no change at all
+    bool changed = D.app != APP_INGEST_ONLY && inc < vs;
     P.vals[idx] = changed ? inc : vs;
     X.cemit[l] = changed ? inc : vs;
     int gl = gs != G_NULL ? 1 : 0;
@@ -563,6 +593,7 @@ __device__ void phase0(const Dims& D, const Leaves& P, const C& X, int c,
   X.cphase[l] = 1;
   X.cT[l] = T;
   X.cdrain[l] = is_rf ? drain_n : 0;
+  return true;
 }
 
 // ingest.io_stage for IO cell i (attached to row-0 cell i).
@@ -608,9 +639,20 @@ __device__ void init_qwork(const Dims& D, const Leaves& P, const C& X,
   X.qwork[X.l(c)] = w;
 }
 
+// Messages in cell c's channels and park buffer.
+template <class C>
+__device__ __forceinline__ int cell_in_flight(const C& X, int c) {
+  int l = X.l(c);
+  const int* chn = X.ch_n + l * 4;
+  return chn[0] + chn[1] + chn[2] + chn[3] + X.pk_n[l];
+}
+
 // Up to D.n_cycles machine cycles over the band of X, frozen at quiescence;
 // the schedule of both kernels.  Returns the cycles run; `quiet` is the
-// quiescence test's last value.
+// quiescence test's last value.  With P.trace, each thread counts its
+// cells' activity in the exec loop and their channel occupancy in the next
+// quiescence test (the one after a launch's last cycle too), and each warp
+// adds its sums into the cycle's trace row: no barrier of its own.
 template <bool kCluster>
 __device__ int run_cycles(const Dims& D, const Leaves& P,
                           const Cells<kCluster>& X, Counts& n, int& quiet,
@@ -626,6 +668,11 @@ __device__ int run_cycles(const Dims& D, const Leaves& P,
     for (int c = first; c < end; c += nt) busy |= cell_busy(D, X, c);
 #endif
     quiet = !X.any(busy);
+    if (P.trace && ran > 0) {
+      int in_flight = 0;
+      for (int c = first; c < end; c += nt) in_flight += cell_in_flight(X, c);
+      trace_add(P.trace + 2 * (ran - 1) + 1, in_flight);
+    }
     clk.stamp(0);
     if (quiet || ran == D.n_cycles) break;
 #pragma unroll
@@ -642,12 +689,15 @@ __device__ int run_cycles(const Dims& D, const Leaves& P,
       clk.stamp(2 + 2 * d);
     }
 #ifndef CCA_SKELETON
+    int active = 0;
     for (int c = first; c < end; c += nt) {
       bool busy0 = X.cvalid[X.l(c)];
-      staging(D, P, X, c, n);
-      phase0(D, P, X, c, busy0, n);
+      bool staged = staging(D, P, X, c, n);
+      bool popped = phase0(D, P, X, c, busy0, n);
+      active += staged | popped;
       if (c < D.IO) io(D, P, X, c);
     }
+    if (P.trace) trace_add(P.trace + 2 * ran, active);
 #endif
     clk.stamp(9);
     ++ran;
@@ -679,6 +729,10 @@ cca_cycle_kernel(const Dims D, const Leaves P, const Cells<false> X) {
   clk.start();
   const int NC = D.H * D.W, tid = threadIdx.x, nt = blockDim.x;
   for (int c = tid; c < NC; c += nt) init_qwork(D, P, X, c);
+  // the trace rows start at 0 (the first quiescence test's barrier orders
+  // this before any warp adds into them)
+  if (P.trace)
+    for (int i = tid; i < 2 * D.n_cycles; i += nt) P.trace[i] = 0;
   clk.stamp(10);
   Counts n = {0, 0, 0, 0};
   int quiet;

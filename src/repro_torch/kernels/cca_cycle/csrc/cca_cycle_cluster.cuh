@@ -25,7 +25,9 @@
 // never overwrites what a neighbour band may still read.
 //
 // Every CTA takes the same exit decision, from the same cluster-wide OR and
-// the same cycle count, or the cluster would hang at its next barrier.
+// the same cycle count, or the cluster would hang at its next barrier.  A
+// traced launch's trace rows get every CTA's band sums, a warp's at a time
+// (`run_cycles`).
 // Each CTA's counter sums go to CTA 0 through distributed shared memory
 // after the loop; CTA 0 adds them to the state's counters and writes the
 // launch record, as the one-block kernel does.
@@ -186,6 +188,9 @@ cca_cycle_cluster_kernel(const Dims D, const Leaves P) {
   move_band(D, P, X, true);
   for (int c = X.c0 + tid; c < X.c0 + X.nb; c += blockDim.x)
     init_qwork(D, P, X, c);
+  // the trace rows start at 0, before any CTA adds its band's sums
+  if (P.trace && rank == 0)
+    for (int i = tid; i < 2 * D.n_cycles; i += blockDim.x) P.trace[i] = 0;
   cluster.sync();   // every CTA running and loaded before any DSMEM access
   clk.stamp(10);
 

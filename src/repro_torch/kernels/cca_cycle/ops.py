@@ -3,11 +3,14 @@
 ``cca_cycle_chunk`` runs up to ``n_cycles`` (default ``cfg.chunk``)
 engine cycles with freeze-at-quiescence and returns ``(state, int32
 [quiescent, cycles_run])``, the contract of the JAX package's
-``cca_cycle_chunk``.  For a state on the card it launches a kernel, which
-updates every leaf **in place** (the returned state is the same object);
-for a state on the CPU it runs the plain version
-(``ref.cca_cycle_chunk_ref``), which returns a new state.  Any other device
-is refused.
+``cca_cycle_chunk``.  Given ``trace``, an int32 ``[n_cycles, 2]`` tensor
+of the caller's, it also fills row ``t`` with cycle ``t``'s ``(active
+cells, messages in flight after it)`` for every cycle run (the stats of
+``core.engine.cycle_step``).  For a state on the card it launches a
+kernel, which updates every leaf **in place** (the returned state is the
+same object); for a state on the CPU it runs the plain version
+(``ref.cca_cycle_chunk_ref``), which returns a new state.  Any other
+device is refused.
 
 Two kernels compute the same chunk (``path``):
 
@@ -47,6 +50,7 @@ SOURCE = HERE / "csrc" / "cca_cycle.cu"
 NVCC_FLAGS = _build.SM90A_FLAGS + ("--fmad=false",)   # bit-exact f32 sums
 
 PATHS = ("block", "cluster")   # the C entry's path codes 0, 1
+ALLOCATORS = ("vicinity", "random")   # `struct Dims`' allocator codes
 
 launches = 0   # kernel launches made by cca_cycle_chunk, both paths
 path_launches = dict.fromkeys(PATHS, 0)   # the same launches by kernel
@@ -150,14 +154,15 @@ def _dims(cfg: EngineConfig, app: DiffusionApp, n_offs: int,
             cfg.futq_cap, cfg.lane_capacity, cfg.io_cells, cfg.io_stream_cap,
             cfg.root_slots, cfg.primary_slots, cfg.rhizome_cap,
             cfg.rhizome_stride, cfg.aq_reserve, cfg.sys_reserve, n_offs,
-            app.code, n_cycles, n_ctas, nbytes]
+            app.code, ALLOCATORS.index(cfg.allocator), n_cycles, n_ctas,
+            nbytes]
 
 
 def _launch_args(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
-                 n_cycles: int, geometry=None):
+                 n_cycles: int, geometry=None, trace=None):
     """The kernel's tensors, in the order of `struct Leaves` (the state
-    leaves, the vicinity table, the per-cell scratch, the record last),
-    and its `struct Dims`."""
+    leaves, the vicinity table, the per-cell scratch, the record, the
+    trace rows or ``None``), and its `struct Dims`."""
     dev = st.aq.device
     offs = torch.as_tensor(vicinity_offsets(cfg.vicinity_hops), device=dev)
 
@@ -168,7 +173,7 @@ def _launch_args(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
     cells = 1 if geometry else cfg.n_cells
     tensors = [getattr(st, k) for k in KERNEL_LEAVES] + [
         offs, scratch(cells * cfg.msg_words), scratch(cells), scratch(cells),
-        scratch(8)]
+        scratch(8), trace]
     return tensors, _dims(cfg, app, len(offs), n_cycles, geometry)
 
 
@@ -183,6 +188,17 @@ def _check(cfg: EngineConfig, st: MachineState) -> torch.device:
                 f"{t.device} (contiguous={t.is_contiguous()}); the kernel "
                 f"needs a contiguous {dtype}{list(shape)} on {dev}")
     return dev
+
+
+def _check_trace(trace, n_cycles: int, dev: torch.device) -> None:
+    if trace is None:
+        return
+    if trace.device != dev or trace.dtype != torch.int32 or \
+            tuple(trace.shape) != (n_cycles, 2) or not trace.is_contiguous():
+        raise ValueError(
+            f"trace is {trace.dtype}{list(trace.shape)} on {trace.device} "
+            f"(contiguous={trace.is_contiguous()}); the kernel needs a "
+            f"contiguous torch.int32[{n_cycles}, 2] on {dev}")
 
 
 def route(cfg: EngineConfig, path: str = "auto",
@@ -212,14 +228,18 @@ def route(cfg: EngineConfig, path: str = "auto",
 
 def cca_cycle_chunk(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
                     n_cycles: int | None = None, path: str = "auto",
-                    n_ctas: int | None = None):
+                    n_ctas: int | None = None,
+                    trace: torch.Tensor | None = None):
     """Run up to ``n_cycles`` engine cycles, frozen at quiescence.
 
     Returns ``(state, counters)`` with ``counters`` int32 ``[quiescent at
     end, cycles run]`` on the state's device.  ``path`` and ``n_ctas``
     choose the kernel (``route``); they are checked on the CPU too, where
-    the plain version runs.  Each kernel launch adds one to the module's
-    ``launches`` and to its kernel's entry of ``path_launches``.
+    the plain version runs.  ``trace``, a contiguous int32 ``[n_cycles,
+    2]`` tensor on the state's device, gets the ``(active, in_flight)``
+    row of each cycle run (rows ``0 .. cycles run - 1``).  Each kernel
+    launch adds one to the module's ``launches`` and to its kernel's entry
+    of ``path_launches``.
     """
     global launches
     cfg.validate()
@@ -228,14 +248,16 @@ def cca_cycle_chunk(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
         raise ValueError(f"n_cycles must be >= 0, got {n_cycles}")
     geometry = route(cfg, path, n_ctas)
     dev = _check(cfg, st)
+    _check_trace(trace, n_cycles, dev)
     if dev.type == "cpu":
-        return cca_cycle_chunk_ref(cfg, app, st, n_cycles)
+        return cca_cycle_chunk_ref(cfg, app, st, n_cycles, trace)
     if dev.type != "cuda":
         raise ValueError(f"cca_cycle_chunk runs on cuda or cpu, not {dev}")
     lib = _library()
-    tensors, dims = _launch_args(cfg, app, st, n_cycles, geometry)
-    rec = tensors[-1]
-    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    tensors, dims = _launch_args(cfg, app, st, n_cycles, geometry, trace)
+    rec = tensors[-2]
+    ptrs = (ctypes.c_void_p * len(tensors))(
+        *[0 if t is None else t.data_ptr() for t in tensors])
     dims_c = (ctypes.c_int * len(dims))(*dims)
     kernel = ctypes.c_int(-1)
     with torch.cuda.device(dev):

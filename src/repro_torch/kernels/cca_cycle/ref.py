@@ -5,8 +5,10 @@
 overshoots the quiescent state and the final ``cycle`` counter is the
 exact quiescence cycle (``repro/kernels/cca_cycle/ref.py``).  Stopping at
 the first quiescent cycle is the same as running the frozen identity
-cycles.  The CPU tests run it, and ``chip_smoke.py`` holds the CUDA
-kernel against it on the card.
+cycles.  With ``trace=True`` it also returns the ``(active, in_flight)``
+row of each cycle it ran (``core.engine.cycle_step``'s stats), the rows
+the kernel's traced launch fills.  The CPU tests run it, and
+``chip_smoke.py`` holds the CUDA kernel against it on the card.
 """
 from __future__ import annotations
 
@@ -14,25 +16,42 @@ import torch
 
 from repro_torch.core.apps import DiffusionApp
 from repro_torch.core.config import EngineConfig
-from repro_torch.core.engine import cycle_body, quiescent
+from repro_torch.core.engine import cycle_body, cycle_step, quiescent
 from repro_torch.core.state import MachineState
 
 
 def frozen_cycles(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
-                  n_cycles: int):
-    """Returns ``(state, quiescent_at_end, cycles_run)``."""
-    ran = 0
+                  n_cycles: int, trace: bool = False):
+    """Returns ``(state, quiescent_at_end, cycles_run)``, and with
+    ``trace`` the int32 ``[cycles_run, 2]`` rows ``(active, in_flight)``
+    as a fourth item."""
+    ran, rows = 0, []
     while ran < n_cycles and not bool(quiescent(st)):
-        st, _ = cycle_body(cfg, app, st)
+        if trace:
+            st, stats = cycle_step(cfg, app, st)
+            rows.append(torch.stack([stats.active, stats.in_flight]))
+        else:
+            st, _ = cycle_body(cfg, app, st)
         ran += 1
-    return st, bool(quiescent(st)), ran
+    if not trace:
+        return st, bool(quiescent(st)), ran
+    rows = torch.stack(rows) if rows else torch.zeros(
+        (0, 2), dtype=torch.int32, device=st.aq.device)
+    return st, bool(quiescent(st)), ran, rows
 
 
 def cca_cycle_chunk_ref(cfg: EngineConfig, app: DiffusionApp,
-                        st: MachineState, n_cycles: int | None = None):
+                        st: MachineState, n_cycles: int | None = None,
+                        trace: torch.Tensor | None = None):
     """Same return convention as ``ops.cca_cycle_chunk``: ``(state,
-    int32 [quiescent, cycles_run])``; the input state is not modified."""
+    int32 [quiescent, cycles_run])``; the input state is not modified.
+    ``trace`` (int32 ``[>= n_cycles, 2]``) gets rows ``0 .. cycles_run -
+    1``."""
     n_cycles = cfg.chunk if n_cycles is None else n_cycles
-    st, q, ran = frozen_cycles(cfg, app, st, n_cycles)
+    if trace is None:
+        st, q, ran = frozen_cycles(cfg, app, st, n_cycles)
+    else:
+        st, q, ran, rows = frozen_cycles(cfg, app, st, n_cycles, True)
+        trace[:ran] = rows
     return st, torch.tensor([int(q), ran], dtype=torch.int32,
                             device=st.aq.device)

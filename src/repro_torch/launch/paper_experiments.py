@@ -1,0 +1,324 @@
+"""The paper's experiments on the port (``benchmarks/paper_experiments.py``
+of the JAX package, and the cycle-count half of its
+``benchmarks/engine_throughput.py::bench_engine``): one function per table
+or figure, with the same scales, engine config and row keys.
+
+  Fig. 8/9   bench_cycles_per_increment: cycles per increment, ingestion
+             only against ingestion plus BFS
+  Table 2    bench_energy: energy (uJ) and time (us) at 1 GHz of the
+             modelled chip (``core/energy.py``)
+  Fig. 5     bench_allocator: vicinity against random ghost allocation
+  Fig. 6/7   bench_activation: per-cycle active-cell traces
+             bench_engine_throughput, bench_engine: the simulator's own
+             cycle counts (and wall times on the card)
+
+Cycle counts, hops, execs, energies and modelled times do not depend on
+the device; wall times are reported only where the engine ran on the card.
+Every chunk is one launch of the cycle kernel on the card (the plain
+PyTorch version on the CPU).  Nothing is written to disk: the rows are
+printed as JSON, one line a benchmark.
+
+    PYTHONPATH=src python -m repro_torch.launch.paper_experiments --scale ci
+    PYTHONPATH=src python -m repro_torch.launch.paper_experiments \\
+        --scale ci --device cpu --only energy
+"""
+from __future__ import annotations
+
+import argparse
+import functools
+import json
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.core import EngineConfig, StreamingEngine
+from repro_torch.core.energy import DEFAULT as ENERGY
+from repro_torch.core.reference import bfs_levels
+from repro_torch.core.state import resolve_device
+from repro_torch.graph.streams import StreamSpec, make_stream
+
+SCALES = {
+    "ci": dict(n_vertices=2000, n_edges=20_000),
+    "mid": dict(n_vertices=10_000, n_edges=100_000),
+    "paper": dict(n_vertices=50_000, n_edges=1_000_000),
+}
+# benchmarks/engine_throughput.py's grids
+ENGINE_SCALES = {
+    "ci": dict(height=8, width=8, n_vertices=256, n_edges=2048, chunk=64),
+    "mid": dict(height=16, width=16, n_vertices=2048, n_edges=16_384,
+                chunk=128),
+}
+MAX_CYCLES = 2_000_000
+
+
+def _scale(scale) -> dict:
+    """A ``SCALES`` name, or a dict of ``n_vertices`` and ``n_edges``."""
+    return dict(scale) if isinstance(scale, dict) else SCALES[scale]
+
+
+def _key(scale):
+    return tuple(sorted(scale.items())) if isinstance(scale, dict) else scale
+
+
+@functools.lru_cache(maxsize=2)
+def _increments(spec: StreamSpec) -> tuple:
+    incs = make_stream(spec)
+    for e in incs:
+        e.setflags(write=False)       # shared by every caller
+    return tuple(incs)
+
+
+def stream_increments(sampling: str, scale) -> tuple:
+    """The ten increments of ``run_stream``'s stream (seed 1), read-only,
+    generated once for the last two streams asked for (a 1M-edge stream
+    takes seconds to draw)."""
+    return _increments(StreamSpec(increments=10, sampling=sampling, seed=1,
+                                  **_scale(scale)))
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _engine(n_vertices: int, app: str, allocator="vicinity", chunk=512,
+            n_edges: int = 0, device=None) -> StreamingEngine:
+    # ghost capacity must cover the spilled edge blocks: ~E/edge_cap
+    # RPVO blocks across 1024 cells, x2 for placement skew (exhausting
+    # ghost slots livelocks the allocate forwarding chain -- DESIGN §4.2)
+    ghosts = max(64, 2 * n_edges // (8 * 1024), 3 * n_vertices // 1024)
+    cfg = EngineConfig(height=32, width=32, n_vertices=n_vertices,
+                       edge_cap=8, ghost_slots=ghosts,
+                       queue_cap=64, chan_cap=16, futq_cap=16,
+                       io_stream_cap=2 ** 21, chunk=chunk,
+                       allocator=allocator)
+    eng = StreamingEngine(cfg, app, device=device)
+    if app != "ingest_only":
+        eng.seed(0, 0.0)
+    return eng
+
+
+_CACHE: dict = {}
+
+
+def run_stream(app: str, sampling: str, scale, allocator="vicinity",
+               verify=False, collect_traces=False, device=None):
+    """One ten-increment stream, seed 1: ``(rows, engine)``, one row an
+    increment.  Cached by its arguments; an untraced request is served by
+    a traced run of the same stream (the same totals)."""
+    dev = resolve_device(device)
+    key = (app, sampling, _key(scale), allocator, collect_traces, str(dev))
+    if key in _CACHE and not verify:
+        return _CACHE[key]
+    if not collect_traces and not verify:
+        traced = _CACHE.get(key[:4] + (True, str(dev)))
+        if traced is not None:
+            return traced
+    spec = StreamSpec(increments=10, sampling=sampling, seed=1,
+                      **_scale(scale))
+    incs = stream_increments(sampling, scale)
+    eng = _engine(spec.n_vertices, app, allocator, n_edges=spec.n_edges,
+                  device=dev)
+    rows = []
+    for i, e in enumerate(incs):
+        r = eng.run_increment(e, max_cycles=MAX_CYCLES,
+                              collect_traces=collect_traces)
+        rows.append(dict(increment=i, edges=len(e), cycles=r.cycles,
+                         execs=r.execs, hops=r.hops, allocs=r.allocs,
+                         stalls=r.stalls,
+                         active=r.active_per_cycle))
+    if verify and app == "bfs":
+        want = bfs_levels(spec.n_vertices, np.concatenate(incs), 0)
+        got = eng.values(spec.n_vertices)
+        assert (got == want).all(), "BFS mismatch vs the oracle"
+    _CACHE[key] = (rows, eng)
+    return rows, eng
+
+
+# ------------------- Fig 8/9: cycles per increment -------------------
+
+def bench_cycles_per_increment(scale="ci", sampling="edge", device=None):
+    """Paper Fig. 8/9: per-increment cycles, ingestion-only vs +BFS.
+    Returns ``(rows, seconds)``; the seconds only on the card, else
+    ``None``."""
+    dev = resolve_device(device)
+    t0 = time.time()
+    ing, _ = run_stream("ingest_only", sampling, scale, device=dev)
+    bfs, _ = run_stream("bfs", sampling, scale, verify=(scale == "ci"),
+                        device=dev)
+    out = []
+    for a, b in zip(ing, bfs):
+        out.append(dict(increment=a["increment"], edges=a["edges"],
+                        ingest_cycles=a["cycles"],
+                        ingest_bfs_cycles=b["cycles"]))
+    return out, (time.time() - t0 if dev.type == "cuda" else None)
+
+
+# ------------------- Table 2: energy & time -------------------
+
+def bench_energy(scale="ci", device=None):
+    """Paper Table 2 analogue: energy (uJ) + time (us) of the modelled chip
+    at 1 GHz."""
+    rows = []
+    for sampling in ("edge", "snowball"):
+        for app, label in (("ingest_only", "Ingestion"),
+                           ("bfs", "Ingestion & BFS")):
+            data, eng = run_stream(app, sampling, scale, device=device)
+            cycles = sum(r["cycles"] for r in data)
+            hops = sum(r["hops"] for r in data)
+            execs = sum(r["execs"] for r in data)
+            allocs = sum(r["allocs"] for r in data)
+            injects = sum(r["edges"] for r in data)
+            rows.append(dict(
+                sampling=sampling, mode=label,
+                energy_uj=round(ENERGY.estimate_uj(
+                    hops=hops, execs=execs, allocs=allocs,
+                    injects=injects), 1),
+                time_us=round(ENERGY.cycles_to_us(cycles), 2),
+                cycles=cycles))
+    return rows
+
+
+# ------------------- Fig 5: allocator policies -------------------
+
+def bench_allocator(scale="ci", device=None):
+    """Vicinity vs random ghost allocation: locality + cycle cost."""
+    rows = []
+    for alloc in ("vicinity", "random"):
+        data, eng = run_stream("bfs", "edge", scale, allocator=alloc,
+                               device=device)
+        stats = eng.vertex_object_stats()
+        rows.append(dict(allocator=alloc,
+                         cycles=sum(r["cycles"] for r in data),
+                         hops=sum(r["hops"] for r in data),
+                         ghosts=stats["ghosts"],
+                         mean_ghost_hops=round(stats["mean_hops"], 2),
+                         max_ghost_hops=stats["max_hops"]))
+    return rows
+
+
+# ------------------- Fig 6/7: activation traces -------------------
+
+def bench_activation(scale="ci", sampling="edge", device=None):
+    """Per-cycle active-cell counts (chip occupancy traces), summarised."""
+    ing, _ = run_stream("ingest_only", sampling, scale, collect_traces=True,
+                        device=device)
+    bfs, _ = run_stream("bfs", sampling, scale, collect_traces=True,
+                        device=device)
+    trace_i = np.concatenate([r["active"] for r in ing])
+    trace_b = np.concatenate([r["active"] for r in bfs])
+
+    def summarize(t):
+        return dict(cycles=len(t), mean_active=round(float(t.mean()), 1),
+                    peak_active=int(t.max()),
+                    mean_util_pct=round(100 * float(t.mean()) / 1024, 2))
+    return dict(ingest=summarize(trace_i), ingest_bfs=summarize(trace_b))
+
+
+def bench_skew(*args, **kwargs):
+    raise NotImplementedError(
+        "bench_skew needs rhizome_cap>1, which the port does not carry yet "
+        "(ROADMAP.md queue 1 item 2)")
+
+
+def bench_lanes(*args, **kwargs):
+    raise NotImplementedError(
+        "bench_lanes needs lanes>1, which the port does not carry yet "
+        "(ROADMAP.md queue 1 item 2)")
+
+
+# ------------------- engine throughput -------------------
+
+def _walls(cycles: int, dt: float, n_cells: int) -> dict:
+    return dict(wall_s=dt, cyc_per_s=cycles / dt,
+                cell_cycles_per_s=cycles / dt * n_cells)
+
+
+def bench_engine_throughput(scale="ci", device=None):
+    """Simulator performance: the second increment of a two-increment
+    stream (seed 2) after a 1000-edge warm-up; cell-cycles per wall second
+    on the card."""
+    dev = resolve_device(device)
+    spec = StreamSpec(increments=2, sampling="edge", seed=2, **_scale(scale))
+    incs = make_stream(spec)
+    eng = _engine(spec.n_vertices, "bfs", device=dev)
+    eng.run_increment(incs[0][:1000], max_cycles=20_000)
+    _sync(dev)
+    t0 = time.time()
+    r = eng.run_increment(incs[1], max_cycles=MAX_CYCLES)
+    _sync(dev)
+    out = dict(cycles=r.cycles)
+    if dev.type == "cuda":
+        out.update(_walls(r.cycles, time.time() - t0, eng.cfg.n_cells))
+    return out
+
+
+def bench_engine(scale="ci", device=None):
+    """``benchmarks/engine_throughput.py::bench_engine``'s stream (seed 3,
+    two edge-sampled increments, BFS from vertex 0) on its ``ci`` or
+    ``mid`` grid: the second increment's cycles, execs and hops and the
+    stream's total cycles, BFS checked against the oracle; its wall time on
+    the card."""
+    dev = resolve_device(device)
+    p = ENGINE_SCALES[scale]
+    spec = StreamSpec(n_vertices=p["n_vertices"], n_edges=p["n_edges"],
+                      increments=2, sampling="edge", seed=3)
+    incs = make_stream(spec)
+    want = bfs_levels(p["n_vertices"], np.concatenate(incs), 0)
+    cfg = EngineConfig(height=p["height"], width=p["width"],
+                       n_vertices=p["n_vertices"], edge_cap=8,
+                       ghost_slots=max(64, 4 * p["n_edges"]
+                                       // (8 * p["height"] * p["width"])),
+                       queue_cap=64, chan_cap=16, futq_cap=8,
+                       io_stream_cap=2 ** 18, chunk=p["chunk"])
+    eng = StreamingEngine(cfg, "bfs", device=dev)
+    eng.seed(0, 0.0)
+    eng.run_increment(incs[0], max_cycles=MAX_CYCLES)
+    _sync(dev)
+    t0 = time.time()
+    r = eng.run_increment(incs[1], max_cycles=MAX_CYCLES)
+    _sync(dev)
+    dt = time.time() - t0
+    np.testing.assert_array_equal(eng.values(p["n_vertices"]), want)
+    out = dict(scale=scale, grid=f'{p["height"]}x{p["width"]}',
+               n_vertices=p["n_vertices"], n_edges=p["n_edges"],
+               chunk=p["chunk"], cycles=r.cycles, execs=r.execs,
+               hops=r.hops, total_cycles=eng.total_cycles)
+    if dev.type == "cuda":
+        out.update(_walls(r.cycles, dt, cfg.n_cells))
+    return out
+
+
+BENCHES = {
+    "increments": lambda s, d: {
+        sampling: bench_cycles_per_increment(s, sampling, d)[0]
+        for sampling in ("edge", "snowball")},
+    "energy": bench_energy,
+    "allocator": bench_allocator,
+    "activation": bench_activation,
+    "throughput": bench_engine_throughput,
+    "engine": lambda s, d: [bench_engine(e, d) for e in ENGINE_SCALES],
+}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scale", choices=sorted(SCALES), default="ci")
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    ap.add_argument("--only", choices=sorted(BENCHES), action="append",
+                    help="run only these benchmarks (repeatable)")
+    args = ap.parse_args(argv)
+    dev = resolve_device(args.device)
+    for name in args.only or BENCHES:
+        t0 = time.time()
+        out = {"bench": name, "scale": args.scale,
+               "rows": BENCHES[name](args.scale, dev)}
+        if dev.type == "cuda":
+            out["seconds"] = time.time() - t0
+        print(json.dumps(out), flush=True)
+
+
+if __name__ == "__main__":
+    main()

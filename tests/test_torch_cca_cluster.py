@@ -186,4 +186,4 @@ def test_c_structs_match_the_wrapper():
     leaves = _c_struct_fields("Leaves")
     assert leaves[:len(ops.KERNEL_LEAVES)] == list(ops.KERNEL_LEAVES)
     assert leaves[len(ops.KERNEL_LEAVES):] == ["offs", "outbox", "grant",
-                                               "qwork", "rec"]
+                                               "qwork", "rec", "trace"]

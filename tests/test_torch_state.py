@@ -186,7 +186,7 @@ def test_load_stream_matches_jax(limit):
 @pytest.mark.parametrize("knob", [
     dict(lanes=2), dict(rhizome_cap=2), dict(telemetry=True),
     dict(faults=object()), dict(ingest_guard=True), dict(qbatch=2),
-    dict(allocator="random"), dict(n_io_cells=3)])
+    dict(n_vals=2), dict(n_io_cells=3)])
 def test_validate_rejects_unported_knobs(knob):
     with pytest.raises(NotImplementedError):
         EngineConfig(height=4, width=4, n_vertices=16, **knob).validate()
@@ -198,8 +198,7 @@ def test_engine_rejects_unported_apps_and_options():
         StreamingEngine(cfg, "widest", device="cpu")
     eng = StreamingEngine(cfg, "bfs", device="cpu")
     edges = np.zeros((0, 3), np.int32)
-    for kw in (dict(collect_traces=True), dict(recover=object()),
-               dict(ckpt=object())):
+    for kw in (dict(recover=object()), dict(ckpt=object())):
         with pytest.raises(NotImplementedError):
             eng.run_increment(edges, **kw)
 

@@ -1,20 +1,38 @@
-"""Record the 32x32 fingerprint that the PyTorch port is held to.
+"""Record the fingerprints that the PyTorch port is held to.
 
-Runs the JAX engine (``repro``) on the default stream of
+Default mode: runs the JAX engine (``repro``) on the default stream of
 ``examples/streaming_bfs.py`` -- 2000 vertices, 20k SBM edges, edge
 sampling, seed 1, ten increments, on a 32x32 chip -- and writes the
 per-increment counters and the final BFS values to
-``src/repro_torch/data/fingerprint_32x32.json``.  ``chip_smoke.py`` and
-the port's tests replay it.  Outside the tests, this is the only file
-of the port's tooling that imports JAX: it imports ``repro`` and never
+``src/repro_torch/data/fingerprint_32x32.json``.
+
+``--paper-ci``: runs the paper experiments' streams at ``SCALES["ci"]``
+(``benchmarks/paper_experiments.py``: 2000 vertices, 20k edges, ten
+increments, seed 1, ``_engine``'s 32x32 config) through the JAX engine,
+one process a stream, all started together: (ingest_only, edge) and
+(bfs, edge) with per-cycle traces, (ingest_only, snowball), (bfs,
+snowball) and (bfs, edge) under the random allocator without.  Writes
+each stream's per-increment counters, final values and
+``vertex_object_stats``, and the two traced streams' ``active`` and
+``in_flight`` per cycle, to ``src/repro_torch/data/paper_ci_fingerprint.json``.
+
+``chip_smoke.py`` and the port's tests replay both files.  Outside the
+tests, this is the only file of the port's tooling that imports JAX: it
+imports ``repro`` (and the JAX package's ``benchmarks``) and never
 ``repro_torch``.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/record_torch_fingerprint.py
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/record_torch_fingerprint.py --paper-ci
 """
+import argparse
+import concurrent.futures
 import dataclasses
 import json
+import multiprocessing
 import pathlib
 import subprocess
+import sys
+import time
 
 import numpy as np
 
@@ -22,12 +40,25 @@ from repro.core import EngineConfig, StreamingEngine
 from repro.graph.streams import StreamSpec, make_stream
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-OUT = ROOT / "src" / "repro_torch" / "data" / "fingerprint_32x32.json"
+DATA = ROOT / "src" / "repro_torch" / "data"
+OUT = DATA / "fingerprint_32x32.json"
+PAPER_OUT = DATA / "paper_ci_fingerprint.json"
 COMMAND = "PYTHONPATH=src JAX_PLATFORMS=cpu python tools/record_torch_fingerprint.py"
 MAX_CYCLES = 2_000_000
+# (app, sampling, allocator, per-cycle traces) of the --paper-ci streams
+PAPER_STREAMS = (("ingest_only", "edge", "vicinity", True),
+                 ("bfs", "edge", "vicinity", True),
+                 ("ingest_only", "snowball", "vicinity", False),
+                 ("bfs", "snowball", "vicinity", False),
+                 ("bfs", "edge", "random", False))
 
 
-def main() -> None:
+def _commit() -> str:
+    return subprocess.run(["git", "rev-parse", "HEAD"], cwd=ROOT,
+                          capture_output=True, text=True).stdout.strip()
+
+
+def main_32x32() -> None:
     n = 2000
     spec = StreamSpec(n_vertices=n, n_edges=20_000, increments=10,
                       sampling="edge", seed=1, kind="sbm")
@@ -44,9 +75,8 @@ def main() -> None:
         rows.append(dict(edges=len(e), cycles=r.cycles, hops=r.hops,
                          execs=r.execs, stalls=r.stalls, allocs=r.allocs))
         print(f"increment {i}: {rows[-1]}", flush=True)
-    commit = subprocess.run(["git", "rev-parse", "HEAD"], cwd=ROOT,
-                            capture_output=True, text=True).stdout.strip()
-    out = dict(command=COMMAND, commit=commit, engine="repro (JAX, jnp backend)",
+    out = dict(command=COMMAND, commit=_commit(),
+               engine="repro (JAX, jnp backend)",
                spec=dataclasses.asdict(spec),
                cfg=dataclasses.asdict(cfg),
                max_cycles=MAX_CYCLES, source=0,
@@ -56,5 +86,69 @@ def main() -> None:
     print(f"wrote {OUT}")
 
 
+def paper_stream(app: str, sampling: str, allocator: str,
+                 traced: bool) -> dict:
+    """One stream of ``benchmarks/paper_experiments.py::run_stream`` at
+    ci scale, with its traces when ``traced``."""
+    sys.path.insert(0, str(ROOT))
+    from benchmarks.paper_experiments import SCALES, _engine
+    t0 = time.time()
+    spec = StreamSpec(increments=10, sampling=sampling, seed=1,
+                      **SCALES["ci"])
+    incs = make_stream(spec)
+    eng = _engine(spec.n_vertices, app, allocator, n_edges=spec.n_edges)
+    rows, active, in_flight = [], [], []
+    for e in incs:
+        r = eng.run_increment(e, max_cycles=MAX_CYCLES,
+                              collect_traces=traced)
+        rows.append(dict(edges=len(e), cycles=r.cycles, hops=r.hops,
+                         execs=r.execs, stalls=r.stalls, allocs=r.allocs))
+        if traced:
+            assert len(r.active_per_cycle) == r.cycles
+            active += np.asarray(r.active_per_cycle).tolist()
+            in_flight += np.asarray(r.in_flight_per_cycle).tolist()
+    out = dict(app=app, sampling=sampling, allocator=allocator,
+               traced=traced, cfg=dataclasses.asdict(eng.cfg),
+               increments=rows, total_cycles=eng.total_cycles,
+               values=[float(v) for v in eng.values(spec.n_vertices)],
+               vertex_object_stats=eng.vertex_object_stats())
+    if traced:
+        out.update(active_per_cycle=active, in_flight_per_cycle=in_flight)
+    print(f"{app} {sampling} {allocator} traced={traced}: "
+          f"{eng.total_cycles} cycles in {time.time() - t0:.1f}s",
+          flush=True)
+    return out
+
+
+def main_paper_ci() -> None:
+    sys.path.insert(0, str(ROOT))
+    from benchmarks.paper_experiments import SCALES
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(
+            len(PAPER_STREAMS), mp_context=ctx) as pool:
+        runs = list(pool.map(paper_stream, *zip(*PAPER_STREAMS)))
+    # one line for each per-cycle trace and value list: the file stays
+    # small and readable
+    lines = {}
+    for i, r in enumerate(runs):
+        for key in ("values", "active_per_cycle", "in_flight_per_cycle"):
+            if key in r:
+                lines[f"@{i}{key}@"] = json.dumps(r[key])
+                r[key] = f"@{i}{key}@"
+    out = dict(command=COMMAND + " --paper-ci", commit=_commit(),
+               engine="repro (JAX, jnp backend)",
+               spec=dataclasses.asdict(StreamSpec(
+                   increments=10, seed=1, **SCALES["ci"])),
+               max_cycles=MAX_CYCLES, source=0, streams=runs)
+    text = json.dumps(out, indent=1)
+    for mark, line in lines.items():
+        text = text.replace(f'"{mark}"', line)
+    PAPER_OUT.write_text(text + "\n")
+    print(f"wrote {PAPER_OUT}")
+
+
 if __name__ == "__main__":
-    main()
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--paper-ci", action="store_true",
+                    help="record paper_ci_fingerprint.json instead")
+    main_paper_ci() if ap.parse_args().paper_ci else main_32x32()
