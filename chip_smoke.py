@@ -58,6 +58,37 @@ kernel, in its branches for per-cycle traces, ``app="ingest_only"`` and
      untraced and traced in turns (untraced, traced, traced, untraced),
      each equal to the plain version, the trace rows too
 
+Virtual lanes, transit parking, rhizome vertex objects and the
+max-monotone apps (the same cycle kernel, in its branches for ``lanes >
+1``, ``rhizome_cap > 1``, ``app="widest"`` and ``app="reliable"``), and
+the skew and lanes experiments, right after phase 19:
+
+ 20. the new branches against the plain version on both cycle kernels
+     (cluster, and forced onto the one-block kernel), every leaf and the
+     launch record equal, chunk by chunk to quiescence: (a) the 8x8 hub
+     stream of ``tests/test_lanes.py`` at lanes=4, the hub stream of
+     ``tests/test_rhizome.py`` at rhizome_cap=4 (bfs), and widest and
+     reliable at rhizome_cap=2, lanes=2 on a weighted stream; (b) the
+     32x32 paper-scale skew config (rhizome_cap=4, lanes=2, 16,384
+     vertices), whose cells fit no cluster band: a mid-stream state, one
+     K=64 chunk on the one-block kernel
+ 21. ``src/repro_torch/data/skew_fingerprint.json`` (the JAX engine's
+     ``bench_skew`` / ``bench_lanes`` configs at ci 8x8 and mid 16x16)
+     replayed exactly on the cluster kernel: per-increment counters,
+     values and vertex_object_stats of the rows that finish, the increment,
+     cycle, chunk and counters of the rows that livelock; each row's wall
+     and ms a launch; then ``bench_lanes("ci")`` equal to
+     ``results/bench_lanes.json``, ``bench_skew("ci")``'s rows, and
+     ``bench_lanes("mid")`` stopping at its lanes-smoke gate
+ 22. ``bench_skew``'s rows at the paper's 32x32 (16,384 vertices, 262,144
+     R-MAT edges, lanes=2, queue_cap 48) on the one-block kernel,
+     rhizome_cap 4, 2 and 1, each with a budget of 600,000 cycles an
+     increment and the counts set to 0 just before it: ``ok`` with BFS ==
+     oracle, ``livelock`` or ``budget``, and where the fingerprint holds
+     the JAX engine's run of the row, its counters and outcome exactly;
+     cycles, hops, stalls, rhizome stats, launches by kernel, the wall, ms
+     a launch beside the byte bound
+
 The GNN and DLRM serving forwards (every aggregation a launch of the
 scatter-SpMM kernel, every DLRM lookup one launch of the EmbeddingBag
 kernel):
@@ -170,7 +201,9 @@ from repro_torch.data.graphs import build_graph  # noqa: E402
 from repro_torch.data.pipeline import (RecSysBatchSpec,  # noqa: E402
                                        recsys_batch)
 from repro_torch.graph.segment_ops import sym_norm_coeff  # noqa: E402
-from repro_torch.graph.streams import StreamSpec, make_stream  # noqa: E402
+from repro_torch.core.state import init_state  # noqa: E402
+from repro_torch.graph.streams import (StreamSpec, hub_edges,  # noqa: E402
+                                       make_stream)
 from repro_torch.kernels.cca_cycle import ops  # noqa: E402
 from repro_torch.kernels.cca_cycle.ref import cca_cycle_chunk_ref  # noqa: E402
 from repro_torch.kernels.embedding_bag import ops as bag_ops  # noqa: E402
@@ -378,6 +411,263 @@ PAPER_STREAMS = (  # (app, sampling, allocator, traced), in the order run
     ("ingest_only", "edge", "vicinity", True),
     ("bfs", "edge", "vicinity", True))
 TOTALS = ("edges", "cycles", "hops", "execs", "stalls", "allocs")
+
+
+HUB_KW = dict(height=8, width=8, n_vertices=128, edge_cap=4, ghost_slots=48,
+              queue_cap=20, chan_cap=16, futq_cap=4, io_stream_cap=2048,
+              chunk=64)          # tests/test_lanes.py::_hub_cfg
+RHIZOME_KW = dict(height=8, width=8, n_vertices=64, edge_cap=4,
+                  ghost_slots=32, queue_cap=96, chan_cap=16, futq_cap=8,
+                  io_stream_cap=2048, chunk=128)   # test_rhizome.py::cfg_for
+MAX_APP_KW = dict(height=8, width=8, n_vertices=64, edge_cap=4,
+                  ghost_slots=32, queue_cap=48, chan_cap=16, futq_cap=4,
+                  io_stream_cap=2048, chunk=64, rhizome_cap=2, lanes=2)
+MAX_APP_SEEDS = {"widest": 1e9, "reliable": 1.0}
+ONE_BITS = int(np.float32(1.0).view(np.int32))
+
+
+def hub_stream(n, degree, seed):
+    e = hub_edges(n, 0, degree, seed=seed)
+    return np.concatenate([e, np.full((len(e), 1), ONE_BITS, np.int64)],
+                          1).astype(np.int32)
+
+
+def weighted_increments(seed=1, n=64, m=320):
+    """``tests/test_torch_max_apps.py``'s stream: two increments of random
+    edges, each weight drawn from (0, 1]."""
+    rng = np.random.default_rng(seed)
+    src, dst = rng.integers(0, n, m), rng.integers(0, n, m)
+    w = (1.0 - rng.random(m)).astype(np.float32)
+    e = np.stack([src, dst, w.view(np.int32)], 1).astype(np.int32)
+    return [e[: m // 2], e[m // 2:]]
+
+
+def lane_rhizome_phases() -> float:
+    """Phase 20a: the lane, park, rhizome and max-app branches of both
+    cycle kernels against the plain version, every leaf and the launch
+    record equal, chunk by chunk.  Returns the max abs difference (0)."""
+    worst = 0.0
+    cases = (
+        ("8x8 hub lanes=4", EngineConfig(lanes=4, **HUB_KW), "bfs",
+         [hub_stream(128, 200, 3)], 0.0),
+        ("8x8 hub rhizome_cap=4 bfs", EngineConfig(rhizome_cap=4,
+                                                   **RHIZOME_KW),
+         "bfs", [hub_stream(64, 40, 3)], 0.0),
+        ("8x8 widest rhizome_cap=2 lanes=2", EngineConfig(**MAX_APP_KW),
+         "widest", weighted_increments(), MAX_APP_SEEDS["widest"]),
+        ("8x8 reliable rhizome_cap=2 lanes=2", EngineConfig(**MAX_APP_KW),
+         "reliable", weighted_increments(), MAX_APP_SEEDS["reliable"]))
+    for name, cfg, app, incs, seed in cases:
+        t0 = time.time()
+        eng = StreamingEngine(cfg, app)
+        eng.seed(0, seed)
+        st, chunks, cycles = eng.state, 0, 0
+        before = dict(ops.path_launches)
+        for e in incs:
+            st, spill = load_stream(cfg, st, e)
+            assert len(spill) == 0
+            st, q = fresh_stats(st), False
+            c0 = int(st.cycle)
+            while not q:
+                d, st, q = kernel_vs_plain(cfg, eng.app, st,
+                                           paths=("cluster", "block"))
+                worst, chunks = max(worst, d), chunks + 1
+            cycles += int(st.cycle) - c0
+        got = {p: ops.path_launches[p] - before[p] for p in ops.PATHS}
+        if got != {"block": chunks, "cluster": chunks}:
+            raise AssertionError(f"20a {name}: launches {got}, {chunks} "
+                                 f"chunks")
+        print(f"[20a] {name}, {app}: both kernels (cluster "
+              f"{ops.cluster_geometry(cfg)}) == plain on every leaf and the "
+              f"record over {chunks} chunks, {cycles} cycles, "
+              f"{int(st.stat_stall)} stalls in the last increment (max |d| "
+              f"{worst}; {time.time() - t0:.1f}s)", flush=True)
+    return worst
+
+
+def skew_state_phase() -> float:
+    """Phase 20b: the paper-scale skew config (rhizome_cap=4, lanes=2),
+    whose cells fit no cluster band, mid-stream: eight K=512 chunks of
+    increment 0 on the kernel, then one K=64 chunk on the one-block kernel
+    against the plain version.  Returns the max abs difference (0)."""
+    t0 = time.time()
+    cfg = pe.skew_config("paper", rhizome_cap=4)
+    if ops.cluster_geometry(cfg) is not None:
+        raise AssertionError("20b: the paper skew config fits a band")
+    eng = StreamingEngine(cfg, "bfs")
+    eng.seed(0, 0.0)
+    st, _ = load_stream(cfg, eng.state, pe.skew_increments("paper")[0])
+    st = fresh_stats(st)
+    for _ in range(8):
+        st, _ = ops.cca_cycle_chunk(cfg, eng.app, st, 512)
+    before = dict(ops.path_launches)
+    d, sr, q = kernel_vs_plain(cfg, eng.app, st, 64, ("block",))
+    on_path(before, "block", 1)
+    print(f"[20b] 32x32 skew paper config (rhizome_cap=4, lanes=2; a cell "
+          f"{ops.cluster_cell_bytes(cfg)} bytes, no band fits): at cycle "
+          f"{int(st.cycle)} of increment 0 ({int(st.pk_n.sum())} messages "
+          f"parked, {int(st.ch_n.sum())} in channels), one K=64 chunk, the "
+          f"one-block kernel == plain on every leaf (quiescent {q}; "
+          f"{time.time() - t0:.1f}s)", flush=True)
+    return d
+
+
+def skew_records() -> list:
+    return json.loads((ROOT / "src" / "repro_torch" / "data"
+                       / "skew_fingerprint.json").read_text())["configs"]
+
+
+def check_skew_row(name, row, eng, c) -> str:
+    """Raise unless ``row`` (``pe.skew_row``'s) and ``eng`` hold the JAX
+    engine's record ``c``: the status, each increment's counters, then the
+    livelock's increment, cycle, chunk and counters, or the values and
+    ``vertex_object_stats``.  Returns what was held, in words."""
+    if row["status"] != c["status"] or row["increments"] != c["increments"]:
+        raise AssertionError(f"{name}: {row['status']} {row['increments']} "
+                             f"!= {c['status']} {c['increments']}")
+    if c["status"] == "livelock":
+        if row["livelock"] != c["livelock"]:
+            raise AssertionError(f"{name}: {row['livelock']} != "
+                                 f"{c['livelock']}")
+        return "livelock at increment %(increment)d cycle %(cycle)d" \
+            % c["livelock"]
+    if not (eng.values() == np.float32(c["values"])).all():
+        raise AssertionError(f"{name}: values differ")
+    if eng.vertex_object_stats() != c["vertex_object_stats"]:
+        raise AssertionError(f"{name}: vertex_object_stats")
+    return "values (== oracle) and vertex_object_stats"
+
+
+def skew_replay_phases() -> dict:
+    """Phase 21: ``src/repro_torch/data/skew_fingerprint.json``, the JAX
+    engine's skew and lanes configs at ci and mid scale, replayed exactly
+    on the cluster kernel: per-increment counters, values and
+    ``vertex_object_stats`` of the rows that finish, the increment, cycle,
+    chunk and counters of the livelocks."""
+    t_all = time.time()
+    out = {}
+    for c in skew_records():
+        if c["scale"] == "paper":
+            continue                  # phase 22, on the one-block kernel
+        key = (c["scale"], c["queue_cap"], c["lanes"], c["rhizome_cap"])
+        name = "%s q=%d lanes=%d R=%d" % key
+        cfg = pe.skew_config(*key)
+        want_cfg = {k: v for k, v in c["cfg"].items()
+                    if k in EngineConfig.__dataclass_fields__}
+        if dataclasses.asdict(cfg) != want_cfg:
+            raise AssertionError(f"21 {name}: config differs from the record")
+        if ops.cluster_geometry(cfg) is None:
+            raise AssertionError(f"21 {name}: no band fits")
+        row, eng = pe.skew_row(*key)
+        what = check_skew_row(f"21 {name}", row, eng, c)
+        la = row["launches"]
+        if la["block"] or not la["cluster"]:
+            raise AssertionError(f"21 {name}: launches {la}")
+        cycles = sum(r["cycles"] for r in row["increments"]) + (
+            row["livelock"]["cycle"] if "livelock" in row else 0)
+        out[name] = dict(status=row["status"], cycles=cycles,
+                         launches=la["cluster"], wall_s=row["wall_s"])
+        print(f"[21] {name}: {row['status']}, {cycles} cycles, counters and "
+              f"{what} == the JAX engine's; {la['cluster']} launches on the "
+              f"cluster kernel {ops.cluster_geometry(cfg)}, wall "
+              f"{row['wall_s']:.4f}s ({1e3 * row['wall_s'] / la['cluster']:.4f}"
+              f" ms a launch, host clock)", flush=True)
+    # the ported benchmarks themselves: bench_lanes at ci against
+    # results/bench_lanes.json (the JAX package's run), bench_skew's ci
+    # rows, and bench_lanes at mid, which stops at its lanes-smoke gate
+    rows, base = pe.bench_lanes("ci")
+    want = json.loads((ROOT / "results" / "bench_lanes.json").read_text())[
+        "lanes_ci"]
+    if rows != want["rows"] or base != want["oversize_baseline"]:
+        raise AssertionError(f"21 bench_lanes ci: {rows} {base} != {want}")
+    skew = pe.bench_skew("ci")
+    print(f"[21] bench_lanes ci == results/bench_lanes.json: "
+          f"{json.dumps(rows)}, baseline {json.dumps(base)}; bench_skew ci: "
+          f"{json.dumps(skew)}", flush=True)
+    try:
+        pe.bench_lanes("mid")
+        raise AssertionError("21 bench_lanes mid passed its gate")
+    except SystemExit as ex:
+        print(f"[21] bench_lanes mid stops at its gate, as the JAX "
+              f"package's does: {ex}", flush=True)
+    out["bench_skew_ci"] = skew
+    print(f"[21] done in {time.time() - t_all:.1f}s", flush=True)
+    return out
+
+
+SKEW_PAPER_ROWS = (4, 2, 1)            # rhizome_cap, lanes=2, queue_cap 48
+SKEW_PAPER_MAX_CYCLES = 600_000        # a row's budget, each increment
+
+
+def skew_paper_phases() -> dict:
+    """Phase 22: ``bench_skew``'s rows at the paper's 32x32 (16,384
+    vertices, 262,144 R-MAT edges) on the one-block kernel, since no band
+    fits; each row ``ok`` with BFS == oracle, ``livelock`` or ``budget``.
+    The counts are set to 0 just before each row and read just after."""
+    rows = {}
+    records = {c["rhizome_cap"]: c for c in skew_records()
+               if c["scale"] == "paper"}
+    for R in SKEW_PAPER_ROWS:
+        cfg = pe.skew_config("paper", rhizome_cap=R)
+        st0 = init_state(cfg, device="meta")
+        mutable = sum(t.numel() * t.element_size()
+                      for k, t in st0._asdict().items() if k != "io_edges")
+        bound_ms = 1e3 * 2 * mutable / H100_BYTES_PER_S
+        events = []
+        launch = ops.cca_cycle_chunk
+
+        def timed_chunk(*a, **kw):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = launch(*a, **kw)
+            ev[1].record()
+            events.append(ev)
+            return out
+
+        ops.launches = 0
+        ops.path_launches = dict.fromkeys(ops.PATHS, 0)
+        ops.cca_cycle_chunk = timed_chunk
+        try:
+            row, eng = pe.skew_row("paper", rhizome_cap=R,
+                                   max_cycles=SKEW_PAPER_MAX_CYCLES)
+        finally:
+            ops.cca_cycle_chunk = launch
+        la = dict(ops.path_launches)
+        if la["cluster"] or not la["block"] or la != row["launches"]:
+            raise AssertionError(f"22 R={R}: launches {la}")
+        held = "no JAX record"
+        if R in records:
+            held = check_skew_row(f"22 R={R}", row, eng, records[R]) \
+                + " == the JAX engine's"
+        kern_ms = sum(a.elapsed_time(b) for a, b in events)
+        stats = eng.vertex_object_stats()
+        cycles = row["cycles"] + (row["livelock"]["cycle"]
+                                  if "livelock" in row else 0)
+        row.update(vertex_object_stats=stats, kernel_ms=kern_ms,
+                   ms_per_launch=kern_ms / la["block"], bound_ms=bound_ms,
+                   mutable_mib=mutable / 2 ** 20, all_cycles=cycles)
+        rows[R] = row
+        print(f"[22] paper skew rhizome_cap={R}: {row['status']}"
+              + (" at increment %(increment)d cycle %(cycle)d" %
+                 row["livelock"] if "livelock" in row else "")
+              + f", {cycles} cycles ({[r['cycles'] for r in row['increments']]}"
+              f" by increment), {row['hops']} hops, {row['stalls']} stalls "
+              f"in the increments that finished; rhizomes "
+              f"{stats['rhizomes']} on {stats['multi_root_vertices']} "
+              f"vertices, max fan-out {stats['max_fanout']}, ghosts "
+              f"{stats['ghosts']}; launches {la} (one-block kernel); wall "
+              f"{row['wall_s']:.3f}s (host clock), kernel "
+              f"{kern_ms / 1e3:.3f}s by CUDA events, "
+              f"{kern_ms / la['block']:.4f} ms a launch "
+              f"({1e6 * kern_ms / max(cycles, 1):.1f} ns a cycle) beside "
+              f"the bound {bound_ms:.4f} ms a launch (2 x "
+              f"{mutable / 2 ** 20:.1f} MiB over 3.35 TB/s)"
+              + ("; BFS == oracle" if row["status"] == "ok" else "")
+              + f"; counters and {held}", flush=True)
+        del eng
+        torch.cuda.empty_cache()
+    return rows
 
 
 def experiment_phases(smi: str) -> dict:
@@ -1750,6 +2040,12 @@ def main() -> None:
           f"({t_traced / t_untraced:.4f}x); both == plain on every leaf, "
           f"the trace rows == the plain version's", flush=True)
 
+    # ---- 20-22. lanes, parking, rhizomes and the max apps; the skew and
+    # lanes experiments ----
+    worst = max(worst, lane_rhizome_phases(), skew_state_phase())
+    skew_replay = skew_replay_phases()
+    skew_paper = skew_paper_phases()
+
     cca_entry = {
         "name": "cca_cycle_chunk", "route": "cuda",
         "source": "src/repro_torch/kernels/cca_cycle/csrc/"
@@ -1765,7 +2061,8 @@ def main() -> None:
         "ms_per_launch": kern_ms / launches, "block_ms": t_block,
         "plain_ms": t_plain, "bound_ms": bound_ms, "bound_by": "bytes",
         "library_ms": None, "chunk_cycles": ran, "ptxas": cca_ptxas,
-        "branches": ["traces", "ingest_only", "random_allocator"],
+        "branches": ["traces", "ingest_only", "random_allocator", "lanes",
+                     "park", "rhizomes", "widest", "reliable"],
         "traced_ms": t_traced, "untraced_ms_in_turns": t_untraced,
         "paper_experiments": {
             "launches": experiments["launches"],
@@ -1773,6 +2070,13 @@ def main() -> None:
                         for r in experiments["streams"]]},
         "engine_bench": {k: {m: v[m] for m in ("cycles", "wall_s")}
                          for k, v in engine_bench.items()},
+        "skew_fingerprint": skew_replay,
+        "skew_paper": {f"rhizome_cap={R}": {
+            k: r[k] for k in ("status", "all_cycles", "hops", "stalls",
+                              "launches", "wall_s", "kernel_ms",
+                              "ms_per_launch", "bound_ms", "livelock",
+                              "vertex_object_stats") if k in r}
+            for R, r in skew_paper.items()},
         "card": smi}
     del eng, snapshot, st, s_kern, s_plain
     torch.cuda.empty_cache()

@@ -1,12 +1,14 @@
-"""Diffusion applications: the paper's ``bfs-action``, SSSP, CC and the
-ingestion-only mode.
+"""Diffusion applications: the paper's ``bfs-action``, SSSP, CC, the
+ingestion-only mode, and the max-monotone widest and most-reliable paths.
 
 Each app is a *monotone relaxation* (``core/apps.py`` of the JAX
 package): ``relax(vals, incoming) -> (new_vals, changed)`` at the
 target, ``edge_value(src_val, w)`` along an edge, and
-``propagate_on_insert(vals)`` (Listing 4, line 7).  All four are
-min-monotone with ``1e9`` as "unreached".  ``code`` is the app's number
-in the CUDA cycle kernel (``kernels/cca_cycle/csrc/cca_cycle.cu``).
+``propagate_on_insert(vals)`` (Listing 4, line 7).  The first four are
+min-monotone with ``1e9`` as "unreached"; ``widest`` and ``reliable``
+are max-monotone with ``0`` as "unreached", so their ``combine``,
+``fwd_merge`` and ``fwd_neutral`` flip.  ``code`` is the app's number in
+the CUDA cycle kernel (``kernels/cca_cycle/csrc/cca_cycle.cu``).
 """
 from __future__ import annotations
 
@@ -49,6 +51,15 @@ def _min_relax(vals, incoming):
     return new, changed
 
 
+def _max_relax(vals, incoming):
+    """Max-relax of value 0: ``(new vals, changed)``."""
+    v = vals[..., 0]
+    changed = incoming > v
+    new = vals.clone()
+    new[..., 0] = torch.where(changed, incoming, v)
+    return new, changed
+
+
 def _reached(vals):
     return vals[..., 0] < INF
 
@@ -72,4 +83,19 @@ INGEST_ONLY = DiffusionApp(name="ingest_only", code=3,
                            edge_value=lambda v, w: v,
                            propagate_on_insert=_never)
 
-APPS = {a.name: a for a in (BFS, SSSP, CC, INGEST_ONLY)}
+# Widest path (maximin bottleneck capacity): an edge caps the path at
+# min(path, w), sources seed +INF.
+WIDEST = DiffusionApp(name="widest", code=4, relax=_max_relax,
+                      edge_value=lambda v, w: torch.minimum(v, w),
+                      propagate_on_insert=lambda vals: vals[..., 0] > 0.0,
+                      init_val=0.0, combine=np.maximum,
+                      fwd_merge=torch.maximum, fwd_neutral=0.0)
+# Most-reliable path: the max-product of edge reliabilities in (0, 1],
+# one IEEE f32 multiply an edge.
+RELIABLE = DiffusionApp(name="reliable", code=5, relax=_max_relax,
+                        edge_value=lambda v, w: v * w,
+                        propagate_on_insert=lambda vals: vals[..., 0] > 0.0,
+                        init_val=0.0, combine=np.maximum,
+                        fwd_merge=torch.maximum, fwd_neutral=0.0)
+
+APPS = {a.name: a for a in (BFS, SSSP, CC, INGEST_ONLY, WIDEST, RELIABLE)}

@@ -3,9 +3,10 @@
 The port's own copy of ``repro.core.config.EngineConfig``: the same
 fields (``backend`` dropped -- the device decides) and the same derived
 capacities, so a config built with the same arguments lays the machine
-state out exactly as the JAX engine does.  Knobs the port does not carry
-yet are rejected by :meth:`EngineConfig.validate` with
-``NotImplementedError`` instead of being ignored.
+state out exactly as the JAX engine does, virtual lanes and rhizome
+vertex objects included.  Knobs the port does not carry yet are rejected
+by :meth:`EngineConfig.validate` with ``NotImplementedError`` instead of
+being ignored.
 """
 from __future__ import annotations
 
@@ -113,8 +114,6 @@ class EngineConfig:
         rules) and ``NotImplementedError`` on a knob the port does not
         carry yet."""
         not_yet = [name for name, off in (
-            ("lanes>1", self.lanes == 1),
-            ("rhizome_cap>1", self.rhizome_cap == 1),
             ("telemetry", not self.telemetry),
             ("faults", self.faults is None),
             ("ingest_guard", not self.ingest_guard),
@@ -126,6 +125,11 @@ class EngineConfig:
         if not_yet:
             raise NotImplementedError(
                 f"repro_torch does not port {', '.join(not_yet)} yet")
+        # the derived capacities below divide by these two
+        if self.lanes < 1:
+            raise ValueError("lanes must be >= 1")
+        if not 1 <= self.rhizome_cap <= self.n_cells:
+            raise ValueError("rhizome_cap must be in [1, n_cells]")
         checks = (
             (self.height >= 2 and self.width >= 2, "grid must be >= 2x2"),
             (self.allocator in ("vicinity", "random"),
@@ -140,6 +144,18 @@ class EngineConfig:
              "lane_cap and park_cap must be >= 0"),
             (self.frame_ring >= 2, "frame_ring must hold >= 2 frames"),
             (self.lane_capacity >= 1, "lane_capacity must be >= 1"),
+            (self.park_capacity >= 1, "park_capacity must be >= 1"),
+            # the k-th root of a vertex lives at (v + k * stride) % n_cells
+            (len({k * self.rhizome_stride % self.n_cells
+                  for k in range(self.rhizome_cap)}) == self.rhizome_cap,
+             "rhizome_stride collides rhizome roots on one cell; pick a "
+             "rhizome_cap with distinct k*stride mod n_cells"),
+            # a rhizome activation drains up to futq_cap deferred inserts
+            # onto the local action queue in one action
+            (self.rhizome_cap == 1 or self.futq_cap <= self.aq_reserve,
+             f"futq_cap={self.futq_cap} exceeds the local-emission reserve "
+             f"{self.aq_reserve}; shrink futq_cap or raise "
+             "edge_cap/rhizome_cap"),
             (self.vicinity_hops >= 1, "vicinity_hops must be >= 1"),
             (self.io_stream_cap >= 1 and self.chunk >= 1,
              "io_stream_cap and chunk must be >= 1"),

@@ -4,7 +4,9 @@ exposes the streaming-increment API the experiments use.
 
 Cycle order (``cycle_body``, fixed-shape, vectorized over the cell grid):
 
-  1. hop_stage      channel heads advance one link (YX DOR, backpressure)
+  1. hop_stage      channel heads advance one link (YX DOR, backpressure,
+                    the round-robin lane arbiter)
+     park_stage     (lanes > 1) parked transit messages re-enter their lanes
   2. staging        active actions stage one ``propagate`` message
   3. phase0         idle cells pop one action and run its compute step
   4. io_stage       IO cells inject the next streamed edge
@@ -26,6 +28,7 @@ in_flight)`` row a cycle.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -36,7 +39,7 @@ from repro_torch.core.apps import APPS, DiffusionApp
 from repro_torch.core.config import EngineConfig
 from repro_torch.core.exec_stage import phase0_stage, staging_stage
 from repro_torch.core.ingest import io_stage, load_stream
-from repro_torch.core.routing import hop_stage
+from repro_torch.core.routing import hop_stage, park_stage
 from repro_torch.core.state import (MachineState, init_state,
                                     resolve_device)
 
@@ -69,11 +72,15 @@ def quiescent(st: MachineState) -> torch.Tensor:
 
 
 def cycle_body(cfg: EngineConfig, app: DiffusionApp, st: MachineState):
-    """One machine cycle: hop -> staging -> phase0 -> io.  Returns the new
-    state and the per-cell activity masks and hop count of the cycle."""
+    """One machine cycle: hop -> park (lanes > 1) -> staging -> phase0 ->
+    io.  Returns the new state and the per-cell activity masks and hop
+    count of the cycle."""
     rows, cols = _rc(cfg, st.aq_n.device)
     busy0 = st.cvalid
     st, hops = hop_stage(cfg, st, rows, cols)
+    if cfg.lanes > 1:
+        # while the lane slots the hops just vacated are free
+        st = park_stage(cfg, st, rows, cols)
     st, active_a = staging_stage(cfg, app, st, rows, cols)
     st, popped = phase0_stage(cfg, app, st, rows, cols, busy0)
     st = io_stage(cfg, st, rows, cols)
@@ -127,6 +134,13 @@ class IncrementResult:
     frames: None = None        # telemetry frames: not ported
 
 
+def _roots(cfg: EngineConfig, n: int):
+    """(row, col, slot) of every rhizome root of vertices ``0 .. n-1``,
+    each ``[rhizome_cap, n]``; row 0 the canonical roots."""
+    return rhizome_rcs(cfg, np.arange(n, dtype=np.int64)[None, :],
+                       np.arange(cfg.rhizome_cap, dtype=np.int64)[:, None])
+
+
 class StreamingEngine:
     """Host-side driver: the accelerator-style main() of paper Listing 1.
 
@@ -150,9 +164,12 @@ class StreamingEngine:
         self.stream_pos = 0
 
     def seed(self, vid: int, value: float, val_idx: int = 0):
-        """Host-write a value into the root of ``vid`` (e.g. the BFS
-        source gets level 0 before the stream)."""
-        r, c, s = rhizome_rcs(self.cfg, vid, 0)
+        """Host-write a value into every rhizome root of ``vid`` (e.g. the
+        BFS source gets level 0 before the stream), so the co-equal roots
+        start value-synced."""
+        r, c, s = (torch.as_tensor(a, device=self.device) for a in
+                   rhizome_rcs(self.cfg, vid,
+                               np.arange(self.cfg.rhizome_cap)))
         self.state.vals[r, c, s, val_idx] = value
 
     def run_increment(self, edges: np.ndarray, max_cycles: int | None = None,
@@ -282,14 +299,17 @@ class StreamingEngine:
         return cycle - start, bool(q), noprog, (hops, execs, stalls, allocs)
 
     def values(self, n: int | None = None, val_idx: int = 0) -> np.ndarray:
-        """Vertex values read back from the roots, ``float32 [n]``."""
-        cfg = self.cfg
-        vids = np.arange(n or cfg.n_vertices, dtype=np.int64)
-        r, c, s = rhizome_rcs(cfg, vids, 0)
-        return self.state.vals[..., val_idx].cpu().numpy()[r, c, s]
+        """Vertex values, ``float32 [n]``: the app's ``combine`` (min, or
+        max for the max-monotone apps) over every rhizome root of each
+        vertex."""
+        r, c, s = _roots(self.cfg, n or self.cfg.n_vertices)
+        v = self.state.vals[..., val_idx].cpu().numpy()[r, c, s]
+        return functools.reduce(self.app.combine, v)
 
     def vertex_object_stats(self) -> dict:
-        """Ghost usage and locality of the hierarchical vertex objects."""
+        """Ghost usage and locality of the hierarchical vertex objects,
+        and at ``rhizome_cap > 1`` the rhizome fan-out and the spread of
+        the active co-equal roots over the mesh."""
         cfg, st = self.cfg, self.state
         gs = st.gstate.cpu().numpy()
         ga = st.gaddr.cpu().numpy()
@@ -303,4 +323,14 @@ class StreamingEngine:
             tgt = ga[have] // cfg.slots
             d = np.abs(rr - tgt // cfg.width) + np.abs(cc - tgt % cfg.width)
             out.update(mean_hops=float(d.mean()), max_hops=int(d.max()))
+        if cfg.rhizome_cap > 1:
+            r, c, s = _roots(cfg, cfg.n_vertices)
+            act = st.rhz_on.cpu().numpy()[r, c, s][1:]   # secondary roots
+            fan = 1 + act.sum(axis=0)
+            d = np.abs(r[1:] - r[0]) + np.abs(c[1:] - c[0])
+            out.update(rhizomes=int(fan.sum() - cfg.n_vertices),
+                       multi_root_vertices=int((fan > 1).sum()),
+                       max_fanout=int(fan.max()),
+                       mean_rhizome_hops=(float(d[act].mean())
+                                          if act.any() else 0.0))
         return out

@@ -6,14 +6,17 @@ instruction (phase 0 of an action) or the staging of one new message
 mutate cycle plus one per emission, with backpressure stalls when the
 target buffer is full (paper §4; ``core/exec_stage.py`` of the JAX
 package, whose handlers this file carries for ``qbatch=1``, no faults
-and no telemetry):
+and no telemetry; at ``lanes > 1`` a remote emission that finds its lane
+full parks in the cell's park ring):
 
   OP_INSERT_EDGE  insert-edge-action with the ghost/future protocol
   OP_APP          the application action (bfs-action et al.)
   OP_ALLOC        remote ghost allocation (vicinity allocator)
   OP_SET_FUTURE   continuation return: set future, drain deferred queue
   OP_RHIZOME_FWD / OP_LINK_RHIZOME  the rhizome protocol's handlers
-                  (reached only at rhizome_cap>1)
+                  (reached only at rhizome_cap>1): a secondary root's
+                  activation and deferred-insert drain, the canonical
+                  root's link-ack and its sibling broadcast
 
 Every slot access is a gather or a one-hot ``where`` over the slot axis.
 """
@@ -28,7 +31,8 @@ from repro_torch.core.apps import DiffusionApp
 from repro_torch.core.config import EngineConfig
 from repro_torch.core.msg import (OP_ALLOC, OP_APP, OP_INSERT_EDGE,
                                   OP_LINK_RHIZOME, OP_RHIZOME_FWD,
-                                  OP_SET_FUTURE, f2i, i2f, make_msg)
+                                  OP_SET_FUTURE, TB_AQ_SELF, f2i, i2f,
+                                  make_msg)
 from repro_torch.core.routing import deliver, msg_lane, yx_target_buffer
 from repro_torch.core.state import G_NULL, G_PENDING, G_SET, MachineState
 
@@ -155,6 +159,16 @@ def staging_stage(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
         emis, tb, msg_lane(cfg, emis[..., 0], emis[..., 1]), push_active,
         rings.ring_free(st.aq_n, cfg.queue_cap))
     ok_total = to_reg | ok_push         # register writes always succeed
+    pk, pk_n = st.pk, st.pk_n
+    parked = torch.zeros_like(ok_push)
+    if cfg.lanes > 1:
+        # transit parking: a remote emission whose lane is full goes into
+        # the cell's park ring (drained by routing.park_stage), so the
+        # cell keeps consuming; with the ring full the action stays active
+        parked = (push_active & ~ok_push & (tb != TB_AQ_SELF)
+                  & rings.ring_free(pk_n, cfg.park_capacity))
+        pk, pk_n = rings.ring_push(pk, pk_n, st.pk_head, emis, parked)
+        ok_total = ok_total | parked
 
     # ---- SET_FUTURE / rf-drain bookkeeping on successful stages ----
     fq_pop = ok_total & (sf_from_fq | rf_drain)
@@ -171,12 +185,14 @@ def staging_stage(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
     stall = active & ~ok_total
 
     st = st._replace(
-        aq=aq, aq_n=aq_n, ch=ch, ch_n=ch_n,
+        aq=aq, aq_n=aq_n, ch=ch, ch_n=ch_n, pk=pk, pk_n=pk_n,
         fq_n=fq_n, fq_head=fq_head,
         fwd_val=fwd_val, fwd_pending=fwd_pending,
         cphase=new_phase, cvalid=st.cvalid & ~done,
         stat_exec=st.stat_exec + done.sum(dtype=torch.int32),
-        stat_stall=st.stat_stall + stall.sum(dtype=torch.int32))
+        # a parked emission counts as a stall too
+        stat_stall=st.stat_stall + stall.sum(dtype=torch.int32)
+        + parked.sum(dtype=torch.int32))
     return st, active
 
 

@@ -16,7 +16,8 @@ from repro_torch.core import rings
 from repro_torch.core.alloc import rhizome_addr
 from repro_torch.core.config import EngineConfig
 from repro_torch.core.msg import OP_INSERT_EDGE, make_msg
-from repro_torch.core.routing import deliver, msg_lane, yx_target_buffer
+from repro_torch.core.routing import (deliver, manhattan_hops, msg_lane,
+                                     yx_target_buffer)
 from repro_torch.core.state import MachineState, root_addr
 
 
@@ -72,12 +73,22 @@ def io_stage(cfg: EngineConfig, st: MachineState, rows, cols):
     pend = st.io_pos < st.io_n                                  # [IO]
     cur = st.io_edges[torch.arange(IO, device=dev),
                       torch.clamp(st.io_pos, max=cfg.io_stream_cap - 1).long()]
-    # at rhizome_cap=1 the insert goes to the source vertex's canonical
-    # root; the edge's destination is always named by its canonical root
-    tgt = rhizome_addr(cfg, cur[:, 0], 0)
-    msg = make_msg(OP_INSERT_EDGE, tgt, root_addr(cfg, cur[:, 1]), cur[:, 2])
     r0 = torch.zeros(IO, dtype=torch.int32, device=dev)
     c0 = torch.arange(IO, dtype=torch.int32, device=dev)
+    # the insert goes to the source vertex's rhizome root k with the least
+    # dist + pref * half_diam: pref = (k - io_pos) % R rotates a hub's
+    # inserts over its roots, unless another root is more than half a
+    # diameter closer; ties go to the lowest k (the canonical root at
+    # rhizome_cap=1).  The edge's destination names its canonical root.
+    R = cfg.rhizome_cap
+    ks = torch.arange(R, dtype=torch.int32, device=dev)[None, :]
+    cand = rhizome_addr(cfg, cur[:, 0:1], ks)                   # [IO, R]
+    dist = manhattan_hops(cfg, cand // S, r0[:, None], c0[:, None])
+    half_diam = max(1, (cfg.height + cfg.width - 2) // 2)
+    pref = (ks - st.io_pos[:, None]) % R
+    best = torch.argmin(dist + pref * half_diam, dim=1)  # first minimum
+    tgt = cand.gather(1, best[:, None])[:, 0]
+    msg = make_msg(OP_INSERT_EDGE, tgt, root_addr(cfg, cur[:, 1]), cur[:, 2])
     tb = yx_target_buffer(cfg, tgt // S, r0, c0)
     # injected inserts are application traffic: the app-level AQ reserve
     aq0, aqn0, ch0, chn0, accepted = deliver(

@@ -5,8 +5,13 @@ Messages take vertical (row) hops first, then horizontal; one hop per
 cycle per link.  The hop stage is a masked ``torch.roll`` over the
 ``[H, W]`` grid, one direction at a time in the fixed order N, S, W, E,
 so arrivals at one cell in one cycle are sequenced deterministically.
-The port carries ``lanes=1`` (every message rides lane 0); the lane axis
-stays in the layout.  ``park_stage`` (lanes>1) is not ported yet.
+Each link multiplexes ``cfg.lanes`` virtual lanes: lane 0 is the escape
+lane of protocol traffic, lanes ``1..lanes-1`` carry application traffic
+hashed by destination (:func:`msg_lane`), and a round-robin arbiter
+grants one admissible lane a link a cycle.  At ``lanes > 1``
+:func:`park_stage` drains the per-cell park ring, where staging parks a
+remote emission whose lane is full; at ``lanes=1`` every message rides
+lane 0 and nothing parks.
 """
 from __future__ import annotations
 
@@ -36,6 +41,14 @@ def msg_lane(cfg: EngineConfig, op, dst):
         return torch.zeros(shape, dtype=torch.int32, device=dst.device)
     data = 1 + dst % (cfg.lanes - 1)
     return torch.where(is_protocol(op), 0, data).to(torch.int32)
+
+
+def manhattan_hops(cfg: EngineConfig, dst_cell, rows, cols):
+    """YX path length from cell ``(rows, cols)`` to ``dst_cell``: the
+    distance the IO cells weigh when they pick a rhizome root."""
+    dr = dst_cell // cfg.width
+    dc = dst_cell % cfg.width
+    return (dr - rows).abs() + (dc - cols).abs()
 
 
 def yx_target_buffer(cfg: EngineConfig, dst_cell, rows, cols):
@@ -74,6 +87,30 @@ def deliver(cfg: EngineConfig, aq, aq_n, aq_head, ch, ch_n, ch_head,
     ch, ch_n = rings.ring_push(ch, ch_n, ch_head, msg[..., None, None, :],
                                ok)
     return aq, aq_n, ch, ch_n, ok_aq | ok.any(dim=-1).any(dim=-1)
+
+
+def park_stage(cfg: EngineConfig, st: MachineState, rows, cols):
+    """Re-inject each cell's park-ring head into its YX next lane
+    (``lanes > 1`` only; the caller skips it otherwise).  On failure the
+    head rotates to the tail, so one blocked message cannot block the
+    rest of the ring.  ``aq_room`` is False: a parked message is remote by
+    construction and never enters the action queue."""
+    PK = cfg.park_capacity
+    head = rings.ring_peek(st.pk, st.pk_head)                  # [H,W,MSG]
+    want = st.pk_n > 0
+    tb = yx_target_buffer(cfg, head[..., 1] // cfg.slots, rows, cols)
+    lane = msg_lane(cfg, head[..., 0], head[..., 1])
+    aq, aq_n, ch, ch_n, ok = deliver(
+        cfg, st.aq, st.aq_n, st.aq_head, st.ch, st.ch_n, st.ch_head,
+        head, tb, lane, want, torch.zeros_like(want))
+    # success: pop.  failure: rotate (head -> tail; the count is kept)
+    fail = want & ~ok
+    tail = (st.pk_head + st.pk_n) % PK
+    oh = (rings._iota(PK, head.device) == tail[..., None]) & fail[..., None]
+    pk = torch.where(oh[..., None], head[..., None, :], st.pk)
+    return st._replace(aq=aq, aq_n=aq_n, ch=ch, ch_n=ch_n, pk=pk,
+                       pk_n=st.pk_n - ok.to(torch.int32),
+                       pk_head=(st.pk_head + want.to(torch.int32)) % PK)
 
 
 # direction -> (row shift, col shift) that moves a message ALONG d.

@@ -7,12 +7,14 @@
 // freeze at quiescence, and report an int32 record [cycle, stat_hops,
 // stat_exec, stat_stall, stat_allocs, quiescent, cycles_run, 0].  Its plain
 // PyTorch version is `repro_torch/kernels/cca_cycle/ref.py`; running either
-// kernel equals it leaf for leaf and bit for bit.  Scope: lanes=1,
-// rhizome_cap=1 (the rhizome handlers are carried but unreachable there),
-// qbatch=1, no telemetry, no faults, apps bfs/sssp/cc/ingest_only, the
-// vicinity and random allocators.  Given a trace pointer, a launch also
-// fills the row (active cells, messages in flight after the cycle) of each
-// cycle it runs, the stats of `engine.cycle_step`.
+// kernel equals it leaf for leaf and bit for bit.  Scope: any lanes (the
+// round-robin lane arbiter, the escape lane, transit parking and the park
+// stage), any rhizome_cap (rhizome roots, the link protocol, the sibling
+// broadcast and the IO cells' root choice), qbatch=1, no telemetry, no
+// faults, apps bfs/sssp/cc/ingest_only and the max-monotone widest and
+// reliable, the vicinity and random allocators.  Given a trace pointer, a
+// launch also fills the row (active cells, messages in flight after the
+// cycle) of each cycle it runs, the stats of `engine.cycle_step`.
 //
 // What bounds it.  Not bytes: the mutable state (85.6 MiB at the paper's
 // 50K-vertex config, 7.8 MiB at 2000 vertices) is read and written once per
@@ -37,13 +39,18 @@
 // Every stage of the reference is a whole-grid array operation that reads
 // the state as it stood before the stage, so a cycle needs a barrier between
 // each read phase and its write phase.  The hop stage runs four direction
-// rounds N, S, W, E, each a read phase (`hop_read`: every sender checks
-// admissibility at its receiver and copies its granted head into the
+// rounds N, S, W, E, each a read phase (`hop_read`: every sender checks each
+// lane's head for admissibility at its receiver, grants the admissible lane
+// closest after its round-robin pointer and copies that head into the
 // outbox) and a write phase (`hop_write`: every receiver pushes its
-// neighbour's outbox message, then pops its own granted lane -- push before
-// pop on one ring, as the reference does).  Staging, phase 0 and io touch
-// only the thread's own cell (io only row-0 cell i for IO cell i), so they
-// run back to back without barriers.  Quiescence is one OR over per-cell
+// neighbour's outbox message into the same lane, then pops its own granted
+// lane -- push before pop on one ring, as the reference does).  The park
+// stage (lanes > 1), staging, phase 0 and io touch only the thread's own
+// cell (io only row-0 cell i for IO cell i), and the thread that ran a
+// cell's E write runs its exec, so they run back to back without barriers.
+// The park ring (pk, pk_head) stays in device memory in both kernels: only
+// its own cell's thread touches it, and only while pk_n, held with the
+// other per-cell leaves, is above 0.  Quiescence is one OR over per-cell
 // work flags a cycle; the per-cell sum of fq_n and fwd_pending over the
 // slots is kept incrementally in `qwork` so the test does not rescan S slots
 // per cycle.
@@ -78,7 +85,8 @@ enum { OP_NOP = 0, OP_INSERT_EDGE = 1, OP_APP = 2, OP_ALLOC = 3,
        OP_SET_FUTURE = 4, OP_RHIZOME_FWD = 5, OP_LINK_RHIZOME = 6 };
 enum { TB_N = 0, TB_S = 1, TB_W = 2, TB_E = 3, TB_AQ = 4 };
 enum { G_NULL = 0, G_PENDING = 1, G_SET = 2 };
-enum { APP_BFS = 0, APP_SSSP = 1, APP_CC = 2, APP_INGEST_ONLY = 3 };
+enum { APP_BFS = 0, APP_SSSP = 1, APP_CC = 2, APP_INGEST_ONLY = 3,
+       APP_WIDEST = 4, APP_RELIABLE = 5 };
 enum { ALLOC_VICINITY = 0, ALLOC_RANDOM = 1 };
 constexpr int MSGW = 5;
 constexpr float INF = 1e9f;
@@ -88,7 +96,7 @@ constexpr int MAX_CTAS = 16;   // the largest (non-portable) cluster
 // one-block kernel; otherwise the cluster kernel with n_ctas CTAs, whose
 // shared memory a CTA the wrapper has reckoned as smem_bytes.
 struct Dims {
-  int H, W, S, E, Q, FQ, LC, IO, IOL;
+  int H, W, S, E, Q, FQ, LC, L, PK, IO, IOL;
   int root_slots, primary_slots, rhizome_cap, rhizome_stride;
   int aq_reserve, sys_reserve, n_offs, app, allocator, n_cycles;
   int n_ctas, smem_bytes;
@@ -102,7 +110,7 @@ struct Leaves {
   int* fq; int* fq_n; int* fq_head; float* fwd_val; bool* fwd_pending;
   int* aq; int* aq_n; int* aq_head;
   int* ch; int* ch_n; int* ch_head; int* ch_rr;
-  int* pk_n;
+  int* pk; int* pk_n; int* pk_head;
   int* cmsg; bool* cvalid; int* cphase; int* cT; float* cemit; int* cout;
   int* cdrain;
   const int* io_edges; int* io_n; int* io_pos;
@@ -111,7 +119,7 @@ struct Leaves {
   int* stat_allocs;
   const int* offs;   // [n_offs, 2] vicinity (dy, dx) table
   int* outbox;       // [cells, MSGW] granted heads of the current round
-  int* grant;        // [cells]
+  int* grant;        // [cells] granted lane + 1, 0 for none
   int* qwork;        // [cells] sum over slots of fq_n + fwd_pending
   int* rec;          // [8] the launch record
   int* trace;        // [n_cycles, 2] (active, in_flight) a cycle, or null
@@ -181,10 +189,41 @@ __device__ __forceinline__ bool ext_room(const Dims& D, int op, int aq_n) {
                          : aq_n < D.Q - D.aq_reserve - D.sys_reserve;
 }
 
+// Virtual lane of a message (routing.msg_lane): protocol traffic on the
+// escape lane 0, application traffic hashed by destination onto 1..L-1.
+__device__ __forceinline__ int msg_lane(const Dims& D, int op, int dst) {
+  if (D.L == 1 || is_protocol(op)) return 0;
+  return 1 + fmod_(dst, D.L - 1);
+}
+
+__device__ __forceinline__ bool max_app(int app) {
+  return app == APP_WIDEST || app == APP_RELIABLE;
+}
+
 __device__ __forceinline__ float edge_value(int app, float v, float w) {
   if (app == APP_BFS) return __fadd_rn(v, 1.0f);
   if (app == APP_SSSP) return __fadd_rn(v, w);
+  if (app == APP_WIDEST) return w < v ? w : v;
+  if (app == APP_RELIABLE) return __fmul_rn(v, w);
   return v;   // cc, ingest_only
+}
+
+// The app's fwd_merge (min, or max for the max-monotone apps), its
+// neutral element, and whether `inc` relaxes `v`.
+__device__ __forceinline__ float fwd_merge(int app, float a, float b) {
+  return max_app(app) ? (b > a ? b : a) : (b < a ? b : a);
+}
+__device__ __forceinline__ float fwd_neutral(int app) {
+  return max_app(app) ? 0.0f : INF;
+}
+__device__ __forceinline__ bool relaxes(int app, float inc, float v) {
+  if (app == APP_INGEST_ONLY) return false;
+  return max_app(app) ? inc > v : inc < v;
+}
+// propagate_on_insert: a reached source vertex (never for ingest_only).
+__device__ __forceinline__ bool reached(int app, float v) {
+  if (app == APP_INGEST_ONLY) return false;
+  return max_app(app) ? v > 0.0f : v < INF;
 }
 
 // Add `v`, summed over the warp, into *at (one atomic a warp).  The lanes
@@ -268,10 +307,11 @@ struct Cells {
 };
 
 // routing.deliver for one cell: the local action queue (tb == TB_AQ, gated
-// by aq_room) or lane 0 of channel tb (gated by lane capacity).
+// by aq_room) or lane `lane` of channel tb (gated by lane capacity).  The
+// ring of (direction tb, lane) is entry (l * 4 + tb) * L + lane of ch_n.
 template <class C>
 __device__ bool deliver(const Dims& D, const C& X, int c, const int* msg,
-                        int tb, bool aq_room) {
+                        int tb, int lane, bool aq_room) {
   int l = X.l(c);
   if (tb == TB_AQ) {
     if (!aq_room) return false;
@@ -282,7 +322,7 @@ __device__ bool deliver(const Dims& D, const C& X, int c, const int* msg,
     return true;
   }
   if (tb < 0 || tb > 3) return false;
-  int k = l * 4 + tb;
+  int k = (l * 4 + tb) * D.L + lane;
   int n = X.ch_n[k];
   if (n >= D.LC) return false;
   int tail = fmod_(X.ch_head[k] + n, D.LC);
@@ -294,30 +334,55 @@ __device__ bool deliver(const Dims& D, const C& X, int c, const int* msg,
 __constant__ int kDy[4] = {-1, 1, 0, 0};  // N, S, W, E
 __constant__ int kDx[4] = {0, 0, -1, 1};
 
-// Hop phase A: cell c as the sender on link d.
+// Whether the head of lane j (ring k) of a sender can enter receiver recv
+// at (rr, rc): action-queue room if it has arrived, else room in the same
+// lane of the receiver's next channel.  Sets `head` to it.
+template <class C>
+__device__ __forceinline__ bool admissible(const Dims& D, const C& X, int k,
+                                           int j, int recv, int rr, int rc,
+                                           const int*& head) {
+  if (X.ch_n[k] <= 0) return false;
+  head = X.ch + ((size_t)k * D.LC + fmod_(X.ch_head[k], D.LC)) * MSGW;
+  int tb = yx_tb(D, fdiv(head[1], D.S), rr, rc);
+  return tb == TB_AQ ? ext_room(D, head[0], *X.peer(X.aq_n, recv, 1, 0))
+                     : *X.peer(X.ch_n, recv, 4 * D.L, tb * D.L + j) < D.LC;
+}
+
+// Hop phase A: cell c as the sender on link d.  Of the lanes whose head is
+// admissible, the one closest after the link's round-robin pointer ch_rr
+// wins (one lane: no arbiter).  The grant records that lane + 1 (0: none).
 template <class C>
 __device__ void hop_read(const Dims& D, const C& X, int c, int d) {
   int row = c / D.W, col = c % D.W;
   int rr = row + kDy[d], rc = col + kDx[d];
-  int k = X.l(c) * 4 + d;
-  bool granted = false;
-  if (rr >= 0 && rr < D.H && rc >= 0 && rc < D.W && X.ch_n[k] > 0) {
+  int base = (X.l(c) * 4 + d) * D.L;
+  int grant = 0;
+  if (rr >= 0 && rr < D.H && rc >= 0 && rc < D.W) {
     int recv = rr * D.W + rc;
-    const int* head =
-        X.ch + ((size_t)k * D.LC + fmod_(X.ch_head[k], D.LC)) * MSGW;
-    int tb = yx_tb(D, fdiv(head[1], D.S), rr, rc);
-    bool adm = tb == TB_AQ ? ext_room(D, head[0], *X.peer(X.aq_n, recv, 1, 0))
-                           : *X.peer(X.ch_n, recv, 4, tb) < D.LC;
-    if (adm) {
-      granted = true;
-      copy_msg(X.box(d, c), head);
+    const int* win = nullptr;
+    if (D.L == 1) {
+      grant = admissible(D, X, base, 0, recv, rr, rc, win);
+    } else {
+      int ptr = X.ch_rr[X.l(c) * 4 + d], best = D.L;
+      for (int j = 0; j < D.L; ++j) {
+        const int* head;
+        if (!admissible(D, X, base + j, j, recv, rr, rc, head)) continue;
+        int key = fmod_(j - ptr, D.L);
+        if (key < best) {
+          best = key;
+          grant = j + 1;
+          win = head;
+        }
+      }
     }
+    if (grant) copy_msg(X.box(d, c), win);
   }
-  X.granted(d, c) = granted;
+  X.granted(d, c) = grant;
 }
 
-// Hop phase B: cell c receives its link-d neighbour's granted head, then
-// pops its own granted head.  Returns the flits accepted here.
+// Hop phase B: cell c receives its link-d neighbour's granted head into the
+// same lane, then pops its own granted lane and moves its pointer past it.
+// Returns the flits accepted here.
 template <class C>
 __device__ int hop_write(const Dims& D, const C& X, int c, int d) {
   int row = c / D.W, col = c % D.W;
@@ -325,20 +390,43 @@ __device__ int hop_write(const Dims& D, const C& X, int c, int d) {
   int hops = 0;
   if (sr >= 0 && sr < D.H && sc >= 0 && sc < D.W) {
     int snd = sr * D.W + sc;
-    if (*X.peer(X.grant + d * X.grant_dir, snd, 1, 0)) {
+    int g = *X.peer(X.grant + d * X.grant_dir, snd, 1, 0);
+    if (g) {
       int msg[MSGW];
       copy_msg(msg, X.peer(X.outbox + d * X.box_dir, snd, MSGW, 0));
       int tb = yx_tb(D, fdiv(msg[1], D.S), row, col);
-      hops = deliver(D, X, c, msg, tb, ext_room(D, msg[0], X.aq_n[X.l(c)]));
+      hops = deliver(D, X, c, msg, tb, g - 1,
+                     ext_room(D, msg[0], X.aq_n[X.l(c)]));
     }
   }
-  if (X.granted(d, c)) {
-    int k = X.l(c) * 4 + d;
+  int g = X.granted(d, c);
+  if (g) {
+    int k = (X.l(c) * 4 + d) * D.L + g - 1;
     X.ch_n[k] -= 1;
     X.ch_head[k] = fmod_(X.ch_head[k] + 1, D.LC);
-    X.ch_rr[k] = 0;  // (granted lane + 1) % lanes, lanes == 1
+    X.ch_rr[X.l(c) * 4 + d] = g < D.L ? g : 0;   // (granted lane + 1) % L
   }
   return hops;
+}
+
+// routing.park_stage for cell c (lanes > 1): the park ring's head re-enters
+// its lane of the YX next channel, or rotates to the ring's tail.  Never
+// into the action queue (aq_room false).  pk and pk_head in device memory,
+// indexed by cell.
+template <class C>
+__device__ void park(const Dims& D, const Leaves& P, const C& X, int c) {
+  int l = X.l(c), n = X.pk_n[l];
+  if (n <= 0) return;
+  int h = P.pk_head[c];
+  int* ring = P.pk + (size_t)c * D.PK * MSGW;
+  int head[MSGW];
+  copy_msg(head, ring + fmod_(h, D.PK) * MSGW);
+  int tb = yx_tb(D, fdiv(head[1], D.S), c / D.W, c % D.W);
+  if (deliver(D, X, c, head, tb, msg_lane(D, head[0], head[1]), false))
+    X.pk_n[l] = n - 1;
+  else
+    copy_msg(ring + fmod_(h + n, D.PK) * MSGW, head);
+  P.pk_head[c] = fmod_(h + 1, D.PK);
 }
 
 struct Counts { int hops, exec, stall, allocs; };
@@ -412,13 +500,23 @@ __device__ bool staging(const Dims& D, const Leaves& P, const C& X, int c,
   bool to_reg = appl_is_fwd && gs == G_PENDING;
   bool ok_total;
   if (to_reg) {
-    float fv = P.fwd_val[idx];
-    P.fwd_val[idx] = cemit < fv ? cemit : fv;
+    P.fwd_val[idx] = fwd_merge(D.app, P.fwd_val[idx], cemit);
     if (!P.fwd_pending[idx]) { P.fwd_pending[idx] = true; X.qwork[l] += 1; }
     ok_total = true;
   } else {
     int tb = yx_tb(D, fdiv(emis[1], S), c / D.W, c % D.W);
-    ok_total = deliver(D, X, c, emis, tb, X.aq_n[l] < D.Q);
+    ok_total = deliver(D, X, c, emis, tb, msg_lane(D, emis[0], emis[1]),
+                       X.aq_n[l] < D.Q);
+    // transit parking (lanes > 1): a remote emission whose lane is full
+    // goes into the park ring if it has room, and counts as a stall
+    if (!ok_total && D.L > 1 && tb != TB_AQ && X.pk_n[l] < D.PK) {
+      int pn = X.pk_n[l];
+      copy_msg(P.pk + ((size_t)c * D.PK + fmod_(P.pk_head[c] + pn, D.PK)) *
+                          MSGW, emis);
+      X.pk_n[l] = pn + 1;
+      n.stall += 1;
+      ok_total = true;
+    }
   }
   if (ok_total && (sf_from_fq || rf_drain)) {
     P.fq_n[idx] = fqn - 1;
@@ -426,7 +524,7 @@ __device__ bool staging(const Dims& D, const Leaves& P, const C& X, int c,
     X.qwork[l] -= 1;
   }
   if (ok_total && sf_from_fwd) {
-    P.fwd_val[idx] = INF;
+    P.fwd_val[idx] = fwd_neutral(D.app);
     if (P.fwd_pending[idx]) { P.fwd_pending[idx] = false; X.qwork[l] -= 1; }
   }
   int new_phase = cphase + (ok_total ? 1 : 0);
@@ -488,8 +586,8 @@ __device__ bool phase0(const Dims& D, const Leaves& P, const C& X, int c,
     P.edst[e] = a0;
     P.ew[e] = i2f(a1);
     P.nedges[idx] = ne + 1;
-    // propagate on insert (Listing 4, line 7); never for ingest_only
-    T = D.app != APP_INGEST_ONLY && vs < INF ? 1 : 0;
+    // propagate on insert (Listing 4, line 7)
+    T = reached(D.app, vs) ? 1 : 0;
     out[0] = OP_APP; out[1] = a0;
     out[2] = f2i(edge_value(D.app, vs, i2f(a1)));
     set_out = true;
@@ -538,8 +636,9 @@ __device__ bool phase0(const Dims& D, const Leaves& P, const C& X, int c,
     }
   } else if (is_app || is_rf) {
     float inc = i2f(a0);
-    // the app's relax: a min, or for ingest_only no change at all
-    bool changed = D.app != APP_INGEST_ONLY && inc < vs;
+    // the app's relax: a min, a max for widest and reliable, or for
+    // ingest_only no change at all
+    bool changed = relaxes(D.app, inc, vs);
     P.vals[idx] = changed ? inc : vs;
     X.cemit[l] = changed ? inc : vs;
     int gl = gs != G_NULL ? 1 : 0;
@@ -569,7 +668,7 @@ __device__ bool phase0(const Dims& D, const Leaves& P, const C& X, int c,
       X.qwork[l] -= P.fq_n[gi] + (P.fwd_pending[gi] ? 1 : 0);
       P.fq_n[gi] = 0;
       P.fq_head[gi] = 0;
-      P.fwd_val[gi] = INF;
+      P.fwd_val[gi] = fwd_neutral(D.app);
       P.fwd_pending[gi] = false;
       X.nfree[l] = g + 1;
       n.allocs += 1;
@@ -596,21 +695,37 @@ __device__ bool phase0(const Dims& D, const Leaves& P, const C& X, int c,
   return true;
 }
 
-// ingest.io_stage for IO cell i (attached to row-0 cell i).
+// ingest.io_stage for IO cell i (attached to row-0 cell i).  The insert
+// goes to the source's rhizome root k with the least dist + pref *
+// half_diam (Manhattan distance from (0, i), pref = (k - pos) mod R), the
+// lowest k on a tie; the edge's destination names its canonical root.
 template <class C>
 __device__ void io(const Dims& D, const Leaves& P, const C& X, int i) {
   int pos = X.io_pos[i];
   if (pos >= X.io_n[i]) return;
   const int* e = P.io_edges + ((size_t)i * D.IOL + min(pos, D.IOL - 1)) * 3;
-  int NC = D.H * D.W;
+  int NC = D.H * D.W, R = D.rhizome_cap;
+  int tgt = fmod_(e[0], NC) * D.S + fdiv(e[0], NC);   // root 0
+  if (R > 1) {
+    int half_diam = max(1, (D.H + D.W - 2) / 2), best = 0;
+    for (int k = 0; k < R; ++k) {
+      int cell = fmod_(e[0] + k * D.rhizome_stride, NC);
+      int score = fdiv(cell, D.W) + abs(fmod_(cell, D.W) - i) +
+                  fmod_(k - pos, R) * half_diam;
+      if (k == 0 || score < best) {
+        best = score;
+        tgt = cell * D.S + k * D.root_slots + fdiv(e[0], NC);
+      }
+    }
+  }
   int msg[MSGW];
   msg[0] = OP_INSERT_EDGE;
-  msg[1] = fmod_(e[0], NC) * D.S + fdiv(e[0], NC);
+  msg[1] = tgt;
   msg[2] = fmod_(e[1], NC) * D.S + fdiv(e[1], NC);
   msg[3] = e[2];
   msg[4] = 0;
-  int tb = yx_tb(D, fdiv(msg[1], D.S), 0, i);
-  if (deliver(D, X, i, msg, tb,
+  int tb = yx_tb(D, fdiv(tgt, D.S), 0, i);
+  if (deliver(D, X, i, msg, tb, msg_lane(D, OP_INSERT_EDGE, tgt),
               X.aq_n[X.l(i)] < D.Q - D.aq_reserve - D.sys_reserve))
     X.io_pos[i] = pos + 1;
 }
@@ -620,10 +735,14 @@ __device__ void io(const Dims& D, const Leaves& P, const C& X, int i) {
 template <class C>
 __device__ __forceinline__ bool cell_busy(const Dims& D, const C& X, int c) {
   int l = X.l(c);
-  const int* chn = X.ch_n + l * 4;
-  return X.aq_n[l] != 0 || X.pk_n[l] != 0 || chn[0] != 0 || chn[1] != 0 ||
-         chn[2] != 0 || chn[3] != 0 || X.cvalid[l] || X.qwork[l] != 0 ||
-         (c < D.IO && X.io_n[c] != X.io_pos[c]);
+  if (X.aq_n[l] != 0 || X.pk_n[l] != 0 || X.cvalid[l] || X.qwork[l] != 0 ||
+      (c < D.IO && X.io_n[c] != X.io_pos[c]))
+    return true;
+  const int* chn = X.ch_n + l * 4 * D.L;
+#pragma unroll 4
+  for (int k = 0; k < 4 * D.L; ++k)
+    if (chn[k] != 0) return true;
+  return false;
 }
 
 // Sum over cell c's slots of fq_n + fwd_pending: the deferred work that
@@ -639,12 +758,15 @@ __device__ void init_qwork(const Dims& D, const Leaves& P, const C& X,
   X.qwork[X.l(c)] = w;
 }
 
-// Messages in cell c's channels and park buffer.
+// Messages in cell c's channels (every lane) and park ring.
 template <class C>
-__device__ __forceinline__ int cell_in_flight(const C& X, int c) {
+__device__ __forceinline__ int cell_in_flight(const Dims& D, const C& X,
+                                              int c) {
   int l = X.l(c);
-  const int* chn = X.ch_n + l * 4;
-  return chn[0] + chn[1] + chn[2] + chn[3] + X.pk_n[l];
+  const int* chn = X.ch_n + l * 4 * D.L;
+  int n = X.pk_n[l];
+  for (int k = 0; k < 4 * D.L; ++k) n += chn[k];
+  return n;
 }
 
 // Up to D.n_cycles machine cycles over the band of X, frozen at quiescence;
@@ -670,7 +792,8 @@ __device__ int run_cycles(const Dims& D, const Leaves& P,
     quiet = !X.any(busy);
     if (P.trace && ran > 0) {
       int in_flight = 0;
-      for (int c = first; c < end; c += nt) in_flight += cell_in_flight(X, c);
+      for (int c = first; c < end; c += nt)
+        in_flight += cell_in_flight(D, X, c);
       trace_add(P.trace + 2 * (ran - 1) + 1, in_flight);
     }
     clk.stamp(0);
@@ -692,6 +815,7 @@ __device__ int run_cycles(const Dims& D, const Leaves& P,
     int active = 0;
     for (int c = first; c < end; c += nt) {
       bool busy0 = X.cvalid[X.l(c)];
+      if (D.L > 1) park(D, P, X, c);
       bool staged = staging(D, P, X, c, n);
       bool popped = phase0(D, P, X, c, busy0, n);
       active += staged | popped;

@@ -6,7 +6,10 @@
 // ...] leaf) from device memory into shared memory, runs the K cycles there
 // and writes the band back in place at the end; the slot-indexed leaves,
 // the vicinity table and the IO streams stay in device memory, touched only
-// by their own cell's actions.
+// by their own cell's actions, and so does the park ring (pk, pk_head; its
+// count pk_n is in the band): only its own cell's thread touches it, and
+// only after a lane was full, while it would take 644 of a cell's 4,424
+// bytes at chan_cap 32 and lanes 2.
 //
 // Why this shape.  The one-block kernel runs every cell on one SM with its
 // per-cell leaves in device memory: each of the ~10 phases of a cycle walks
@@ -63,9 +66,9 @@ __host__ __device__ inline ClusterLayout cluster_layout(const Dims& D) {
   L.aq = o; o += nb * D.Q * MSGW;
   L.aq_n = o; o += nb;
   L.aq_head = o; o += nb;
-  L.ch = o; o += nb * 4 * D.LC * MSGW;
-  L.ch_n = o; o += nb * 4;
-  L.ch_head = o; o += nb * 4;
+  L.ch = o; o += nb * 4 * D.L * D.LC * MSGW;
+  L.ch_n = o; o += nb * 4 * D.L;
+  L.ch_head = o; o += nb * 4 * D.L;
   L.ch_rr = o; o += nb * 4;
   L.pk_n = o; o += nb;
   L.cmsg = o; o += nb * MSGW;
@@ -138,9 +141,11 @@ __device__ void move_band(const Dims& D, const Leaves& P,
   move_words(X.aq, P.aq + c0 * D.Q * MSGW, nb * D.Q * MSGW, in);
   move_words(X.aq_n, P.aq_n + c0, nb, in);
   move_words(X.aq_head, P.aq_head + c0, nb, in);
-  move_words(X.ch, P.ch + c0 * 4 * D.LC * MSGW, nb * 4 * D.LC * MSGW, in);
-  move_words(X.ch_n, P.ch_n + c0 * 4, nb * 4, in);
-  move_words(X.ch_head, P.ch_head + c0 * 4, nb * 4, in);
+  const size_t nch = 4 * D.L;   // rings a cell
+  move_words(X.ch, P.ch + c0 * nch * D.LC * MSGW, nb * nch * D.LC * MSGW,
+             in);
+  move_words(X.ch_n, P.ch_n + c0 * nch, nb * nch, in);
+  move_words(X.ch_head, P.ch_head + c0 * nch, nb * nch, in);
   move_words(X.ch_rr, P.ch_rr + c0 * 4, nb * 4, in);
   move_words(X.pk_n, P.pk_n + c0, nb, in);
   move_words(X.cmsg, P.cmsg + c0 * MSGW, nb * MSGW, in);

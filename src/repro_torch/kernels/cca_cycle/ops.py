@@ -59,13 +59,16 @@ path_launches = dict.fromkeys(PATHS, 0)   # the same launches by kernel
 KERNEL_LEAVES = (
     "vals", "nedges", "edst", "ew", "gaddr", "gstate", "rhz_on", "rstate",
     "nfree", "fq", "fq_n", "fq_head", "fwd_val", "fwd_pending",
-    "aq", "aq_n", "aq_head", "ch", "ch_n", "ch_head", "ch_rr", "pk_n",
-    "cmsg", "cvalid", "cphase", "cT", "cemit", "cout", "cdrain",
+    "aq", "aq_n", "aq_head", "ch", "ch_n", "ch_head", "ch_rr",
+    "pk", "pk_n", "pk_head", "cmsg", "cvalid", "cphase", "cT", "cemit",
+    "cout", "cdrain",
     "io_edges", "io_n", "io_pos", "arot",
     "cycle", "stat_hops", "stat_exec", "stat_stall", "stat_allocs")
 
 # the per-cell leaves the cluster kernel holds in shared memory, a band of
-# rows of each ([H, W, ...] leaves; `cluster_layout` in the .cuh)
+# rows of each ([H, W, ...] leaves; `cluster_layout` in the .cuh).  The
+# park ring (pk, pk_head) stays in device memory: only its own cell's
+# thread touches it, and only after a lane was full.
 CLUSTER_LEAVES = ("aq", "aq_n", "aq_head", "ch", "ch_n", "ch_head", "ch_rr",
                   "pk_n", "cmsg", "cvalid", "cphase", "cT", "cemit", "cout",
                   "cdrain", "arot", "nfree")
@@ -151,7 +154,8 @@ def _dims(cfg: EngineConfig, app: DiffusionApp, n_offs: int,
     bytes a CTA 0 for the one-block kernel)."""
     n_ctas, _, nbytes = geometry or (0, 0, 0)
     return [cfg.height, cfg.width, cfg.slots, cfg.edge_cap, cfg.queue_cap,
-            cfg.futq_cap, cfg.lane_capacity, cfg.io_cells, cfg.io_stream_cap,
+            cfg.futq_cap, cfg.lane_capacity, cfg.lanes, cfg.park_capacity,
+            cfg.io_cells, cfg.io_stream_cap,
             cfg.root_slots, cfg.primary_slots, cfg.rhizome_cap,
             cfg.rhizome_stride, cfg.aq_reserve, cfg.sys_reserve, n_offs,
             app.code, ALLOCATORS.index(cfg.allocator), n_cycles, n_ctas,

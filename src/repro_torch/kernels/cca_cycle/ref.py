@@ -48,10 +48,17 @@ def cca_cycle_chunk_ref(cfg: EngineConfig, app: DiffusionApp,
     ``trace`` (int32 ``[>= n_cycles, 2]``) gets rows ``0 .. cycles_run -
     1``."""
     n_cycles = cfg.chunk if n_cycles is None else n_cycles
-    if trace is None:
-        st, q, ran = frozen_cycles(cfg, app, st, n_cycles)
-    else:
-        st, q, ran, rows = frozen_cycles(cfg, app, st, n_cycles, True)
+    # no autograd bookkeeping in the thousands of tiny ops a cycle; the
+    # leaves the cycles made are cloned out as ordinary tensors, which
+    # callers may update in place
+    with torch.inference_mode():
+        if trace is None:
+            st, q, ran = frozen_cycles(cfg, app, st, n_cycles)
+        else:
+            st, q, ran, rows = frozen_cycles(cfg, app, st, n_cycles, True)
+    if trace is not None:
         trace[:ran] = rows
+    st = st._replace(**{k: v.clone() for k, v in st._asdict().items()
+                        if v.is_inference()})
     return st, torch.tensor([int(q), ran], dtype=torch.int32,
                             device=st.aq.device)

@@ -9,6 +9,10 @@ or figure, with the same scales, engine config and row keys.
              modelled chip (``core/energy.py``)
   Fig. 5     bench_allocator: vicinity against random ghost allocation
   Fig. 6/7   bench_activation: per-cycle active-cell traces
+             bench_skew: rhizome vertex objects against the serial ghost
+             chain on a power-law (R-MAT) stream
+             bench_lanes: virtual lanes against the single-FIFO channel on
+             the same stream at the normal queue size
              bench_engine_throughput, bench_engine: the simulator's own
              cycle counts (and wall times on the card)
 
@@ -27,16 +31,19 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import pathlib
 import time
 
 import numpy as np
 import torch
 
-from repro_torch.core import EngineConfig, StreamingEngine
+from repro_torch.core import EngineConfig, LivelockError, StreamingEngine
 from repro_torch.core.energy import DEFAULT as ENERGY
+from repro_torch.core.engine import quiescent
 from repro_torch.core.reference import bfs_levels
 from repro_torch.core.state import resolve_device
 from repro_torch.graph.streams import StreamSpec, make_stream
+from repro_torch.kernels.cca_cycle import ops
 
 SCALES = {
     "ci": dict(n_vertices=2000, n_edges=20_000),
@@ -216,16 +223,186 @@ def bench_activation(scale="ci", sampling="edge", device=None):
     return dict(ingest=summarize(trace_i), ingest_bfs=summarize(trace_b))
 
 
-def bench_skew(*args, **kwargs):
-    raise NotImplementedError(
-        "bench_skew needs rhizome_cap>1, which the port does not carry yet "
-        "(ROADMAP.md queue 1 item 2)")
+# ------------- rhizomes and virtual lanes on skewed streams -------------
+
+SKEW_SCALES = {
+    "ci": dict(height=8, width=8, n_vertices=256, n_edges=4096),
+    "mid": dict(height=16, width=16, n_vertices=2048, n_edges=32_768),
+    "paper": dict(height=32, width=32, n_vertices=16_384, n_edges=262_144),
+}
+LANES_QUEUE_CAP = 48      # the normal queue size, shared by both benchmarks
+SKEW_MAX_CYCLES = 4_000_000
 
 
-def bench_lanes(*args, **kwargs):
-    raise NotImplementedError(
-        "bench_lanes needs lanes>1, which the port does not carry yet "
-        "(ROADMAP.md queue 1 item 2)")
+def _skew_scale(scale) -> dict:
+    """A ``SKEW_SCALES`` name, or a dict of its four keys."""
+    return dict(scale) if isinstance(scale, dict) else SKEW_SCALES[scale]
+
+
+@functools.lru_cache(maxsize=2)
+def _skew_increments(key) -> tuple:
+    p = dict(key) if isinstance(key, tuple) else SKEW_SCALES[key]
+    incs = make_stream(StreamSpec(n_vertices=p["n_vertices"],
+                                  n_edges=p["n_edges"], increments=4,
+                                  kind="rmat", seed=2))
+    for e in incs:
+        e.setflags(write=False)
+    return tuple(incs)
+
+
+def skew_increments(scale) -> tuple:
+    """The four increments of the R-MAT stream (seed 2) of both benchmarks,
+    read-only, generated once for the last two scales asked for."""
+    return _skew_increments(_key(scale))
+
+
+def skew_config(scale, queue_cap: int = LANES_QUEUE_CAP, lanes: int = 2,
+                rhizome_cap: int = 1) -> EngineConfig:
+    """The config ``bench_skew`` (``lanes=2``) and ``bench_lanes``
+    (``rhizome_cap=1``) build at ``scale``."""
+    p = _skew_scale(scale)
+    return EngineConfig(
+        height=p["height"], width=p["width"], n_vertices=p["n_vertices"],
+        edge_cap=8, ghost_slots=max(64, 4 * p["n_edges"]
+                                    // (8 * p["height"] * p["width"])),
+        queue_cap=queue_cap, chan_cap=32, futq_cap=8, io_stream_cap=2 ** 20,
+        chunk=512, rhizome_cap=rhizome_cap, lanes=lanes)
+
+
+def skew_row(scale, queue_cap: int = LANES_QUEUE_CAP, lanes: int = 2,
+             rhizome_cap: int = 1, max_cycles: int = SKEW_MAX_CYCLES,
+             verify: bool = True, device=None):
+    """One config of ``skew_config`` over the R-MAT stream, BFS from vertex
+    0, each increment run with ``max_cycles``.  Returns ``(row, engine)``.
+
+    ``row["status"]`` is ``"ok"`` (every increment quiescent, and with
+    ``verify`` the values the oracle's), ``"livelock"`` (``row
+    ["livelock"]``: the increment, the cycle and chunk at which the engine
+    raised ``LivelockError``, and its counters up to there) or
+    ``"budget"`` (an increment ran out of ``max_cycles``).  ``increments``
+    holds the counters of each increment that finished; ``launches`` the
+    cycle-kernel launches by kernel; ``wall_s`` the wall time on the
+    card."""
+    dev = resolve_device(device)
+    incs = skew_increments(scale)
+    eng = StreamingEngine(skew_config(scale, queue_cap, lanes, rhizome_cap),
+                          "bfs", device=dev)
+    eng.seed(0, 0.0)
+    before = dict(ops.path_launches)
+    rows, status, livelock = [], "ok", None
+    _sync(dev)
+    t0 = time.time()
+    for i, e in enumerate(incs):
+        try:
+            r = eng.run_increment(e, max_cycles=max_cycles)
+        except LivelockError as ex:
+            st = eng.state
+            hops, execs, stalls, allocs = torch.stack(
+                [st.stat_hops, st.stat_exec, st.stat_stall,
+                 st.stat_allocs]).tolist()
+            status, livelock = "livelock", dict(
+                increment=i, cycle=ex.cycle, chunk=ex.chunk, hops=hops,
+                execs=execs, stalls=stalls, allocs=allocs)
+            break
+        rows.append(dict(edges=len(e), cycles=r.cycles, hops=r.hops,
+                         execs=r.execs, stalls=r.stalls, allocs=r.allocs))
+        if not bool(quiescent(eng.state)):
+            status = "budget"
+            break
+    _sync(dev)
+    wall = time.time() - t0
+    row = dict(queue_cap=queue_cap, lanes=lanes, rhizome_cap=rhizome_cap,
+               status=status, increments=rows,
+               cycles=sum(r["cycles"] for r in rows),
+               hops=sum(r["hops"] for r in rows),
+               stalls=sum(r["stalls"] for r in rows),
+               launches={p: ops.path_launches[p] - before[p]
+                         for p in ops.PATHS})
+    if livelock:
+        row["livelock"] = livelock
+    if dev.type == "cuda":
+        row["wall_s"] = wall
+    if status == "ok" and verify:
+        n = eng.cfg.n_vertices
+        want = bfs_levels(n, np.concatenate(incs), 0)
+        if not (eng.values(n) == want).all():
+            raise AssertionError(f"BFS mismatch vs the oracle at lanes="
+                                 f"{lanes}, rhizome_cap={rhizome_cap}")
+    return row, eng
+
+
+def _max_degree(scale) -> int:
+    return int(np.bincount(np.concatenate(skew_increments(scale))[:, 0])
+               .max())
+
+
+def bench_skew(scale="ci", rhizome_caps=(1, 2, 4), verify=True,
+               device=None):
+    """Power-law (R-MAT) stream: the serial ghost chain (rhizome_cap=1)
+    against rhizome vertex objects, at ``lanes=2`` and ``queue_cap=48``;
+    values checked against the oracle.  Raises ``LivelockError`` where a
+    config livelocks, as the JAX package's benchmark does."""
+    deg = _max_degree(scale)
+    rows = []
+    for R in rhizome_caps:
+        row, eng = skew_row(scale, rhizome_cap=R, verify=verify,
+                            device=device)
+        if row["status"] == "livelock":
+            ll = row["livelock"]
+            raise LivelockError(
+                f"engine livelock at rhizome_cap={R} (increment "
+                f"{ll['increment']})", cycle=ll["cycle"], chunk=ll["chunk"])
+        s = eng.vertex_object_stats()
+        rows.append(dict(rhizome_cap=R, cycles=row["cycles"],
+                         hops=row["hops"], stalls=row["stalls"],
+                         max_degree=deg,
+                         degree_over_edge_cap=round(deg / 8, 1),
+                         rhizomes=s["rhizomes"],
+                         multi_root_vertices=s["multi_root_vertices"],
+                         max_fanout=s["max_fanout"], ghosts=s["ghosts"]))
+    return rows
+
+
+def bench_lanes(scale="ci", lanes_list=(1, 2, 4), verify=True,
+                out_json=None, device=None):
+    """Virtual lanes on the R-MAT hub stream of :func:`bench_skew` at
+    ``queue_cap=48``, and the ``lanes=1`` workaround with a 4x queue
+    (``queue_cap=192``).  Returns ``(rows, baseline)``.  ``lanes=1`` may
+    livelock; a ``lanes >= 2`` row or the baseline that does not finish
+    raises ``SystemExit`` (the lanes-smoke gate).  ``out_json``, if given
+    (under ``build/``, say), gets the rows under ``lanes_<scale>``."""
+    deg = _max_degree(scale)
+
+    def run(lanes, queue_cap):
+        row, _ = skew_row(scale, queue_cap, lanes, 1, verify=verify,
+                          device=device)
+        ok = row["status"] == "ok"
+        return dict(status=row["status"], cycles=row["cycles"] if ok else None,
+                    stalls=row["stalls"] if ok else None)
+
+    rows = []
+    for L in lanes_list:
+        r = run(L, LANES_QUEUE_CAP)
+        r.update(lanes=L, queue_cap=LANES_QUEUE_CAP, max_degree=deg)
+        rows.append(r)
+    base = run(1, 192)
+    base.update(lanes=1, queue_cap=192)
+    bad = [r["lanes"] for r in rows if r["lanes"] >= 2
+           and r["status"] != "ok"]
+    if bad or base["status"] != "ok":
+        raise SystemExit(
+            f"lanes-smoke gate: livelock with lanes in {bad} "
+            f"(baseline {base['status']})")
+    if out_json:
+        p = _skew_scale(scale)
+        path = pathlib.Path(out_json)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        data = json.loads(path.read_text()) if path.exists() else {}
+        data[f"lanes_{scale}"] = dict(
+            scale=scale, grid=f'{p["height"]}x{p["width"]}',
+            n_edges=p["n_edges"], rows=rows, oversize_baseline=base)
+        path.write_text(json.dumps(data, indent=1))
+    return rows, base
 
 
 # ------------------- engine throughput -------------------
@@ -297,6 +474,9 @@ BENCHES = {
     "energy": bench_energy,
     "allocator": bench_allocator,
     "activation": bench_activation,
+    "skew": lambda s, d: bench_skew(s, device=d),
+    "lanes": lambda s, d: dict(zip(("rows", "oversize_baseline"),
+                                   bench_lanes(s, device=d))),
     "throughput": bench_engine_throughput,
     "engine": lambda s, d: [bench_engine(e, d) for e in ENGINE_SCALES],
 }

@@ -120,6 +120,64 @@ def test_kernel_matches_plain_chunk_by_chunk(card, path):
                                  for p, k in by_path.items()}
 
 
+def _hub(n, degree, seed):
+    from repro_torch.graph.streams import hub_edges
+    e = hub_edges(n, 0, degree, seed=seed)
+    one = np.float32(1.0).view(np.int32)
+    return np.concatenate([e, np.full((len(e), 1), one, np.int64)],
+                          1).astype(np.int32)
+
+
+def _weighted(seed=1, n=64, m=320):
+    rng = np.random.default_rng(seed)
+    w = (1.0 - rng.random(m)).astype(np.float32)
+    e = np.stack([rng.integers(0, n, m), rng.integers(0, n, m),
+                  w.view(np.int32)], 1).astype(np.int32)
+    return [e[: m // 2], e[m // 2:]]
+
+
+BRANCH_CASES = {
+    # tests/test_lanes.py::_hub_cfg at lanes=4 (the arbiter, parking)
+    "lanes4": (dict(height=8, width=8, n_vertices=128, edge_cap=4,
+                    ghost_slots=48, queue_cap=20, chan_cap=16, futq_cap=4,
+                    io_stream_cap=2048, chunk=64, lanes=4), "bfs", 0.0,
+               lambda: [_hub(128, 200, 3)]),
+    # tests/test_rhizome.py::cfg_for at rhizome_cap=4
+    "rhizome4": (dict(height=8, width=8, n_vertices=64, edge_cap=4,
+                      ghost_slots=32, queue_cap=96, chan_cap=16, futq_cap=8,
+                      io_stream_cap=2048, chunk=128, rhizome_cap=4), "bfs",
+                 0.0, lambda: [_hub(64, 40, 3)]),
+    "widest": (dict(height=8, width=8, n_vertices=64, edge_cap=4,
+                    ghost_slots=32, queue_cap=48, chan_cap=16, futq_cap=4,
+                    io_stream_cap=2048, chunk=64, rhizome_cap=2, lanes=2),
+               "widest", 1e9, _weighted),
+    "reliable": (dict(height=8, width=8, n_vertices=64, edge_cap=4,
+                      ghost_slots=32, queue_cap=48, chan_cap=16, futq_cap=4,
+                      io_stream_cap=2048, chunk=64, rhizome_cap=2, lanes=2),
+                 "reliable", 1.0, _weighted),
+}
+
+
+@pytest.mark.parametrize("path", ["block", "cluster"])
+@pytest.mark.parametrize("case", sorted(BRANCH_CASES))
+def test_lane_rhizome_and_max_app_branches_match_plain(card, case, path):
+    """The lane, park, rhizome and max-app branches, chunk by chunk to
+    quiescence on each kernel: every leaf and the record equal."""
+    kw, app, seed, incs = BRANCH_CASES[case]
+    eng = StreamingEngine(EngineConfig(**kw), app, device=card)
+    eng.seed(0, seed)
+    cfg, st = eng.cfg, eng.state
+    for i, e in enumerate(incs()):
+        st, _ = load_stream(cfg, st, e)
+        for c in range(1000):
+            sk, ck = ops.cca_cycle_chunk(cfg, eng.app, clone(st), path=path)
+            st, cr = cca_cycle_chunk_ref(cfg, eng.app, st)
+            assert torch.equal(ck, cr), (i, c)
+            assert_same(sk, st, f"{case} increment {i} chunk {c}")
+            if cr[0]:
+                break
+
+
 def paper_cfg(n_vertices, n_edges):
     """``benchmarks/paper_experiments.py::_engine``'s config formula."""
     ghosts = max(64, 2 * n_edges // (8 * 1024), 3 * n_vertices // 1024)

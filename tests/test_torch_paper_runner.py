@@ -1,7 +1,8 @@
 """``repro_torch.launch.paper_experiments`` on the CPU: at a tiny scale its
 ``run_stream`` gives the rows of the JAX package's
 ``benchmarks/paper_experiments.py::run_stream`` on the same stream and
-config, and serves them again from its cache.
+config, and serves them again from its cache.  The skew and lanes
+benchmarks: ``tests/test_torch_skew_runner.py``.
 """
 import pathlib
 
@@ -54,12 +55,6 @@ def test_run_stream_rows_equal_jax(jax_experiments, monkeypatch):
     assert eng.vertex_object_stats() == jeng.vertex_object_stats()
     # the cache serves the same run again
     assert pe.run_stream("bfs", "edge", TINY, device="cpu")[1] is eng
-
-
-def test_unported_benchmarks_raise():
-    for fn in (pe.bench_skew, pe.bench_lanes):
-        with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-            fn("ci")
 
 
 def test_runner_refuses_the_cpu_by_default(monkeypatch):

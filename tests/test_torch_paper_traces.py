@@ -220,5 +220,8 @@ def test_wrapper_checks_the_trace_tensor(bad, mid_stream):
 
 
 def test_apps_table_holds_the_four_ported_apps():
+    """The four min-monotone apps keep their kernel codes; the
+    max-monotone widest and reliable follow them."""
     assert {k: a.code for k, a in APPS.items()} == \
-        {"bfs": 0, "sssp": 1, "cc": 2, "ingest_only": 3}
+        {"bfs": 0, "sssp": 1, "cc": 2, "ingest_only": 3, "widest": 4,
+         "reliable": 5}

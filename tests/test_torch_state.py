@@ -184,7 +184,7 @@ def test_load_stream_matches_jax(limit):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(lanes=2), dict(rhizome_cap=2), dict(telemetry=True),
+    dict(telemetry=True),
     dict(faults=object()), dict(ingest_guard=True), dict(qbatch=2),
     dict(n_vals=2), dict(n_io_cells=3)])
 def test_validate_rejects_unported_knobs(knob):
@@ -195,7 +195,7 @@ def test_validate_rejects_unported_knobs(knob):
 def test_engine_rejects_unported_apps_and_options():
     cfg = EngineConfig(height=4, width=4, n_vertices=16, ghost_slots=8)
     with pytest.raises(NotImplementedError):
-        StreamingEngine(cfg, "widest", device="cpu")
+        StreamingEngine(cfg, "pagerank", device="cpu")
     eng = StreamingEngine(cfg, "bfs", device="cpu")
     edges = np.zeros((0, 3), np.int32)
     for kw in (dict(recover=object()), dict(ckpt=object())):

@@ -16,13 +16,28 @@ each stream's per-increment counters, final values and
 ``vertex_object_stats``, and the two traced streams' ``active`` and
 ``in_flight`` per cycle, to ``src/repro_torch/data/paper_ci_fingerprint.json``.
 
-``chip_smoke.py`` and the port's tests replay both files.  Outside the
+``--skew``: runs the skew and lanes experiments' streams
+(``benchmarks/paper_experiments.py::bench_skew`` and ``bench_lanes``: an
+R-MAT stream, four increments, seed 2, at ``SKEW_SCALES`` ci, mid and
+paper) through the JAX engine, one process a config, all started
+together: the configs ``(queue_cap, lanes, rhizome_cap)`` (48, 2, 1),
+(48, 2, 2), (48, 2, 4), (48, 1, 1), (48, 4, 1) and (192, 1, 1) at ci and
+mid, and ``bench_skew``'s three, (48, 2, 4), (48, 2, 2) and (48, 2, 1),
+at paper (``bench_skew``'s R = 1 row and ``bench_lanes``' lanes = 2 row
+are the same config).  Writes
+each config's per-increment counters and, where it finishes, its final
+values and ``vertex_object_stats``; where it livelocks, the increment and
+the cycle at which ``LivelockError`` fires and the counters up to there,
+to ``src/repro_torch/data/skew_fingerprint.json``.
+
+``chip_smoke.py`` and the port's tests replay these files.  Outside the
 tests, this is the only file of the port's tooling that imports JAX: it
 imports ``repro`` (and the JAX package's ``benchmarks``) and never
 ``repro_torch``.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/record_torch_fingerprint.py
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/record_torch_fingerprint.py --paper-ci
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/record_torch_fingerprint.py --skew
 """
 import argparse
 import concurrent.futures
@@ -43,6 +58,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 DATA = ROOT / "src" / "repro_torch" / "data"
 OUT = DATA / "fingerprint_32x32.json"
 PAPER_OUT = DATA / "paper_ci_fingerprint.json"
+SKEW_OUT = DATA / "skew_fingerprint.json"
 COMMAND = "PYTHONPATH=src JAX_PLATFORMS=cpu python tools/record_torch_fingerprint.py"
 MAX_CYCLES = 2_000_000
 # (app, sampling, allocator, per-cycle traces) of the --paper-ci streams
@@ -51,6 +67,15 @@ PAPER_STREAMS = (("ingest_only", "edge", "vicinity", True),
                  ("ingest_only", "snowball", "vicinity", False),
                  ("bfs", "snowball", "vicinity", False),
                  ("bfs", "edge", "random", False))
+# (queue_cap, lanes, rhizome_cap) of the --skew configs, and the rows of
+# bench_skew / bench_lanes each one is
+SKEW_CONFIGS = (((48, 2, 1), ("skew R=1", "lanes L=2")),
+                ((48, 2, 2), ("skew R=2",)),
+                ((48, 2, 4), ("skew R=4",)),
+                ((48, 1, 1), ("lanes L=1",)),
+                ((48, 4, 1), ("lanes L=4",)),
+                ((192, 1, 1), ("lanes oversize baseline",)))
+SKEW_MAX_CYCLES = 4_000_000
 
 
 def _commit() -> str:
@@ -147,8 +172,95 @@ def main_paper_ci() -> None:
     print(f"wrote {PAPER_OUT}")
 
 
+def skew_config(scale: str, queue_cap: int, lanes: int,
+                rhizome_cap: int) -> dict:
+    """One config of ``bench_skew`` / ``bench_lanes`` at ``scale``, run
+    to its end or its livelock."""
+    sys.path.insert(0, str(ROOT))
+    from benchmarks.paper_experiments import SKEW_SCALES
+    from repro.core.engine import LivelockError
+    t0 = time.time()
+    p = SKEW_SCALES[scale]
+    spec = StreamSpec(n_vertices=p["n_vertices"], n_edges=p["n_edges"],
+                      increments=4, kind="rmat", seed=2)
+    incs = make_stream(spec)
+    # the config both benchmarks build
+    cfg = EngineConfig(
+        height=p["height"], width=p["width"], n_vertices=p["n_vertices"],
+        edge_cap=8, ghost_slots=max(64, 4 * p["n_edges"]
+                                    // (8 * p["height"] * p["width"])),
+        queue_cap=queue_cap, chan_cap=32, futq_cap=8,
+        io_stream_cap=2 ** 20, chunk=512, rhizome_cap=rhizome_cap,
+        lanes=lanes)
+    eng = StreamingEngine(cfg, "bfs")
+    eng.seed(0, 0.0)
+    rows, livelock = [], None
+    for i, e in enumerate(incs):
+        try:
+            r = eng.run_increment(e, max_cycles=SKEW_MAX_CYCLES)
+        except LivelockError as ex:
+            st = eng.state
+            livelock = dict(increment=i, cycle=ex.cycle, chunk=ex.chunk,
+                            hops=int(st.stat_hops), execs=int(st.stat_exec),
+                            stalls=int(st.stat_stall),
+                            allocs=int(st.stat_allocs))
+            break
+        rows.append(dict(edges=len(e), cycles=r.cycles, hops=r.hops,
+                         execs=r.execs, stalls=r.stalls, allocs=r.allocs))
+    out = dict(scale=scale, queue_cap=queue_cap, lanes=lanes,
+               rhizome_cap=rhizome_cap,
+               status="livelock" if livelock else "ok",
+               cfg=dataclasses.asdict(cfg), increments=rows)
+    if livelock:
+        out["livelock"] = livelock
+    else:
+        out.update(values=[float(v) for v in eng.values(p["n_vertices"])],
+                   vertex_object_stats=eng.vertex_object_stats())
+    print(f"{scale} q={queue_cap} L={lanes} R={rhizome_cap}: "
+          f"{out['status']} {[r['cycles'] for r in rows]} {livelock} in "
+          f"{time.time() - t0:.1f}s", flush=True)
+    return out
+
+
+def main_skew() -> None:
+    sys.path.insert(0, str(ROOT))
+    from benchmarks.paper_experiments import SKEW_SCALES
+    jobs = [("paper", 48, 2, R) for R in (4, 2, 1)] + [
+        (scale, *c) for scale in ("mid", "ci") for c, _ in SKEW_CONFIGS]
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(
+            min(len(jobs), 6), mp_context=ctx) as pool:
+        runs = list(pool.map(skew_config, *zip(*jobs)))
+    names = dict(SKEW_CONFIGS)
+    lines = {}
+    for i, r in enumerate(runs):
+        r["rows"] = list(names[(r["queue_cap"], r["lanes"],
+                                r["rhizome_cap"])])
+        if "values" in r:
+            lines[f"@{i}values@"] = json.dumps(r["values"])
+            r["values"] = f"@{i}values@"
+    out = dict(command=COMMAND + " --skew", commit=_commit(),
+               engine="repro (JAX, jnp backend)",
+               scales={s: SKEW_SCALES[s] for s in ("ci", "mid", "paper")},
+               spec=dict(increments=4, kind="rmat", seed=2),
+               max_cycles=SKEW_MAX_CYCLES, source=0, configs=runs)
+    text = json.dumps(out, indent=1)
+    for mark, line in lines.items():
+        text = text.replace(f'"{mark}"', line)
+    SKEW_OUT.write_text(text + "\n")
+    print(f"wrote {SKEW_OUT}")
+
+
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--paper-ci", action="store_true",
                     help="record paper_ci_fingerprint.json instead")
-    main_paper_ci() if ap.parse_args().paper_ci else main_32x32()
+    ap.add_argument("--skew", action="store_true",
+                    help="record skew_fingerprint.json instead")
+    args = ap.parse_args()
+    if args.skew:
+        main_skew()
+    elif args.paper_ci:
+        main_paper_ci()
+    else:
+        main_32x32()
