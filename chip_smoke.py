@@ -11,8 +11,8 @@ does on every config here):
 
   1. device: the card's name and power limit; no CUDA device -> exit 1
   2. build: nvcc for sm_90a, all four kernels at once, with the ptxas
-     registers, spills and static shared memory of both cycle kernels;
-     fails if the cluster kernel spills
+     registers, spills and static shared memory of both cycle kernels,
+     each without and with telemetry; fails if a cluster instance spills
   3. cycle kernel vs plain PyTorch version on the card, every leaf and the
      launch record exactly equal (tolerance 0), each launch counted on the
      kernel it took: (a) the pinned 8x8 config chunk by chunk to
@@ -88,6 +88,39 @@ the skew and lanes experiments, right after phase 19:
      the JAX engine's run of the row, its counters and outcome exactly;
      cycles, hops, stalls, rhizome stats, launches by kernel, the wall, ms
      a launch beside the byte bound
+
+Telemetry (the same cycle kernel, in its compile-time telemetry instances:
+the planes ``tm_cell``, ``tm_lane`` and ``tm_hiw`` accumulated inside the
+cycle, a frame a chunk on the device, the flight recorder), right after
+phase 22:
+
+ 23. both cycle kernels' telemetry instances against the plain version
+     (cluster, and forced onto the one-block kernel), every leaf (the
+     three planes included) and the launch record equal: the pinned 8x8
+     stream chunk by chunk, the 8x8 hub stream at lanes=4, rhizome_cap=4
+     (its first 16 chunks), and phase 6's full-size state (the 32x32
+     paper config, lanes=1), one K=512 chunk
+ 24. ``src/repro_torch/data/telemetry_fingerprint.json`` (the JAX engine
+     with telemetry on: the pinned stream, the six ci skew and lanes
+     configs, ``bench_engine``'s ci stream and the 8x8 hub livelock)
+     replayed exactly on the cluster kernel: each increment's counters,
+     frame count, ``dropped``, totals and final-frame plane digests, the
+     ci heatmap, each livelock's cycle, chunk, frames and full text
+ 25. the paths with telemetry at full width, the counts set to 0 just
+     before each and read just after: the paper stream (50K / 1M) in turns
+     without and with telemetry (off, on, on, off), each 102 launches on
+     the cluster kernel and 50,030 cycles, the runs with telemetry equal
+     to phase 5's counters with every increment's final frame reconciling
+     and BFS == oracle, ms a launch by CUDA events; ``bench_skew``'s
+     rhizome_cap=4 row at paper scale (16,384 vertices) on the one-block
+     kernel, whose ``LivelockError`` at cycle 8,192 carries the frame log
+     and the JAX engine's text, wedge report included; and
+     ``bench_engine("ci", profile=True)``, its heatmap equal to
+     ``results/profile/heatmap_jnp.json`` but ``cycles`` (208); the paper
+     stream without and with telemetry once more under ``torch.profiler``
+     for the device's idle share (not measured where the profiler fails)
+ 26. telemetry's cost: phase 6's K=512 chunk on the cluster kernel in turns
+     (off, on, on, off), each equal to its plain version
 
 The GNN and DLRM serving forwards (every aggregation a launch of the
 scatter-SpMM kernel, every DLRM lookup one launch of the EmbeddingBag
@@ -169,6 +202,7 @@ path, decode attention plain PyTorch):
 
 It ends with the kernels line (JSON) and the ok line (JSON, last).
 """
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -304,30 +338,65 @@ def on_path(before, path, n):
 
 def cycle_ptxas(report: str) -> dict:
     """Phase 2: the registers, spills and static shared memory of both
-    cycle kernels, printed; raises if the cluster kernel spills."""
+    cycle kernels, each in its instance without and with telemetry
+    (``cluster``, ``block``, ``cluster_telemetry``, ``block_telemetry``),
+    printed; raises if a cluster instance spills or is missing."""
     out = {}
     for name, info in _build.ptxas_functions(report).items():
-        m = re.search(r"(cca_cycle_cluster_kernel|cca_cycle_kernel)", name)
+        m = re.search(r"(cca_cycle_cluster_kernel|cca_cycle_kernel)ILb([01])E",
+                      name)
         if not m:
             continue
-        kind = "cluster" if "cluster" in m[1] else "block"
+        kind = ("cluster" if "cluster" in m[1] else "block") + (
+            "_telemetry" if m[2] == "1" else "")
         out[kind] = info
         print(f"[2] {kind} kernel: {info.get('registers')} registers, "
               f"{info.get('spill_stores')} bytes spill stores, "
               f"{info.get('spill_loads')} bytes spill loads, "
               f"{info.get('stack')} bytes stack, static smem "
               f"{info.get('smem', 0)} bytes", flush=True)
-    c = out.get("cluster", {})
-    if not c or c.get("spill_stores", 1) or c.get("spill_loads", 1):
-        raise AssertionError(f"cluster cycle kernel: spills or no report "
-                             f"({c})")
+    for kind in ("cluster", "cluster_telemetry"):
+        c = out.get(kind, {})
+        if not c or c.get("spill_stores", 1) or c.get("spill_loads", 1):
+            raise AssertionError(f"{kind} cycle kernel: spills or no report "
+                                 f"({c})")
+    if set(out) != {"cluster", "block", "cluster_telemetry",
+                    "block_telemetry"}:
+        raise AssertionError(f"cycle kernel instances {sorted(out)}")
     return out
 
 
+STAT_LEAVES = ("stat_hops", "stat_exec", "stat_stall", "stat_allocs",
+               "tm_cell", "tm_lane", "tm_hiw")
+
+
 def fresh_stats(st):
-    z = torch.zeros((), dtype=torch.int32, device=st.aq.device)
-    return st._replace(stat_hops=z.clone(), stat_exec=z.clone(),
-                       stat_stall=z.clone(), stat_allocs=z.clone())
+    """Counters and telemetry planes zeroed, as ``run_increment`` does."""
+    return st._replace(**{k: torch.zeros_like(getattr(st, k))
+                          for k in STAT_LEAVES})
+
+
+@contextlib.contextmanager
+def timed_launches(events: list):
+    """While the block runs, every cycle-kernel launch through
+    ``ops.cca_cycle_chunk`` appends a pair of CUDA events around it to
+    ``events``."""
+    launch = ops.cca_cycle_chunk
+
+    def timed_chunk(*a, **kw):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = launch(*a, **kw)
+        ev[1].record()
+        events.append(ev)
+        return out
+
+    ops.cca_cycle_chunk = timed_chunk
+    try:
+        yield
+    finally:
+        ops.cca_cycle_chunk = launch
 
 
 def replay(ref):
@@ -614,25 +683,11 @@ def skew_paper_phases() -> dict:
                       for k, t in st0._asdict().items() if k != "io_edges")
         bound_ms = 1e3 * 2 * mutable / H100_BYTES_PER_S
         events = []
-        launch = ops.cca_cycle_chunk
-
-        def timed_chunk(*a, **kw):
-            ev = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-            out = launch(*a, **kw)
-            ev[1].record()
-            events.append(ev)
-            return out
-
         ops.launches = 0
         ops.path_launches = dict.fromkeys(ops.PATHS, 0)
-        ops.cca_cycle_chunk = timed_chunk
-        try:
+        with timed_launches(events):
             row, eng = pe.skew_row("paper", rhizome_cap=R,
                                    max_cycles=SKEW_PAPER_MAX_CYCLES)
-        finally:
-            ops.cca_cycle_chunk = launch
         la = dict(ops.path_launches)
         if la["cluster"] or not la["block"] or la != row["launches"]:
             raise AssertionError(f"22 R={R}: launches {la}")
@@ -668,6 +723,323 @@ def skew_paper_phases() -> dict:
         del eng
         torch.cuda.empty_cache()
     return rows
+
+
+TELEMETRY_FP = json.loads((ROOT / "src" / "repro_torch" / "data"
+                           / "telemetry_fingerprint.json").read_text())
+PINNED_SPEC = json.loads((ROOT / "tests" / "data"
+                          / "pre_lanes_reference.json").read_text())["spec"]
+
+
+def telemetry_phase_kernels(pinned, cfg_p, st) -> tuple[float, tuple]:
+    """Phase 23: both cycle kernels' telemetry instances against the plain
+    version, every leaf (the three planes included) and the record equal:
+    (a) the pinned 8x8 stream chunk by chunk; (b) the 8x8 hub stream at
+    lanes=4, rhizome_cap=4, its first 16 chunks; (c) phase 6's full-size
+    state (the 32x32 paper config, lanes=1, the last increment), one K=512
+    chunk.  Returns the max abs difference (0) and (c)'s config, input and
+    plain result."""
+    worst = 0.0
+    cases = (("8x8 pinned", EngineConfig(**pinned["cfg"], telemetry=True),
+              make_stream(StreamSpec(**pinned["spec"])), 100),
+             ("8x8 hub lanes=4 rhizome_cap=4",
+              EngineConfig(**dict(HUB_KW, lanes=4, rhizome_cap=4),
+                           telemetry=True), [hub_stream(128, 200, 3)], 16))
+    for name, cfg, incs, max_chunks in cases:
+        t0 = time.time()
+        eng = StreamingEngine(cfg, "bfs")
+        eng.seed(0, 0.0)
+        st8, chunks = eng.state, 0
+        before = dict(ops.path_launches)
+        for e in incs:
+            st8, spill = load_stream(cfg, st8, e)
+            assert len(spill) == 0
+            st8, q = fresh_stats(st8), False
+            while not q and chunks < max_chunks:
+                d, st8, q = kernel_vs_plain(cfg, BFS, st8,
+                                            paths=("cluster", "block"))
+                worst, chunks = max(worst, d), chunks + 1
+        got = {p: ops.path_launches[p] - before[p] for p in ops.PATHS}
+        if got != {"block": chunks, "cluster": chunks}:
+            raise AssertionError(f"23 {name}: launches {got}")
+        print(f"[23] {name}, telemetry: both kernels == plain on every leaf "
+              f"(planes included) and the record over {chunks} chunks; "
+              f"sum of tm_cell {int(st8.tm_cell.sum())}, of tm_lane "
+              f"{int(st8.tm_lane.sum())} (max |d| {worst}; "
+              f"{time.time() - t0:.1f}s)", flush=True)
+    t0 = time.time()
+    cfg_t = dataclasses.replace(cfg_p, telemetry=True)
+    like = init_state(cfg_t, device="meta")
+    st_t = st._replace(**{k: torch.zeros(getattr(like, k).shape,
+                                         dtype=torch.int32,
+                                         device=st.aq.device)
+                          for k in ("tm_cell", "tm_lane", "tm_hiw")})
+    before = dict(ops.path_launches)
+    d, s_plain_t, q = kernel_vs_plain(cfg_t, BFS, st_t, 512,
+                                      ("cluster", "block"))
+    if {p: ops.path_launches[p] - before[p] for p in ops.PATHS} != \
+            {"cluster": 1, "block": 1}:
+        raise AssertionError("23c: not one launch on each kernel")
+    print(f"[23] 32x32 paper config, the last increment's state, telemetry: "
+          f"one K=512 chunk, both kernels == plain on every leaf (planes "
+          f"included; cycle {int(s_plain_t.cycle)}, quiescent {q}; "
+          f"{time.time() - t0:.1f}s)", flush=True)
+    return max(worst, d), (cfg_t, st_t, s_plain_t)
+
+
+def telemetry_run(rec: dict):
+    """One stream of the telemetry fingerprint through the engine on the
+    card (``pe.telemetry_replay``).  Returns ``(record, engine)``."""
+    return pe.telemetry_replay(rec, TELEMETRY_FP["max_cycles"], PINNED_SPEC)
+
+
+def check_telemetry_record(name, got, rec) -> None:
+    for k in ("increments", "livelock", "heatmap"):
+        if got.get(k) != rec.get(k):
+            raise AssertionError(f"{name}: {k} differs from the JAX "
+                                 f"engine's: {got.get(k)} != {rec.get(k)}")
+
+
+def telemetry_phase_replay() -> None:
+    """Phase 24: ``src/repro_torch/data/telemetry_fingerprint.json`` (the
+    JAX engine with telemetry on) replayed exactly on the cluster kernel:
+    each increment's counters, frame count, ``dropped``, totals and the
+    final frame's plane digests, ``bench_engine``'s ci heatmap, and each
+    livelock's increment, cycle, chunk, frame log digests and full text
+    (the wedge report included)."""
+    t_all = time.time()
+    for rec in TELEMETRY_FP["streams"]:
+        if rec["args"][:1] == ["paper"]:
+            continue                       # phase 25, one-block kernel
+        t0 = time.time()
+        before = dict(ops.path_launches)
+        got, _ = telemetry_run(rec)
+        check_telemetry_record(f"24 {rec['name']}", got, rec)
+        la = {p: ops.path_launches[p] - before[p] for p in ops.PATHS}
+        if la["block"] or not la["cluster"]:
+            raise AssertionError(f"24 {rec['name']}: launches {la}")
+        ll = got.get("livelock")
+        print(f"[24] {rec['name']}: "
+              f"{[r['cycles'] for r in got['increments']]} cycles, frames "
+              f"{[r['frames'] for r in got['increments']]}"
+              + (f", livelock at increment {ll['increment']} cycle "
+                 f"{ll['cycle']} with {ll['frames']} frames and its wedge "
+                 f"report" if ll else "")
+              + (", the heatmap" if "heatmap" in got else "")
+              + f" == the JAX engine's ({la['cluster']} launches on the "
+              f"cluster kernel, {time.time() - t0:.1f}s)", flush=True)
+    print(f"[24] done in {time.time() - t_all:.1f}s", flush=True)
+
+
+def paper_stream_run(cfg, incs, events=None):
+    """The paper stream through the engine: per-increment results and the
+    engine; ``events`` (a list) gets a pair of CUDA events around each
+    launch; every run 102 launches on the cluster kernel and 50,030
+    cycles."""
+    eng = StreamingEngine(cfg, "bfs")
+    eng.seed(0, 0.0)
+    before = dict(ops.path_launches)
+    with timed_launches(events) if events is not None \
+            else contextlib.nullcontext():
+        res = [eng.run_increment(e, max_cycles=2_000_000) for e in incs]
+    torch.cuda.synchronize()
+    la = {p: ops.path_launches[p] - before[p] for p in ops.PATHS}
+    cycles = sum(r.cycles for r in res)
+    if la != {"block": 0, "cluster": 102} or cycles != 50_030:
+        raise AssertionError(f"paper stream telemetry={cfg.telemetry}: "
+                             f"launches {la}, {cycles} cycles")
+    return res, eng
+
+
+def profiler_error(step) -> str | None:
+    """Run one step of ``torch.profiler``; the reason it failed, if it
+    did."""
+    try:
+        step()
+    except Exception as ex:      # the profiler, not the run: not measured
+        return f"{type(ex).__name__}: {ex}"
+    return None
+
+
+def device_idle_share(fn) -> dict:
+    """Run ``fn`` under ``torch.profiler`` (CPU and CUDA activity) and
+    return its wall, the device time of its kernels and copies (the sum of
+    their self device times; one stream, so they do not overlap) and the
+    idle share 1 - device / wall; the profiler's own host cost inflates
+    the wall, so the share is an upper bound.  An exception of ``fn``
+    propagates; where the profiler itself fails or its trace holds no
+    device time, the share is not measured and the reason is returned."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    err = profiler_error(prof.start)
+    if err:
+        return dict(idle_share=None, reason=err)
+    t0 = time.time()
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        wall = time.time() - t0
+        err = profiler_error(prof.stop)
+    if err:
+        return dict(idle_share=None, reason=err)
+    dev_us = []
+    err = profiler_error(lambda: dev_us.append(sum(
+        getattr(e, "self_device_time_total",
+                getattr(e, "self_cuda_time_total", 0))
+        for e in prof.key_averages() if e.device_type == DeviceType.CUDA)))
+    if err or not dev_us[0]:
+        return dict(idle_share=None,
+                    reason=err or "no device time in the trace")
+    return dict(wall_s=wall, device_s=dev_us[0] / 1e6,
+                idle_share=1 - dev_us[0] / 1e6 / wall)
+
+
+def telemetry_phase_paths(incs, cfg_p, plain_rows, want) -> dict:
+    """Phase 25: the three paths with telemetry at full width, each with
+    the counts set to 0 just before it and read just after: (a) the paper
+    stream (50K / 1M) in turns without and with telemetry (off, on, on,
+    off; CUDA events around every launch): every run 102 launches on the
+    cluster kernel and 50,030 cycles, the runs with telemetry equal to
+    phase 5's counters increment by increment, every increment's final
+    frame reconciling exactly, BFS == oracle; (b) ``bench_skew``'s
+    rhizome_cap=4 row at paper scale on the one-block kernel: its
+    ``LivelockError`` carries the frame log and the text, wedge report
+    included, of the JAX engine's (the telemetry fingerprint); (c)
+    ``bench_engine("ci", profile=True)``: its heatmap equal to
+    ``results/profile/heatmap_jnp.json`` in every field but ``cycles``,
+    208 as the live JAX engine gives."""
+    out = {}
+    cfg_t = dataclasses.replace(cfg_p, telemetry=True)
+    turns = {False: [], True: []}
+    for tm in (False, True, True, False):
+        ops.launches = 0
+        ops.path_launches = dict.fromkeys(ops.PATHS, 0)
+        events = []
+        t0 = time.time()
+        res, eng = paper_stream_run(cfg_t if tm else cfg_p, incs, events)
+        wall = time.time() - t0
+        la = dict(ops.path_launches)
+        cycles = sum(r.cycles for r in res)
+        ms = sum(a.elapsed_time(b) for a, b in events) / len(events)
+        turns[tm].append(ms)
+        if tm:
+            rows = [dict(cycles=r.cycles, hops=r.hops, execs=r.execs,
+                         stalls=r.stalls, allocs=r.allocs) for r in res]
+            if rows != plain_rows:
+                raise AssertionError(f"25a: {rows} != {plain_rows}")
+            for r, e in zip(res, incs):
+                pe.check_frames(r, len(e))
+            assert (eng.values() == want).all(), "25a: BFS != oracle"
+            frames = [len(r.frames) for r in res]
+        print(f"[25] paper stream telemetry={tm}: {cycles} cycles, launches "
+              f"{la}, {ms:.4f} ms a launch by CUDA events, wall {wall:.3f}s "
+              f"(host clock, the engine's set-up included)"
+              + (f"; counters == phase 5's, every final frame reconciles "
+                 f"(frames by increment {frames}), BFS == oracle"
+                 if tm else ""), flush=True)
+        del eng, res
+    out["paper_stream_ms"] = dict(off=turns[False], on=turns[True])
+    out["paper_stream_launches"] = 102
+    out["idle"] = {}
+    for tm in (False, True):
+        idle = device_idle_share(
+            lambda: paper_stream_run(cfg_t if tm else cfg_p, incs))
+        out["idle"]["on" if tm else "off"] = idle
+        print(f"[25] paper stream telemetry={tm} under torch.profiler: "
+              + (f"wall {idle['wall_s']:.3f}s, device {idle['device_s']:.3f}"
+                 f"s, idle share {idle['idle_share']:.4f} (the engine's "
+                 f"set-up included; an upper bound)"
+                 if idle["idle_share"] is not None
+                 else f"idle share not measured: {idle['reason']}"),
+              flush=True)
+    print(f"[25] paper stream in turns off, on, on, off: "
+          f"{turns[False][0]:.4f} / {turns[True][0]:.4f} / "
+          f"{turns[True][1]:.4f} / {turns[False][1]:.4f} ms a launch: "
+          f"telemetry {np.mean(turns[True]) / np.mean(turns[False]):.4f}x",
+          flush=True)
+    torch.cuda.empty_cache()
+    # (b) the paper-scale skew row, R = 4, with telemetry
+    rec = next(r for r in TELEMETRY_FP["streams"]
+               if r["args"][:1] == ["paper"])
+    ops.launches = 0
+    ops.path_launches = dict.fromkeys(ops.PATHS, 0)
+    t0 = time.time()
+    got, eng = telemetry_run(rec)
+    wall = time.time() - t0
+    la = dict(ops.path_launches)
+    if la["cluster"] or not la["block"]:
+        raise AssertionError(f"25b: launches {la}")
+    check_telemetry_record("25b paper skew R=4", got, rec)
+    ll = got["livelock"]
+    print(f"[25] paper skew rhizome_cap=4, telemetry: livelock at increment "
+          f"{ll['increment']} cycle {ll['cycle']} chunk {ll['chunk']}, "
+          f"{ll['frames']} frames, the frame digests and the error's text "
+          f"== the JAX engine's; launches {la} (one-block kernel), wall "
+          f"{wall:.3f}s (host clock). Its report:\n"
+          + "\n".join(ll["message"].splitlines()[1:4]), flush=True)
+    out["skew_paper"] = dict(launches=la["block"], cycle=ll["cycle"],
+                             frames=ll["frames"], wall_s=wall)
+    del eng
+    torch.cuda.empty_cache()
+    # (c) the ci profile of bench_engine
+    ops.launches = 0
+    ops.path_launches = dict.fromkeys(ops.PATHS, 0)
+    prof_dir = ROOT / "build" / "profile"
+    got = pe.bench_engine("ci", profile=True, profile_dir=prof_dir)
+    prof = got["profile"]
+    heat = json.loads(pathlib.Path(prof["heatmap"]).read_text())
+    want_heat = json.loads((ROOT / "results" / "profile"
+                            / "heatmap_jnp.json").read_text())
+    if heat["cycles"] != 208 or {k: v for k, v in heat.items()
+                                 if k != "cycles"} != \
+            {k: v for k, v in want_heat.items() if k != "cycles"}:
+        raise AssertionError("25c: the heatmap differs from "
+                             "results/profile/heatmap_jnp.json")
+    la = dict(ops.path_launches)
+    if la["block"] or not la["cluster"]:
+        raise AssertionError(f"25c: launches {la}")
+    print(f"[25] bench_engine ci profile: heatmap == results/profile/"
+          f"heatmap_jnp.json but cycles (208, the file's 464); "
+          f"{prof['frames']} frames, rates {json.dumps(prof['rates'])}; "
+          f"wall {prof['wall_s']:.4f}s with telemetry, "
+          f"{prof['wall_vs_plain']:.3f}x the plain run's {got['wall_s']:.4f}s"
+          f" (host clock); launches {la}; dumps in {prof_dir}", flush=True)
+    out["engine_ci_profile"] = dict(frames=prof["frames"],
+                                    rates=prof["rates"],
+                                    wall_s=prof["wall_s"],
+                                    wall_vs_plain=prof["wall_vs_plain"])
+    return out
+
+
+def telemetry_phase_cost(cfg_t, st_t, s_plain_t, cfg_p, st, s_plain) -> dict:
+    """Phase 26: telemetry's cost on phase 6's K=512 chunk on the cluster
+    kernel, in turns (off, on, on, off; CUDA events), each equal to its
+    plain version."""
+    turns = {False: [], True: []}
+    for tm in (False, True, True, False):
+        cfg, s0, want = (cfg_t, st_t, s_plain_t) if tm else \
+            (cfg_p, st, s_plain)
+        s = clone(s0)
+        before = dict(ops.path_launches)
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        a.record()
+        s2, _ = ops.cca_cycle_chunk(cfg, BFS, s, 512, path="cluster")
+        b.record()
+        torch.cuda.synchronize()
+        on_path(before, "cluster", 1)
+        leaf_diff(s2, want)
+        turns[tm].append(a.elapsed_time(b))
+    ratio = np.mean(turns[True]) / np.mean(turns[False])
+    print(f"[26] full-size K=512 chunk on the cluster kernel in turns off, "
+          f"on, on, off: {turns[False][0]:.4f} / {turns[True][0]:.4f} / "
+          f"{turns[True][1]:.4f} / {turns[False][1]:.4f} ms: telemetry "
+          f"{ratio:.4f}x; each == plain on every leaf", flush=True)
+    return dict(chunk_ms=dict(off=turns[False], on=turns[True]),
+                chunk_ratio=ratio)
 
 
 def experiment_phases(smi: str) -> dict:
@@ -1911,37 +2283,29 @@ def main() -> None:
     eng = StreamingEngine(cfg_p, "bfs")
     eng.seed(0, 0.0)
     events = []
-    launch = ops.cca_cycle_chunk
-
-    def timed_chunk(*a, **kw):
-        ev = (torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True))
-        ev[0].record()
-        out = launch(*a, **kw)
-        ev[1].record()
-        events.append(ev)
-        return out
-
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ops.cca_cycle_chunk = timed_chunk
-    ops.launches = 0
-    ops.path_launches = dict.fromkeys(ops.PATHS, 0)
-    t0 = time.time()
-    cycles = 0
-    snapshot = None
-    for i, e in enumerate(incs):
-        if i == len(incs) - 1:
-            snapshot = clone(eng.state)
-        r = eng.run_increment(e, max_cycles=2_000_000)
-        cycles += r.cycles
-        print(f"  increment {i}: {len(e)} edges, {r.cycles} cycles, "
-              f"{r.hops} hops, {r.execs} execs, {r.stalls} stalls, "
-              f"{r.allocs} allocs", flush=True)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches, by_path = ops.launches, dict(ops.path_launches)
-    ops.cca_cycle_chunk = launch
+    with timed_launches(events):
+        ops.launches = 0
+        ops.path_launches = dict.fromkeys(ops.PATHS, 0)
+        t0 = time.time()
+        cycles = 0
+        snapshot = None
+        plain_rows = []
+        for i, e in enumerate(incs):
+            if i == len(incs) - 1:
+                snapshot = clone(eng.state)
+            r = eng.run_increment(e, max_cycles=2_000_000)
+            cycles += r.cycles
+            plain_rows.append(dict(cycles=r.cycles, hops=r.hops,
+                                   execs=r.execs, stalls=r.stalls,
+                                   allocs=r.allocs))
+            print(f"  increment {i}: {len(e)} edges, {r.cycles} cycles, "
+                  f"{r.hops} hops, {r.execs} execs, {r.stalls} stalls, "
+                  f"{r.allocs} allocs", flush=True)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches, by_path = ops.launches, dict(ops.path_launches)
     if launches == 0:
         raise AssertionError("the main path launched no cycle kernel")
     if by_path != {"block": 0, "cluster": launches}:
@@ -1986,7 +2350,7 @@ def main() -> None:
     times, d = {"cluster": [], "block": []}, 0.0
     for path in ("cluster", "block", "block", "cluster"):
         before = dict(ops.path_launches)
-        t, s_kern, q_kern = time_chunk(launch, path=path)
+        t, s_kern, q_kern = time_chunk(ops.cca_cycle_chunk, path=path)
         on_path(before, path, 1)
         assert torch.equal(q_kern, q_plain)
         d = max(d, leaf_diff(s_kern, s_plain))
@@ -2020,7 +2384,7 @@ def main() -> None:
     for which in ("untraced", "traced", "traced", "untraced"):
         before = dict(ops.path_launches)
         t, s_kern, q_kern = time_chunk(
-            launch, path="cluster",
+            ops.cca_cycle_chunk, path="cluster",
             trace=trace if which == "traced" else None)
         on_path(before, "cluster", 1)
         assert torch.equal(q_kern, q_plain)
@@ -2046,6 +2410,17 @@ def main() -> None:
     skew_replay = skew_replay_phases()
     skew_paper = skew_paper_phases()
 
+    # ---- 23-26. telemetry: the kernels' telemetry instances, the
+    # fingerprint, the three paths at full width, the cost ----
+    d_tm, (cfg_t, st_t, s_plain_t) = telemetry_phase_kernels(pinned, cfg_p,
+                                                             st)
+    worst = max(worst, d_tm)
+    telemetry_phase_replay()
+    tm_paths = telemetry_phase_paths(incs, cfg_p, plain_rows, want)
+    tm_cost = telemetry_phase_cost(cfg_t, st_t, s_plain_t, cfg_p, st,
+                                   s_plain)
+    del st_t, s_plain_t
+
     cca_entry = {
         "name": "cca_cycle_chunk", "route": "cuda",
         "source": "src/repro_torch/kernels/cca_cycle/csrc/"
@@ -2062,7 +2437,8 @@ def main() -> None:
         "plain_ms": t_plain, "bound_ms": bound_ms, "bound_by": "bytes",
         "library_ms": None, "chunk_cycles": ran, "ptxas": cca_ptxas,
         "branches": ["traces", "ingest_only", "random_allocator", "lanes",
-                     "park", "rhizomes", "widest", "reliable"],
+                     "park", "rhizomes", "widest", "reliable", "telemetry"],
+        "telemetry": dict(tm_paths, **tm_cost),
         "traced_ms": t_traced, "untraced_ms_in_turns": t_untraced,
         "paper_experiments": {
             "launches": experiments["launches"],

@@ -114,7 +114,6 @@ class EngineConfig:
         rules) and ``NotImplementedError`` on a knob the port does not
         carry yet."""
         not_yet = [name for name, off in (
-            ("telemetry", not self.telemetry),
             ("faults", self.faults is None),
             ("ingest_guard", not self.ingest_guard),
             ("qbatch>1", self.qbatch == 1),

@@ -24,6 +24,21 @@ no-progress counter on ``stat_exec + stat_hops``, ``LIVELOCK_CHUNKS`` and
 the spill reload passes.  ``collect_traces=True`` takes the JAX engine's
 traced host loop instead, with the kernel filling one ``(active,
 in_flight)`` row a cycle.
+
+With ``cfg.telemetry`` the cycle also accumulates the telemetry planes
+(DESIGN §8; the kernels' telemetry instances on the card), reset with the
+counters at each increment, and the chunk loop takes a frame of them
+(``obs.frames.snapshot``) into a ring on the state's device after every
+chunk, before it reads the launch record: no host read of its own.  A
+pass reads its ring back in one transfer.  The frames are the JAX
+engine's: one ring a pass of the device loop, its first frame the pass's
+baseline (a pass quiescent on entry runs no chunk and keeps only it), and
+one ring over the whole increment in the traced loop, with a frame also
+for the chunk that runs no cycle after one ended on quiescence.  They come
+back as ``IncrementResult.frames``, and on a livelock in
+``LivelockError.frames``, whose message then carries the flight
+recorder's wedge report.  A snapshot takes the quiescent bit from the
+launch record it follows, not from a reduction over the state.
 """
 from __future__ import annotations
 
@@ -40,8 +55,10 @@ from repro_torch.core.config import EngineConfig
 from repro_torch.core.exec_stage import phase0_stage, staging_stage
 from repro_torch.core.ingest import io_stage, load_stream
 from repro_torch.core.routing import hop_stage, park_stage
-from repro_torch.core.state import (MachineState, init_state,
+from repro_torch.core.state import (TM_L_OCC, MachineState, init_state,
                                     resolve_device)
+from repro_torch.obs import frames as obs_frames
+from repro_torch.obs.flight import render_wedge_report
 
 # this many consecutive chunks with no executed action and no hop while
 # work is pending => message-dependent deadlock (DESIGN §4.2)
@@ -77,6 +94,11 @@ def cycle_body(cfg: EngineConfig, app: DiffusionApp, st: MachineState):
     count of the cycle."""
     rows, cols = _rc(cfg, st.aq_n.device)
     busy0 = st.cvalid
+    if cfg.telemetry:
+        # lane occupancy at cycle entry (mean depth = TM_L_OCC / cycles)
+        tm = st.tm_lane.clone()
+        tm[..., TM_L_OCC] += st.ch_n
+        st = st._replace(tm_lane=tm)
     st, hops = hop_stage(cfg, st, rows, cols)
     if cfg.lanes > 1:
         # while the lane slots the hops just vacated are free
@@ -84,6 +106,9 @@ def cycle_body(cfg: EngineConfig, app: DiffusionApp, st: MachineState):
     st, active_a = staging_stage(cfg, app, st, rows, cols)
     st, popped = phase0_stage(cfg, app, st, rows, cols, busy0)
     st = io_stage(cfg, st, rows, cols)
+    if cfg.telemetry:
+        hw = torch.stack([st.aq_n, st.pk_n], dim=-1)
+        st = st._replace(tm_hiw=torch.maximum(st.tm_hiw, hw))
     st = st._replace(cycle=st.cycle + 1, stat_hops=st.stat_hops + hops)
     return st, (active_a, popped, hops)
 
@@ -104,21 +129,38 @@ def cycle_step(cfg: EngineConfig, app: DiffusionApp, st: MachineState):
 
 def _livelock_msg(cfg: EngineConfig) -> str:
     return ("engine livelock: no action executed and no message hopped "
-            f"for {LIVELOCK_CHUNKS * cfg.chunk} cycles with work pending. "
-            "Increase chan_cap (>=4) / queue_cap (>= aq_reserve+sys_reserve"
-            f"+8 = {cfg.aq_reserve + cfg.sys_reserve + 8}) -- see "
-            "DESIGN.md §4.2 buffer-sizing rules.")
+            f"for {LIVELOCK_CHUNKS * cfg.chunk} cycles with work pending "
+            "— every virtual lane is stuck. "
+            f"Enable virtual lanes (lanes>=2, currently {cfg.lanes}) so "
+            "protocol traffic escapes head-of-line blocking, and/or "
+            "increase chan_cap (>=4) / queue_cap "
+            f"(>= aq_reserve+sys_reserve+8 = "
+            f"{cfg.aq_reserve + cfg.sys_reserve + 8}) — see "
+            "DESIGN.md §4.2/§7 buffer-sizing rules.")
 
 
 class LivelockError(RuntimeError):
     """Message-dependent deadlock detected (DESIGN §4.2): carries the
-    machine ``cycle`` count of the increment at detection and the
-    ``chunk`` index, like the JAX engine's error."""
+    machine ``cycle`` count of the increment at detection, the ``chunk``
+    index and, when ``cfg.telemetry`` is on, the flight recorder's
+    ``frames`` (:class:`repro_torch.obs.FrameLog`; ``None`` otherwise),
+    like the JAX engine's error."""
 
-    def __init__(self, msg: str, *, cycle: int, chunk: int):
+    def __init__(self, msg: str, *, cycle: int, chunk: int, frames=None):
         super().__init__(msg)
         self.cycle = cycle
         self.chunk = chunk
+        self.frames = frames
+
+
+def _raise_livelock(cfg: EngineConfig, *, cycle: int, chunk: int,
+                    frames=None):
+    """Raise :class:`LivelockError`, with the flight recorder's wedge
+    report appended when frames were captured."""
+    msg = _livelock_msg(cfg)
+    if frames is not None and len(frames) >= 2:
+        msg = msg + "\n" + render_wedge_report(cfg, frames)
+    raise LivelockError(msg, cycle=cycle, chunk=chunk, frames=frames)
 
 
 @dataclasses.dataclass
@@ -131,7 +173,10 @@ class IncrementResult:
     execs: int
     stalls: int
     allocs: int
-    frames: None = None        # telemetry frames: not ported
+    # the telemetry frame log (``cfg.telemetry``, else None): the last
+    # ``cfg.frame_ring`` per-chunk frames of each pass, each pass's ring
+    # read back in one transfer
+    frames: obs_frames.FrameLog | None = None
 
 
 def _roots(cfg: EngineConfig, n: int):
@@ -193,16 +238,26 @@ class StreamingEngine:
         self.state = self.state._replace(
             stat_hops=zero.clone(), stat_exec=zero.clone(),
             stat_stall=zero.clone(), stat_allocs=zero.clone())
+        if cfg.telemetry:
+            # the planes reset with the counters, so the increment's final
+            # frame reconciles with them
+            self.state = self.state._replace(
+                tm_cell=torch.zeros_like(self.state.tm_cell),
+                tm_lane=torch.zeros_like(self.state.tm_lane),
+                tm_hiw=torch.zeros_like(self.state.tm_hiw))
         if collect_traces:
-            cycles, spill, traces = self._run_traced(spill, limit)
+            cycles, spill, traces, frames = self._run_traced(spill, limit)
             counters = tuple(torch.stack(
                 [self.state.stat_hops, self.state.stat_exec,
                  self.state.stat_stall, self.state.stat_allocs]).tolist())
         else:
-            cycles, q, noprog, counters, spill = self._passes(spill, limit)
+            rings = []
+            cycles, q, noprog, counters, spill = self._passes(spill, limit,
+                                                              rings)
+            frames = obs_frames.FrameLog.from_rings(rings) if rings else None
             if not q and noprog >= LIVELOCK_CHUNKS:
-                raise LivelockError(_livelock_msg(cfg), cycle=cycles,
-                                    chunk=cycles // cfg.chunk)
+                _raise_livelock(cfg, cycle=cycles, chunk=cycles // cfg.chunk,
+                                frames=frames)
             traces = (np.zeros(0, np.int32), np.zeros(0, np.int32))
         if len(spill):
             raise RuntimeError(
@@ -210,18 +265,20 @@ class StreamingEngine:
                 "edges not yet ingested; raise max_cycles or io_stream_cap")
         self.stream_pos += 1
         self.total_cycles += cycles
-        res = IncrementResult(cycles, *traces, *counters)
+        res = IncrementResult(cycles, *traces, *counters, frames)
         for k, v in zip(("hops", "execs", "stalls", "allocs"), counters):
             self.totals[k] += v
         return res
 
-    def _passes(self, spill, limit: int):
+    def _passes(self, spill, limit: int, rings: list):
         """The device loop's passes until quiescence with the spill
-        drained, or the cycle or livelock budget.  Returns ``(cycles,
-        quiescent, no-progress chunks, counters, spill)``."""
+        drained, or the cycle or livelock budget.  Appends each pass's
+        frame ring (on the host) to ``rings`` when telemetry is on.
+        Returns ``(cycles, quiescent, no-progress chunks, counters,
+        spill)``."""
         cycles = 0
         while True:
-            ran, q, noprog, counters = self._pass(limit - cycles)
+            ran, q, noprog, counters = self._pass(limit - cycles, rings)
             cycles += ran
             if q and len(spill):
                 # io_stream_cap overflow residue: the loaded prefix is
@@ -237,14 +294,22 @@ class StreamingEngine:
         taken on chunks that ran in full and kept across spill reloads.
         Each chunk is one ``cca_cycle_chunk`` call that fills a trace row
         a cycle, read back with the launch record (this is the debug path:
-        one host read a chunk).  Returns ``(cycles, spill, (active,
-        in_flight))``."""
+        one host read a chunk).  With telemetry, one frame ring over the
+        whole increment: a baseline frame, then a frame every loop turn,
+        also a turn that launches nothing because the last chunk ended on
+        quiescence (JAX's frozen chunk).  Returns ``(cycles, spill,
+        (active, in_flight), frames or None)``."""
         from repro_torch.kernels.cca_cycle.ops import cca_cycle_chunk
         cfg = self.cfg
         trace = torch.empty((cfg.chunk, 2), dtype=torch.int32,
                             device=self.device)
+        ring = None
+        if cfg.telemetry:
+            ring = obs_frames.ring_store(
+                obs_frames.init_ring(cfg, self.device),
+                obs_frames.snapshot(cfg, self.state))
         rows = []
-        cycles, last, noprog, quiet = 0, 0, 0, False
+        cycles, last, noprog, quiet, qr = 0, 0, 0, False, None
         while cycles < limit:
             ran = 0
             if not quiet:
@@ -253,6 +318,10 @@ class StreamingEngine:
                 st, qr = cca_cycle_chunk(cfg, self.app, self.state,
                                          trace=trace)
                 self.state = st
+            if ring is not None:
+                ring = obs_frames.ring_store(
+                    ring, obs_frames.snapshot(cfg, self.state, qr[0]))
+            if not quiet:
                 buf = torch.cat([qr, (st.stat_exec + st.stat_hops)[None],
                                  trace.view(-1)]).cpu().numpy()
                 quiet, ran, prog = bool(buf[0]), int(buf[1]), int(buf[2])
@@ -267,28 +336,50 @@ class StreamingEngine:
             noprog = noprog + 1 if prog == last else 0
             last = prog
             if noprog >= LIVELOCK_CHUNKS:
-                raise LivelockError(_livelock_msg(cfg), cycle=cycles,
-                                    chunk=cycles // cfg.chunk)
+                _raise_livelock(cfg, cycle=cycles, chunk=cycles // cfg.chunk,
+                                frames=self._frames(ring))
         rows = np.concatenate(rows) if rows else np.zeros((0, 2), np.int32)
         return cycles, spill, (np.ascontiguousarray(rows[:, 0]),
-                               np.ascontiguousarray(rows[:, 1]))
+                               np.ascontiguousarray(rows[:, 1])), \
+            self._frames(ring)
 
-    def _pass(self, limit: int):
+    @staticmethod
+    def _frames(ring):
+        return (None if ring is None
+                else obs_frames.FrameLog.from_rings([ring.host()]))
+
+    def _pass(self, limit: int, rings: list):
         """Chunks until quiescence, the cycle ``limit`` (checked between
-        chunks) or ``LIVELOCK_CHUNKS`` chunks without progress.  Returns
-        ``(cycles run, quiescent, no-progress chunks, (hops, execs,
-        stalls, allocs))``; the counters are increment-cumulative."""
+        chunks) or ``LIVELOCK_CHUNKS`` chunks without progress.  With
+        telemetry, a frame ring for the pass: the baseline frame, then a
+        frame after every chunk, taken on the device before the host reads
+        the launch record, and appended to ``rings`` in one transfer at
+        the end.  Returns ``(cycles run, quiescent, no-progress chunks,
+        (hops, execs, stalls, allocs))``; the counters are
+        increment-cumulative."""
         from repro_torch.kernels.cca_cycle.ops import cca_cycle_chunk
-        st = self.state
+        cfg, st = self.cfg, self.state
+        ring = None
+        if cfg.telemetry:
+            ring = obs_frames.ring_store(
+                obs_frames.init_ring(cfg, st.aq.device),
+                obs_frames.snapshot(cfg, st))
         start, hops, execs, stalls, allocs = torch.stack(
             [st.cycle, st.stat_hops, st.stat_exec, st.stat_stall,
              st.stat_allocs]).tolist()
         cycle, last, noprog, q = start, hops + execs, 0, None
         while cycle - start < limit and noprog < LIVELOCK_CHUNKS:
-            st, qr = cca_cycle_chunk(self.cfg, self.app, st)
-            cycle, hops, execs, stalls, allocs, q, _ = torch.cat(
+            st, qr = cca_cycle_chunk(cfg, self.app, st)
+            if ring is not None:
+                stored = obs_frames.ring_store(
+                    ring, obs_frames.snapshot(cfg, st, qr[0]))
+            cycle, hops, execs, stalls, allocs, q, ran = torch.cat(
                 [torch.stack([st.cycle, st.stat_hops, st.stat_exec,
                               st.stat_stall, st.stat_allocs]), qr]).tolist()
+            # a state quiescent on entry runs no cycle, and JAX's loop no
+            # chunk: its frame is not counted (its slot was still free)
+            if ring is not None and ran:
+                ring = stored
             noprog = noprog + 1 if hops + execs == last else 0
             last = hops + execs
             if q:
@@ -296,6 +387,8 @@ class StreamingEngine:
         if q is None:
             q = bool(quiescent(st))
         self.state = st
+        if ring is not None:
+            rings.append(ring.host())
         return cycle - start, bool(q), noprog, (hops, execs, stalls, allocs)
 
     def values(self, n: int | None = None, val_idx: int = 0) -> np.ndarray:

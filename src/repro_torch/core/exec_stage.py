@@ -5,9 +5,9 @@ instruction (phase 0 of an action) or the staging of one new message
 (``propagate``).  An action occupies its cell for ``1 + T`` cycles -- one
 mutate cycle plus one per emission, with backpressure stalls when the
 target buffer is full (paper §4; ``core/exec_stage.py`` of the JAX
-package, whose handlers this file carries for ``qbatch=1``, no faults
-and no telemetry; at ``lanes > 1`` a remote emission that finds its lane
-full parks in the cell's park ring):
+package, whose handlers this file carries for ``qbatch=1`` and no
+faults, with the telemetry planes; at ``lanes > 1`` a remote emission
+that finds its lane full parks in the cell's park ring):
 
   OP_INSERT_EDGE  insert-edge-action with the ghost/future protocol
   OP_APP          the application action (bfs-action et al.)
@@ -34,7 +34,9 @@ from repro_torch.core.msg import (OP_ALLOC, OP_APP, OP_INSERT_EDGE,
                                   OP_SET_FUTURE, TB_AQ_SELF, f2i, i2f,
                                   make_msg)
 from repro_torch.core.routing import deliver, msg_lane, yx_target_buffer
-from repro_torch.core.state import G_NULL, G_PENDING, G_SET, MachineState
+from repro_torch.core.state import (G_NULL, G_PENDING, G_SET, TM_ALLOC,
+                                    TM_BCAST, TM_EXEC, TM_PARK, TM_STAGE,
+                                    TM_STALL, MachineState, tm_cell_add)
 
 
 def _oh(idx, n, mask=None):
@@ -193,6 +195,11 @@ def staging_stage(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
         # a parked emission counts as a stall too
         stat_stall=st.stat_stall + stall.sum(dtype=torch.int32)
         + parked.sum(dtype=torch.int32))
+    if cfg.telemetry:
+        # a park is no TM_STALL: sum(TM_STALL) + sum(TM_PARK) == stalls
+        st = tm_cell_add(st, (TM_STAGE, active & ok_total),
+                         (TM_STALL, stall), (TM_PARK, parked),
+                         (TM_BCAST, push_active & ok_total & is_bcast))
     return st, active
 
 
@@ -365,4 +372,7 @@ def phase0_stage(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
         stat_exec=st.stat_exec + (pop & (T == 0)).sum(dtype=torch.int32),
         stat_allocs=st.stat_allocs + alc_room.sum(dtype=torch.int32),
         stat_stall=st.stat_stall + rotate.sum(dtype=torch.int32))
+    if cfg.telemetry:
+        st = tm_cell_add(st, (TM_EXEC, pop), (TM_ALLOC, alc_room),
+                         (TM_STALL, rotate))
     return st, pop

@@ -18,7 +18,7 @@ from repro_torch.core.config import EngineConfig
 from repro_torch.core.msg import OP_INSERT_EDGE, make_msg
 from repro_torch.core.routing import (deliver, manhattan_hops, msg_lane,
                                      yx_target_buffer)
-from repro_torch.core.state import MachineState, root_addr
+from repro_torch.core.state import TM_IO, MachineState, root_addr
 
 
 def load_stream(cfg: EngineConfig, st: MachineState, edges: np.ndarray,
@@ -99,5 +99,11 @@ def io_stage(cfg: EngineConfig, st: MachineState, rows, cols):
     aq, aq_n, ch, ch_n = (st.aq.clone(), st.aq_n.clone(), st.ch.clone(),
                           st.ch_n.clone())
     aq[0], aq_n[0], ch[0], ch_n[0] = aq0, aqn0, ch0, chn0
-    return st._replace(aq=aq, aq_n=aq_n, ch=ch, ch_n=ch_n,
-                       io_pos=st.io_pos + accepted.to(torch.int32))
+    st = st._replace(aq=aq, aq_n=aq_n, ch=ch, ch_n=ch_n,
+                     io_pos=st.io_pos + accepted.to(torch.int32))
+    if cfg.telemetry:
+        # IO cell i sits on row 0, column i
+        tm = st.tm_cell.clone()
+        tm[0, :, TM_IO] += accepted.to(torch.int32)
+        st = st._replace(tm_cell=tm)
+    return st

@@ -23,7 +23,8 @@ from repro_torch.core.msg import (DIR_E, DIR_N, DIR_S, DIR_W, N_DIRS,
                                   OP_ALLOC, OP_LINK_RHIZOME, OP_RHIZOME_FWD,
                                   OP_SET_FUTURE, TB_AQ_SELF, TB_CHAN_E,
                                   TB_CHAN_N, TB_CHAN_S, TB_CHAN_W)
-from repro_torch.core.state import MachineState
+from repro_torch.core.state import (TM_HOP, TM_L_BLOCK, TM_L_GRANT,
+                                    TM_UNPARK, MachineState, tm_cell_add)
 
 
 def is_protocol(op):
@@ -108,9 +109,12 @@ def park_stage(cfg: EngineConfig, st: MachineState, rows, cols):
     tail = (st.pk_head + st.pk_n) % PK
     oh = (rings._iota(PK, head.device) == tail[..., None]) & fail[..., None]
     pk = torch.where(oh[..., None], head[..., None, :], st.pk)
-    return st._replace(aq=aq, aq_n=aq_n, ch=ch, ch_n=ch_n, pk=pk,
-                       pk_n=st.pk_n - ok.to(torch.int32),
-                       pk_head=(st.pk_head + want.to(torch.int32)) % PK)
+    st = st._replace(aq=aq, aq_n=aq_n, ch=ch, ch_n=ch_n, pk=pk,
+                     pk_n=st.pk_n - ok.to(torch.int32),
+                     pk_head=(st.pk_head + want.to(torch.int32)) % PK)
+    if cfg.telemetry:
+        st = tm_cell_add(st, (TM_UNPARK, ok))
+    return st
 
 
 # direction -> (row shift, col shift) that moves a message ALONG d.
@@ -164,13 +168,19 @@ def hop_stage(cfg: EngineConfig, st: MachineState, rows, cols):
     """One routing cycle: every link carries at most one message, the
     round-robin lane arbiter picks which.  Each direction round reads the
     receivers' queue counts as the earlier rounds of this cycle left
-    them.  Returns ``(state, hops_this_cycle)``."""
+    them.  With telemetry each round adds, at the sender, a grant to the
+    lane that won and a blocked cycle to every other lane occupied at the
+    round's start, and at the receiver its accepted flit (``TM_HOP``).
+    Returns ``(state, hops_this_cycle)``."""
     L, LC = cfg.lanes, cfg.lane_capacity
     dev = rows.device
     hops = torch.zeros((), dtype=torch.int32, device=dev)
     aq, aq_n, aq_head = st.aq, st.aq_n, st.aq_head
     ch, ch_n, ch_head = st.ch, st.ch_n, st.ch_head
     ch_rr = st.ch_rr
+    if cfg.telemetry:
+        st = st._replace(tm_lane=st.tm_lane.clone())
+        arrived = torch.zeros_like(aq_n)
     liota = rings._iota(L, dev)
 
     for d in (DIR_N, DIR_S, DIR_W, DIR_E):
@@ -221,6 +231,13 @@ def hop_stage(cfg: EngineConfig, st: MachineState, rows, cols):
         ch_n[:, :, d] = n2
         ch_head[:, :, d] = h2
         ch_rr[:, :, d] = torch.where(acc_s, (g + 1) % L, rr)
+        if cfg.telemetry:
+            won = oh_g & acc_s[..., None]                       # [H,W,L]
+            st.tm_lane[:, :, d, :, TM_L_GRANT] += won.to(torch.int32)
+            st.tm_lane[:, :, d, :, TM_L_BLOCK] += (occ & ~won).to(torch.int32)
+            arrived += accepted_r.to(torch.int32)
 
+    if cfg.telemetry:
+        st = tm_cell_add(st, (TM_HOP, arrived))
     return st._replace(aq=aq, aq_n=aq_n, ch=ch, ch_n=ch_n, ch_head=ch_head,
                        ch_rr=ch_rr), hops

@@ -24,9 +24,32 @@ from repro_torch.core.msg import N_DIRS
 # ghost-future states (paper Fig. 4)
 G_NULL, G_PENDING, G_SET = 0, 1, 2
 
-# telemetry plane widths (the planes are 1x1 dummies while telemetry is off)
+# ---- telemetry plane indices (DESIGN §8) ----
+# Per-cell per-stage activity counts, ``tm_cell [H, W, N_TM_STAGES]``,
+# cumulative over an increment (reset with the stat_* scalars), so the
+# final plane reconciles with the counters: sum(TM_HOP) == stat_hops,
+# sum(TM_EXEC) == stat_exec at quiescence, sum(TM_STALL) + sum(TM_PARK)
+# == stat_stall, sum(TM_ALLOC) == stat_allocs.
+TM_EXEC = 0     # actions popped by phase0 (== completed at quiescence)
+TM_ALLOC = 1    # ghost allocations served here
+TM_STALL = 2    # staging backpressure stalls + phase0 head rotations
+TM_HOP = 3      # flits accepted into this cell by the hop stage
+TM_STAGE = 4    # emissions staged successfully (network or local queue)
+TM_PARK = 5     # remote emissions parked (lane full at staging time)
+TM_UNPARK = 6   # parked messages re-injected into a lane
+TM_IO = 7       # streamed edge inserts accepted at this IO cell
+TM_BCAST = 8    # rhizome sibling broadcasts staged
 N_TM_STAGES = 9
+
+# Per-link per-lane counters, ``tm_lane [H, W, 4, L, N_TM_LANE]``.
+TM_L_OCC = 0    # lane occupancy summed over cycles
+TM_L_GRANT = 1  # arbiter grants won and accepted (== hops on this lane)
+TM_L_BLOCK = 2  # cycles the lane was occupied but not granted
 N_TM_LANE = 3
+
+# Per-cell hi-water marks, ``tm_hiw [H, W, N_TM_HIW]``.
+TM_HW_AQ = 0    # action-queue depth hi-water
+TM_HW_PK = 1    # park-ring depth hi-water
 N_TM_HIW = 2
 
 
@@ -81,11 +104,13 @@ class MachineState(NamedTuple):
     stat_exec: torch.Tensor
     stat_stall: torch.Tensor
     stat_allocs: torch.Tensor
+    # --- telemetry planes (cfg.telemetry; 1x1 dummies, never touched,
+    #     while it is off) ---
+    tm_cell: torch.Tensor     # [H,W,9] i32 per-cell stage activity
+    tm_lane: torch.Tensor     # [H,W,4,L,3] i32 lane occ/grant/blocked
+    tm_hiw: torch.Tensor      # [H,W,2] i32 AQ / park-ring hi-water
     # --- planes of knobs the port does not carry yet: fixed-shape
     #     dummies, never touched (the JAX engine's off-path shapes) ---
-    tm_cell: torch.Tensor     # [1,1,9] i32
-    tm_lane: torch.Tensor     # [1,1,1,1,3] i32
-    tm_hiw: torch.Tensor      # [1,1,2] i32
     flt: torch.Tensor         # [1] i32
     qchg: torch.Tensor        # [1] i32
     qlast: torch.Tensor       # [1] i32
@@ -149,9 +174,10 @@ def init_state(cfg: EngineConfig, init_vals: float = 1e9,
         arot=z32(H, W),
         cycle=z32(), stat_hops=z32(), stat_exec=z32(),
         stat_stall=z32(), stat_allocs=z32(),
-        tm_cell=z32(1, 1, N_TM_STAGES),
-        tm_lane=z32(1, 1, 1, 1, N_TM_LANE),
-        tm_hiw=z32(1, 1, N_TM_HIW),
+        tm_cell=z32(*((H, W) if cfg.telemetry else (1, 1)), N_TM_STAGES),
+        tm_lane=z32(*((H, W, N_DIRS, VL) if cfg.telemetry
+                      else (1, 1, 1, 1)), N_TM_LANE),
+        tm_hiw=z32(*((H, W) if cfg.telemetry else (1, 1)), N_TM_HIW),
         flt=z32(1), qchg=z32(1), qlast=z32(1),
     )
 
@@ -180,6 +206,15 @@ def state_from_numpy(cfg: EngineConfig, arrays: dict,
                 f"needs {want}{list(ref.shape)}")
         leaves[name] = torch.from_numpy(np.array(a)).to(dev)
     return MachineState(**leaves)
+
+
+def tm_cell_add(st: MachineState, *counts) -> MachineState:
+    """``st`` with ``tm_cell[..., k] += mask`` for each ``(k, mask)`` of
+    ``counts`` (``[H, W]`` bool masks; telemetry planes)."""
+    tm = st.tm_cell.clone()
+    for k, m in counts:
+        tm[..., k] += m.to(torch.int32)
+    return st._replace(tm_cell=tm)
 
 
 def root_addr(cfg: EngineConfig, vid):

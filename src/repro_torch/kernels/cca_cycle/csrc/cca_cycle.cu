@@ -10,11 +10,11 @@
 // kernel equals it leaf for leaf and bit for bit.  Scope: any lanes (the
 // round-robin lane arbiter, the escape lane, transit parking and the park
 // stage), any rhizome_cap (rhizome roots, the link protocol, the sibling
-// broadcast and the IO cells' root choice), qbatch=1, no telemetry, no
-// faults, apps bfs/sssp/cc/ingest_only and the max-monotone widest and
-// reliable, the vicinity and random allocators.  Given a trace pointer, a
-// launch also fills the row (active cells, messages in flight after the
-// cycle) of each cycle it runs, the stats of `engine.cycle_step`.
+// broadcast and the IO cells' root choice), qbatch=1, no faults, apps
+// bfs/sssp/cc/ingest_only and the max-monotone widest and reliable, the
+// vicinity and random allocators, and the telemetry planes.  Given a trace
+// pointer, a launch also fills the row (active cells, messages in flight
+// after the cycle) of each cycle it runs, the stats of `engine.cycle_step`.
 //
 // What bounds it.  Not bytes: the mutable state (85.6 MiB at the paper's
 // 50K-vertex config, 7.8 MiB at 2000 vertices) is read and written once per
@@ -67,6 +67,21 @@
 // single IEEE adds (built with --fmad=false).  Bool leaves are torch.bool
 // (one byte, 0 or 1) and are updated in place as bytes.
 //
+// Telemetry (cfg.telemetry, DESIGN §8) is a compile-time instance of both
+// kernels (`kTm`), so the instance without it is the code of the kernels
+// without telemetry.  Its three planes (tm_cell [H,W,9], tm_lane
+// [H,W,4,L,3], tm_hiw [H,W,2], int32) stay in device memory in both
+// kernels, so the cluster kernel's band layout does not change with it.
+// Every entry belongs to one cell, and only that cell's thread adds to it:
+// at cycle entry (lane occupancy), in hop_write (its grants and blocked
+// lanes as the sender, its accepted flit as the receiver), and in the exec
+// loop (park, staging, phase 0, io, then the hi-water marks), so the
+// counts need no barrier of their own, and nothing in the kernel reads
+// them.  Each count goes out as a reduction without a return value (RED:
+// atomicAdd / atomicMax whose result is unused), so no thread waits on a
+// plane's load; a plain read-modify-write there made the paper stream's
+// launches 1.29x the instance without telemetry (PERF.md section 6).
+//
 // Built with -DCCA_PHASE_CLOCKS, thread 0 of each CTA sums clock64() stamps
 // over the phases of a launch (`cca_cycle_clocks` reads them back); with
 // -DCCA_SKELETON as well, the loop keeps its barriers and drops its phases
@@ -88,17 +103,24 @@ enum { G_NULL = 0, G_PENDING = 1, G_SET = 2 };
 enum { APP_BFS = 0, APP_SSSP = 1, APP_CC = 2, APP_INGEST_ONLY = 3,
        APP_WIDEST = 4, APP_RELIABLE = 5 };
 enum { ALLOC_VICINITY = 0, ALLOC_RANDOM = 1 };
+// telemetry plane entries (core/state.py's TM_* indices)
+enum { TM_EXEC = 0, TM_ALLOC = 1, TM_STALL = 2, TM_HOP = 3, TM_STAGE = 4,
+       TM_PARK = 5, TM_UNPARK = 6, TM_IO = 7, TM_BCAST = 8,
+       N_TM_STAGES = 9 };
+enum { TM_L_OCC = 0, TM_L_GRANT = 1, TM_L_BLOCK = 2, N_TM_LANE = 3 };
+enum { TM_HW_AQ = 0, TM_HW_PK = 1, N_TM_HIW = 2 };
 constexpr int MSGW = 5;
 constexpr float INF = 1e9f;
 constexpr int MAX_CTAS = 16;   // the largest (non-portable) cluster
 
-// Scalar geometry, in the order of ops.py::_dims.  n_ctas 0 takes the
-// one-block kernel; otherwise the cluster kernel with n_ctas CTAs, whose
-// shared memory a CTA the wrapper has reckoned as smem_bytes.
+// Scalar geometry, in the order of ops.py::_dims.  telemetry 1 takes the
+// kernels' telemetry instances.  n_ctas 0 takes the one-block kernel;
+// otherwise the cluster kernel with n_ctas CTAs, whose shared memory a CTA
+// the wrapper has reckoned as smem_bytes.
 struct Dims {
   int H, W, S, E, Q, FQ, LC, L, PK, IO, IOL;
   int root_slots, primary_slots, rhizome_cap, rhizome_stride;
-  int aq_reserve, sys_reserve, n_offs, app, allocator, n_cycles;
+  int aq_reserve, sys_reserve, n_offs, app, allocator, n_cycles, telemetry;
   int n_ctas, smem_bytes;
 };
 constexpr int N_DIMS = sizeof(Dims) / sizeof(int);
@@ -117,6 +139,7 @@ struct Leaves {
   int* arot;
   int* cycle; int* stat_hops; int* stat_exec; int* stat_stall;
   int* stat_allocs;
+  int* tm_cell; int* tm_lane; int* tm_hiw;   // 1x1 dummies without telemetry
   const int* offs;   // [n_offs, 2] vicinity (dy, dx) table
   int* outbox;       // [cells, MSGW] granted heads of the current round
   int* grant;        // [cells] granted lane + 1, 0 for none
@@ -246,15 +269,18 @@ __device__ __forceinline__ void copy_msg(int* dst, const int* src) {
 // cluster kernel's a row band in shared memory.  `outbox` and `grant` hold
 // one buffer per hop direction, `box_dir` / `grant_dir` entries apart (0:
 // one buffer shared by the four rounds).  `io_n` / `io_pos` are indexed by
-// IO cell.
-template <bool kCluster>
+// IO cell.  kTm: the telemetry instance, whose planes (`tm_cell`,
+// `tm_lane`, `tm_hiw`) are in device memory, indexed by cell.
+template <bool kCluster, bool kTm>
 struct Cells {
+  static constexpr bool kTelemetry = kTm;
   int *aq, *aq_n, *aq_head, *ch, *ch_n, *ch_head, *ch_rr, *pk_n, *cmsg;
   bool* cvalid;
   int *cphase, *cT;
   float* cemit;
   int *cout, *cdrain, *arot, *nfree, *io_n, *io_pos, *qwork, *outbox,
       *grant;
+  int *tm_cell, *tm_lane, *tm_hiw;
   int c0, nb, box_dir, grant_dir;
   int rank, n_ctas;   // cluster kernel: this CTA's rank, the CTA count
   int* qflag;         // cluster kernel: [MAX_CTAS] each CTA's busy flag
@@ -275,6 +301,10 @@ struct Cells {
   }
   __device__ __forceinline__ int& granted(int d, int c) const {
     return grant[d * grant_dir + l(c)];
+  }
+  // Add one to cell c's entry k of tm_cell (a RED).
+  __device__ __forceinline__ void count(int c, int k) const {
+    atomicAdd(tm_cell + (size_t)c * N_TM_STAGES + k, 1);
   }
   // OR of `busy` over every thread of the kernel.  Also orders the
   // previous cycle's writes before the next cycle's reads, across CTAs.
@@ -387,7 +417,7 @@ template <class C>
 __device__ int hop_write(const Dims& D, const C& X, int c, int d) {
   int row = c / D.W, col = c % D.W;
   int sr = row - kDy[d], sc = col - kDx[d];
-  int hops = 0;
+  int hops = 0, rin = -1;   // rin: the lane of link d this cell received in
   if (sr >= 0 && sr < D.H && sc >= 0 && sc < D.W) {
     int snd = sr * D.W + sc;
     int g = *X.peer(X.grant + d * X.grant_dir, snd, 1, 0);
@@ -397,6 +427,7 @@ __device__ int hop_write(const Dims& D, const C& X, int c, int d) {
       int tb = yx_tb(D, fdiv(msg[1], D.S), row, col);
       hops = deliver(D, X, c, msg, tb, g - 1,
                      ext_room(D, msg[0], X.aq_n[X.l(c)]));
+      if (hops && tb == d) rin = g - 1;
     }
   }
   int g = X.granted(d, c);
@@ -405,6 +436,19 @@ __device__ int hop_write(const Dims& D, const C& X, int c, int d) {
     X.ch_n[k] -= 1;
     X.ch_head[k] = fmod_(X.ch_head[k] + 1, D.LC);
     X.ch_rr[X.l(c) * 4 + d] = g < D.L ? g : 0;   // (granted lane + 1) % L
+  }
+  if constexpr (C::kTelemetry) {
+    // a grant is accepted by construction: the won lane gets a grant, every
+    // other lane occupied at the round's start (its count now, less the
+    // flit received into it above) a blocked cycle
+    const int* chn = X.ch_n + (X.l(c) * 4 + d) * D.L;
+    int* tl = X.tm_lane + ((size_t)c * 4 + d) * D.L * N_TM_LANE;
+    for (int j = 0; j < D.L; ++j) {
+      if (j == g - 1) atomicAdd(tl + j * N_TM_LANE + TM_L_GRANT, 1);
+      else if (chn[j] - (j == rin) > 0)
+        atomicAdd(tl + j * N_TM_LANE + TM_L_BLOCK, 1);
+    }
+    if (hops) X.count(c, TM_HOP);
   }
   return hops;
 }
@@ -422,10 +466,12 @@ __device__ void park(const Dims& D, const Leaves& P, const C& X, int c) {
   int head[MSGW];
   copy_msg(head, ring + fmod_(h, D.PK) * MSGW);
   int tb = yx_tb(D, fdiv(head[1], D.S), c / D.W, c % D.W);
-  if (deliver(D, X, c, head, tb, msg_lane(D, head[0], head[1]), false))
+  if (deliver(D, X, c, head, tb, msg_lane(D, head[0], head[1]), false)) {
     X.pk_n[l] = n - 1;
-  else
+    if constexpr (C::kTelemetry) X.count(c, TM_UNPARK);
+  } else {
     copy_msg(ring + fmod_(h + n, D.PK) * MSGW, head);
+  }
   P.pk_head[c] = fmod_(h + 1, D.PK);
 }
 
@@ -498,7 +544,7 @@ __device__ bool staging(const Dims& D, const Leaves& P, const C& X, int c,
   // an app forward onto a pending future coalesces into the monotone
   // forward register instead of entering the network (never stalls)
   bool to_reg = appl_is_fwd && gs == G_PENDING;
-  bool ok_total;
+  bool ok_total, parked = false;
   if (to_reg) {
     P.fwd_val[idx] = fwd_merge(D.app, P.fwd_val[idx], cemit);
     if (!P.fwd_pending[idx]) { P.fwd_pending[idx] = true; X.qwork[l] += 1; }
@@ -515,7 +561,7 @@ __device__ bool staging(const Dims& D, const Leaves& P, const C& X, int c,
                           MSGW, emis);
       X.pk_n[l] = pn + 1;
       n.stall += 1;
-      ok_total = true;
+      ok_total = parked = true;
     }
   }
   if (ok_total && (sf_from_fq || rf_drain)) {
@@ -531,6 +577,12 @@ __device__ bool staging(const Dims& D, const Leaves& P, const C& X, int c,
   X.cphase[l] = new_phase;
   if (ok_total && new_phase > cT) { X.cvalid[l] = false; n.exec += 1; }
   if (!ok_total) n.stall += 1;
+  if constexpr (C::kTelemetry) {
+    // a park is no TM_STALL: sum(TM_STALL) + sum(TM_PARK) == stat_stall
+    X.count(c, ok_total ? TM_STAGE : TM_STALL);
+    if (parked) X.count(c, TM_PARK);
+    if (ok_total && is_bcast && !to_reg) X.count(c, TM_BCAST);
+  }
   return true;
 }
 
@@ -574,6 +626,7 @@ __device__ bool phase0(const Dims& D, const Leaves& P, const C& X, int c,
     copy_msg(X.aq + ((size_t)l * Q + fmod_(aqh + aqn, Q)) * MSGW, m);
     X.aq_head[l] = fmod_(aqh + 1, Q);
     n.stall += 1;
+    if constexpr (C::kTelemetry) X.count(c, TM_STALL);
     return false;
   }
 
@@ -672,6 +725,7 @@ __device__ bool phase0(const Dims& D, const Leaves& P, const C& X, int c,
       P.fwd_pending[gi] = false;
       X.nfree[l] = g + 1;
       n.allocs += 1;
+      if constexpr (C::kTelemetry) X.count(c, TM_ALLOC);
       out[0] = OP_SET_FUTURE; out[1] = a0; out[2] = c * S + g;
     } else {
       out[0] = OP_ALLOC; out[1] = fmod_(c + 1, NC) * S; out[2] = a0;
@@ -692,6 +746,7 @@ __device__ bool phase0(const Dims& D, const Leaves& P, const C& X, int c,
   X.cphase[l] = 1;
   X.cT[l] = T;
   X.cdrain[l] = is_rf ? drain_n : 0;
+  if constexpr (C::kTelemetry) X.count(c, TM_EXEC);
   return true;
 }
 
@@ -726,8 +781,10 @@ __device__ void io(const Dims& D, const Leaves& P, const C& X, int i) {
   msg[4] = 0;
   int tb = yx_tb(D, fdiv(tgt, D.S), 0, i);
   if (deliver(D, X, i, msg, tb, msg_lane(D, OP_INSERT_EDGE, tgt),
-              X.aq_n[X.l(i)] < D.Q - D.aq_reserve - D.sys_reserve))
+              X.aq_n[X.l(i)] < D.Q - D.aq_reserve - D.sys_reserve)) {
     X.io_pos[i] = pos + 1;
+    if constexpr (C::kTelemetry) X.count(i, TM_IO);   // row 0, column i
+  }
 }
 
 // engine.quiescent, per cell: any queued, in-flight, active, deferred or
@@ -769,16 +826,35 @@ __device__ __forceinline__ int cell_in_flight(const Dims& D, const C& X,
   return n;
 }
 
+// Telemetry at cycle entry: each lane's occupancy of cell c into TM_L_OCC.
+template <class C>
+__device__ void tm_occupancy(const Dims& D, const C& X, int c) {
+  const int* chn = X.ch_n + X.l(c) * 4 * D.L;
+  int* tl = X.tm_lane + (size_t)c * 4 * D.L * N_TM_LANE;
+  for (int k = 0; k < 4 * D.L; ++k)
+    if (chn[k]) atomicAdd(tl + k * N_TM_LANE + TM_L_OCC, chn[k]);
+}
+
+// Telemetry after the cell's exec stages: its queue hi-water marks (a
+// depth of 0 is skipped: the marks start at 0 each increment and only grow).
+template <class C>
+__device__ __forceinline__ void tm_hiwater(const C& X, int c) {
+  int* hw = X.tm_hiw + (size_t)c * N_TM_HIW;
+  int aqn = X.aq_n[X.l(c)], pkn = X.pk_n[X.l(c)];
+  if (aqn) atomicMax(hw + TM_HW_AQ, aqn);
+  if (pkn) atomicMax(hw + TM_HW_PK, pkn);
+}
+
 // Up to D.n_cycles machine cycles over the band of X, frozen at quiescence;
 // the schedule of both kernels.  Returns the cycles run; `quiet` is the
 // quiescence test's last value.  With P.trace, each thread counts its
 // cells' activity in the exec loop and their channel occupancy in the next
 // quiescence test (the one after a launch's last cycle too), and each warp
 // adds its sums into the cycle's trace row: no barrier of its own.
-template <bool kCluster>
+template <bool kCluster, bool kTm>
 __device__ int run_cycles(const Dims& D, const Leaves& P,
-                          const Cells<kCluster>& X, Counts& n, int& quiet,
-                          PhaseClock& clk) {
+                          const Cells<kCluster, kTm>& X, Counts& n,
+                          int& quiet, PhaseClock& clk) {
   const int first = X.c0 + threadIdx.x, end = X.c0 + X.nb,
             nt = blockDim.x;
   int ran = 0;
@@ -798,6 +874,8 @@ __device__ int run_cycles(const Dims& D, const Leaves& P,
     }
     clk.stamp(0);
     if (quiet || ran == D.n_cycles) break;
+    if constexpr (kTm)
+      for (int c = first; c < end; c += nt) tm_occupancy(D, X, c);
 #pragma unroll
     for (int d = 0; d < 4; ++d) {
 #ifndef CCA_SKELETON
@@ -820,6 +898,7 @@ __device__ int run_cycles(const Dims& D, const Leaves& P,
       bool popped = phase0(D, P, X, c, busy0, n);
       active += staged | popped;
       if (c < D.IO) io(D, P, X, c);
+      if constexpr (kTm) tm_hiwater(X, c);
     }
     if (P.trace) trace_add(P.trace + 2 * ran, active);
 #endif
@@ -833,8 +912,9 @@ __device__ int run_cycles(const Dims& D, const Leaves& P,
 // device memory, one outbox and grant buffer for the four rounds.  Built on
 // the host and passed as a kernel parameter, as the leaves are, so its
 // pointers are read from parameter space and held in no register.
-Cells<false> device_cells(const Dims& D, const Leaves& P) {
-  Cells<false> X;
+template <bool kTm>
+Cells<false, kTm> device_cells(const Dims& D, const Leaves& P) {
+  Cells<false, kTm> X;
   X.aq = P.aq; X.aq_n = P.aq_n; X.aq_head = P.aq_head;
   X.ch = P.ch; X.ch_n = P.ch_n; X.ch_head = P.ch_head; X.ch_rr = P.ch_rr;
   X.pk_n = P.pk_n; X.cmsg = P.cmsg; X.cvalid = P.cvalid;
@@ -842,13 +922,15 @@ Cells<false> device_cells(const Dims& D, const Leaves& P) {
   X.cdrain = P.cdrain; X.arot = P.arot; X.nfree = P.nfree;
   X.io_n = P.io_n; X.io_pos = P.io_pos; X.qwork = P.qwork;
   X.outbox = P.outbox; X.grant = P.grant;
+  X.tm_cell = P.tm_cell; X.tm_lane = P.tm_lane; X.tm_hiw = P.tm_hiw;
   X.c0 = 0; X.nb = D.H * D.W; X.box_dir = 0; X.grant_dir = 0;
   X.rank = 0; X.n_ctas = 1; X.qflag = nullptr;
   return X;
 }
 
+template <bool kTm>
 __global__ void __launch_bounds__(1024, 1)
-cca_cycle_kernel(const Dims D, const Leaves P, const Cells<false> X) {
+cca_cycle_kernel(const Dims D, const Leaves P, const Cells<false, kTm> X) {
   PhaseClock clk;
   clk.start();
   const int NC = D.H * D.W, tid = threadIdx.x, nt = blockDim.x;
@@ -913,8 +995,12 @@ extern "C" int cca_cycle_launch(void* const* ptrs, int n_ptrs,
   }
   int cells = D.H * D.W;
   int threads = cells < 1024 ? cells : 1024;
-  cca_cycle_kernel<<<1, threads, 0, (cudaStream_t)stream>>>(
-      D, P, device_cells(D, P));
+  if (D.telemetry)
+    cca_cycle_kernel<true><<<1, threads, 0, (cudaStream_t)stream>>>(
+        D, P, device_cells<true>(D, P));
+  else
+    cca_cycle_kernel<false><<<1, threads, 0, (cudaStream_t)stream>>>(
+        D, P, device_cells<false>(D, P));
   int err = cudaGetLastError();
   if (!err) *path = 0;
   return err;

@@ -134,8 +134,9 @@ __device__ void move_words(int* smem, int* gmem, int n, bool in) {
 
 // This CTA's band of every per-cell leaf, into shared memory (in) or back
 // to device memory.  io_n / io_pos (the IO cells, all in band 0) too.
-__device__ void move_band(const Dims& D, const Leaves& P,
-                          const Cells<true>& X, bool in) {
+template <class C>
+__device__ void move_band(const Dims& D, const Leaves& P, const C& X,
+                          bool in) {
   const size_t c0 = X.c0;
   const int nb = X.nb;
   move_words(X.aq, P.aq + c0 * D.Q * MSGW, nb * D.Q * MSGW, in);
@@ -167,6 +168,7 @@ __device__ void move_band(const Dims& D, const Leaves& P,
   }
 }
 
+template <bool kTm>
 __global__ void __launch_bounds__(CLUSTER_THREADS, 1)
 cca_cycle_cluster_kernel(const Dims D, const Leaves P) {
   PhaseClock clk;
@@ -175,7 +177,7 @@ cca_cycle_cluster_kernel(const Dims D, const Leaves P) {
   cg::cluster_group cluster = cg::this_cluster();
   const ClusterLayout L = cluster_layout(D);
   const int rank = cluster.block_rank(), tid = threadIdx.x;
-  Cells<true> X;
+  Cells<true, kTm> X;
   X.aq = smem + L.aq; X.aq_n = smem + L.aq_n; X.aq_head = smem + L.aq_head;
   X.ch = smem + L.ch; X.ch_n = smem + L.ch_n; X.ch_head = smem + L.ch_head;
   X.ch_rr = smem + L.ch_rr; X.pk_n = smem + L.pk_n; X.cmsg = smem + L.cmsg;
@@ -186,6 +188,7 @@ cca_cycle_cluster_kernel(const Dims D, const Leaves P) {
   X.nfree = smem + L.nfree; X.io_n = smem + L.io_n; X.io_pos = smem + L.io_pos;
   X.qwork = smem + L.qwork; X.outbox = smem + L.outbox;
   X.grant = smem + L.grant;
+  X.tm_cell = P.tm_cell; X.tm_lane = P.tm_lane; X.tm_hiw = P.tm_hiw;
   X.c0 = rank * L.nb; X.nb = L.nb; X.box_dir = L.nb * MSGW;
   X.grant_dir = L.nb; X.rank = rank; X.n_ctas = D.n_ctas;
   X.qflag = smem + L.qflag;
@@ -236,23 +239,26 @@ cca_cycle_cluster_kernel(const Dims D, const Leaves P) {
   clk.flush(rank);
 }
 
-// Launch the cluster kernel for D's geometry on `stream`: n_ctas CTAs of
-// one cluster, up to CLUSTER_THREADS threads each, D.smem_bytes of dynamic
-// shared memory each.  The first launch of a geometry on a device checks
-// that the card can place such a cluster at all.  Returns 0, a CUDA error
-// code or an ERR_* code; never launches anything else.
+// Launch the cluster kernel for D's geometry on `stream` (its telemetry
+// instance where D.telemetry): n_ctas CTAs of one cluster, up to
+// CLUSTER_THREADS threads each, D.smem_bytes of dynamic shared memory each.
+// The first launch of a geometry and instance on a device checks that the
+// card can place such a cluster at all.  Returns 0, a CUDA error code or
+// an ERR_* code; never launches anything else.
 int cluster_launch(const Dims& D, const Leaves& P, cudaStream_t stream) {
   if (!cluster_geometry_ok(D)) return ERR_GEOMETRY;
   const ClusterLayout L = cluster_layout(D);
   if (L.bytes != D.smem_bytes) return ERR_SMEM;
   int threads = (L.nb + 31) / 32 * 32;
   if (threads > CLUSTER_THREADS) threads = CLUSTER_THREADS;
+  void (*kernel)(const Dims, const Leaves) =
+      D.telemetry ? cca_cycle_cluster_kernel<true>
+                  : cca_cycle_cluster_kernel<false>;
   cudaError_t e = cudaFuncSetAttribute(
-      cca_cycle_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      L.bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
   if (e) return e;
   if (D.n_ctas > 8) {
-    e = cudaFuncSetAttribute(cca_cycle_cluster_kernel,
+    e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeNonPortableClusterSizeAllowed,
                              1);
     if (e) return e;
@@ -270,21 +276,21 @@ int cluster_launch(const Dims& D, const Leaves& P, cudaStream_t stream) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
 
-  static int checked[4] = {-1, 0, 0, 0};   // device, n_ctas, threads, bytes
+  // device, n_ctas, threads, bytes, instance
+  static int checked[5] = {-1, 0, 0, 0, 0};
   int dev = 0;
   e = cudaGetDevice(&dev);
   if (e) return e;
   if (checked[0] != dev || checked[1] != D.n_ctas || checked[2] != threads ||
-      checked[3] != L.bytes) {
+      checked[3] != L.bytes || checked[4] != D.telemetry) {
     int clusters = 0;
-    e = cudaOccupancyMaxActiveClusters(&clusters, cca_cycle_cluster_kernel,
-                                       &cfg);
+    e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
     if (e) return e;
     if (clusters < 1) return ERR_NO_CLUSTER;
     checked[0] = dev; checked[1] = D.n_ctas; checked[2] = threads;
-    checked[3] = L.bytes;
+    checked[3] = L.bytes; checked[4] = D.telemetry;
   }
-  e = cudaLaunchKernelEx(&cfg, cca_cycle_cluster_kernel, D, P);
+  e = cudaLaunchKernelEx(&cfg, kernel, D, P);
   if (e) return e;
   return cudaGetLastError();
 }

@@ -12,6 +12,11 @@ same object); for a state on the CPU it runs the plain version
 (``ref.cca_cycle_chunk_ref``), which returns a new state.  Any other
 device is refused.
 
+With ``cfg.telemetry`` the launch takes the kernels' telemetry instances,
+which also accumulate the state's telemetry planes (``tm_cell``,
+``tm_lane``, ``tm_hiw``) as ``core.engine.cycle_body`` does; the launch
+record and the trace rows are the same.
+
 Two kernels compute the same chunk (``path``):
 
   cluster  the grid in row bands over the CTAs of one thread-block
@@ -63,7 +68,8 @@ KERNEL_LEAVES = (
     "pk", "pk_n", "pk_head", "cmsg", "cvalid", "cphase", "cT", "cemit",
     "cout", "cdrain",
     "io_edges", "io_n", "io_pos", "arot",
-    "cycle", "stat_hops", "stat_exec", "stat_stall", "stat_allocs")
+    "cycle", "stat_hops", "stat_exec", "stat_stall", "stat_allocs",
+    "tm_cell", "tm_lane", "tm_hiw")
 
 # the per-cell leaves the cluster kernel holds in shared memory, a band of
 # rows of each ([H, W, ...] leaves; `cluster_layout` in the .cuh).  The
@@ -150,16 +156,16 @@ def cluster_geometry(cfg: EngineConfig, n_ctas: int | None = None
 def _dims(cfg: EngineConfig, app: DiffusionApp, n_offs: int,
           n_cycles: int, geometry: tuple[int, int, int] | None
           ) -> list[int]:
-    """Scalar geometry, in the order of `struct Dims` (``n_ctas`` and the
-    bytes a CTA 0 for the one-block kernel)."""
+    """Scalar geometry, in the order of `struct Dims` (``telemetry`` 0 or
+    1; ``n_ctas`` and the bytes a CTA 0 for the one-block kernel)."""
     n_ctas, _, nbytes = geometry or (0, 0, 0)
     return [cfg.height, cfg.width, cfg.slots, cfg.edge_cap, cfg.queue_cap,
             cfg.futq_cap, cfg.lane_capacity, cfg.lanes, cfg.park_capacity,
             cfg.io_cells, cfg.io_stream_cap,
             cfg.root_slots, cfg.primary_slots, cfg.rhizome_cap,
             cfg.rhizome_stride, cfg.aq_reserve, cfg.sys_reserve, n_offs,
-            app.code, ALLOCATORS.index(cfg.allocator), n_cycles, n_ctas,
-            nbytes]
+            app.code, ALLOCATORS.index(cfg.allocator), n_cycles,
+            int(cfg.telemetry), n_ctas, nbytes]
 
 
 def _launch_args(cfg: EngineConfig, app: DiffusionApp, st: MachineState,

@@ -19,16 +19,20 @@ or figure, with the same scales, engine config and row keys.
 Cycle counts, hops, execs, energies and modelled times do not depend on
 the device; wall times are reported only where the engine ran on the card.
 Every chunk is one launch of the cycle kernel on the card (the plain
-PyTorch version on the CPU).  Nothing is written to disk: the rows are
-printed as JSON, one line a benchmark.
+PyTorch version on the CPU).  The rows are printed as JSON, one line a
+benchmark; only ``--profile`` writes files (the telemetry run's Chrome
+trace and congestion heatmap, under ``build/profile/``).
 
     PYTHONPATH=src python -m repro_torch.launch.paper_experiments --scale ci
     PYTHONPATH=src python -m repro_torch.launch.paper_experiments \\
         --scale ci --device cpu --only energy
+    PYTHONPATH=src python -m repro_torch.launch.paper_experiments \\
+        --only engine --profile
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import json
 import pathlib
@@ -41,7 +45,8 @@ from repro_torch.core import EngineConfig, LivelockError, StreamingEngine
 from repro_torch.core.energy import DEFAULT as ENERGY
 from repro_torch.core.engine import quiescent
 from repro_torch.core.reference import bfs_levels
-from repro_torch.core.state import resolve_device
+from repro_torch.core.state import (TM_ALLOC, TM_EXEC, TM_HOP, TM_IO,
+                                    TM_PARK, TM_STALL, resolve_device)
 from repro_torch.graph.streams import StreamSpec, make_stream
 from repro_torch.kernels.cca_cycle import ops
 
@@ -431,12 +436,15 @@ def bench_engine_throughput(scale="ci", device=None):
     return out
 
 
-def bench_engine(scale="ci", device=None):
+def bench_engine(scale="ci", device=None, profile=False, profile_dir=None):
     """``benchmarks/engine_throughput.py::bench_engine``'s stream (seed 3,
     two edge-sampled increments, BFS from vertex 0) on its ``ci`` or
     ``mid`` grid: the second increment's cycles, execs and hops and the
     stream's total cycles, BFS checked against the oracle; its wall time on
-    the card."""
+    the card.  ``profile=True`` (``--profile``) adds the same run with
+    ``telemetry=True`` under ``"profile"`` (``_profile``), its dumps
+    written under ``profile_dir`` (default ``build/profile/`` of the
+    repository)."""
     dev = resolve_device(device)
     p = ENGINE_SCALES[scale]
     spec = StreamSpec(n_vertices=p["n_vertices"], n_edges=p["n_edges"],
@@ -464,6 +472,116 @@ def bench_engine(scale="ci", device=None):
                hops=r.hops, total_cycles=eng.total_cycles)
     if dev.type == "cuda":
         out.update(_walls(r.cycles, dt, cfg.n_cells))
+    if profile:
+        out["profile"] = _profile(cfg, incs, r, dt, dev,
+                                  pathlib.Path(profile_dir or PROFILE_DIR),
+                                  scale)
+    return out
+
+
+PROFILE_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "profile"
+
+
+def check_frames(r, n_edges: int) -> None:
+    """Raise unless increment result ``r``'s final frame reconciles with
+    its counters exactly: hops, execs, stalls (``TM_STALL + TM_PARK``),
+    allocs, the increment's ``n_edges`` inserts (``TM_IO``), and no
+    backlog or message in flight at quiescence."""
+    t, cell = r.frames.totals(), r.frames.last()["cell"]
+    got = dict(hops=int(cell[..., TM_HOP].sum()),
+               execs=int(cell[..., TM_EXEC].sum()),
+               stalls=int(cell[..., TM_STALL].sum()
+                          + cell[..., TM_PARK].sum()),
+               allocs=int(cell[..., TM_ALLOC].sum()),
+               edges=int(cell[..., TM_IO].sum()))
+    want = dict(hops=r.hops, execs=r.execs, stalls=r.stalls,
+                allocs=r.allocs, edges=n_edges)
+    totals = {k: t[k] for k in ("hops", "execs", "stalls", "allocs")}
+    if got != want or totals != {k: want[k] for k in totals} or \
+            (t["backlog"], t["in_flight"], t["quiescent"]) != (0, 0, True):
+        raise AssertionError(f"final frame {got} {t} != counters {want}")
+
+
+def telemetry_replay(rec: dict, max_cycles: int, pinned_spec: dict,
+                     device=None):
+    """One stream of ``data/telemetry_fingerprint.json`` through the port,
+    recorded as ``tools/record_torch_fingerprint.py --telemetry`` records
+    the JAX engine: each increment's counters and ``frame_record`` (its
+    final frame reconciled by :func:`check_frames`), ``bench_engine``'s ci
+    heatmap, and a livelock's increment, cycle, chunk, full text and frame
+    log.  ``pinned_spec`` is the pinned stream's ``StreamSpec`` fields
+    (``tests/data/pre_lanes_reference.json``).  Returns ``(record,
+    engine)``."""
+    from repro_torch.graph.streams import hub_edges
+    from repro_torch.obs import congestion_heatmap
+    from repro_torch.obs.frames import frame_record
+    cfg = EngineConfig(**{k: v for k, v in rec["cfg"].items()
+                          if k in EngineConfig.__dataclass_fields__})
+    if rec["kind"] == "pinned":
+        incs = make_stream(StreamSpec(**pinned_spec))
+    elif rec["kind"] == "skew":
+        incs = skew_increments(rec["args"][0])
+    elif rec["kind"] == "engine":
+        p = ENGINE_SCALES["ci"]
+        incs = make_stream(StreamSpec(
+            n_vertices=p["n_vertices"], n_edges=p["n_edges"], increments=2,
+            sampling="edge", seed=3))
+    else:   # the 8x8 hub stream of the JAX package's tests/test_obs.py
+        e = hub_edges(128, 0, 200, seed=3)
+        one = np.float32(1.0).view(np.int32)
+        incs = [np.concatenate([e, np.full((len(e), 1), one, np.int64)],
+                               1).astype(np.int32)]
+    eng = StreamingEngine(cfg, "bfs", device=device)
+    eng.seed(0, 0.0)
+    out, rows = {}, []
+    for i, e in enumerate(incs):
+        try:
+            r = eng.run_increment(e, max_cycles=max_cycles)
+        except LivelockError as ex:
+            out["livelock"] = dict(increment=i, cycle=ex.cycle,
+                                   chunk=ex.chunk, message=str(ex),
+                                   **frame_record(ex.frames))
+            break
+        check_frames(r, len(e))
+        rows.append(dict(edges=len(e), cycles=r.cycles, hops=r.hops,
+                         execs=r.execs, stalls=r.stalls, allocs=r.allocs,
+                         **frame_record(r.frames)))
+        if rec["kind"] == "engine" and i == 1:
+            out["heatmap"] = congestion_heatmap(cfg, r.frames)
+    out["increments"] = rows
+    return json.loads(json.dumps(out)), eng
+
+
+def _profile(cfg, incs, plain, plain_wall_s: float, dev, out_dir, scale):
+    """``_profile_backend`` of the JAX package's benchmark: the timed
+    increment again with ``telemetry=True``; its counters and cycles equal
+    the plain run's and its final frame reconciles with them
+    (``check_frames``); the frame count, ``engine_rates``, and the Chrome
+    trace and congestion heatmap written to ``out_dir``; on the card the
+    wall and its ratio to the plain run's."""
+    from repro_torch.obs import (engine_rates, write_chrome_trace,
+                                 write_heatmap)
+    cfg = dataclasses.replace(cfg, telemetry=True)
+    eng = StreamingEngine(cfg, "bfs", device=dev)
+    eng.seed(0, 0.0)
+    eng.run_increment(incs[0], max_cycles=MAX_CYCLES)
+    _sync(dev)
+    t0 = time.time()
+    r = eng.run_increment(incs[1], max_cycles=MAX_CYCLES)
+    _sync(dev)
+    dt = time.time() - t0
+    keys = ("cycles", "hops", "execs", "stalls", "allocs")
+    if [getattr(r, k) for k in keys] != [getattr(plain, k) for k in keys]:
+        raise AssertionError("telemetry changed the increment's counters")
+    check_frames(r, len(incs[1]))
+    out = dict(frames=len(r.frames), dropped=r.frames.dropped,
+               rates=engine_rates(r.frames),
+               trace=write_chrome_trace(out_dir / f"trace_{scale}.json",
+                                        cfg, r.frames),
+               heatmap=write_heatmap(out_dir / f"heatmap_{scale}.json",
+                                     cfg, r.frames))
+    if dev.type == "cuda":
+        out.update(wall_s=dt, wall_vs_plain=dt / plain_wall_s)
     return out
 
 
@@ -489,12 +607,19 @@ def main(argv=None) -> None:
                     help="cuda (the default) or cpu")
     ap.add_argument("--only", choices=sorted(BENCHES), action="append",
                     help="run only these benchmarks (repeatable)")
+    ap.add_argument("--profile", action="store_true",
+                    help="engine: also run with telemetry and write its "
+                         "trace and heatmap under build/profile/")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    for name in args.only or BENCHES:
+    benches = dict(BENCHES)
+    if args.profile:
+        benches["engine"] = lambda s, d: [bench_engine(e, d, profile=True)
+                                          for e in ENGINE_SCALES]
+    for name in args.only or benches:
         t0 = time.time()
         out = {"bench": name, "scale": args.scale,
-               "rows": BENCHES[name](args.scale, dev)}
+               "rows": benches[name](args.scale, dev)}
         if dev.type == "cuda":
             out["seconds"] = time.time() - t0
         print(json.dumps(out), flush=True)

@@ -184,7 +184,7 @@ def test_load_stream_matches_jax(limit):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(telemetry=True),
+    dict(telemetry=True, ingest_guard=True),
     dict(faults=object()), dict(ingest_guard=True), dict(qbatch=2),
     dict(n_vals=2), dict(n_io_cells=3)])
 def test_validate_rejects_unported_knobs(knob):
@@ -227,7 +227,8 @@ def test_port_imports_nothing_of_jax_or_repro():
             "repro_torch.configs.recsys_archs, "
             "repro_torch.kernels.flash_attention.ops, "
             "repro_torch.models.transformer, repro_torch.configs.lm_archs, "
-            "repro_torch.obs.metrics, repro_torch.launch.serve; "
+            "repro_torch.obs, repro_torch.obs.metrics, "
+            "repro_torch.launch.serve, repro_torch.launch.paper_experiments; "
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -5,12 +5,17 @@ Runs the paper's 50K-vertex / 1M-edge stream (ten edge-sampled increments,
 seed 1, `benchmarks/paper_experiments.py::_engine`'s 32x32 config) through
 the engine of the checkout at TREE, the kernels built from its sources,
 and prints one JSON line: the mean ms a launch over the stream's launches
-(CUDA events around each launch) and five K=512 chunks of its last
-increment on the cluster kernel.  Compare two checkouts in one call, in
+(CUDA events around each launch), five K=512 chunks of its last
+increment on the cluster kernel, and the ptxas registers and spill bytes
+of the checkout's cycle kernels.  Compare two checkouts in one call, in
 turns, each in its own process:
 
     for t in parent change change parent; do
         python3 tools/cca_cycle_ab.py <checkout of $t> $t; done
+
+``--telemetry`` runs the stream and the chunks with ``telemetry=True`` (a
+checkout whose port carries telemetry), for the cost of the kernels'
+telemetry instances against the same checkout without it.
 
 One card; ~15 s a run, the build included.
 """
@@ -21,19 +26,24 @@ import sys
 import torch
 
 
-def main(tree: str, tag: str) -> None:
+def main(tree: str, tag: str, telemetry: bool = False) -> None:
     sys.path.insert(0, str(pathlib.Path(tree).resolve() / "src"))
     from repro_torch.core import EngineConfig, StreamingEngine
     from repro_torch.core.ingest import load_stream
     from repro_torch.graph.streams import StreamSpec, make_stream
+    from repro_torch.kernels import _build
     from repro_torch.kernels.cca_cycle import ops
 
     n, m = 50_000, 1_000_000
     ghosts = max(64, 2 * m // (8 * 1024), 3 * n // 1024)
     cfg = EngineConfig(height=32, width=32, n_vertices=n, edge_cap=8,
                        ghost_slots=ghosts, queue_cap=64, chan_cap=16,
-                       futq_cap=16, io_stream_cap=2 ** 21, chunk=512)
-    ops.build()
+                       futq_cap=16, io_stream_cap=2 ** 21, chunk=512,
+                       **({"telemetry": True} if telemetry else {}))
+    ptxas = {name[-48:]: (info.get("registers"), info.get("spill_stores"),
+                          info.get("spill_loads"))
+             for name, info in _build.ptxas_functions(ops.build()[1]).items()
+             if "cca_cycle" in name}
     incs = make_stream(StreamSpec(increments=10, sampling="edge", seed=1,
                                   n_vertices=n, n_edges=m))
     eng = StreamingEngine(cfg, "bfs")
@@ -63,7 +73,9 @@ def main(tree: str, tag: str) -> None:
     st, _ = load_stream(cfg, snapshot, incs[-1])
     z = torch.zeros((), dtype=torch.int32, device=st.aq.device)
     st = st._replace(stat_hops=z.clone(), stat_exec=z.clone(),
-                     stat_stall=z.clone(), stat_allocs=z.clone())
+                     stat_stall=z.clone(), stat_allocs=z.clone(),
+                     tm_cell=st.tm_cell.zero_(), tm_lane=st.tm_lane.zero_(),
+                     tm_hiw=st.tm_hiw.zero_())
     chunk_ms = []
     for _ in range(5):
         s = clone(st)
@@ -76,12 +88,13 @@ def main(tree: str, tag: str) -> None:
         torch.cuda.synchronize()
         chunk_ms.append(a.elapsed_time(b))
     print(json.dumps(dict(tree=tag, card=torch.cuda.get_device_name(0),
-                          launches=len(events),
+                          telemetry=telemetry, launches=len(events),
                           stream_ms_per_launch=stream_ms,
-                          chunk_ms=chunk_ms)), flush=True)
+                          chunk_ms=chunk_ms, ptxas=ptxas)), flush=True)
 
 
 if __name__ == "__main__":
-    if len(sys.argv) != 3:
+    args = [a for a in sys.argv[1:] if a != "--telemetry"]
+    if len(args) != 2:
         raise SystemExit(__doc__)
-    main(sys.argv[1], sys.argv[2])
+    main(*args, telemetry="--telemetry" in sys.argv[1:])

@@ -30,14 +30,31 @@ values and ``vertex_object_stats``; where it livelocks, the increment and
 the cycle at which ``LivelockError`` fires and the counters up to there,
 to ``src/repro_torch/data/skew_fingerprint.json``.
 
+``--telemetry``: runs the JAX engine with ``telemetry=True`` (the
+sync-free device loop) on the pinned 8x8 stream
+(``tests/data/pre_lanes_reference.json``, ``frame_ring=16``), the six ci
+configs of ``--skew`` and ``bench_engine``'s ci stream
+(``benchmarks/engine_throughput.py``: 8x8, 256 vertices, 2,048 edges, seed
+3), one process a stream, all started together.  Writes each increment's
+counters, frame count, ``dropped``, ``FrameLog.totals()`` and the final
+frame's planes, each as its shape and a digest (``plane_digest``), and
+for ``bench_engine``'s second increment its ``congestion_heatmap``; for
+the livelocks (the ci lanes=1 config, the 8x8 hub stream of
+``tests/test_obs.py`` at ``frame_ring=16`` and ``bench_skew``'s
+rhizome_cap=4 row at paper scale) the increment, cycle and chunk of the
+error and its full text, the flight recorder's wedge report included, to
+``src/repro_torch/data/telemetry_fingerprint.json``.
+
 ``chip_smoke.py`` and the port's tests replay these files.  Outside the
 tests, this is the only file of the port's tooling that imports JAX: it
-imports ``repro`` (and the JAX package's ``benchmarks``) and never
-``repro_torch``.
+runs ``repro`` (and the JAX package's ``benchmarks``), and takes from
+``repro_torch`` only ``obs.frames.frame_record``, the one definition of
+how a frame log is fingerprinted, which the replays use too.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/record_torch_fingerprint.py
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/record_torch_fingerprint.py --paper-ci
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/record_torch_fingerprint.py --skew
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/record_torch_fingerprint.py --telemetry
 """
 import argparse
 import concurrent.futures
@@ -59,6 +76,7 @@ DATA = ROOT / "src" / "repro_torch" / "data"
 OUT = DATA / "fingerprint_32x32.json"
 PAPER_OUT = DATA / "paper_ci_fingerprint.json"
 SKEW_OUT = DATA / "skew_fingerprint.json"
+TELEMETRY_OUT = DATA / "telemetry_fingerprint.json"
 COMMAND = "PYTHONPATH=src JAX_PLATFORMS=cpu python tools/record_torch_fingerprint.py"
 MAX_CYCLES = 2_000_000
 # (app, sampling, allocator, per-cycle traces) of the --paper-ci streams
@@ -251,14 +269,111 @@ def main_skew() -> None:
     print(f"wrote {SKEW_OUT}")
 
 
+# the --telemetry streams: (name, kind, arguments)
+TELEMETRY_STREAMS = (
+    ("pinned 8x8", "pinned", ()),
+    *((f"ci q=%d lanes=%d R=%d" % c, "skew", ("ci",) + c)
+      for c, _ in SKEW_CONFIGS),
+    ("engine_ci", "engine", ()),
+    ("hub 8x8 lanes=1", "hub", ()),
+    ("paper q=48 lanes=2 R=4", "skew", ("paper", 48, 2, 4)))
+
+
+def telemetry_stream(name: str, kind: str, args: tuple) -> dict:
+    """One --telemetry stream through the JAX engine with telemetry on."""
+    sys.path.insert(0, str(ROOT))
+    from repro.core.engine import LivelockError
+    from repro.graph.streams import hub_edges
+    from repro.obs import congestion_heatmap
+    from repro_torch.obs.frames import frame_record
+    t0 = time.time()
+    if kind == "pinned":
+        ref = json.loads((ROOT / "tests" / "data"
+                          / "pre_lanes_reference.json").read_text())
+        cfg = EngineConfig(**ref["cfg"], telemetry=True, frame_ring=16)
+        incs = make_stream(StreamSpec(**ref["spec"]))
+    elif kind == "skew":
+        from benchmarks.paper_experiments import SKEW_SCALES
+        scale, queue_cap, lanes, rhizome_cap = args
+        p = SKEW_SCALES[scale]
+        incs = make_stream(StreamSpec(
+            n_vertices=p["n_vertices"], n_edges=p["n_edges"], increments=4,
+            kind="rmat", seed=2))
+        cfg = EngineConfig(
+            height=p["height"], width=p["width"],
+            n_vertices=p["n_vertices"], edge_cap=8,
+            ghost_slots=max(64, 4 * p["n_edges"]
+                            // (8 * p["height"] * p["width"])),
+            queue_cap=queue_cap, chan_cap=32, futq_cap=8,
+            io_stream_cap=2 ** 20, chunk=512, rhizome_cap=rhizome_cap,
+            lanes=lanes, telemetry=True)
+    elif kind == "engine":
+        from benchmarks.engine_throughput import ENGINE_SCALES, _cfg
+        p = ENGINE_SCALES["ci"]
+        incs = make_stream(StreamSpec(
+            n_vertices=p["n_vertices"], n_edges=p["n_edges"], increments=2,
+            sampling="edge", seed=3))
+        cfg = _cfg(p, "jnp", telemetry=True)
+    else:   # the 8x8 hub stream of tests/test_obs.py
+        cfg = EngineConfig(height=8, width=8, n_vertices=128, edge_cap=4,
+                           ghost_slots=48, queue_cap=20, chan_cap=16,
+                           futq_cap=4, io_stream_cap=2048, chunk=64,
+                           lanes=1, telemetry=True, frame_ring=16)
+        e = hub_edges(128, 0, 200, seed=3)
+        one = np.float32(1.0).view(np.int32)
+        incs = [np.concatenate([e, np.full((len(e), 1), one, np.int64)],
+                               1).astype(np.int32)]
+    eng = StreamingEngine(cfg, "bfs")
+    eng.seed(0, 0.0)
+    rows, out = [], dict(name=name, kind=kind, args=list(args),
+                         cfg={k: v for k, v in dataclasses.asdict(cfg).items()
+                              if k != "faults"})
+    for i, e in enumerate(incs):
+        try:
+            r = eng.run_increment(e, max_cycles=SKEW_MAX_CYCLES)
+        except LivelockError as ex:
+            out["livelock"] = dict(increment=i, cycle=ex.cycle,
+                                   chunk=ex.chunk, message=str(ex),
+                                   **frame_record(ex.frames))
+            break
+        rows.append(dict(edges=len(e), cycles=r.cycles, hops=r.hops,
+                         execs=r.execs, stalls=r.stalls, allocs=r.allocs,
+                         **frame_record(r.frames)))
+        if kind == "engine" and i == 1:
+            out["heatmap"] = congestion_heatmap(cfg, r.frames)
+    out["increments"] = rows
+    print(f"{name}: {[r['cycles'] for r in rows]} "
+          f"{out.get('livelock', {}).get('cycle')} in "
+          f"{time.time() - t0:.1f}s", flush=True)
+    return out
+
+
+def main_telemetry() -> None:
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(
+            6, mp_context=ctx) as pool:
+        runs = list(pool.map(telemetry_stream, *zip(*TELEMETRY_STREAMS)))
+    out = dict(command=COMMAND + " --telemetry", commit=_commit(),
+               engine="repro (JAX, jnp backend, telemetry=True)",
+               digest="first 16 hex digits of the sha256 of the plane's "
+                      "int32 bytes, little-endian, C order",
+               max_cycles=SKEW_MAX_CYCLES, source=0, streams=runs)
+    TELEMETRY_OUT.write_text(json.dumps(out, indent=1) + "\n")
+    print(f"wrote {TELEMETRY_OUT}")
+
+
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--paper-ci", action="store_true",
                     help="record paper_ci_fingerprint.json instead")
     ap.add_argument("--skew", action="store_true",
                     help="record skew_fingerprint.json instead")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="record telemetry_fingerprint.json instead")
     args = ap.parse_args()
-    if args.skew:
+    if args.telemetry:
+        main_telemetry()
+    elif args.skew:
         main_skew()
     elif args.paper_ci:
         main_paper_ci()
