@@ -11,12 +11,14 @@ does on every config here):
 
   1. device: the card's name and power limit; no CUDA device -> exit 1
   2. build: nvcc for sm_90a, all four kernels at once, with the ptxas
-     registers, spills and static shared memory of both cycle kernels,
-     each without and with telemetry; fails if a cluster instance spills
+     registers, spills and static shared memory of both cycle kernels'
+     four instances each (without and with telemetry, without and with
+     faults); fails if a cluster instance spills
   3. cycle kernel vs plain PyTorch version on the card, every leaf and the
      launch record exactly equal (tolerance 0), each launch counted on the
      kernel it took: (a) the pinned 8x8 config chunk by chunk to
-     quiescence, (b) three mid-stream states of the 2000-vertex stream on
+     quiescence (the plain version on a CPU copy of each chunk's input),
+     (b) three mid-stream states of the 2000-vertex stream on
      the 32x32 paper config, one K=512 chunk each, on the cluster kernel
      and again forced onto the one-block kernel
   4. fingerprints through the kernel: tests/data/pre_lanes_reference.json
@@ -37,7 +39,8 @@ kernel, in its branches for per-cycle traces, ``app="ingest_only"`` and
  16. the new branches against the plain version on both cycle kernels
      (cluster, and forced onto the one-block kernel), every leaf, the
      launch record and every trace row equal: (a) the pinned 8x8 config
-     chunk by chunk, traced, bfs and ingest_only; (b) three mid-stream
+     chunk by chunk, traced, bfs and ingest_only (the plain version on a
+     CPU copy of each chunk's input); (b) three mid-stream
      states of the 2000-vertex stream on the 32x32 paper config, one
      traced K=512 chunk each, for bfs, ingest_only and bfs under the
      random allocator
@@ -68,7 +71,8 @@ the skew and lanes experiments, right after phase 19:
      launch record equal, chunk by chunk to quiescence: (a) the 8x8 hub
      stream of ``tests/test_lanes.py`` at lanes=4, the hub stream of
      ``tests/test_rhizome.py`` at rhizome_cap=4 (bfs), and widest and
-     reliable at rhizome_cap=2, lanes=2 on a weighted stream; (b) the
+     reliable at rhizome_cap=2, lanes=2 on a weighted stream (the plain
+     version on a CPU copy of each chunk's input); (b) the
      32x32 paper-scale skew config (rhizome_cap=4, lanes=2, 16,384
      vertices), whose cells fit no cluster band: a mid-stream state, one
      K=64 chunk on the one-block kernel
@@ -98,7 +102,8 @@ phase 22:
      (cluster, and forced onto the one-block kernel), every leaf (the
      three planes included) and the launch record equal: the pinned 8x8
      stream chunk by chunk, the 8x8 hub stream at lanes=4, rhizome_cap=4
-     (its first 16 chunks), and phase 6's full-size state (the 32x32
+     (its first 16 chunks), the plain version of both on a CPU copy of
+     each chunk's input, and phase 6's full-size state (the 32x32
      paper config, lanes=1), one K=512 chunk
  24. ``src/repro_torch/data/telemetry_fingerprint.json`` (the JAX engine
      with telemetry on: the pinned stream, the six ci skew and lanes
@@ -121,6 +126,54 @@ phase 22:
      for the device's idle share (not measured where the profiler fails)
  26. telemetry's cost: phase 6's K=512 chunk on the cluster kernel in turns
      (off, on, on, off), each equal to its plain version
+
+Faults, seals and repair (the same cycle kernel, in its compile-time
+fault instances: a ``FaultPlan``'s drop, dup, corrupt and blackout
+hazards in the hop stage, the seals, ``OP_REPAIR``, the ``flt``
+counters; the engine's loss detector and repair pass), right after phase
+26:
+
+ 27. both cycle kernels' fault instances, telemetry on and off, against
+     one run of the plain version with telemetry on (the runs without it
+     on every leaf but the planes), every leaf (``flt`` and the seal
+     words included) and the launch record equal: (a) the pinned 8x8
+     stream (lanes=1) under drop, dup and corrupt, chunk by chunk; (b)
+     the hub stream of ``tests/test_resilience.py`` (lanes=2) under its
+     plan, 16 chunks; (c) phase 6's full-size state under the paper plan
+     with its blackout window over that chunk's cycles, one K=512 chunk;
+     (d) the 8x8 hub stream at rhizome_cap=4 under drop, run on the
+     kernel without its repair, then the repair's sentinel rows (to
+     secondary roots too) loaded and run under the plan's safe twin
+     (the plain version of (a), (b) and (d) on a CPU copy of each
+     chunk's input)
+ 28. ``src/repro_torch/data/fault_fingerprint.json`` (the JAX engine
+     under fault plans, telemetry on: the ci and mid fault smokes, the
+     hub stream under a zero-rate plan and its four plans, the pinned
+     stream under drop and corrupt; the paper config at 20K vertices /
+     400K edges under the paper plan, telemetry off, which livelocks in
+     its repair pass) replayed exactly on the cluster kernel: each
+     increment's cycles, counters, ``flt``, frames and the digest of
+     every leaf of its final state, the livelock's increment, cycle,
+     chunk and ``flt``; then
+     ``paper_experiments.fault_smoke`` at ci (943 cycles) and mid (3,451)
+ 29. the paper stream (50K / 1M) under the paper plan (drop, dup and
+     corrupt at 4, 2 and 2 per cent, a W link dead for cycles 0-511) on
+     the cluster kernel, telemetry off and on, the counts set to 0 just
+     before each: per increment the cycles (repair included), ``flt``,
+     whether the repair ran and, with telemetry, departures less
+     deliveries == ``FLT_DROP``; launches by kernel; BFS == oracle.  A
+     livelock is recorded, not hidden: its increment, cycle and pass,
+     the kernels held against the plain version on the chunk in which
+     the machine wedged, and the path again without dups
+ 30. what faults cost, in turns (CUDA events): the paper stream without
+     faults and under a zero-rate plan (off, zero, zero, off), ms a
+     launch; phase 6's K=512 chunk without faults, under the zero-rate
+     plan and under the paper plan (off and faulty each equal to the
+     plain version, zero-rate equal to off but for the seals); the
+     faulty mid stream (10K / 100K on the paper config) against the
+     clean one, both through the same function, cycles and wall (clean,
+     faulty, faulty, clean).  The off
+     path against the parent commit: ``tools/cca_cycle_ab.py``
 
 The GNN and DLRM serving forwards (every aggregation a launch of the
 scatter-SpMM kernel, every DLRM lookup one launch of the EmbeddingBag
@@ -202,6 +255,7 @@ path, decode attention plain PyTorch):
 
 It ends with the kernels line (JSON) and the ok line (JSON, last).
 """
+import collections
 import contextlib
 import dataclasses
 import json
@@ -227,17 +281,18 @@ from repro_torch.configs import gnn_archs, lm_archs  # noqa: E402
 from repro_torch.configs.base import (gnn_shapes, lm_shapes,  # noqa: E402
                                       recsys_shapes)
 from repro_torch.configs.recsys_archs import DLRM_RM2  # noqa: E402
-from repro_torch.core import EngineConfig, StreamingEngine  # noqa: E402
+from repro_torch.core import (LIVELOCK_CHUNKS, EngineConfig,  # noqa: E402
+                              LivelockError, StreamingEngine)
 from repro_torch.core.apps import BFS  # noqa: E402
+from repro_torch.core.msg import DIR_W  # noqa: E402
 from repro_torch.core.ingest import load_stream  # noqa: E402
 from repro_torch.core.reference import bfs_levels  # noqa: E402
 from repro_torch.data.graphs import build_graph  # noqa: E402
 from repro_torch.data.pipeline import (RecSysBatchSpec,  # noqa: E402
                                        recsys_batch)
 from repro_torch.graph.segment_ops import sym_norm_coeff  # noqa: E402
-from repro_torch.core.state import init_state  # noqa: E402
-from repro_torch.graph.streams import (StreamSpec, hub_edges,  # noqa: E402
-                                       make_stream)
+from repro_torch.core.state import TM_HOP, init_state  # noqa: E402
+from repro_torch.graph.streams import StreamSpec, make_stream  # noqa: E402
 from repro_torch.kernels.cca_cycle import ops  # noqa: E402
 from repro_torch.kernels.cca_cycle.ref import cca_cycle_chunk_ref  # noqa: E402
 from repro_torch.kernels.embedding_bag import ops as bag_ops  # noqa: E402
@@ -252,6 +307,8 @@ from repro_torch.kernels.spmm.ref import (scatter_spmm_ref,  # noqa: E402
 from repro_torch.launch import paper_experiments as pe  # noqa: E402
 from repro_torch.launch import serve as lm_serve  # noqa: E402
 from repro_torch.models import dlrm, gnn, transformer  # noqa: E402
+from repro_torch.resilience import (FLT_CORRUPT, FLT_DROP,  # noqa: E402
+                                    FaultPlan)
 
 H100_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (data sheet, 700 W)
 H100_L2_BYTES = 50e6         # H100 L2 (data sheet)
@@ -292,37 +349,105 @@ def leaf_diff(a, b) -> float:
     return worst
 
 
+TM_LEAVES = ("tm_cell", "tm_lane", "tm_hiw")
+
+
+def without_telemetry(cfg, st):
+    """``cfg`` with telemetry off and ``st`` with its planes the 1x1
+    dummies that config lays out."""
+    cfg_off = dataclasses.replace(cfg, telemetry=False)
+    like = init_state(cfg_off, device="meta")
+    return cfg_off, st._replace(**{
+        k: torch.zeros(getattr(like, k).shape, dtype=torch.int32,
+                       device=st.aq.device) for k in TM_LEAVES})
+
+
+def to_device(st, dev):
+    return st._replace(**{k: v.to(dev) for k, v in st._asdict().items()})
+
+
 def kernel_vs_plain(cfg, app, st, n_cycles=None, paths=("auto",),
-                    traced=False):
+                    traced=False, plain_on_cpu=False,
+                    also_without_telemetry=False):
     """One chunk through the kernel (once for each of ``paths``) and the
     plain version from the same input; returns the max abs difference (0)
     or raises.  ``traced``: each call fills a trace tensor, and the
-    kernel's rows of the cycles run must equal the plain version's."""
+    kernel's rows of the cycles run must equal the plain version's.
+    ``plain_on_cpu`` runs the plain version on a CPU copy of the input
+    (the same integer and IEEE f32 arithmetic; on an 8x8 grid ~2.5x the
+    speed of its thousands of tiny launches a cycle on the card) and
+    brings its result back.  ``also_without_telemetry`` (``cfg`` has
+    telemetry on): each path also runs with telemetry off, and those runs
+    equal the plain version's on every leaf but the planes (telemetry
+    touches no other leaf), which stay their zero dummies."""
     n = cfg.chunk if n_cycles is None else n_cycles
+    dev = st.aq.device
 
-    def rows():
+    def rows(d):
         return torch.full((n, 2), -1, dtype=torch.int32,
-                          device=st.aq.device) if traced else None
+                          device=d) if traced else None
 
+    cases = [(cfg, st, None)]
+    if also_without_telemetry:
+        cfg_off, st_off = without_telemetry(cfg, st)
+        cases.append((cfg_off, st_off, st_off))
     runs = []
     for p in paths:
-        tr = rows()
-        runs.append(ops.cca_cycle_chunk(cfg, app, clone(st), n_cycles,
-                                        path=p, trace=tr) + (tr,))
-    want = rows()
-    sr, cr = cca_cycle_chunk_ref(cfg, app, st, n_cycles, want)
+        for c, s, off in cases:
+            tr = rows(dev)
+            runs.append((off,) + ops.cca_cycle_chunk(c, app, clone(s),
+                                                     n_cycles, path=p,
+                                                     trace=tr) + (tr,))
+    src = to_device(st, "cpu") if plain_on_cpu else st
+    want = rows(src.aq.device)
+    sr, cr = cca_cycle_chunk_ref(cfg, app, src, n_cycles, want)
+    sr, cr = to_device(sr, dev), cr.to(dev)
+    want = want.to(dev) if traced else None
     torch.cuda.synchronize()
     worst, ran = 0.0, int(cr[1])
-    for sk, ck, tk in runs:
+    for off, sk, ck, tk in runs:
+        tm = f" (telemetry {'off' if off else 'on'})" \
+            if also_without_telemetry else ""
         if not torch.equal(ck, cr):
             raise AssertionError(f"launch record {ck.tolist()} != "
-                                 f"{cr.tolist()}")
-        worst = max(worst, leaf_diff(sk, sr))
+                                 f"{cr.tolist()}{tm}")
+        worst = max(worst, leaf_diff(sk, sr if off is None else sr._replace(
+            **{k: getattr(off, k) for k in TM_LEAVES})))
         if traced and not torch.equal(tk[:ran], want[:ran]):
             bad = int((tk[:ran] != want[:ran]).any(1).nonzero()[0])
             raise AssertionError(f"trace row {bad}: {tk[bad].tolist()} != "
-                                 f"{want[bad].tolist()}")
+                                 f"{want[bad].tolist()}{tm}")
     return worst, sr, bool(cr[0])
+
+
+def chunks_vs_plain(tag, cfg, app, st, incs, max_chunks=None, **kw):
+    """``kernel_vs_plain`` on both kernels (cluster, then forced onto the
+    one-block kernel), the plain version on the CPU (``plain_on_cpu``: the
+    8x8 grids this runs), chunk by chunk over ``incs`` from ``st``: each
+    increment loaded (``None`` loads nothing), the counters, planes and
+    ``flt`` reset, then run to quiescence, or until ``max_chunks`` chunks
+    in all; raises unless every cycle-kernel launch since the start was
+    one of these.  ``kw`` goes to ``kernel_vs_plain``.  Returns ``(max abs
+    difference (0), state, chunks, cycles)``."""
+    worst, chunks, cycles = 0.0, 0, 0
+    before = dict(ops.path_launches)
+    for e in incs:
+        if e is not None:
+            st, spill = load_stream(cfg, st, e)
+            assert len(spill) == 0
+        st, q = fresh_stats(st), False
+        c0 = int(st.cycle)
+        while not q and chunks != max_chunks:
+            d, st, q = kernel_vs_plain(cfg, app, st,
+                                       paths=("cluster", "block"),
+                                       plain_on_cpu=True, **kw)
+            worst, chunks = max(worst, d), chunks + 1
+        cycles += int(st.cycle) - c0
+    per = 2 if kw.get("also_without_telemetry") else 1
+    got = {p: ops.path_launches[p] - before[p] for p in ops.PATHS}
+    if got != {"block": per * chunks, "cluster": per * chunks}:
+        raise AssertionError(f"{tag}: launches {got}, {chunks} chunks")
+    return worst, st, chunks, cycles
 
 
 def on_path(before, path, n):
@@ -336,42 +461,49 @@ def on_path(before, path, n):
                              f"{path} kernel")
 
 
+CYCLE_INSTANCES = tuple(f"{k}{t}{f}" for k in ("cluster", "block")
+                        for t in ("", "_telemetry") for f in ("", "_faults"))
+
+
 def cycle_ptxas(report: str) -> dict:
     """Phase 2: the registers, spills and static shared memory of both
-    cycle kernels, each in its instance without and with telemetry
-    (``cluster``, ``block``, ``cluster_telemetry``, ``block_telemetry``),
-    printed; raises if a cluster instance spills or is missing."""
+    cycle kernels, each in its four instances, without and with telemetry,
+    without and with faults (``cluster``, ``cluster_telemetry``,
+    ``cluster_faults``, ``cluster_telemetry_faults``, and ``block...`` the
+    same), printed; raises if a cluster instance spills or an instance is
+    missing."""
     out = {}
     for name, info in _build.ptxas_functions(report).items():
-        m = re.search(r"(cca_cycle_cluster_kernel|cca_cycle_kernel)ILb([01])E",
-                      name)
+        m = re.search(r"(cca_cycle_cluster_kernel|cca_cycle_kernel)"
+                      r"ILb([01])ELb([01])E", name)
         if not m:
             continue
         kind = ("cluster" if "cluster" in m[1] else "block") + (
-            "_telemetry" if m[2] == "1" else "")
+            "_telemetry" if m[2] == "1" else "") + (
+            "_faults" if m[3] == "1" else "")
         out[kind] = info
         print(f"[2] {kind} kernel: {info.get('registers')} registers, "
               f"{info.get('spill_stores')} bytes spill stores, "
               f"{info.get('spill_loads')} bytes spill loads, "
               f"{info.get('stack')} bytes stack, static smem "
               f"{info.get('smem', 0)} bytes", flush=True)
-    for kind in ("cluster", "cluster_telemetry"):
+    for kind in CYCLE_INSTANCES[:4]:
         c = out.get(kind, {})
         if not c or c.get("spill_stores", 1) or c.get("spill_loads", 1):
             raise AssertionError(f"{kind} cycle kernel: spills or no report "
                                  f"({c})")
-    if set(out) != {"cluster", "block", "cluster_telemetry",
-                    "block_telemetry"}:
+    if set(out) != set(CYCLE_INSTANCES):
         raise AssertionError(f"cycle kernel instances {sorted(out)}")
     return out
 
 
 STAT_LEAVES = ("stat_hops", "stat_exec", "stat_stall", "stat_allocs",
-               "tm_cell", "tm_lane", "tm_hiw")
+               "tm_cell", "tm_lane", "tm_hiw", "flt")
 
 
 def fresh_stats(st):
-    """Counters and telemetry planes zeroed, as ``run_increment`` does."""
+    """Counters, telemetry planes and fault counters zeroed, as
+    ``run_increment`` does."""
     return st._replace(**{k: torch.zeros_like(getattr(st, k))
                           for k in STAT_LEAVES})
 
@@ -426,20 +558,10 @@ def branch_phases(pinned) -> float:
         eng = StreamingEngine(EngineConfig(**pinned["cfg"]), app)
         if app == "bfs":
             eng.seed(0, 0.0)
-        cfg, st, chunks = eng.cfg, eng.state, 0
-        before = dict(ops.path_launches)
-        for e in make_stream(StreamSpec(**pinned["spec"])):
-            st, spill = load_stream(cfg, st, e)
-            assert len(spill) == 0
-            st, q = fresh_stats(st), False
-            while not q:
-                d, st, q = kernel_vs_plain(cfg, eng.app, st,
-                                           paths=("cluster", "block"),
-                                           traced=True)
-                worst, chunks = max(worst, d), chunks + 1
-        got = {p: ops.path_launches[p] - before[p] for p in ops.PATHS}
-        if got != {"block": chunks, "cluster": chunks}:
-            raise AssertionError(f"16a {app}: launches {got}, {chunks} chunks")
+        d, _, chunks, _ = chunks_vs_plain(
+            f"16a {app}", eng.cfg, eng.app, eng.state,
+            make_stream(StreamSpec(**pinned["spec"])), traced=True)
+        worst = max(worst, d)
         print(f"[16a] 8x8 pinned, {app}, traced: both kernels == plain on "
               f"every leaf, the record and every trace row over {chunks} "
               f"chunks (max |d| {worst}; {time.time() - t0:.1f}s)",
@@ -492,14 +614,6 @@ MAX_APP_KW = dict(height=8, width=8, n_vertices=64, edge_cap=4,
                   ghost_slots=32, queue_cap=48, chan_cap=16, futq_cap=4,
                   io_stream_cap=2048, chunk=64, rhizome_cap=2, lanes=2)
 MAX_APP_SEEDS = {"widest": 1e9, "reliable": 1.0}
-ONE_BITS = int(np.float32(1.0).view(np.int32))
-
-
-def hub_stream(n, degree, seed):
-    e = hub_edges(n, 0, degree, seed=seed)
-    return np.concatenate([e, np.full((len(e), 1), ONE_BITS, np.int64)],
-                          1).astype(np.int32)
-
 
 def weighted_increments(seed=1, n=64, m=320):
     """``tests/test_torch_max_apps.py``'s stream: two increments of random
@@ -514,14 +628,15 @@ def weighted_increments(seed=1, n=64, m=320):
 def lane_rhizome_phases() -> float:
     """Phase 20a: the lane, park, rhizome and max-app branches of both
     cycle kernels against the plain version, every leaf and the launch
-    record equal, chunk by chunk.  Returns the max abs difference (0)."""
+    record equal, chunk by chunk to quiescence.  Returns the max abs
+    difference (0)."""
     worst = 0.0
     cases = (
         ("8x8 hub lanes=4", EngineConfig(lanes=4, **HUB_KW), "bfs",
-         [hub_stream(128, 200, 3)], 0.0),
+         [pe.hub_stream(128, 200)], 0.0),
         ("8x8 hub rhizome_cap=4 bfs", EngineConfig(rhizome_cap=4,
                                                    **RHIZOME_KW),
-         "bfs", [hub_stream(64, 40, 3)], 0.0),
+         "bfs", [pe.hub_stream(64, 40)], 0.0),
         ("8x8 widest rhizome_cap=2 lanes=2", EngineConfig(**MAX_APP_KW),
          "widest", weighted_increments(), MAX_APP_SEEDS["widest"]),
         ("8x8 reliable rhizome_cap=2 lanes=2", EngineConfig(**MAX_APP_KW),
@@ -530,22 +645,9 @@ def lane_rhizome_phases() -> float:
         t0 = time.time()
         eng = StreamingEngine(cfg, app)
         eng.seed(0, seed)
-        st, chunks, cycles = eng.state, 0, 0
-        before = dict(ops.path_launches)
-        for e in incs:
-            st, spill = load_stream(cfg, st, e)
-            assert len(spill) == 0
-            st, q = fresh_stats(st), False
-            c0 = int(st.cycle)
-            while not q:
-                d, st, q = kernel_vs_plain(cfg, eng.app, st,
-                                           paths=("cluster", "block"))
-                worst, chunks = max(worst, d), chunks + 1
-            cycles += int(st.cycle) - c0
-        got = {p: ops.path_launches[p] - before[p] for p in ops.PATHS}
-        if got != {"block": chunks, "cluster": chunks}:
-            raise AssertionError(f"20a {name}: launches {got}, {chunks} "
-                                 f"chunks")
+        d, st, chunks, cycles = chunks_vs_plain(f"20a {name}", cfg, eng.app,
+                                                eng.state, incs)
+        worst = max(worst, d)
         print(f"[20a] {name}, {app}: both kernels (cluster "
               f"{ops.cluster_geometry(cfg)}) == plain on every leaf and the "
               f"record over {chunks} chunks, {cycles} cycles, "
@@ -741,27 +843,17 @@ def telemetry_phase_kernels(pinned, cfg_p, st) -> tuple[float, tuple]:
     plain result."""
     worst = 0.0
     cases = (("8x8 pinned", EngineConfig(**pinned["cfg"], telemetry=True),
-              make_stream(StreamSpec(**pinned["spec"])), 100),
+              make_stream(StreamSpec(**pinned["spec"])), None),
              ("8x8 hub lanes=4 rhizome_cap=4",
               EngineConfig(**dict(HUB_KW, lanes=4, rhizome_cap=4),
-                           telemetry=True), [hub_stream(128, 200, 3)], 16))
+                           telemetry=True), [pe.hub_stream(128, 200)], 16))
     for name, cfg, incs, max_chunks in cases:
         t0 = time.time()
         eng = StreamingEngine(cfg, "bfs")
         eng.seed(0, 0.0)
-        st8, chunks = eng.state, 0
-        before = dict(ops.path_launches)
-        for e in incs:
-            st8, spill = load_stream(cfg, st8, e)
-            assert len(spill) == 0
-            st8, q = fresh_stats(st8), False
-            while not q and chunks < max_chunks:
-                d, st8, q = kernel_vs_plain(cfg, BFS, st8,
-                                            paths=("cluster", "block"))
-                worst, chunks = max(worst, d), chunks + 1
-        got = {p: ops.path_launches[p] - before[p] for p in ops.PATHS}
-        if got != {"block": chunks, "cluster": chunks}:
-            raise AssertionError(f"23 {name}: launches {got}")
+        d, st8, chunks, _ = chunks_vs_plain(f"23 {name}", cfg, BFS,
+                                            eng.state, incs, max_chunks)
+        worst = max(worst, d)
         print(f"[23] {name}, telemetry: both kernels == plain on every leaf "
               f"(planes included) and the record over {chunks} chunks; "
               f"sum of tm_cell {int(st8.tm_cell.sum())}, of tm_lane "
@@ -831,11 +923,11 @@ def telemetry_phase_replay() -> None:
     print(f"[24] done in {time.time() - t_all:.1f}s", flush=True)
 
 
-def paper_stream_run(cfg, incs, events=None):
+def paper_stream_run(cfg, incs, events=None, launches=102, cycles=50_030):
     """The paper stream through the engine: per-increment results and the
     engine; ``events`` (a list) gets a pair of CUDA events around each
-    launch; every run 102 launches on the cluster kernel and 50,030
-    cycles."""
+    launch; every run ``launches`` launches on the cluster kernel and
+    ``cycles`` cycles (the 50K / 1M stream's by default)."""
     eng = StreamingEngine(cfg, "bfs")
     eng.seed(0, 0.0)
     before = dict(ops.path_launches)
@@ -844,10 +936,11 @@ def paper_stream_run(cfg, incs, events=None):
         res = [eng.run_increment(e, max_cycles=2_000_000) for e in incs]
     torch.cuda.synchronize()
     la = {p: ops.path_launches[p] - before[p] for p in ops.PATHS}
-    cycles = sum(r.cycles for r in res)
-    if la != {"block": 0, "cluster": 102} or cycles != 50_030:
-        raise AssertionError(f"paper stream telemetry={cfg.telemetry}: "
-                             f"launches {la}, {cycles} cycles")
+    got = sum(r.cycles for r in res)
+    if la != {"block": 0, "cluster": launches} or got != cycles:
+        raise AssertionError(f"paper stream telemetry={cfg.telemetry}, "
+                             f"faults={cfg.faults}: launches {la}, {got} "
+                             f"cycles")
     return res, eng
 
 
@@ -1040,6 +1133,444 @@ def telemetry_phase_cost(cfg_t, st_t, s_plain_t, cfg_p, st, s_plain) -> dict:
           f"{ratio:.4f}x; each == plain on every leaf", flush=True)
     return dict(chunk_ms=dict(off=turns[False], on=turns[True]),
                 chunk_ratio=ratio)
+
+
+# ---- faults, seals and repair (phases 27-30) ----
+
+FAULT_FP = json.loads((ROOT / "src" / "repro_torch" / "data"
+                       / "fault_fingerprint.json").read_text())
+# the JAX package's tests/test_resilience.py: its hub config and plan
+FAULT_HUB_KW = dict(height=8, width=8, n_vertices=256, edge_cap=8,
+                    ghost_slots=24, queue_cap=32, chan_cap=16, chunk=64,
+                    lanes=2, max_cycles=200_000)
+HUB_PLAN = FaultPlan(seed=7, drop_rate=0.05, dup_rate=0.03,
+                     corrupt_rate=0.02)
+# the paper stream's plan: drop, dup and corrupt at 4, 2 and 2 per cent,
+# the W link out of cell (0, 1) dead for the first 512 cycles; and the
+# plan fixed in advance for a livelock under it, the same without dups
+PAPER_PLAN = FaultPlan(seed=7, drop_rate=0.04, dup_rate=0.02,
+                       corrupt_rate=0.02, blackouts=((0, 1, DIR_W, 0, 512),))
+PAPER_PLAN_NO_DUP = dataclasses.replace(PAPER_PLAN, dup_rate=0.0)
+# the mid stream (10K / 100K, ten increments) on the paper config: its
+# launches and cycles clean and under PAPER_PLAN (repairs included)
+MID_STREAM = {"clean": (20, 7049), "faulty": (38, 14869)}
+def fault_phase_kernels(pinned, cfg_p, st) -> tuple[float, tuple]:
+    """Phase 27: the fault instances of both cycle kernels, telemetry on
+    and off, against one run of the plain version with telemetry on
+    (``kernel_vs_plain(also_without_telemetry=True)``): (a) the pinned
+    8x8 stream (lanes=1) under drop, dup and corrupt, chunk by chunk; (b)
+    the hub stream of ``tests/test_resilience.py`` (lanes=2) under its
+    plan, 16 chunks; (c) phase 6's full-size state (the 32x32 paper
+    config, the last increment loaded) under the paper plan with the
+    blackout window moved onto its cycles, one K=512 chunk; (d) the 8x8
+    hub stream at rhizome_cap=4 under drop, run to quiescence on the
+    kernel without its repair, then the repair's sentinel rows loaded and
+    run chunk by chunk under the plan's safe twin.  Returns the max abs
+    difference (0) and (c)'s config, input and plain result."""
+
+    def chunks(name, cfg, st, incs, max_chunks=None):
+        t0 = time.time()
+        d, st, n, _ = chunks_vs_plain(f"27 {name}", cfg, BFS, st, incs,
+                                      max_chunks, also_without_telemetry=True)
+        print(f"[27] {name}: the fault instances of both kernels, telemetry "
+              f"on and off, == plain on every leaf and the record over {n} "
+              f"chunks (cycle {int(st.cycle)}); flt {st.flt.tolist()} in the "
+              f"last increment (max |d| {d}; {time.time() - t0:.1f}s)",
+              flush=True)
+        return d
+
+    cfg = EngineConfig(**pinned["cfg"], telemetry=True,
+                       faults=dataclasses.replace(HUB_PLAN, seed=5))
+    eng = StreamingEngine(cfg, "bfs")
+    eng.seed(0, 0.0)
+    worst = chunks("(a) 8x8 pinned lanes=1", cfg, eng.state,
+                   make_stream(StreamSpec(**pinned["spec"])))
+    cfg = EngineConfig(**FAULT_HUB_KW, telemetry=True, faults=HUB_PLAN)
+    eng = StreamingEngine(cfg, "bfs")
+    eng.seed(0, 0.0)
+    worst = max(worst, chunks("(b) 8x8 hub lanes=2", cfg, eng.state,
+                              [pe.hub_stream()], 16))
+    t0 = time.time()
+    c0 = int(st.cycle)
+    cfg_f = dataclasses.replace(cfg_p, telemetry=True, faults=dataclasses
+                                .replace(PAPER_PLAN, blackouts=(
+                                    (0, 1, DIR_W, c0, 512),)))
+    like = init_state(cfg_f, device="meta")
+    st_f = st._replace(**{k: torch.zeros(getattr(like, k).shape,
+                                         dtype=torch.int32,
+                                         device=st.aq.device)
+                          for k in TM_LEAVES + ("flt",)})
+    before = dict(ops.path_launches)
+    d, s_plain_f, q = kernel_vs_plain(cfg_f, BFS, st_f, 512,
+                                      ("cluster", "block"),
+                                      also_without_telemetry=True)
+    if {p: ops.path_launches[p] - before[p] for p in ops.PATHS} != \
+            {"cluster": 2, "block": 2}:
+        raise AssertionError("27c: not two launches on each kernel")
+    flt = s_plain_f.flt.tolist()
+    if min(flt) == 0:
+        raise AssertionError(f"27c: a hazard never fired: flt {flt}")
+    worst = max(worst, d)
+    print(f"[27] (c) 32x32 paper config, the last increment's state, the "
+          f"paper plan with its blackout over cycles {c0}..{c0 + 511}: one "
+          f"K=512 chunk, the fault instances of both kernels, telemetry on "
+          f"and off, == plain on every leaf (flt {flt}; cycle "
+          f"{int(s_plain_f.cycle)}, quiescent {q}; {time.time() - t0:.1f}s)",
+          flush=True)
+    cfg = EngineConfig(rhizome_cap=4, **RHIZOME_KW, telemetry=True,
+                       faults=FaultPlan(seed=3, drop_rate=0.05))
+    eng = StreamingEngine(cfg, "bfs")
+    eng.seed(0, 0.0)
+    eng.state, spill = load_stream(cfg, eng.state, pe.hub_stream(64, 40))
+    eng.state = fresh_stats(eng.state)
+    eng._passes(cfg, spill, 200_000, [])
+    entries = eng._repair_entries()
+    secondary = int((entries[:, 1] < -1).sum())
+    if not eng._loss_count() or not secondary:
+        raise AssertionError(f"27d: lost {eng._loss_count()}, {secondary} "
+                             f"sentinel rows for secondary roots")
+    safe = dataclasses.replace(cfg, faults=cfg.faults.safe())
+    st_r, spill = load_stream(safe, eng.state, entries)
+    assert len(spill) == 0
+    worst = max(worst, chunks(
+        f"(d) 8x8 hub rhizome_cap=4, {len(entries)} repair rows "
+        f"({secondary} to secondary roots) under the safe plan", safe,
+        st_r, [None]))
+    return worst, (cfg_f, st_f, s_plain_f)
+
+
+def check_fault_record(name, got, rec) -> None:
+    if got.get("livelock") != rec.get("livelock"):
+        raise AssertionError(f"{name}: livelock {got.get('livelock')} != "
+                             f"the JAX engine's {rec.get('livelock')}")
+    if got["increments"] != rec["increments"]:
+        for i, (a, b) in enumerate(zip(got["increments"],
+                                       rec["increments"])):
+            diff = sorted(k for k in b if a.get(k) != b[k])
+            diff += sorted(f"state.{k}" for k in b["state"]
+                           if a["state"].get(k) != b["state"][k])
+            if diff:
+                raise AssertionError(f"{name}: increment {i} differs from "
+                                     f"the JAX engine's in {diff}")
+        raise AssertionError(f"{name}: {len(got['increments'])} increments, "
+                             f"the JAX engine's {len(rec['increments'])}")
+
+
+def fault_phase_replay() -> dict:
+    """Phase 28: ``src/repro_torch/data/fault_fingerprint.json`` (the JAX
+    engine under fault plans) replayed exactly on the cluster kernel:
+    each increment's cycles, counters, ``flt``, frame count and the digest
+    of every leaf of its final state, and the livelock of the 32x32 row at
+    20K vertices / 400K edges under the paper plan (its increment, cycle,
+    chunk and ``flt``: the repair pass's flood, phase 29's at a size the
+    JAX engine replays on a CPU); then
+    ``fault_smoke`` at ci and mid, its record's cycles and counts those of
+    the fingerprint's smoke rows."""
+    t_all, smokes = time.time(), {}
+    for rec in FAULT_FP["streams"]:
+        t0 = time.time()
+        before = dict(ops.path_launches)
+        got, _ = pe.fault_replay(rec, PINNED_SPEC)
+        check_fault_record(f"28 {rec['name']}", got, rec)
+        la = {p: ops.path_launches[p] - before[p] for p in ops.PATHS}
+        if la["block"] or not la["cluster"]:
+            raise AssertionError(f"28 {rec['name']}: launches {la}")
+        rows, ll = got["increments"], got.get("livelock")
+        print(f"[28] {rec['name']}: {[r['cycles'] for r in rows]} cycles, "
+              f"flt {[r['flt'] for r in rows]}, frames "
+              f"{[r['frames'] for r in rows]}, every final leaf"
+              + (f", the livelock at increment {ll['increment']} cycle "
+                 f"{ll['cycle']} (chunk {ll['chunk']}, flt {ll['flt']})"
+                 if ll else "")
+              + f" == the JAX engine's ({la['cluster']} launches on the "
+              f"cluster kernel, {time.time() - t0:.1f}s)", flush=True)
+    for scale in pe.ENGINE_SCALES:
+        rec = next(r for r in FAULT_FP["streams"]
+                   if r["kind"] == "smoke" and r["scale"] == scale)
+        got = pe.fault_smoke(scale)
+        want = [{k: r[k] for k in ("cycles", "flt", "frames")}
+                for r in rec["increments"]]
+        if [{k: r[k] for k in ("cycles", "flt", "frames")}
+                for r in got["increments"]] != want:
+            raise AssertionError(f"28 fault_smoke {scale}: "
+                                 f"{got['increments']} != {want}")
+        smokes[scale] = {k: got[k] for k in (
+            "status", "cycles", "wall_s", "dropped", "duplicated",
+            "corrupted", "blackout_hits")}
+        print(f"[28] fault_smoke({scale!r}): {json.dumps(smokes[scale])}; "
+              f"== the fingerprint", flush=True)
+    print(f"[28] done in {time.time() - t_all:.1f}s", flush=True)
+    return smokes
+
+
+@contextlib.contextmanager
+def keep_inputs(ring: collections.deque):
+    """While the block runs, every cycle-kernel launch through
+    ``ops.cca_cycle_chunk`` first appends its config and a copy of its
+    input state to ``ring`` (a bounded deque): after a livelock, its
+    oldest entry is the chunk in which the machine wedged."""
+    launch = ops.cca_cycle_chunk
+
+    def kept(cfg, app, st, *a, **kw):
+        ring.append((cfg, clone(st)))
+        return launch(cfg, app, st, *a, **kw)
+
+    ops.cca_cycle_chunk = kept
+    try:
+        yield
+    finally:
+        ops.cca_cycle_chunk = launch
+
+
+def faulty_stream(cfg, incs, want) -> dict:
+    """A stream under ``cfg``'s plan on the engine, the counts set to 0
+    just before and read just after: per increment the cycles (the
+    repair's included), ``flt``, whether the repair ran and (telemetry)
+    departures less deliveries, which must equal ``FLT_DROP``; launches by
+    kernel, all on the cluster kernel; BFS == oracle.  On a
+    ``LivelockError`` the record has ``livelock`` (increment, cycle,
+    chunk, whether in the repair pass, with telemetry the head of the
+    flight recorder's report) and, under ``wedged``, the config
+    and input of the chunk in which the machine wedged (the last with
+    progress, ``LIVELOCK_CHUNKS`` launches before the error)."""
+    ops.launches = 0
+    ops.path_launches = dict.fromkeys(ops.PATHS, 0)
+    eng = StreamingEngine(cfg, "bfs")
+    eng.seed(0, 0.0)
+    rows, out = [], {}
+    ring = collections.deque(maxlen=LIVELOCK_CHUNKS + 1)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with keep_inputs(ring):
+        for i, e in enumerate(incs):
+            try:
+                r = eng.run_increment(e, max_cycles=2_000_000)
+            except LivelockError as ex:
+                out.update(livelock=dict(
+                    increment=i, cycle=ex.cycle, chunk=ex.chunk,
+                    in_repair=ring[-1][0].faults == cfg.faults.safe(),
+                    flt=eng.state.flt.tolist(),
+                    report=str(ex).splitlines()[1:4]), wedged=ring[0])
+                break
+            row = dict(cycles=r.cycles, hops=r.hops,
+                       flt=eng.state.flt.tolist(),
+                       repaired=pe.lost(eng) > 0)
+            if cfg.telemetry:
+                row["gap"] = int(eng.state.stat_hops
+                                 - eng.state.tm_cell[..., TM_HOP].sum())
+                if row["gap"] != row["flt"][FLT_DROP]:
+                    raise AssertionError(
+                        f"29 increment {i}: departures less deliveries "
+                        f"{row['gap']} != FLT_DROP of {row['flt']}")
+            rows.append(row)
+        torch.cuda.synchronize()
+    out.update(wall_s=time.time() - t0, increments=rows,
+               cycles=sum(r["cycles"] for r in rows),
+               launches=dict(ops.path_launches))
+    if out["launches"]["block"] or not out["launches"]["cluster"]:
+        raise AssertionError(f"29: launches {out['launches']}")
+    if "livelock" not in out and not (eng.values() == want).all():
+        raise AssertionError("29: BFS != oracle")
+    return out
+
+
+def fault_phase_paths(cfg_p, incs, want) -> dict:
+    """Phase 29: the paper stream (50K / 1M) under ``PAPER_PLAN`` on the
+    cluster kernel, telemetry off and on (``faulty_stream``): it loses
+    messages and repairs them, ending with BFS == oracle.  Should it
+    livelock, that is recorded, not hidden: the increment, the cycle,
+    whether in the repair pass, and under ``PAPER_PLAN`` the fault
+    instances of both kernels held against the plain version on the chunk
+    in which it wedged (the telemetry run's); and the path runs again
+    under ``PAPER_PLAN_NO_DUP``, fixed in advance."""
+    out = {}
+    for name, plan in (("paper", PAPER_PLAN),
+                       ("paper without dups", PAPER_PLAN_NO_DUP)):
+        for tm in (False, True):
+            key = f"{name}, telemetry={'on' if tm else 'off'}"
+            r = faulty_stream(dataclasses.replace(cfg_p, faults=plan,
+                                                  telemetry=tm), incs, want)
+            rows = r["increments"]
+            ll = r.get("livelock")
+            lost = sum(x["flt"][FLT_DROP] + x["flt"][FLT_CORRUPT]
+                       for x in rows) + (ll["flt"][FLT_DROP]
+                                         + ll["flt"][FLT_CORRUPT]
+                                         if ll else 0)
+            if not lost:
+                raise AssertionError(f"29 {key}: no message lost")
+            print(f"[29] {key}: "
+                  + (f"LIVELOCK at increment {ll['increment']}, cycle "
+                     f"{ll['cycle']} (chunk {ll['chunk']}), "
+                     f"{'in' if ll['in_repair'] else 'before'} its repair "
+                     f"pass, flt {ll['flt']}; before it " if ll else "")
+                  + f"{r['cycles']} cycles (repairs included) in "
+                  f"{r['launches']} launches, wall {r['wall_s']:.3f}s (host "
+                  f"clock, set-up included); by increment: cycles "
+                  f"{[x['cycles'] for x in rows]}, flt "
+                  f"{[x['flt'] for x in rows]}, repaired "
+                  f"{[x['repaired'] for x in rows]}"
+                  + ("; departures - deliveries == FLT_DROP in each"
+                     if tm else "")
+                  + ("" if ll else "; BFS == oracle"), flush=True)
+            if ll and tm:
+                print("\n".join(f"[29]   {x}" for x in ll["report"]),
+                      flush=True)
+            if ll and tm and plan is PAPER_PLAN:
+                t0 = time.time()
+                cfg_w, st_w = r["wedged"]
+                d, s_w, _ = kernel_vs_plain(cfg_w, BFS, st_w,
+                                            paths=("cluster", "block"),
+                                            also_without_telemetry=True)
+                print(f"[29] {key}: the chunk in which it wedged (cycle "
+                      f"{int(st_w.cycle)}..{int(s_w.cycle) - 1}): the fault "
+                      f"instances of both kernels, telemetry on and off, == "
+                      f"plain on every leaf (max |d| {d}; "
+                      f"{time.time() - t0:.1f}s)", flush=True)
+            r.pop("wedged", None)
+            out[key] = r
+        if not any("livelock" in v for v in out.values()):
+            break
+    return out
+
+
+SEALED = ("aq", "ch", "pk", "cmsg")    # leaves that hold sealed messages
+
+
+def same_but_seals(a, b) -> None:
+    """Raise unless states ``a`` and ``b`` are equal but for the seal word
+    (word 4) of the messages they hold and ``flt``: what a zero-rate plan
+    may change."""
+    for name in a._fields:
+        x, y = getattr(a, name), getattr(b, name)
+        if name == "flt":
+            continue
+        if name in SEALED:
+            x, y = x[..., :4], y[..., :4]
+        if not torch.equal(x, y):
+            raise AssertionError(f"leaf {name!r} differs beyond the seals")
+
+
+def fault_phase_cost(incs, cfg_p, st, s_plain, cfg_f, st_f, s_plain_f
+                     ) -> dict:
+    """Phase 30: what faults cost on the card, in turns (CUDA events).
+    (a) The paper stream without faults and under a zero-rate plan (off,
+    zero, zero, off): ms a launch, the same 102 launches, 50,030 cycles
+    and values in every run.  (b) Phase 6's K=512 chunk on the cluster
+    kernel without faults, under the zero-rate plan and under phase 27c's
+    paper plan (off, zero, faulty, faulty, zero, off): without faults and
+    faulty each equal to its plain version, the zero-rate run to the run
+    without faults but for the seals.  (c) The faulty stream against the
+    clean one, wall and cycles, in turns (clean, faulty, faulty, clean),
+    both through ``paper_stream_run`` (the same code and no reads between
+    increments; each run's counts set to 0 before it), on the paper config
+    at the paper experiments' mid scale (10K vertices, 100K edges, ten
+    increments), the largest scale whose faulty stream does not livelock
+    (phase 29)."""
+    out = {}
+    zero = dataclasses.replace(cfg_p, faults=FaultPlan(seed=7))
+    turns = {"off": [], "zero": []}
+    want = None
+    for which in ("off", "zero", "zero", "off"):
+        ops.launches = 0
+        ops.path_launches = dict.fromkeys(ops.PATHS, 0)
+        events = []
+        res, eng = paper_stream_run(zero if which == "zero" else cfg_p,
+                                    incs, events)
+        turns[which].append(sum(a.elapsed_time(b) for a, b in events)
+                            / len(events))
+        vals = eng.values()
+        if want is None:
+            want = vals
+        elif not (vals == want).all():
+            raise AssertionError("30a: values differ between the runs")
+        if which == "zero" and sum(eng.state.flt.tolist()):
+            raise AssertionError("30a: a zero-rate plan injected faults")
+        del eng, res
+    ratio = np.mean(turns["zero"]) / np.mean(turns["off"])
+    print(f"[30] paper stream in turns off, zero-rate, zero-rate, off: "
+          f"{turns['off'][0]:.4f} / {turns['zero'][0]:.4f} / "
+          f"{turns['zero'][1]:.4f} / {turns['off'][1]:.4f} ms a launch "
+          f"(102 launches, 50,030 cycles each): the zero-rate plan "
+          f"{ratio:.4f}x", flush=True)
+    out["paper_stream_ms"] = turns
+    out["zero_rate_ratio"] = ratio
+    cfg_fo, st_fo = without_telemetry(cfg_f, st_f)
+    want_f = s_plain_f._replace(**{k: getattr(st_fo, k) for k in TM_LEAVES})
+    cases = {"off": (cfg_p, st), "zero": (zero, st_f._replace(
+        **{k: getattr(st, k) for k in TM_LEAVES})), "faulty": (cfg_fo, st_fo)}
+    chunk = {k: [] for k in cases}
+    kept = {}
+    for which in ("off", "zero", "faulty", "faulty", "zero", "off"):
+        cfg, s0 = cases[which]
+        s = clone(s0)
+        before = dict(ops.path_launches)
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        a.record()
+        s2, _ = ops.cca_cycle_chunk(cfg, BFS, s, 512, path="cluster")
+        b.record()
+        torch.cuda.synchronize()
+        on_path(before, "cluster", 1)
+        chunk[which].append(a.elapsed_time(b))
+        kept[which] = s2
+        if which == "off":
+            leaf_diff(s2, s_plain)
+        elif which == "faulty":
+            leaf_diff(s2, want_f)
+    same_but_seals(kept["zero"], kept["off"])
+    off_ms = np.mean(chunk["off"])
+    print(f"[30] full-size K=512 chunk on the cluster kernel in turns off, "
+          f"zero-rate, faulty, faulty, zero-rate, off: off "
+          f"{chunk['off'][0]:.4f} / {chunk['off'][1]:.4f} ms, zero-rate "
+          f"{chunk['zero'][0]:.4f} / {chunk['zero'][1]:.4f} ms "
+          f"({np.mean(chunk['zero']) / off_ms:.4f}x), faulty "
+          f"{chunk['faulty'][0]:.4f} / {chunk['faulty'][1]:.4f} ms "
+          f"({np.mean(chunk['faulty']) / off_ms:.4f}x); off and faulty == "
+          f"plain on every leaf, zero-rate == off but for the seals",
+          flush=True)
+    out["chunk_ms"] = chunk
+    mid = pe.SCALES["mid"]
+    incs_mid = make_stream(StreamSpec(increments=10, sampling="edge", seed=1,
+                                      **mid))
+    want_mid = bfs_levels(mid["n_vertices"], np.concatenate(incs_mid), 0)
+    cfg_mid = paper_cfg(**mid)
+    runs = {"clean": [], "faulty": []}
+    for which in ("clean", "faulty", "faulty", "clean"):
+        faulty = which == "faulty"
+        ops.launches = 0
+        ops.path_launches = dict.fromkeys(ops.PATHS, 0)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        _, eng = paper_stream_run(
+            dataclasses.replace(cfg_mid, faults=PAPER_PLAN) if faulty
+            else cfg_mid, incs_mid, None, *MID_STREAM[which])
+        wall = time.time() - t0
+        if not (eng.values() == want_mid).all():
+            raise AssertionError(f"30c: the {which} mid stream's BFS != "
+                                 f"oracle")
+        if faulty:
+            flt = eng.state.flt.tolist()
+            if not flt[FLT_DROP]:
+                raise AssertionError(f"30c: no drop in the last increment "
+                                     f"({flt})")
+        runs[which].append(wall)
+        del eng
+    (c_la, c_cy), (f_la, f_cy) = MID_STREAM["clean"], MID_STREAM["faulty"]
+    out["faulty_vs_clean_mid"] = dict(
+        clean_cycles=c_cy, faulty_cycles=f_cy, clean_launches=c_la,
+        faulty_launches=f_la, clean_wall_s=runs["clean"],
+        faulty_wall_s=runs["faulty"])
+    print(f"[30] mid stream (10K / 100K on the 32x32 paper config) in turns "
+          f"clean, faulty, faulty, clean, each through paper_stream_run: "
+          f"{c_cy} / {f_cy} cycles ({f_cy / c_cy:.4f}x), {c_la} / {f_la} "
+          f"launches, wall {runs['clean'][0]:.4f} / {runs['faulty'][0]:.4f} "
+          f"/ {runs['faulty'][1]:.4f} / {runs['clean'][1]:.4f}s "
+          f"({np.mean(runs['faulty']) / np.mean(runs['clean']):.4f}x; host "
+          f"clock, the engine's set-up included, ends in synchronize); BFS "
+          f"== oracle in every run, the faulty one's after its repairs (flt "
+          f"of its last increment {flt})", flush=True)
+    return out
 
 
 def experiment_phases(smi: str) -> dict:
@@ -2218,7 +2749,7 @@ def main() -> None:
         assert len(spill) == 0
         st, q = fresh_stats(st), False
         while not q:
-            d, st, q = kernel_vs_plain(cfg, BFS, st)
+            d, st, q = kernel_vs_plain(cfg, BFS, st, plain_on_cpu=True)
             worst, chunks = max(worst, d), chunks + 1
     on_path(before, "cluster", chunks)
     print(f"[3a] 8x8 pinned, cluster kernel {ops.cluster_geometry(cfg)} "
@@ -2421,6 +2952,16 @@ def main() -> None:
                                    s_plain)
     del st_t, s_plain_t
 
+    # ---- 27-30. faults, seals and repair: the kernels' fault instances,
+    # the fingerprint, the paper stream under faults, the cost ----
+    d_flt, (cfg_f, st_f, s_plain_f) = fault_phase_kernels(pinned, cfg_p, st)
+    worst = max(worst, d_flt)
+    flt_smokes = fault_phase_replay()
+    flt_paths = fault_phase_paths(cfg_p, incs, want)
+    flt_cost = fault_phase_cost(incs, cfg_p, st, s_plain, cfg_f, st_f,
+                                s_plain_f)
+    del st_f, s_plain_f
+
     cca_entry = {
         "name": "cca_cycle_chunk", "route": "cuda",
         "source": "src/repro_torch/kernels/cca_cycle/csrc/"
@@ -2437,8 +2978,15 @@ def main() -> None:
         "plain_ms": t_plain, "bound_ms": bound_ms, "bound_by": "bytes",
         "library_ms": None, "chunk_cycles": ran, "ptxas": cca_ptxas,
         "branches": ["traces", "ingest_only", "random_allocator", "lanes",
-                     "park", "rhizomes", "widest", "reliable", "telemetry"],
+                     "park", "rhizomes", "widest", "reliable", "telemetry",
+                     "faults"],
         "telemetry": dict(tm_paths, **tm_cost),
+        "faults": dict(
+            smokes=flt_smokes,
+            paper_stream={k: {m: v[m] for m in (
+                "cycles", "launches", "wall_s", "increments", "livelock")
+                if m in v} for k, v in flt_paths.items()},
+            **flt_cost),
         "traced_ms": t_traced, "untraced_ms_in_turns": t_untraced,
         "paper_experiments": {
             "launches": experiments["launches"],

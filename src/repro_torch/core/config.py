@@ -4,7 +4,8 @@ The port's own copy of ``repro.core.config.EngineConfig``: the same
 fields (``backend`` dropped -- the device decides) and the same derived
 capacities, so a config built with the same arguments lays the machine
 state out exactly as the JAX engine does, virtual lanes and rhizome
-vertex objects included.  Knobs the port does not carry yet are rejected
+vertex objects included, and ``faults`` takes the port's own
+``resilience.FaultPlan``.  Knobs the port does not carry yet are rejected
 by :meth:`EngineConfig.validate` with ``NotImplementedError`` instead of
 being ignored.
 """
@@ -57,7 +58,8 @@ class EngineConfig:
     # --- observability / resilience ---
     telemetry: bool = False
     frame_ring: int = 64
-    faults: object = None
+    faults: object = None         # resilience.FaultPlan, or None: no fault
+                                  # code runs at all
     ingest_guard: bool = False
 
     @property
@@ -114,8 +116,8 @@ class EngineConfig:
         rules) and ``NotImplementedError`` on a knob the port does not
         carry yet."""
         not_yet = [name for name, off in (
-            ("faults", self.faults is None),
-            ("ingest_guard", not self.ingest_guard),
+            ("ingest_guard (ROADMAP.md queue 1, item 4(b))",
+             not self.ingest_guard),
             ("qbatch>1", self.qbatch == 1),
             ("n_vals>1", self.n_vals == 1),
             ("n_io_cells other than width",
@@ -162,3 +164,9 @@ class EngineConfig:
         for ok, msg in checks:
             if not ok:
                 raise ValueError(msg)
+        if self.faults is not None:
+            from repro_torch.resilience.faults import FaultPlan
+            if not isinstance(self.faults, FaultPlan):
+                raise ValueError(f"faults must be a repro_torch.resilience."
+                                 f"FaultPlan or None, not {self.faults!r}")
+            self.faults.validate(self)

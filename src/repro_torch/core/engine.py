@@ -39,6 +39,15 @@ back as ``IncrementResult.frames``, and on a livelock in
 ``LivelockError.frames``, whose message then carries the flight
 recorder's wedge report.  A snapshot takes the quiescent bit from the
 launch record it follows, not from a reduction over the state.
+
+With ``cfg.faults`` (DESIGN §9) the cycle injects the plan's hazards (the
+kernels' fault instances on the card), the ``flt`` counters reset with
+the others, and both drivers end an increment with the loss detector: if
+messages were lost, a bounded repair pass re-injects every durable value
+as ``OP_REPAIR`` traffic through the IO cells and runs device-loop passes
+under the plan's safe twin until the values are exact again.  Its cycles
+count in the increment's; the device loop's counters and frames include
+it, the traced loop adds no trace row and no frame for it.
 """
 from __future__ import annotations
 
@@ -55,8 +64,8 @@ from repro_torch.core.config import EngineConfig
 from repro_torch.core.exec_stage import phase0_stage, staging_stage
 from repro_torch.core.ingest import io_stage, load_stream
 from repro_torch.core.routing import hop_stage, park_stage
-from repro_torch.core.state import (TM_L_OCC, MachineState, init_state,
-                                    resolve_device)
+from repro_torch.core.state import (TM_HOP, TM_L_OCC, MachineState,
+                                    init_state, resolve_device)
 from repro_torch.obs import frames as obs_frames
 from repro_torch.obs.flight import render_wedge_report
 
@@ -230,7 +239,8 @@ class StreamingEngine:
             if on:
                 raise NotImplementedError(
                     f"repro_torch does not port run_increment({name}=...) "
-                    "yet")
+                    "yet (ROADMAP.md queue 1, item 4(b): durable state and "
+                    "recovery)")
         cfg = self.cfg
         limit = max_cycles or cfg.max_cycles
         self.state, spill = load_stream(cfg, self.state, edges)
@@ -238,6 +248,11 @@ class StreamingEngine:
         self.state = self.state._replace(
             stat_hops=zero.clone(), stat_exec=zero.clone(),
             stat_stall=zero.clone(), stat_allocs=zero.clone())
+        if cfg.faults is not None:
+            # the fault counters reset with the counters: the loss
+            # detector reconciles each increment on its own
+            self.state = self.state._replace(
+                flt=torch.zeros_like(self.state.flt))
         if cfg.telemetry:
             # the planes reset with the counters, so the increment's final
             # frame reconciles with them
@@ -246,23 +261,29 @@ class StreamingEngine:
                 tm_lane=torch.zeros_like(self.state.tm_lane),
                 tm_hiw=torch.zeros_like(self.state.tm_hiw))
         if collect_traces:
-            cycles, spill, traces, frames = self._run_traced(spill, limit)
-            counters = tuple(torch.stack(
-                [self.state.stat_hops, self.state.stat_exec,
-                 self.state.stat_stall, self.state.stat_allocs]).tolist())
+            cycles, spill, traces, frames = self._run_traced(cfg, spill,
+                                                             limit)
         else:
             rings = []
-            cycles, q, noprog, counters, spill = self._passes(spill, limit,
-                                                              rings)
+            cycles, q, noprog, counters, spill = self._passes(
+                cfg, spill, limit, rings)
             frames = obs_frames.FrameLog.from_rings(rings) if rings else None
             if not q and noprog >= LIVELOCK_CHUNKS:
                 _raise_livelock(cfg, cycle=cycles, chunk=cycles // cfg.chunk,
                                 frames=frames)
             traces = (np.zeros(0, np.int32), np.zeros(0, np.int32))
         if len(spill):
-            raise RuntimeError(
-                f"cycle limit {limit} exhausted with {len(spill)} spilled "
-                "edges not yet ingested; raise max_cycles or io_stream_cap")
+            raise RuntimeError(self._spill_msg(limit, spill))
+        if cfg.faults is not None:
+            # the traced loop's repair tail adds no trace row and no frame
+            cycles = self._repair_rounds(limit, cycles,
+                                         [] if collect_traces else rings)
+            if not collect_traces and rings:
+                frames = obs_frames.FrameLog.from_rings(rings)
+        if collect_traces or cfg.faults is not None:
+            counters = tuple(torch.stack(
+                [self.state.stat_hops, self.state.stat_exec,
+                 self.state.stat_stall, self.state.stat_allocs]).tolist())
         self.stream_pos += 1
         self.total_cycles += cycles
         res = IncrementResult(cycles, *traces, *counters, frames)
@@ -270,24 +291,107 @@ class StreamingEngine:
             self.totals[k] += v
         return res
 
-    def _passes(self, spill, limit: int, rings: list):
-        """The device loop's passes until quiescence with the spill
-        drained, or the cycle or livelock budget.  Appends each pass's
+    @staticmethod
+    def _spill_msg(limit: int, spill) -> str:
+        return (f"cycle limit {limit} exhausted with {len(spill)} spilled "
+                "edges not yet ingested; raise max_cycles or io_stream_cap")
+
+    def _passes(self, cfg: EngineConfig, spill, limit: int, rings: list,
+                cycles: int = 0):
+        """The device loop's passes under ``cfg`` until quiescence with
+        the spill drained, or the cycle or livelock budget (``limit``
+        less the ``cycles`` the increment has run).  Appends each pass's
         frame ring (on the host) to ``rings`` when telemetry is on.
         Returns ``(cycles, quiescent, no-progress chunks, counters,
-        spill)``."""
-        cycles = 0
+        spill)``, ``cycles`` the increment's so far."""
         while True:
-            ran, q, noprog, counters = self._pass(limit - cycles, rings)
+            ran, q, noprog, counters = self._pass(cfg, limit - cycles, rings)
             cycles += ran
             if q and len(spill):
                 # io_stream_cap overflow residue: the loaded prefix is
                 # consumed at quiescence, so reload the rest
-                self.state, spill = load_stream(self.cfg, self.state, spill)
+                self.state, spill = load_stream(cfg, self.state, spill)
                 continue
             return cycles, q, noprog, counters, spill
 
-    def _run_traced(self, spill, limit: int):
+    # -- detection and repair: the §8 invariants as a loss detector (§9) --
+
+    def _loss_count(self) -> int:
+        """Messages lost this increment: the dropped and the corrupted
+        (the fault counters) and, with telemetry, at least link
+        departures (``stat_hops``) less deliveries (``sum(TM_HOP)``) plus
+        the corrupted, a count that does not read the injection's own
+        bookkeeping."""
+        from repro_torch.resilience.faults import FLT_CORRUPT, FLT_DROP
+        flt = self.state.flt.tolist()
+        lost = flt[FLT_DROP] + flt[FLT_CORRUPT]
+        if self.cfg.telemetry:
+            gap = int(self.state.stat_hops
+                      - self.state.tm_cell[..., TM_HOP].sum())
+            lost = max(lost, gap + flt[FLT_CORRUPT])
+        return lost
+
+    def _repair_entries(self) -> np.ndarray:
+        """Stream rows that re-inject every finite durable value at every
+        active rhizome root of its vertex: sentinel rows ``(vid, -(k+1),
+        value bits)`` that the IO cells turn into ``OP_REPAIR``.  The
+        roots' values are combined with the app's ``combine`` and a
+        vertex still at ``init_val`` is skipped.  Their forced
+        re-diffusion over the intact edge storage is one full monotone
+        relaxation from correct sources: it reaches the exact fixpoint in
+        one fault-free round."""
+        cfg, app = self.cfg, self.app
+        r, c, s = _roots(cfg, cfg.n_vertices)                  # [R, n]
+        vals = self.state.vals[..., 0].cpu().numpy()[r, c, s]
+        on = self.state.rhz_on.cpu().numpy()[r, c, s]
+        on[0, :] = True                # the canonical root is always live
+        v = functools.reduce(app.combine, vals)                  # [n]
+        tgt = on & (v != np.float32(app.init_val))[None, :]
+        kk, vv = np.nonzero(tgt)
+        bits = np.ascontiguousarray(v[vv].astype(np.float32)).view(np.int32)
+        return np.stack([vv.astype(np.int32), (-(kk + 1)).astype(np.int32),
+                         bits], axis=1).astype(np.int32)
+
+    def _repair_rounds(self, limit: int, cycles: int, rings: list) -> int:
+        """The bounded repair pass: while the loss detector fires at the
+        end of the increment, re-inject the durable values as
+        ``OP_REPAIR`` traffic and run to quiescence under the plan's
+        zero-rate twin (``FaultPlan.safe()``: the repair rides a reliable
+        transport, and the state keeps its shapes).  A round that leaves
+        the loss count as it was ends the pass.  Returns the increment's
+        cycles, the repair's included; appends the repair passes' frame
+        rings to ``rings``."""
+        cfg = self.cfg
+        plan = cfg.faults
+        if self._loss_count() == 0:
+            return cycles
+        safe_cfg = dataclasses.replace(cfg, faults=plan.safe())
+        for _ in range(plan.max_repair_rounds):
+            before = self._loss_count()
+            entries = self._repair_entries()
+            if not len(entries):
+                break                  # nothing durable to re-diffuse
+            self.state, spill = load_stream(cfg, self.state, entries)
+            cycles, q, noprog, _, spill = self._passes(
+                safe_cfg, spill, limit, rings, cycles)
+            if not q and noprog >= LIVELOCK_CHUNKS:
+                _raise_livelock(
+                    safe_cfg, cycle=cycles, chunk=cycles // cfg.chunk,
+                    frames=(obs_frames.FrameLog.from_rings(rings)
+                            if rings else None))
+            if len(spill):
+                raise RuntimeError(self._spill_msg(limit, spill))
+            if self._loss_count() == before:
+                break                  # a clean round: the fixpoint
+        else:
+            raise RuntimeError(
+                f"repair budget exhausted: {plan.max_repair_rounds} "
+                "rounds each lost messages — the repair transport is "
+                "expected to be fault-free (FaultPlan.safe()); see "
+                "DESIGN.md §9")
+        return cycles
+
+    def _run_traced(self, cfg: EngineConfig, spill, limit: int):
         """The JAX engine's traced host loop (``_run_increment_traced``):
         the cycle limit checked before each chunk over the whole
         increment, the no-progress count on ``stat_exec + stat_hops``
@@ -300,7 +404,6 @@ class StreamingEngine:
         quiescence (JAX's frozen chunk).  Returns ``(cycles, spill,
         (active, in_flight), frames or None)``."""
         from repro_torch.kernels.cca_cycle.ops import cca_cycle_chunk
-        cfg = self.cfg
         trace = torch.empty((cfg.chunk, 2), dtype=torch.int32,
                             device=self.device)
         ring = None
@@ -348,7 +451,7 @@ class StreamingEngine:
         return (None if ring is None
                 else obs_frames.FrameLog.from_rings([ring.host()]))
 
-    def _pass(self, limit: int, rings: list):
+    def _pass(self, cfg: EngineConfig, limit: int, rings: list):
         """Chunks until quiescence, the cycle ``limit`` (checked between
         chunks) or ``LIVELOCK_CHUNKS`` chunks without progress.  With
         telemetry, a frame ring for the pass: the baseline frame, then a
@@ -358,7 +461,7 @@ class StreamingEngine:
         (hops, execs, stalls, allocs))``; the counters are
         increment-cumulative."""
         from repro_torch.kernels.cca_cycle.ops import cca_cycle_chunk
-        cfg, st = self.cfg, self.state
+        st = self.state
         ring = None
         if cfg.telemetry:
             ring = obs_frames.ring_store(

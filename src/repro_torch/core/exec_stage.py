@@ -5,9 +5,9 @@ instruction (phase 0 of an action) or the staging of one new message
 (``propagate``).  An action occupies its cell for ``1 + T`` cycles -- one
 mutate cycle plus one per emission, with backpressure stalls when the
 target buffer is full (paper §4; ``core/exec_stage.py`` of the JAX
-package, whose handlers this file carries for ``qbatch=1`` and no
-faults, with the telemetry planes; at ``lanes > 1`` a remote emission
-that finds its lane full parks in the cell's park ring):
+package, whose handlers this file carries for ``qbatch=1``, with the
+telemetry planes and the fault plan's seals; at ``lanes > 1`` a remote
+emission that finds its lane full parks in the cell's park ring):
 
   OP_INSERT_EDGE  insert-edge-action with the ghost/future protocol
   OP_APP          the application action (bfs-action et al.)
@@ -17,6 +17,8 @@ that finds its lane full parks in the cell's park ring):
                   (reached only at rhizome_cap>1): a secondary root's
                   activation and deferred-insert drain, the canonical
                   root's link-ack and its sibling broadcast
+  OP_REPAIR       (``cfg.faults`` only) the repair pass's relax: an
+                  OP_APP that re-diffuses even when nothing changed
 
 Every slot access is a gather or a one-hot ``where`` over the slot axis.
 """
@@ -30,9 +32,9 @@ from repro_torch.core.alloc import (choose_alloc_cell, rhizome_addr,
 from repro_torch.core.apps import DiffusionApp
 from repro_torch.core.config import EngineConfig
 from repro_torch.core.msg import (OP_ALLOC, OP_APP, OP_INSERT_EDGE,
-                                  OP_LINK_RHIZOME, OP_RHIZOME_FWD,
+                                  OP_LINK_RHIZOME, OP_REPAIR, OP_RHIZOME_FWD,
                                   OP_SET_FUTURE, TB_AQ_SELF, f2i, i2f,
-                                  make_msg)
+                                  make_msg, msg_seal, seal_msg)
 from repro_torch.core.routing import deliver, msg_lane, yx_target_buffer
 from repro_torch.core.state import (G_NULL, G_PENDING, G_SET, TM_ALLOC,
                                     TM_BCAST, TM_EXEC, TM_PARK, TM_STAGE,
@@ -94,6 +96,11 @@ def staging_stage(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
     cellid = rows * W + cols
 
     is_app = op == OP_APP
+    if cfg.faults is not None:
+        # an OP_REPAIR emits as OP_APP does; only its ghost forward keeps
+        # the opcode, so the whole ghost chain re-diffuses its edges
+        is_rp = op == OP_REPAIR
+        is_app = is_app | is_rp
     is_sf = op == OP_SET_FUTURE
     is_rf = op == OP_RHIZOME_FWD
     is_appl = is_app | is_rf            # app-like: edge diffusion + forward
@@ -108,7 +115,9 @@ def staging_stage(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
     app_edge_msg = make_msg(OP_APP, e_dst, f2i(app.edge_value(st.cemit, e_w)))
     gs = sel(st.gstate, slot)
     ga = sel(st.gaddr, slot)
-    app_fwd_msg = make_msg(OP_APP, ga, f2i(st.cemit))
+    fwd_op = (OP_APP if cfg.faults is None
+              else torch.where(is_rp, OP_REPAIR, OP_APP))
+    app_fwd_msg = make_msg(fwd_op, ga, f2i(st.cemit))
     rss = sel(st.rstate, slot)
     n_bcast = torch.where(is_app & (slot < cfg.root_slots) & (rss == G_SET),
                           cfg.rhizome_cap - 1, 0)
@@ -142,6 +151,11 @@ def staging_stage(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
     appl_msg = _pick((rf_drain, drain_msg), (appl_is_fwd, app_fwd_msg),
                      (is_bcast, bc_msg), default=app_edge_msg)
     emis = _pick((is_appl, appl_msg), (is_sf, sf_msg), default=st.cout)
+    if cfg.faults is not None:
+        # every message the compute stage emits passes here (phase 0's
+        # cout too), so sealing here and at the IO cells covers the
+        # network; park and hop copy the words as they are
+        emis = seal_msg(emis)
 
     # ---- app ghost-forward onto a *pending* future: coalesce into the
     #      per-slot monotone forward register (never stalls) ----
@@ -216,6 +230,12 @@ def phase0_stage(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
     has = ~busy_at_start & (st.aq_n > 0)
     m = rings.ring_peek(st.aq, st.aq_head)  # [H,W,MSG]
     op = torch.where(has, m[..., 0], 0)
+    if cfg.faults is not None:
+        # the seal check: an application message corrupted in transit is
+        # popped as a counted no-op instead of relaxing a poisoned value
+        from repro_torch.resilience.faults import FLT_CORRUPT, is_droppable
+        bad = has & is_droppable(op) & (msg_seal(m) != m[..., 4])
+        op = torch.where(bad, 0, op)
     dst, a0, a1 = m[..., 1], m[..., 2], m[..., 3]
     slot = dst % S
 
@@ -232,6 +252,8 @@ def phase0_stage(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
     is_sf = op == OP_SET_FUTURE
     is_rf = op == OP_RHIZOME_FWD
     is_lr = op == OP_LINK_RHIZOME
+    # the repair pass's relax: an OP_APP that forces its re-diffusion
+    is_rp = (op == OP_REPAIR) if cfg.faults is not None else None
 
     # secondary rhizome slots start inactive; an insert reaching one
     # before its link-ack defers
@@ -257,6 +279,8 @@ def phase0_stage(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
     p_rlink, p_rdef = p_rlink & pop, p_rdef & pop
     is_app, is_alc, is_sf, is_rf, is_lr = (
         is_app & pop, is_alc & pop, is_sf & pop, is_rf & pop, is_lr & pop)
+    if is_rp is not None:
+        is_rp = is_rp & pop
 
     # -- room: insert the edge into this RPVO node
     eidx = torch.clamp(ne, max=E - 1)
@@ -294,12 +318,17 @@ def phase0_stage(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
 
     # ---------------- APP / RHIZOME-FWD relax (Listing 5) ----------------
     relaxing = is_app | is_rf
+    app_like = is_app
+    if is_rp is not None:
+        relaxing = relaxing | is_rp
+        app_like = is_app | is_rp
     new_vals, changed = app.relax(vals_s, i2f(a0))
     changed = changed & relaxing
     vals = put(st.vals, slot, new_vals, relaxing)
-    n_bcast = torch.where(is_app & (slot < cfg.root_slots) & (rs == G_SET),
+    n_bcast = torch.where(app_like & (slot < cfg.root_slots) & (rs == G_SET),
                           cfg.rhizome_cap - 1, 0)
-    app_T = torch.where(changed, ne + n_bcast + (gs != G_NULL).to(torch.int32),
+    forced = changed if is_rp is None else changed | is_rp
+    app_T = torch.where(forced, ne + n_bcast + (gs != G_NULL).to(torch.int32),
                         0)
 
     # -- rhizome-fwd extras: activate a pending sibling root and drain its
@@ -372,6 +401,10 @@ def phase0_stage(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
         stat_exec=st.stat_exec + (pop & (T == 0)).sum(dtype=torch.int32),
         stat_allocs=st.stat_allocs + alc_room.sum(dtype=torch.int32),
         stat_stall=st.stat_stall + rotate.sum(dtype=torch.int32))
+    if cfg.faults is not None:
+        flt = st.flt.clone()
+        flt[FLT_CORRUPT] += bad.sum(dtype=torch.int32)
+        st = st._replace(flt=flt)
     if cfg.telemetry:
         st = tm_cell_add(st, (TM_EXEC, pop), (TM_ALLOC, alc_room),
                          (TM_STALL, rotate))

@@ -5,7 +5,8 @@ Every cycle each IO cell reads the next edge of its residual stream,
 creates the ``insert-edge-action`` and sends it into the fabric at its
 cell (action queue if the source vertex lives there, else the YX
 channel).  Backpressure stalls the IO cell: it retries the same edge next
-cycle.
+cycle.  With ``cfg.faults`` the IO cells seal what they inject, and a
+row with a negative dst is the repair pass's ``OP_REPAIR`` (DESIGN §9).
 """
 from __future__ import annotations
 
@@ -15,7 +16,8 @@ import torch
 from repro_torch.core import rings
 from repro_torch.core.alloc import rhizome_addr
 from repro_torch.core.config import EngineConfig
-from repro_torch.core.msg import OP_INSERT_EDGE, make_msg
+from repro_torch.core.msg import (OP_INSERT_EDGE, OP_REPAIR, make_msg,
+                                  seal_msg)
 from repro_torch.core.routing import (deliver, manhattan_hops, msg_lane,
                                      yx_target_buffer)
 from repro_torch.core.state import TM_IO, MachineState, root_addr
@@ -89,6 +91,16 @@ def io_stage(cfg: EngineConfig, st: MachineState, rows, cols):
     best = torch.argmin(dist + pref * half_diam, dim=1)  # first minimum
     tgt = cand.gather(1, best[:, None])[:, 0]
     msg = make_msg(OP_INSERT_EDGE, tgt, root_addr(cfg, cur[:, 1]), cur[:, 2])
+    if cfg.faults is not None:
+        # a repair sentinel row (vid, -(k+1), value bits) is no edge: it
+        # re-injects vid's durable value at its rhizome root k as an
+        # OP_REPAIR, through the same admission and backpressure
+        rp = cur[:, 1] < 0
+        rp_tgt = rhizome_addr(cfg, cur[:, 0], -cur[:, 1] - 1)
+        tgt = torch.where(rp, rp_tgt, tgt)
+        msg = torch.where(rp[:, None], make_msg(OP_REPAIR, rp_tgt, cur[:, 2]),
+                          msg)
+        msg = seal_msg(msg)
     tb = yx_target_buffer(cfg, tgt // S, r0, c0)
     # injected inserts are application traffic: the app-level AQ reserve
     aq0, aqn0, ch0, chn0, accepted = deliver(

@@ -6,7 +6,7 @@ A message is a fixed 5-word int32 record::
     word 1  dst address   (cell * slots + slot)
     word 2  arg0
     word 3  arg1
-    word 4  arg2
+    word 4  arg2, or with ``cfg.faults`` the seal (:func:`msg_seal`)
 
 Float arguments (application values, e.g. BFS levels) ride the int32
 words by bit-cast (``Tensor.view``), never by value conversion, so a
@@ -56,3 +56,16 @@ def make_msg(op, dst, a0=0, a1=0, a2=0) -> torch.Tensor:
         torch.as_tensor(a, dtype=torch.int32, device=dev)
         for a in (op, dst, a0, a1, a2)))
     return torch.stack(parts, dim=-1)
+
+
+def msg_seal(m: torch.Tensor) -> torch.Tensor:
+    """Integrity seal of a message: the XOR of words 0..3.  Word 4, which
+    no opcode reads, holds it wherever ``cfg.faults`` is set: staging and
+    the IO cells seal what they inject, and phase 0 discards an
+    application message whose seal no longer matches (DESIGN §9)."""
+    return m[..., 0] ^ m[..., 1] ^ m[..., 2] ^ m[..., 3]
+
+
+def seal_msg(m: torch.Tensor) -> torch.Tensor:
+    """``m`` with word 4 set to :func:`msg_seal`."""
+    return torch.cat([m[..., :4], msg_seal(m)[..., None]], dim=-1)

@@ -169,8 +169,19 @@ def hop_stage(cfg: EngineConfig, st: MachineState, rows, cols):
     round-robin lane arbiter picks which.  Each direction round reads the
     receivers' queue counts as the earlier rounds of this cycle left
     them.  With telemetry each round adds, at the sender, a grant to the
-    lane that won and a blocked cycle to every other lane occupied at the
-    round's start, and at the receiver its accepted flit (``TM_HOP``).
+    lane that popped its flit and a blocked cycle to every other lane
+    occupied at the round's start, and at the receiver its accepted flit
+    (``TM_HOP``).
+
+    Fault injection (``cfg.faults``, DESIGN §9) lives in this stage:
+    blackout windows mask a link's admissible lanes (a delay, counted in
+    ``FLT_BLACKOUT``), and drop / duplicate / corrupt act on the granted
+    flit, decided by ``fault_hash16`` of the cycle and the sender's link.
+    A dropped flit is popped and never delivered, but counts as a link
+    departure in ``hops``, so departures less deliveries (``TM_HOP``) is
+    the drop count; a duplicated flit is delivered and kept by the
+    sender; a corrupted flit has a bit of its value word flipped in the
+    copy that travels, for the seal check at pop to catch.
     Returns ``(state, hops_this_cycle)``."""
     L, LC = cfg.lanes, cfg.lane_capacity
     dev = rows.device
@@ -182,6 +193,18 @@ def hop_stage(cfg: EngineConfig, st: MachineState, rows, cols):
         st = st._replace(tm_lane=st.tm_lane.clone())
         arrived = torch.zeros_like(aq_n)
     liota = rings._iota(L, dev)
+    plan = cfg.faults
+    if plan is not None:
+        from repro_torch.resilience.faults import (FLT_BLACKOUT, FLT_DROP,
+                                                   FLT_DUP, fault_hash16,
+                                                   is_droppable)
+        flt = st.flt.clone()
+        # the decision hashes of salts 1-3 (drop, dup, corrupt) for every
+        # link of the cycle, [3, H, W, 4]; link id = cell * 4 + dir
+        link = ((rows * cfg.width + cols) * N_DIRS)[..., None] \
+            + rings._iota(N_DIRS, dev)
+        hashes = fault_hash16(plan.seed, st.cycle, link,
+                              rings._iota(3, dev)[:, None, None, None] + 1)
 
     for d in (DIR_N, DIR_S, DIR_W, DIR_E):
         valid = valid_receiver_mask(cfg, d, dev)
@@ -196,6 +219,19 @@ def hop_stage(cfg: EngineConfig, st: MachineState, rows, cols):
         for dd in range(N_DIRS):
             adm = adm | ((tb == dd) & rings.ring_free(ch_n[:, :, dd], LC))
         adm_s = shift_to_sender(occ_r & adm, d)                 # [H,W,L]
+        if plan is not None:
+            # a blackout window's link grants nothing; a link-cycle under
+            # two windows counts once (the second sees adm_s masked)
+            for (br, bc, bd, b0, bn) in plan.blackouts:
+                if bd != d:
+                    continue
+                dead = torch.zeros((cfg.height, cfg.width), dtype=torch.bool,
+                                   device=dev)
+                dead[br, bc] = True
+                dead &= (st.cycle >= b0) & (st.cycle < b0 + bn)
+                flt[FLT_BLACKOUT] += (dead[..., None] & adm_s).sum(
+                    dtype=torch.int32)
+                adm_s = adm_s & ~dead[..., None]
 
         # round-robin grant: the admissible lane closest after ch_rr wins
         rr = ch_rr[:, :, d]
@@ -210,19 +246,53 @@ def hop_stage(cfg: EngineConfig, st: MachineState, rows, cols):
         oh_g = liota == g[..., None]                            # [H,W,L]
         sel = torch.where(oh_g[..., None], heads, 0).sum(dim=2).to(torch.int32)
 
+        # the fault decisions on the granted flit, in the sender's frame
+        drop_s = dup_s = None
+        if plan is not None:
+            drp = is_droppable(sel[..., 0]) & granted           # [H,W]
+            h1, h2, h3 = hashes[..., d]
+            if plan.drop_thr:
+                drop_s = drp & (h1 < plan.drop_thr)
+            if plan.dup_thr:
+                dup_s = drp & (h2 < plan.dup_thr)
+            if plan.corrupt_thr:
+                corr = drp & (h3 < plan.corrupt_thr)
+                if drop_s is not None:
+                    corr = corr & ~drop_s
+                # flip one value-word bit of the copy that travels
+                bit = (1 << (8 + (h3 & 7))).to(torch.int32)
+                sel = sel.clone()
+                sel[..., 2] = torch.where(corr, sel[..., 2] ^ bit,
+                                          sel[..., 2])
+
         # deliver the granted head at the receiver (granted implies
-        # admissible, so acceptance == grant)
+        # admissible, so acceptance == grant, unless it was dropped)
         msg_g = shift_to_receiver(sel, d)
         want_r = shift_to_receiver(granted, d) & valid
         lane_g = shift_to_receiver(g, d)
+        drop_r = (None if drop_s is None
+                  else want_r & shift_to_receiver(drop_s, d))
         tb_g = yx_target_buffer(cfg, msg_g[..., 1] // cfg.slots, rows, cols)
         aq, aq_n, ch, ch_n, accepted_r = deliver(
             cfg, aq, aq_n, aq_head, ch, ch_n, ch_head, msg_g, tb_g, lane_g,
-            want_r, _aq_room(cfg, msg_g[..., 0], aq_n))
-        hops = hops + accepted_r.sum(dtype=torch.int32)
+            want_r if drop_r is None else want_r & ~drop_r,
+            _aq_room(cfg, msg_g[..., 0], aq_n))
+        # a departure is a delivery or a drop on the link: hops counts
+        # departures, TM_HOP deliveries
+        departed_r = accepted_r if drop_r is None else accepted_r | drop_r
+        popped_r = departed_r
+        if dup_s is not None:
+            dup_r = accepted_r & shift_to_receiver(dup_s, d)
+            popped_r = departed_r & ~dup_r      # the sender keeps a dup
+            flt[FLT_DUP] += dup_r.sum(dtype=torch.int32)
+        if drop_r is not None:
+            flt[FLT_DROP] += drop_r.sum(dtype=torch.int32)
+        hops = hops + departed_r.sum(dtype=torch.int32)
         # pop the granted lane at the sender (after the push above: a
-        # cell that forwards straight on pushes with the pre-pop count)
-        acc_s = shift_to_sender(accepted_r, d)
+        # cell that forwards straight on pushes with the pre-pop count);
+        # the pointer moves past the lane on every departure
+        acc_s = shift_to_sender(popped_r, d)
+        adv_s = shift_to_sender(departed_r, d)
         n2, h2 = rings.ring_pop(ch_n[:, :, d], ch_head[:, :, d], LC,
                                 acc_s[..., None] & oh_g)
         ch_n = ch_n.clone()
@@ -230,7 +300,7 @@ def hop_stage(cfg: EngineConfig, st: MachineState, rows, cols):
         ch_rr = ch_rr.clone()
         ch_n[:, :, d] = n2
         ch_head[:, :, d] = h2
-        ch_rr[:, :, d] = torch.where(acc_s, (g + 1) % L, rr)
+        ch_rr[:, :, d] = torch.where(adv_s, (g + 1) % L, rr)
         if cfg.telemetry:
             won = oh_g & acc_s[..., None]                       # [H,W,L]
             st.tm_lane[:, :, d, :, TM_L_GRANT] += won.to(torch.int32)
@@ -239,5 +309,7 @@ def hop_stage(cfg: EngineConfig, st: MachineState, rows, cols):
 
     if cfg.telemetry:
         st = tm_cell_add(st, (TM_HOP, arrived))
+    if plan is not None:
+        st = st._replace(flt=flt)
     return st._replace(aq=aq, aq_n=aq_n, ch=ch, ch_n=ch_n, ch_head=ch_head,
                        ch_rr=ch_rr), hops

@@ -109,9 +109,12 @@ class MachineState(NamedTuple):
     tm_cell: torch.Tensor     # [H,W,9] i32 per-cell stage activity
     tm_lane: torch.Tensor     # [H,W,4,L,3] i32 lane occ/grant/blocked
     tm_hiw: torch.Tensor      # [H,W,2] i32 AQ / park-ring hi-water
+    # --- fault-injection counters (cfg.faults, DESIGN §9): [N_FLT] i32
+    #     (resilience.faults' FLT_* indices), a [1] dummy, never touched,
+    #     while it is off ---
+    flt: torch.Tensor
     # --- planes of knobs the port does not carry yet: fixed-shape
     #     dummies, never touched (the JAX engine's off-path shapes) ---
-    flt: torch.Tensor         # [1] i32
     qchg: torch.Tensor        # [1] i32
     qlast: torch.Tensor       # [1] i32
 
@@ -130,6 +133,7 @@ def init_state(cfg: EngineConfig, init_vals: float = 1e9,
                fwd_init: float = 1e9, device=None) -> MachineState:
     """Fresh machine: all vertices allocated as roots, no edges, empty
     queues.  ``device=None`` means ``cuda``."""
+    from repro_torch.resilience.faults import N_FLT   # (imports core)
     cfg.validate()
     dev = resolve_device(device)
     H, W, S, E = cfg.height, cfg.width, cfg.slots, cfg.edge_cap
@@ -178,7 +182,8 @@ def init_state(cfg: EngineConfig, init_vals: float = 1e9,
         tm_lane=z32(*((H, W, N_DIRS, VL) if cfg.telemetry
                       else (1, 1, 1, 1)), N_TM_LANE),
         tm_hiw=z32(*((H, W) if cfg.telemetry else (1, 1)), N_TM_HIW),
-        flt=z32(1), qchg=z32(1), qlast=z32(1),
+        flt=z32(N_FLT if cfg.faults is not None else 1),
+        qchg=z32(1), qlast=z32(1),
     )
 
 

@@ -10,9 +10,10 @@
 // kernel equals it leaf for leaf and bit for bit.  Scope: any lanes (the
 // round-robin lane arbiter, the escape lane, transit parking and the park
 // stage), any rhizome_cap (rhizome roots, the link protocol, the sibling
-// broadcast and the IO cells' root choice), qbatch=1, no faults, apps
+// broadcast and the IO cells' root choice), qbatch=1, apps
 // bfs/sssp/cc/ingest_only and the max-monotone widest and reliable, the
-// vicinity and random allocators, and the telemetry planes.  Given a trace
+// vicinity and random allocators, the telemetry planes, and a fault plan's
+// hazards, seals and OP_REPAIR.  Given a trace
 // pointer, a launch also fills the row (active cells, messages in flight
 // after the cycle) of each cycle it runs, the stats of `engine.cycle_step`.
 //
@@ -87,6 +88,27 @@
 // -DCCA_SKELETON as well, the loop keeps its barriers and drops its phases
 // (`tools/cca_cycle_variants.py`).  Neither is defined in the wrapper's
 // build.
+//
+// Faults (cfg.faults, DESIGN §9) are a second compile-time parameter of
+// both kernels (`kFlt`), so the instances without them are the code of the
+// kernels without faults; the plan comes as data (Dims: the hash keys of
+// the three hazards, their 16-bit thresholds, the blackout count; Leaves:
+// the [n, 5] blackout table and the flt counters).  The sender decides, in
+// hop_read: a blackout window masks the link's admissible lanes; a granted
+// OP_APP / OP_REPAIR head may be dropped, duplicated or corrupted, each
+// by `fault_hash16` of the machine cycle (the launch's starting cycle plus
+// the cycles run) and the global link id cell * 4 + d.  A corruption
+// flips a bit of the outbox copy only; the drop and dup flags ride the
+// grant word beside the lane.  The receiver, in hop_write, counts a
+// dropped flit as a departure (stat_hops) but delivers nothing, so
+// departures less deliveries (TM_HOP) is the drop count; the sender pops
+// unless the flit was duplicated, and moves its pointer on every
+// departure.  Staging and io seal what they inject (word 4, the XOR of
+// words 0..3); phase 0 pops an application message whose seal is wrong as
+// a counted no-op.  Each thread sums its cells' fault counts as it sums
+// the counters, and each CTA adds its sums into flt once a launch.  All of
+// it is integer arithmetic, so the kernels equal the plain version bit for
+// bit with faults too.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -97,7 +119,8 @@ namespace cg = cooperative_groups;
 namespace {
 
 enum { OP_NOP = 0, OP_INSERT_EDGE = 1, OP_APP = 2, OP_ALLOC = 3,
-       OP_SET_FUTURE = 4, OP_RHIZOME_FWD = 5, OP_LINK_RHIZOME = 6 };
+       OP_SET_FUTURE = 4, OP_RHIZOME_FWD = 5, OP_LINK_RHIZOME = 6,
+       OP_REPAIR = 7 };
 enum { TB_N = 0, TB_S = 1, TB_W = 2, TB_E = 3, TB_AQ = 4 };
 enum { G_NULL = 0, G_PENDING = 1, G_SET = 2 };
 enum { APP_BFS = 0, APP_SSSP = 1, APP_CC = 2, APP_INGEST_ONLY = 3,
@@ -109,18 +132,28 @@ enum { TM_EXEC = 0, TM_ALLOC = 1, TM_STALL = 2, TM_HOP = 3, TM_STAGE = 4,
        N_TM_STAGES = 9 };
 enum { TM_L_OCC = 0, TM_L_GRANT = 1, TM_L_BLOCK = 2, N_TM_LANE = 3 };
 enum { TM_HW_AQ = 0, TM_HW_PK = 1, N_TM_HIW = 2 };
+// fault counters (resilience/faults.py's FLT_* indices)
+enum { FLT_DROP = 0, FLT_DUP = 1, FLT_CORRUPT = 2, FLT_BLACKOUT = 3,
+       N_FLT = 4 };
+// a grant word: the granted lane + 1 (0: none), and in the fault instances
+// the drop and dup decisions on its flit
+constexpr int GRANT_LANE = 0xFFFF, GRANT_DROP = 1 << 16, GRANT_DUP = 1 << 17;
 constexpr int MSGW = 5;
 constexpr float INF = 1e9f;
 constexpr int MAX_CTAS = 16;   // the largest (non-portable) cluster
 
 // Scalar geometry, in the order of ops.py::_dims.  telemetry 1 takes the
-// kernels' telemetry instances.  n_ctas 0 takes the one-block kernel;
-// otherwise the cluster kernel with n_ctas CTAs, whose shared memory a CTA
-// the wrapper has reckoned as smem_bytes.
+// kernels' telemetry instances, faults 1 their fault instances, with the
+// plan's hash keys for salts 1..3 (drop, dup, corrupt), its 16-bit
+// thresholds (0: the hazard is off) and its blackout count.  n_ctas 0 takes
+// the one-block kernel; otherwise the cluster kernel with n_ctas CTAs,
+// whose shared memory a CTA the wrapper has reckoned as smem_bytes.
 struct Dims {
   int H, W, S, E, Q, FQ, LC, L, PK, IO, IOL;
   int root_slots, primary_slots, rhizome_cap, rhizome_stride;
   int aq_reserve, sys_reserve, n_offs, app, allocator, n_cycles, telemetry;
+  int faults, flt_key1, flt_key2, flt_key3, drop_thr, dup_thr, corrupt_thr,
+      n_blackouts;
   int n_ctas, smem_bytes;
 };
 constexpr int N_DIMS = sizeof(Dims) / sizeof(int);
@@ -140,7 +173,9 @@ struct Leaves {
   int* cycle; int* stat_hops; int* stat_exec; int* stat_stall;
   int* stat_allocs;
   int* tm_cell; int* tm_lane; int* tm_hiw;   // 1x1 dummies without telemetry
+  int* flt;          // [N_FLT] fault counters ([1] dummy without faults)
   const int* offs;   // [n_offs, 2] vicinity (dy, dx) table
+  const int* blackouts;   // [n_blackouts, 5] (row, col, dir, start, n)
   int* outbox;       // [cells, MSGW] granted heads of the current round
   int* grant;        // [cells] granted lane + 1, 0 for none
   int* qwork;        // [cells] sum over slots of fq_n + fwd_pending
@@ -219,6 +254,23 @@ __device__ __forceinline__ int msg_lane(const Dims& D, int op, int dst) {
   return 1 + fmod_(dst, D.L - 1);
 }
 
+// resilience/faults.py::fault_hash16 in uint32 arithmetic (wrapping
+// multiplies, logical shifts): the 16-bit decision hash of (cycle, link)
+// under `key`, the plan's key for one salt.
+__device__ __forceinline__ unsigned fault_hash16(int key, int cycle,
+                                                 int link) {
+  unsigned h = (unsigned)cycle * 0x9E3779B1u + (unsigned)link * 0x85EBCA6Bu +
+               (unsigned)key;
+  h = (h ^ (h >> 16)) * 0x85EBCA6Bu;
+  h = (h ^ (h >> 13)) * 0xC2B2AE35u;
+  return (h ^ (h >> 16)) & 0xFFFFu;
+}
+
+// msg.msg_seal: the XOR of words 0..3.
+__device__ __forceinline__ int msg_seal(const int* m) {
+  return m[0] ^ m[1] ^ m[2] ^ m[3];
+}
+
 __device__ __forceinline__ bool max_app(int app) {
   return app == APP_WIDEST || app == APP_RELIABLE;
 }
@@ -270,10 +322,12 @@ __device__ __forceinline__ void copy_msg(int* dst, const int* src) {
 // one buffer per hop direction, `box_dir` / `grant_dir` entries apart (0:
 // one buffer shared by the four rounds).  `io_n` / `io_pos` are indexed by
 // IO cell.  kTm: the telemetry instance, whose planes (`tm_cell`,
-// `tm_lane`, `tm_hiw`) are in device memory, indexed by cell.
-template <bool kCluster, bool kTm>
+// `tm_lane`, `tm_hiw`) are in device memory, indexed by cell.  kFlt: the
+// fault instance.
+template <bool kCluster, bool kTm, bool kFlt>
 struct Cells {
   static constexpr bool kTelemetry = kTm;
+  static constexpr bool kFaults = kFlt;
   int *aq, *aq_n, *aq_head, *ch, *ch_n, *ch_head, *ch_rr, *pk_n, *cmsg;
   bool* cvalid;
   int *cphase, *cT;
@@ -378,11 +432,52 @@ __device__ __forceinline__ bool admissible(const Dims& D, const C& X, int k,
                      : *X.peer(X.ch_n, recv, 4 * D.L, tb * D.L + j) < D.LC;
 }
 
-// Hop phase A: cell c as the sender on link d.  Of the lanes whose head is
-// admissible, the one closest after the link's round-robin pointer ch_rr
-// wins (one lane: no arbiter).  The grant records that lane + 1 (0: none).
+struct Counts {
+  int hops, exec, stall, allocs;
+  int drop, dup, corrupt, blackout;   // the fault instances' flt counts
+};
+
+// Whether a blackout window of the plan holds link d of cell (row, col)
+// dead in machine cycle cyc.
+__device__ __forceinline__ bool link_dead(const Dims& D, const Leaves& P,
+                                          int row, int col, int d, int cyc) {
+  for (int i = 0; i < D.n_blackouts; ++i) {
+    const int* b = P.blackouts + 5 * i;
+    if (b[0] == row && b[1] == col && b[2] == d && cyc >= b[3] &&
+        cyc - b[3] < b[4])
+      return true;
+  }
+  return false;
+}
+
+// The drop / dup / corrupt decisions on the flit granted on global link
+// `link` (cell * 4 + d) in machine cycle cyc, application traffic only.  A
+// corruption flips bit 8 + (h & 7) of word 2 of the outbox copy `box`,
+// never of a dropped flit.  Returns the grant word's flags.
+__device__ __forceinline__ int fault_flags(const Dims& D, int* box, int link,
+                                           int cyc) {
+  if (box[0] != OP_APP && box[0] != OP_REPAIR) return 0;
+  bool drop = D.drop_thr &&
+              fault_hash16(D.flt_key1, cyc, link) < (unsigned)D.drop_thr;
+  bool dup = D.dup_thr &&
+             fault_hash16(D.flt_key2, cyc, link) < (unsigned)D.dup_thr;
+  if (D.corrupt_thr && !drop) {
+    unsigned h = fault_hash16(D.flt_key3, cyc, link);
+    if (h < (unsigned)D.corrupt_thr) box[2] ^= 1 << (8 + (h & 7));
+  }
+  // a dropped flit is never delivered, so never delivered twice
+  return drop ? GRANT_DROP : dup ? GRANT_DUP : 0;
+}
+
+// Hop phase A: cell c as the sender on link d in machine cycle cyc.  Of the
+// lanes whose head is admissible, the one closest after the link's
+// round-robin pointer ch_rr wins (one lane: no arbiter).  The grant records
+// that lane + 1 (0: none); the fault instance first masks a dead link
+// (counting the admissible lanes it held back) and adds the flit's fault
+// flags.
 template <class C>
-__device__ void hop_read(const Dims& D, const C& X, int c, int d) {
+__device__ void hop_read(const Dims& D, const Leaves& P, const C& X, int c,
+                         int d, int cyc, Counts& n) {
   int row = c / D.W, col = c % D.W;
   int rr = row + kDy[d], rc = col + kDx[d];
   int base = (X.l(c) * 4 + d) * D.L;
@@ -390,13 +485,17 @@ __device__ void hop_read(const Dims& D, const C& X, int c, int d) {
   if (rr >= 0 && rr < D.H && rc >= 0 && rc < D.W) {
     int recv = rr * D.W + rc;
     const int* win = nullptr;
+    int n_adm;   // admissible lanes
     if (D.L == 1) {
       grant = admissible(D, X, base, 0, recv, rr, rc, win);
+      n_adm = grant;
     } else {
       int ptr = X.ch_rr[X.l(c) * 4 + d], best = D.L;
+      n_adm = 0;
       for (int j = 0; j < D.L; ++j) {
         const int* head;
         if (!admissible(D, X, base + j, j, recv, rr, rc, head)) continue;
+        ++n_adm;
         int key = fmod_(j - ptr, D.L);
         if (key < best) {
           best = key;
@@ -405,50 +504,81 @@ __device__ void hop_read(const Dims& D, const C& X, int c, int d) {
         }
       }
     }
-    if (grant) copy_msg(X.box(d, c), win);
+    if constexpr (C::kFaults) {
+      if (grant && link_dead(D, P, row, col, d, cyc)) {
+        n.blackout += n_adm;
+        grant = 0;
+      }
+    }
+    if (grant) {
+      int* box = X.box(d, c);
+      copy_msg(box, win);
+      if constexpr (C::kFaults) grant |= fault_flags(D, box, 4 * c + d, cyc);
+    }
   }
   X.granted(d, c) = grant;
 }
 
 // Hop phase B: cell c receives its link-d neighbour's granted head into the
 // same lane, then pops its own granted lane and moves its pointer past it.
-// Returns the flits accepted here.
+// Returns the flits that left the sender for here: accepted, or (fault
+// instance) dropped on the link.  The fault instance counts the drops and
+// the duplicates it accepts, and keeps its own duplicated flit.
 template <class C>
-__device__ int hop_write(const Dims& D, const C& X, int c, int d) {
+__device__ int hop_write(const Dims& D, const C& X, int c, int d,
+                         Counts& n) {
   int row = c / D.W, col = c % D.W;
   int sr = row - kDy[d], sc = col - kDx[d];
   int hops = 0, rin = -1;   // rin: the lane of link d this cell received in
+  bool delivered = false;
   if (sr >= 0 && sr < D.H && sc >= 0 && sc < D.W) {
     int snd = sr * D.W + sc;
-    int g = *X.peer(X.grant + d * X.grant_dir, snd, 1, 0);
-    if (g) {
+    int g = *X.peer(X.grant + d * X.grant_dir, snd, 1, 0), flags = 0;
+    if constexpr (C::kFaults) {
+      flags = g & ~GRANT_LANE;
+      g &= GRANT_LANE;
+    }
+    if (flags & GRANT_DROP) {
+      hops = 1;   // a departure, never delivered
+      n.drop += 1;
+    } else if (g) {
       int msg[MSGW];
       copy_msg(msg, X.peer(X.outbox + d * X.box_dir, snd, MSGW, 0));
       int tb = yx_tb(D, fdiv(msg[1], D.S), row, col);
-      hops = deliver(D, X, c, msg, tb, g - 1,
-                     ext_room(D, msg[0], X.aq_n[X.l(c)]));
-      if (hops && tb == d) rin = g - 1;
+      delivered = deliver(D, X, c, msg, tb, g - 1,
+                          ext_room(D, msg[0], X.aq_n[X.l(c)]));
+      hops = delivered;
+      if (delivered && tb == d) rin = g - 1;
+      if (delivered && (flags & GRANT_DUP)) n.dup += 1;
     }
   }
   int g = X.granted(d, c);
+  bool popped = g != 0;
+  if constexpr (C::kFaults) {
+    popped = g && !(g & GRANT_DUP);
+    g &= GRANT_LANE;
+  }
   if (g) {
     int k = (X.l(c) * 4 + d) * D.L + g - 1;
-    X.ch_n[k] -= 1;
-    X.ch_head[k] = fmod_(X.ch_head[k] + 1, D.LC);
+    if (popped) {
+      X.ch_n[k] -= 1;
+      X.ch_head[k] = fmod_(X.ch_head[k] + 1, D.LC);
+    }
     X.ch_rr[X.l(c) * 4 + d] = g < D.L ? g : 0;   // (granted lane + 1) % L
   }
   if constexpr (C::kTelemetry) {
-    // a grant is accepted by construction: the won lane gets a grant, every
-    // other lane occupied at the round's start (its count now, less the
-    // flit received into it above) a blocked cycle
+    // a grant is accepted (or dropped) by construction: the lane that
+    // popped gets a grant, every other lane occupied at the round's start
+    // (its count now, less the flit received into it above) a blocked
+    // cycle, a duplicated one too
     const int* chn = X.ch_n + (X.l(c) * 4 + d) * D.L;
     int* tl = X.tm_lane + ((size_t)c * 4 + d) * D.L * N_TM_LANE;
     for (int j = 0; j < D.L; ++j) {
-      if (j == g - 1) atomicAdd(tl + j * N_TM_LANE + TM_L_GRANT, 1);
+      if (j == g - 1 && popped) atomicAdd(tl + j * N_TM_LANE + TM_L_GRANT, 1);
       else if (chn[j] - (j == rin) > 0)
         atomicAdd(tl + j * N_TM_LANE + TM_L_BLOCK, 1);
     }
-    if (hops) X.count(c, TM_HOP);
+    if (delivered) X.count(c, TM_HOP);
   }
   return hops;
 }
@@ -475,8 +605,6 @@ __device__ void park(const Dims& D, const Leaves& P, const C& X, int c) {
   P.pk_head[c] = fmod_(h + 1, D.PK);
 }
 
-struct Counts { int hops, exec, stall, allocs; };
-
 // exec_stage.staging_stage for cell c: the active action stages its next
 // emission.  Returns whether the cell had one (staging's `active`).
 template <class C>
@@ -492,7 +620,10 @@ __device__ bool staging(const Dims& D, const Leaves& P, const C& X, int c,
   size_t idx = (size_t)c * S + slot;
   int k = cphase - 1, cdrain = X.cdrain[l];
   float cemit = X.cemit[l];
-  bool is_app = op == OP_APP, is_sf = op == OP_SET_FUTURE,
+  // (fault instance) an OP_REPAIR emits as OP_APP does; only its ghost
+  // forward keeps the opcode
+  const bool is_rp = C::kFaults && op == OP_REPAIR;
+  bool is_app = op == OP_APP || is_rp, is_sf = op == OP_SET_FUTURE,
        is_rf = op == OP_RHIZOME_FWD, is_appl = is_app || is_rf;
   int kd = k - cdrain;
   int ne = P.nedges[idx], gs = P.gstate[idx], ga = P.gaddr[idx];
@@ -511,7 +642,8 @@ __device__ bool staging(const Dims& D, const Leaves& P, const C& X, int c,
       emis[0] = OP_INSERT_EDGE; emis[1] = dst; emis[2] = fq_e[1];
       emis[3] = fq_e[2];
     } else if (appl_is_fwd) {
-      emis[0] = OP_APP; emis[1] = ga; emis[2] = f2i(cemit);
+      emis[0] = is_rp ? OP_REPAIR : OP_APP; emis[1] = ga;
+      emis[2] = f2i(cemit);
     } else if (is_bcast) {
       int v = slot * (D.H * D.W) + c;
       int hi = D.rhizome_cap > 1 ? D.rhizome_cap - 1 : 1;
@@ -540,6 +672,8 @@ __device__ bool staging(const Dims& D, const Leaves& P, const C& X, int c,
   } else {
     copy_msg(emis, X.cout + (size_t)l * MSGW);
   }
+  // every emission is sealed, phase 0's cout too
+  if constexpr (C::kFaults) emis[4] = msg_seal(emis);
 
   // an app forward onto a pending future coalesces into the monotone
   // forward register instead of entering the network (never stalls)
@@ -600,6 +734,17 @@ __device__ bool phase0(const Dims& D, const Leaves& P, const C& X, int c,
   int m[MSGW];
   copy_msg(m, X.aq + ((size_t)l * Q + fmod_(aqh, Q)) * MSGW);
   int op = m[0], dst = m[1], a0 = m[2], a1 = m[3];
+  if constexpr (C::kFaults) {
+    // the seal check: an application message corrupted in transit is
+    // popped as a counted no-op
+    if ((op == OP_APP || op == OP_REPAIR) && msg_seal(m) != m[4]) {
+      op = OP_NOP;
+      n.corrupt += 1;
+    }
+  }
+  // (fault instance) the repair pass's relax, an OP_APP that re-diffuses
+  // even where it changes nothing
+  const bool is_rp = C::kFaults && op == OP_REPAIR;
   int slot = fmod_(dst, S);
   size_t idx = (size_t)c * S + slot;
   float vs = P.vals[idx];
@@ -687,7 +832,7 @@ __device__ bool phase0(const Dims& D, const Leaves& P, const C& X, int c,
       out[2] = c * S + slot;
       set_out = true;
     }
-  } else if (is_app || is_rf) {
+  } else if (is_app || is_rf || is_rp) {
     float inc = i2f(a0);
     // the app's relax: a min, a max for widest and reliable, or for
     // ingest_only no change at all
@@ -695,10 +840,10 @@ __device__ bool phase0(const Dims& D, const Leaves& P, const C& X, int c,
     P.vals[idx] = changed ? inc : vs;
     X.cemit[l] = changed ? inc : vs;
     int gl = gs != G_NULL ? 1 : 0;
-    if (is_app) {
+    if (is_app || is_rp) {
       int n_bcast = (slot < D.root_slots && rs == G_SET) ? D.rhizome_cap - 1
                                                          : 0;
-      T = changed ? ne + n_bcast + gl : 0;
+      T = changed || is_rp ? ne + n_bcast + gl : 0;
     } else {
       if (in_sec && !on_s) { P.rhz_on[idx] = true; P.rstate[idx] = G_SET; }
       drain_n = (gs != G_PENDING && ne == 0) ? fqn : 0;
@@ -753,7 +898,9 @@ __device__ bool phase0(const Dims& D, const Leaves& P, const C& X, int c,
 // ingest.io_stage for IO cell i (attached to row-0 cell i).  The insert
 // goes to the source's rhizome root k with the least dist + pref *
 // half_diam (Manhattan distance from (0, i), pref = (k - pos) mod R), the
-// lowest k on a tie; the edge's destination names its canonical root.
+// lowest k on a tie; the edge's destination names its canonical root.  The
+// fault instance seals the message, and turns a repair sentinel row (vid,
+// -(k+1), value bits) into an OP_REPAIR at vid's rhizome root k.
 template <class C>
 __device__ void io(const Dims& D, const Leaves& P, const C& X, int i) {
   int pos = X.io_pos[i];
@@ -779,8 +926,17 @@ __device__ void io(const Dims& D, const Leaves& P, const C& X, int i) {
   msg[2] = fmod_(e[1], NC) * D.S + fdiv(e[1], NC);
   msg[3] = e[2];
   msg[4] = 0;
+  if constexpr (C::kFaults) {
+    if (e[1] < 0) {
+      int k = -e[1] - 1;
+      tgt = fmod_(e[0] + k * D.rhizome_stride, NC) * D.S +
+            k * D.root_slots + fdiv(e[0], NC);
+      msg[0] = OP_REPAIR; msg[1] = tgt; msg[2] = e[2]; msg[3] = 0;
+    }
+    msg[4] = msg_seal(msg);
+  }
   int tb = yx_tb(D, fdiv(tgt, D.S), 0, i);
-  if (deliver(D, X, i, msg, tb, msg_lane(D, OP_INSERT_EDGE, tgt),
+  if (deliver(D, X, i, msg, tb, msg_lane(D, msg[0], msg[1]),
               X.aq_n[X.l(i)] < D.Q - D.aq_reserve - D.sys_reserve)) {
     X.io_pos[i] = pos + 1;
     if constexpr (C::kTelemetry) X.count(i, TM_IO);   // row 0, column i
@@ -851,12 +1007,16 @@ __device__ __forceinline__ void tm_hiwater(const C& X, int c) {
 // cells' activity in the exec loop and their channel occupancy in the next
 // quiescence test (the one after a launch's last cycle too), and each warp
 // adds its sums into the cycle's trace row: no barrier of its own.
-template <bool kCluster, bool kTm>
+template <bool kCluster, bool kTm, bool kFlt>
 __device__ int run_cycles(const Dims& D, const Leaves& P,
-                          const Cells<kCluster, kTm>& X, Counts& n,
+                          const Cells<kCluster, kTm, kFlt>& X, Counts& n,
                           int& quiet, PhaseClock& clk) {
   const int first = X.c0 + threadIdx.x, end = X.c0 + X.nb,
             nt = blockDim.x;
+  // the machine cycle at launch start (the fault hash's; *P.cycle is
+  // written only after the last cycle)
+  int cycle0 = 0;
+  if constexpr (kFlt) cycle0 = *P.cycle;
   int ran = 0;
   for (;;) {
     int busy = 0;
@@ -879,12 +1039,14 @@ __device__ int run_cycles(const Dims& D, const Leaves& P,
 #pragma unroll
     for (int d = 0; d < 4; ++d) {
 #ifndef CCA_SKELETON
-      for (int c = first; c < end; c += nt) hop_read(D, X, c, d);
+      for (int c = first; c < end; c += nt)
+        hop_read(D, P, X, c, d, cycle0 + ran, n);
 #endif
       X.sync(2 * d);
       clk.stamp(1 + 2 * d);
 #ifndef CCA_SKELETON
-      for (int c = first; c < end; c += nt) n.hops += hop_write(D, X, c, d);
+      for (int c = first; c < end; c += nt)
+        n.hops += hop_write(D, X, c, d, n);
 #endif
       X.sync(2 * d + 1);
       clk.stamp(2 + 2 * d);
@@ -912,9 +1074,9 @@ __device__ int run_cycles(const Dims& D, const Leaves& P,
 // device memory, one outbox and grant buffer for the four rounds.  Built on
 // the host and passed as a kernel parameter, as the leaves are, so its
 // pointers are read from parameter space and held in no register.
-template <bool kTm>
-Cells<false, kTm> device_cells(const Dims& D, const Leaves& P) {
-  Cells<false, kTm> X;
+template <bool kTm, bool kFlt>
+Cells<false, kTm, kFlt> device_cells(const Dims& D, const Leaves& P) {
+  Cells<false, kTm, kFlt> X;
   X.aq = P.aq; X.aq_n = P.aq_n; X.aq_head = P.aq_head;
   X.ch = P.ch; X.ch_n = P.ch_n; X.ch_head = P.ch_head; X.ch_rr = P.ch_rr;
   X.pk_n = P.pk_n; X.cmsg = P.cmsg; X.cvalid = P.cvalid;
@@ -928,9 +1090,28 @@ Cells<false, kTm> device_cells(const Dims& D, const Leaves& P) {
   return X;
 }
 
-template <bool kTm>
+// (fault instances) Add the CTA's fault counts into P.flt: one sum a
+// counter in `sum` (N_FLT ints of shared memory), one atomic a counter a
+// CTA.  The threads that read `sum` last are the ones that reset it next.
+template <bool kFlt>
+__device__ void add_flt(const Leaves& P, int* sum, const Counts& n) {
+  if constexpr (kFlt) {
+    if (threadIdx.x < N_FLT) sum[threadIdx.x] = 0;
+    __syncthreads();
+    if (n.drop) atomicAdd(&sum[FLT_DROP], n.drop);
+    if (n.dup) atomicAdd(&sum[FLT_DUP], n.dup);
+    if (n.corrupt) atomicAdd(&sum[FLT_CORRUPT], n.corrupt);
+    if (n.blackout) atomicAdd(&sum[FLT_BLACKOUT], n.blackout);
+    __syncthreads();
+    if (threadIdx.x < N_FLT && sum[threadIdx.x])
+      atomicAdd(P.flt + threadIdx.x, sum[threadIdx.x]);
+  }
+}
+
+template <bool kTm, bool kFlt>
 __global__ void __launch_bounds__(1024, 1)
-cca_cycle_kernel(const Dims D, const Leaves P, const Cells<false, kTm> X) {
+cca_cycle_kernel(const Dims D, const Leaves P,
+                 const Cells<false, kTm, kFlt> X) {
   PhaseClock clk;
   clk.start();
   const int NC = D.H * D.W, tid = threadIdx.x, nt = blockDim.x;
@@ -940,10 +1121,11 @@ cca_cycle_kernel(const Dims D, const Leaves P, const Cells<false, kTm> X) {
   if (P.trace)
     for (int i = tid; i < 2 * D.n_cycles; i += nt) P.trace[i] = 0;
   clk.stamp(10);
-  Counts n = {0, 0, 0, 0};
+  Counts n = {0, 0, 0, 0, 0, 0, 0, 0};
   int quiet;
   int ran = run_cycles(D, P, X, n, quiet, clk);
   __shared__ int sum[4];
+  add_flt<kFlt>(P, sum, n);
   if (tid < 4) sum[tid] = 0;
   __syncthreads();
   atomicAdd(&sum[0], n.hops);
@@ -968,6 +1150,14 @@ cca_cycle_kernel(const Dims D, const Leaves P, const Cells<false, kTm> X) {
   }
   clk.stamp(11);
   clk.flush(0);
+}
+
+// Launch the one-block kernel's instance (kTm, kFlt).
+template <bool kTm, bool kFlt>
+void block_launch(const Dims& D, const Leaves& P, int threads,
+                  cudaStream_t stream) {
+  cca_cycle_kernel<kTm, kFlt><<<1, threads, 0, stream>>>(
+      D, P, device_cells<kTm, kFlt>(D, P));
 }
 
 }  // namespace
@@ -995,12 +1185,12 @@ extern "C" int cca_cycle_launch(void* const* ptrs, int n_ptrs,
   }
   int cells = D.H * D.W;
   int threads = cells < 1024 ? cells : 1024;
-  if (D.telemetry)
-    cca_cycle_kernel<true><<<1, threads, 0, (cudaStream_t)stream>>>(
-        D, P, device_cells<true>(D, P));
-  else
-    cca_cycle_kernel<false><<<1, threads, 0, (cudaStream_t)stream>>>(
-        D, P, device_cells<false>(D, P));
+  void (*launch)(const Dims&, const Leaves&, int, cudaStream_t) =
+      D.telemetry ? (D.faults ? block_launch<true, true>
+                              : block_launch<true, false>)
+                  : (D.faults ? block_launch<false, true>
+                              : block_launch<false, false>);
+  launch(D, P, threads, (cudaStream_t)stream);
   int err = cudaGetLastError();
   if (!err) *path = 0;
   return err;

@@ -168,7 +168,7 @@ __device__ void move_band(const Dims& D, const Leaves& P, const C& X,
   }
 }
 
-template <bool kTm>
+template <bool kTm, bool kFlt>
 __global__ void __launch_bounds__(CLUSTER_THREADS, 1)
 cca_cycle_cluster_kernel(const Dims D, const Leaves P) {
   PhaseClock clk;
@@ -177,7 +177,7 @@ cca_cycle_cluster_kernel(const Dims D, const Leaves P) {
   cg::cluster_group cluster = cg::this_cluster();
   const ClusterLayout L = cluster_layout(D);
   const int rank = cluster.block_rank(), tid = threadIdx.x;
-  Cells<true, kTm> X;
+  Cells<true, kTm, kFlt> X;
   X.aq = smem + L.aq; X.aq_n = smem + L.aq_n; X.aq_head = smem + L.aq_head;
   X.ch = smem + L.ch; X.ch_n = smem + L.ch_n; X.ch_head = smem + L.ch_head;
   X.ch_rr = smem + L.ch_rr; X.pk_n = smem + L.pk_n; X.cmsg = smem + L.cmsg;
@@ -202,12 +202,13 @@ cca_cycle_cluster_kernel(const Dims D, const Leaves P) {
   cluster.sync();   // every CTA running and loaded before any DSMEM access
   clk.stamp(10);
 
-  Counts n = {0, 0, 0, 0};
+  Counts n = {0, 0, 0, 0, 0, 0, 0, 0};
   int quiet;
   int ran = run_cycles(D, P, X, n, quiet, clk);
 
   move_band(D, P, X, false);
   int* sum = smem + L.cnt + 4 * rank;   // this CTA's row, here and in CTA 0
+  add_flt<kFlt>(P, sum, n);   // the row in CTA 0 is read only after this
   if (tid < 4) sum[tid] = 0;
   __syncthreads();
   atomicAdd(&sum[0], n.hops);
@@ -240,7 +241,8 @@ cca_cycle_cluster_kernel(const Dims D, const Leaves P) {
 }
 
 // Launch the cluster kernel for D's geometry on `stream` (its telemetry
-// instance where D.telemetry): n_ctas CTAs of one cluster, up to
+// instance where D.telemetry, its fault instance where D.faults): n_ctas
+// CTAs of one cluster, up to
 // CLUSTER_THREADS threads each, D.smem_bytes of dynamic shared memory each.
 // The first launch of a geometry and instance on a device checks that the
 // card can place such a cluster at all.  Returns 0, a CUDA error code or
@@ -252,8 +254,10 @@ int cluster_launch(const Dims& D, const Leaves& P, cudaStream_t stream) {
   int threads = (L.nb + 31) / 32 * 32;
   if (threads > CLUSTER_THREADS) threads = CLUSTER_THREADS;
   void (*kernel)(const Dims, const Leaves) =
-      D.telemetry ? cca_cycle_cluster_kernel<true>
-                  : cca_cycle_cluster_kernel<false>;
+      D.telemetry ? (D.faults ? cca_cycle_cluster_kernel<true, true>
+                              : cca_cycle_cluster_kernel<true, false>)
+                  : (D.faults ? cca_cycle_cluster_kernel<false, true>
+                              : cca_cycle_cluster_kernel<false, false>);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
   if (e) return e;
@@ -276,19 +280,20 @@ int cluster_launch(const Dims& D, const Leaves& P, cudaStream_t stream) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
 
-  // device, n_ctas, threads, bytes, instance
+  // device, n_ctas, threads, bytes, instance (2 x telemetry + faults)
+  const int instance = 2 * D.telemetry + D.faults;
   static int checked[5] = {-1, 0, 0, 0, 0};
   int dev = 0;
   e = cudaGetDevice(&dev);
   if (e) return e;
   if (checked[0] != dev || checked[1] != D.n_ctas || checked[2] != threads ||
-      checked[3] != L.bytes || checked[4] != D.telemetry) {
+      checked[3] != L.bytes || checked[4] != instance) {
     int clusters = 0;
     e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
     if (e) return e;
     if (clusters < 1) return ERR_NO_CLUSTER;
     checked[0] = dev; checked[1] = D.n_ctas; checked[2] = threads;
-    checked[3] = L.bytes; checked[4] = D.telemetry;
+    checked[3] = L.bytes; checked[4] = instance;
   }
   e = cudaLaunchKernelEx(&cfg, kernel, D, P);
   if (e) return e;

@@ -15,7 +15,12 @@ device is refused.
 With ``cfg.telemetry`` the launch takes the kernels' telemetry instances,
 which also accumulate the state's telemetry planes (``tm_cell``,
 ``tm_lane``, ``tm_hiw``) as ``core.engine.cycle_body`` does; the launch
-record and the trace rows are the same.
+record and the trace rows are the same.  With ``cfg.faults`` it takes
+their fault instances, which inject the plan's hazards in the hop stage,
+seal and check the messages, run ``OP_REPAIR`` and count into ``flt`` as
+``core.engine.cycle_body`` does; the plan reaches the kernel as the hash
+keys and thresholds in `struct Dims` and the blackout windows as a small
+int32 table on the state's device.
 
 Two kernels compute the same chunk (``path``):
 
@@ -49,6 +54,7 @@ from repro_torch.core.config import EngineConfig
 from repro_torch.core.state import MachineState, init_state
 from repro_torch.kernels import _build
 from repro_torch.kernels.cca_cycle.ref import cca_cycle_chunk_ref
+from repro_torch.resilience.faults import fault_key
 
 HERE = pathlib.Path(__file__).resolve().parent
 SOURCE = HERE / "csrc" / "cca_cycle.cu"
@@ -69,7 +75,7 @@ KERNEL_LEAVES = (
     "cout", "cdrain",
     "io_edges", "io_n", "io_pos", "arot",
     "cycle", "stat_hops", "stat_exec", "stat_stall", "stat_allocs",
-    "tm_cell", "tm_lane", "tm_hiw")
+    "tm_cell", "tm_lane", "tm_hiw", "flt")
 
 # the per-cell leaves the cluster kernel holds in shared memory, a band of
 # rows of each ([H, W, ...] leaves; `cluster_layout` in the .cuh).  The
@@ -153,11 +159,32 @@ def cluster_geometry(cfg: EngineConfig, n_ctas: int | None = None
     return None
 
 
+def _fault_dims(cfg: EngineConfig) -> list[int]:
+    """`struct Dims`' fault fields: ``faults`` 0 or 1, the hash keys of
+    salts 1-3 (drop, dup, corrupt), the three 16-bit thresholds and the
+    blackout count."""
+    plan = cfg.faults
+    if plan is None:
+        return [0] * 8
+    return [1, *(fault_key(plan.seed, salt) for salt in (1, 2, 3)),
+            plan.drop_thr, plan.dup_thr, plan.corrupt_thr,
+            len(plan.blackouts)]
+
+
+@functools.cache
+def _blackout_table(blackouts: tuple, device: torch.device):
+    """The plan's blackout windows as int32 ``[n, 5]`` rows (row, col,
+    dir, start, n) on ``device``, made once a plan and device."""
+    return torch.tensor(blackouts, dtype=torch.int32,
+                        device=device).reshape(-1, 5)
+
+
 def _dims(cfg: EngineConfig, app: DiffusionApp, n_offs: int,
           n_cycles: int, geometry: tuple[int, int, int] | None
           ) -> list[int]:
     """Scalar geometry, in the order of `struct Dims` (``telemetry`` 0 or
-    1; ``n_ctas`` and the bytes a CTA 0 for the one-block kernel)."""
+    1, the fault fields of ``_fault_dims``; ``n_ctas`` and the bytes a CTA
+    0 for the one-block kernel)."""
     n_ctas, _, nbytes = geometry or (0, 0, 0)
     return [cfg.height, cfg.width, cfg.slots, cfg.edge_cap, cfg.queue_cap,
             cfg.futq_cap, cfg.lane_capacity, cfg.lanes, cfg.park_capacity,
@@ -165,16 +192,20 @@ def _dims(cfg: EngineConfig, app: DiffusionApp, n_offs: int,
             cfg.root_slots, cfg.primary_slots, cfg.rhizome_cap,
             cfg.rhizome_stride, cfg.aq_reserve, cfg.sys_reserve, n_offs,
             app.code, ALLOCATORS.index(cfg.allocator), n_cycles,
-            int(cfg.telemetry), n_ctas, nbytes]
+            int(cfg.telemetry), *_fault_dims(cfg), n_ctas, nbytes]
 
 
 def _launch_args(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
                  n_cycles: int, geometry=None, trace=None):
     """The kernel's tensors, in the order of `struct Leaves` (the state
-    leaves, the vicinity table, the per-cell scratch, the record, the
-    trace rows or ``None``), and its `struct Dims`."""
+    leaves, the vicinity table, the blackout table or ``None``, the
+    per-cell scratch, the record, the trace rows or ``None``), and its
+    `struct Dims`."""
     dev = st.aq.device
     offs = torch.as_tensor(vicinity_offsets(cfg.vicinity_hops), device=dev)
+    blackouts = (_blackout_table(cfg.faults.blackouts, dev)
+                 if cfg.faults is not None and cfg.faults.blackouts
+                 else None)
 
     def scratch(n):
         return torch.empty(n, dtype=torch.int32, device=dev)
@@ -182,8 +213,8 @@ def _launch_args(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
     # the cluster kernel keeps its scratch in shared memory
     cells = 1 if geometry else cfg.n_cells
     tensors = [getattr(st, k) for k in KERNEL_LEAVES] + [
-        offs, scratch(cells * cfg.msg_words), scratch(cells), scratch(cells),
-        scratch(8), trace]
+        offs, blackouts, scratch(cells * cfg.msg_words), scratch(cells),
+        scratch(cells), scratch(8), trace]
     return tensors, _dims(cfg, app, len(offs), n_cycles, geometry)
 
 

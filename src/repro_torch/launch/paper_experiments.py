@@ -15,19 +15,25 @@ or figure, with the same scales, engine config and row keys.
              the same stream at the normal queue size
              bench_engine_throughput, bench_engine: the simulator's own
              cycle counts (and wall times on the card)
+             fault_smoke (``--faults``): ``bench_engine``'s stream under
+             a seeded fault plan, repaired to the exact BFS values
+             (``benchmarks/resilience_smoke.py::fault_smoke``)
 
 Cycle counts, hops, execs, energies and modelled times do not depend on
 the device; wall times are reported only where the engine ran on the card.
 Every chunk is one launch of the cycle kernel on the card (the plain
 PyTorch version on the CPU).  The rows are printed as JSON, one line a
 benchmark; only ``--profile`` writes files (the telemetry run's Chrome
-trace and congestion heatmap, under ``build/profile/``).
+trace and congestion heatmap, under ``build/profile/``) and ``--out``
+(the fault smokes' records, under the directory it names).
 
     PYTHONPATH=src python -m repro_torch.launch.paper_experiments --scale ci
     PYTHONPATH=src python -m repro_torch.launch.paper_experiments \\
         --scale ci --device cpu --only energy
     PYTHONPATH=src python -m repro_torch.launch.paper_experiments \\
         --only engine --profile
+    PYTHONPATH=src python -m repro_torch.launch.paper_experiments \\
+        --faults --out build/faults
 """
 from __future__ import annotations
 
@@ -47,8 +53,9 @@ from repro_torch.core.engine import quiescent
 from repro_torch.core.reference import bfs_levels
 from repro_torch.core.state import (TM_ALLOC, TM_EXEC, TM_HOP, TM_IO,
                                     TM_PARK, TM_STALL, resolve_device)
-from repro_torch.graph.streams import StreamSpec, make_stream
+from repro_torch.graph.streams import StreamSpec, hub_edges, make_stream
 from repro_torch.kernels.cca_cycle import ops
+from repro_torch.resilience import FLT_CORRUPT, FLT_DROP, FaultPlan
 
 SCALES = {
     "ci": dict(n_vertices=2000, n_edges=20_000),
@@ -436,6 +443,21 @@ def bench_engine_throughput(scale="ci", device=None):
     return out
 
 
+def engine_config(scale, **kw) -> EngineConfig:
+    """``benchmarks/engine_throughput.py::_cfg``: the engine config of
+    ``bench_engine`` and ``fault_smoke`` on ``ENGINE_SCALES[scale]``'s
+    grid, with ``kw`` on top."""
+    p = ENGINE_SCALES[scale]
+    base = dict(height=p["height"], width=p["width"],
+                n_vertices=p["n_vertices"], edge_cap=8,
+                ghost_slots=max(64, 4 * p["n_edges"]
+                                // (8 * p["height"] * p["width"])),
+                queue_cap=64, chan_cap=16, futq_cap=8, io_stream_cap=2 ** 18,
+                chunk=p["chunk"])
+    base.update(kw)
+    return EngineConfig(**base)
+
+
 def bench_engine(scale="ci", device=None, profile=False, profile_dir=None):
     """``benchmarks/engine_throughput.py::bench_engine``'s stream (seed 3,
     two edge-sampled increments, BFS from vertex 0) on its ``ci`` or
@@ -451,12 +473,7 @@ def bench_engine(scale="ci", device=None, profile=False, profile_dir=None):
                       increments=2, sampling="edge", seed=3)
     incs = make_stream(spec)
     want = bfs_levels(p["n_vertices"], np.concatenate(incs), 0)
-    cfg = EngineConfig(height=p["height"], width=p["width"],
-                       n_vertices=p["n_vertices"], edge_cap=8,
-                       ghost_slots=max(64, 4 * p["n_edges"]
-                                       // (8 * p["height"] * p["width"])),
-                       queue_cap=64, chan_cap=16, futq_cap=8,
-                       io_stream_cap=2 ** 18, chunk=p["chunk"])
+    cfg = engine_config(scale)
     eng = StreamingEngine(cfg, "bfs", device=dev)
     eng.seed(0, 0.0)
     eng.run_increment(incs[0], max_cycles=MAX_CYCLES)
@@ -512,7 +529,6 @@ def telemetry_replay(rec: dict, max_cycles: int, pinned_spec: dict,
     log.  ``pinned_spec`` is the pinned stream's ``StreamSpec`` fields
     (``tests/data/pre_lanes_reference.json``).  Returns ``(record,
     engine)``."""
-    from repro_torch.graph.streams import hub_edges
     from repro_torch.obs import congestion_heatmap
     from repro_torch.obs.frames import frame_record
     cfg = EngineConfig(**{k: v for k, v in rec["cfg"].items()
@@ -585,6 +601,131 @@ def _profile(cfg, incs, plain, plain_wall_s: float, dev, out_dir, scale):
     return out
 
 
+# ------------------- faults, seals and repair (DESIGN §9) -------------------
+
+def smoke_plan(chunk: int) -> FaultPlan:
+    """``fault_smoke``'s plan: drop, duplicate and corrupt at 4, 2 and 2
+    per cent, seed 7, and the row-0 link W out of cell (0, 1) dead for the
+    first ``chunk`` cycles."""
+    return FaultPlan(seed=7, drop_rate=0.04, dup_rate=0.02,
+                     corrupt_rate=0.02, blackouts=((0, 1, 2, 0, chunk),))
+
+
+def lost(eng: StreamingEngine) -> int:
+    """Messages the last increment lost before its repair: the dropped and
+    the corrupted (the repair pass ran where this is above 0)."""
+    flt = eng.state.flt.tolist()
+    return flt[FLT_DROP] + flt[FLT_CORRUPT]
+
+
+def fault_smoke(scale="ci", device=None, out_dir=None) -> dict:
+    """``benchmarks/resilience_smoke.py::fault_smoke``: ``bench_engine``'s
+    grid and stream (seed 3, edge sampling) in three increments under
+    ``smoke_plan`` with telemetry on; messages must be lost (``flt`` > 0)
+    and the BFS values still equal the oracle's after the repair pass.
+    The record has the JAX benchmark's fields (``wall_s`` on the card
+    only, else None) and each increment's cycles, counters, ``flt``,
+    frames and whether the repair ran; with ``out_dir`` it is also written
+    to ``out_dir/fault_smoke_<scale>.json`` (nowhere else)."""
+    dev = resolve_device(device)
+    p = ENGINE_SCALES[scale]
+    incs = make_stream(StreamSpec(n_vertices=p["n_vertices"],
+                                  n_edges=p["n_edges"], increments=3,
+                                  sampling="edge", seed=3))
+    want = bfs_levels(p["n_vertices"], np.concatenate(incs), 0)
+    eng = StreamingEngine(engine_config(scale, faults=smoke_plan(p["chunk"]),
+                                        telemetry=True), "bfs", device=dev)
+    eng.seed(0, 0.0)
+    _sync(dev)
+    t0 = time.time()
+    rows, flt = [], np.zeros(4, np.int64)
+    for e in incs:
+        r = eng.run_increment(e, max_cycles=MAX_CYCLES)
+        f = eng.state.flt.tolist()       # the counters reset each increment
+        flt += f
+        rows.append(dict(cycles=r.cycles, hops=r.hops, execs=r.execs,
+                         stalls=r.stalls, allocs=r.allocs, flt=f,
+                         frames=len(r.frames), repaired=lost(eng) > 0))
+    _sync(dev)
+    wall = time.time() - t0
+    if flt[FLT_DROP] + flt[FLT_CORRUPT] == 0:
+        raise AssertionError(f"the fault plan injected nothing: {flt}")
+    np.testing.assert_array_equal(eng.values(p["n_vertices"]), want)
+    rec = dict(status="exact-after-repair", scale=scale,
+               cycles=sum(r["cycles"] for r in rows),
+               wall_s=wall if dev.type == "cuda" else None,
+               dropped=int(flt[0]), duplicated=int(flt[1]),
+               corrupted=int(flt[2]), blackout_hits=int(flt[3]),
+               increments=rows)
+    if out_dir is not None:
+        out = pathlib.Path(out_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        (out / f"fault_smoke_{scale}.json").write_text(
+            json.dumps(rec, indent=1) + "\n")
+    return rec
+
+
+def hub_stream(n=256, degree=120, seed=3) -> np.ndarray:
+    """The 8x8 hub stream of the JAX package's ``tests/test_resilience.py``:
+    ``degree`` edges out of vertex 0 among ``n`` vertices, weight 1."""
+    e = hub_edges(n, 0, degree, seed=seed)
+    one = np.float32(1.0).view(np.int32)
+    return np.concatenate([e, np.full((len(e), 1), one, np.int64)],
+                          1).astype(np.int32)
+
+
+def fault_replay(rec: dict, pinned_spec: dict, device=None):
+    """One stream of ``data/fault_fingerprint.json`` through the port,
+    recorded as ``tools/record_torch_fingerprint.py --faults`` records the
+    JAX engine: each increment's counters, ``flt``, frame count and the
+    digest of every leaf of the state it ends in (``obs.frames.
+    state_digests``), and a livelock's increment, cycle, chunk and
+    ``flt``.  ``rec["kind"]`` names the stream: ``"smoke"``
+    (``fault_smoke``'s at ``rec["scale"]``), ``"hub"`` (``hub_stream`` cut
+    at ``rec["splits"]``), ``"paper"`` (``run_stream``'s ten increments at
+    ``rec["size"]``, vertices and edges) or ``"pinned"`` (``pinned_spec``,
+    the pinned stream's ``StreamSpec`` fields).  Returns ``(record,
+    engine)``."""
+    from repro_torch.core.state import state_to_numpy
+    from repro_torch.obs.frames import state_digests
+    plan = rec["plan"]
+    cfg = EngineConfig(**dict(
+        {k: v for k, v in rec["cfg"].items()
+         if k in EngineConfig.__dataclass_fields__ and k != "faults"},
+        faults=FaultPlan(**dict(plan, blackouts=tuple(
+            tuple(b) for b in plan["blackouts"])))))
+    if rec["kind"] == "smoke":
+        p = ENGINE_SCALES[rec["scale"]]
+        incs = make_stream(StreamSpec(n_vertices=p["n_vertices"],
+                                      n_edges=p["n_edges"], increments=3,
+                                      sampling="edge", seed=3))
+    elif rec["kind"] == "hub":
+        e = hub_stream()
+        incs = [e[lo:hi] for lo, hi in rec["splits"]]
+    elif rec["kind"] == "paper":
+        n, m = rec["size"]
+        incs = stream_increments("edge", dict(n_vertices=n, n_edges=m))
+    else:
+        incs = make_stream(StreamSpec(**pinned_spec))
+    eng = StreamingEngine(cfg, "bfs", device=device)
+    eng.seed(0, 0.0)
+    rows, out = [], {}
+    for i, e in enumerate(incs):
+        try:
+            r = eng.run_increment(e, max_cycles=MAX_CYCLES)
+        except LivelockError as ex:
+            out["livelock"] = dict(increment=i, cycle=ex.cycle,
+                                   chunk=ex.chunk, flt=eng.state.flt.tolist())
+            break
+        rows.append(dict(cycles=r.cycles, hops=r.hops, execs=r.execs,
+                         stalls=r.stalls, allocs=r.allocs,
+                         flt=eng.state.flt.tolist(),
+                         frames=len(r.frames) if r.frames else 0,
+                         state=state_digests(state_to_numpy(eng.state))))
+    out["increments"] = rows
+    return out, eng
+
+
 BENCHES = {
     "increments": lambda s, d: {
         sampling: bench_cycles_per_increment(s, sampling, d)[0]
@@ -610,8 +751,23 @@ def main(argv=None) -> None:
     ap.add_argument("--profile", action="store_true",
                     help="engine: also run with telemetry and write its "
                          "trace and heatmap under build/profile/")
+    ap.add_argument("--faults", action="store_true",
+                    help="run only the fault smokes, at the engine grids "
+                         "ci and mid")
+    ap.add_argument("--out", default=None,
+                    help="--faults: write each smoke's record under this "
+                         "directory")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
+    if args.faults:
+        for scale in ENGINE_SCALES:
+            t0 = time.time()
+            out = {"bench": "fault_smoke", "scale": scale,
+                   "rows": fault_smoke(scale, dev, args.out)}
+            if dev.type == "cuda":
+                out["seconds"] = time.time() - t0
+            print(json.dumps(out), flush=True)
+        return
     benches = dict(BENCHES)
     if args.profile:
         benches["engine"] = lambda s, d: [bench_engine(e, d, profile=True)

@@ -211,6 +211,19 @@ def plane_digest(a) -> str:
     return hashlib.sha256(a.tobytes()).hexdigest()[:16]
 
 
+def state_digests(arrays: dict) -> dict:
+    """``{leaf: plane_digest}`` of a machine state given as numpy arrays
+    (``core.state.state_to_numpy``, or a JAX state's leaves): a float32
+    leaf by its bits, a bool leaf as 0 / 1.  How the fault fingerprint
+    names a final state."""
+    out = {}
+    for k, a in arrays.items():
+        a = np.asarray(a)
+        out[k] = plane_digest(a.view(np.int32) if a.dtype == np.float32
+                              else a)
+    return out
+
+
 def frame_record(frames) -> dict:
     """A frame log as the telemetry fingerprint records it: the frame
     count, ``dropped``, ``totals()`` and the final frame's planes, each as

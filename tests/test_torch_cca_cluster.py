@@ -185,5 +185,6 @@ def test_c_structs_match_the_wrapper():
     assert ops._dims(cfg, BFS, 9, 512, (16, 2, 178816))[-2:] == [16, 178816]
     leaves = _c_struct_fields("Leaves")
     assert leaves[:len(ops.KERNEL_LEAVES)] == list(ops.KERNEL_LEAVES)
-    assert leaves[len(ops.KERNEL_LEAVES):] == ["offs", "outbox", "grant",
-                                               "qwork", "rec", "trace"]
+    assert leaves[len(ops.KERNEL_LEAVES):] == ["offs", "blackouts", "outbox",
+                                               "grant", "qwork", "rec",
+                                               "trace"]

@@ -37,6 +37,7 @@ from repro_torch.core.routing import yx_target_buffer
 from repro_torch.core.state import (init_state, state_from_numpy,
                                     state_to_numpy)
 from repro_torch.graph.streams import StreamSpec, make_stream
+from repro_torch.resilience import FaultPlan
 
 DATA = pathlib.Path(__file__).parent / "data"
 PINNED = json.loads((DATA / "pre_lanes_reference.json").read_text())
@@ -185,7 +186,8 @@ def test_load_stream_matches_jax(limit):
 
 @pytest.mark.parametrize("knob", [
     dict(telemetry=True, ingest_guard=True),
-    dict(faults=object()), dict(ingest_guard=True), dict(qbatch=2),
+    dict(faults=FaultPlan(), qbatch=2), dict(ingest_guard=True),
+    dict(qbatch=2),
     dict(n_vals=2), dict(n_io_cells=3)])
 def test_validate_rejects_unported_knobs(knob):
     with pytest.raises(NotImplementedError):

@@ -15,7 +15,11 @@ turns, each in its own process:
 
 ``--telemetry`` runs the stream and the chunks with ``telemetry=True`` (a
 checkout whose port carries telemetry), for the cost of the kernels'
-telemetry instances against the same checkout without it.
+telemetry instances against the same checkout without it.  ``--faults``
+runs them under a zero-rate fault plan (``FaultPlan(seed=7)``: the
+kernels' fault instances, every message sealed and checked, nothing
+injected; a checkout whose port carries faults), for the price of the
+seals and the fault branch against the same checkout without it.
 
 One card; ~15 s a run, the build included.
 """
@@ -26,7 +30,8 @@ import sys
 import torch
 
 
-def main(tree: str, tag: str, telemetry: bool = False) -> None:
+def main(tree: str, tag: str, telemetry: bool = False,
+         faults: bool = False) -> None:
     sys.path.insert(0, str(pathlib.Path(tree).resolve() / "src"))
     from repro_torch.core import EngineConfig, StreamingEngine
     from repro_torch.core.ingest import load_stream
@@ -34,12 +39,15 @@ def main(tree: str, tag: str, telemetry: bool = False) -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels.cca_cycle import ops
 
+    kw = {"telemetry": True} if telemetry else {}
+    if faults:
+        from repro_torch.resilience import FaultPlan
+        kw["faults"] = FaultPlan(seed=7)
     n, m = 50_000, 1_000_000
     ghosts = max(64, 2 * m // (8 * 1024), 3 * n // 1024)
     cfg = EngineConfig(height=32, width=32, n_vertices=n, edge_cap=8,
                        ghost_slots=ghosts, queue_cap=64, chan_cap=16,
-                       futq_cap=16, io_stream_cap=2 ** 21, chunk=512,
-                       **({"telemetry": True} if telemetry else {}))
+                       futq_cap=16, io_stream_cap=2 ** 21, chunk=512, **kw)
     ptxas = {name[-48:]: (info.get("registers"), info.get("spill_stores"),
                           info.get("spill_loads"))
              for name, info in _build.ptxas_functions(ops.build()[1]).items()
@@ -75,7 +83,7 @@ def main(tree: str, tag: str, telemetry: bool = False) -> None:
     st = st._replace(stat_hops=z.clone(), stat_exec=z.clone(),
                      stat_stall=z.clone(), stat_allocs=z.clone(),
                      tm_cell=st.tm_cell.zero_(), tm_lane=st.tm_lane.zero_(),
-                     tm_hiw=st.tm_hiw.zero_())
+                     tm_hiw=st.tm_hiw.zero_(), flt=st.flt.zero_())
     chunk_ms = []
     for _ in range(5):
         s = clone(st)
@@ -88,13 +96,16 @@ def main(tree: str, tag: str, telemetry: bool = False) -> None:
         torch.cuda.synchronize()
         chunk_ms.append(a.elapsed_time(b))
     print(json.dumps(dict(tree=tag, card=torch.cuda.get_device_name(0),
-                          telemetry=telemetry, launches=len(events),
+                          telemetry=telemetry, faults=faults,
+                          launches=len(events),
                           stream_ms_per_launch=stream_ms,
                           chunk_ms=chunk_ms, ptxas=ptxas)), flush=True)
 
 
 if __name__ == "__main__":
-    args = [a for a in sys.argv[1:] if a != "--telemetry"]
+    flags = ("--telemetry", "--faults")
+    args = [a for a in sys.argv[1:] if a not in flags]
     if len(args) != 2:
         raise SystemExit(__doc__)
-    main(*args, telemetry="--telemetry" in sys.argv[1:])
+    main(*args, telemetry="--telemetry" in sys.argv[1:],
+         faults="--faults" in sys.argv[1:])

@@ -1,7 +1,7 @@
 """Where a machine cycle's time goes in the cycle kernels, on one NVIDIA card.
 
     python3 tools/cca_cycle_variants.py [--configs paper,ci,fingerprint,pinned]
-                                        [--paths block,cluster]
+                                        [--paths block,cluster] [--faults]
 
 Builds ``src/repro_torch/kernels/cca_cycle/csrc/`` six ways, one nvcc
 each, started together (the last three from a patched copy of ``csrc/``
@@ -46,10 +46,14 @@ turn, then in reverse).  Prints the card's name and power limit, each
 variant's ms a launch and ns a machine cycle, and the mean SM clocks a
 cycle in each phase (CTA 0's thread 0; phase sums over the launch divided
 by the cycles run; the quiescence test runs once more than the cycles).
-Ends with one JSON line of the numbers.  Needs one card.
+Ends with one JSON line of the numbers.  ``--faults`` runs every config
+under a zero-rate fault plan (``FaultPlan(seed=7)``: the kernels' fault
+instances, every message sealed and checked, nothing injected), for the
+phases the fault branch costs against a run without it.  Needs one card.
 """
 import argparse
 import ctypes
+import dataclasses
 import json
 import pathlib
 import shutil
@@ -74,6 +78,7 @@ from repro_torch.graph.streams import StreamSpec, make_stream  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cca_cycle import ops  # noqa: E402
 from repro_torch.kernels.cca_cycle.ref import cca_cycle_chunk_ref  # noqa: E402
+from repro_torch.resilience import FaultPlan  # noqa: E402
 
 POW2_DIV = [
     ("__device__ __forceinline__ int fdiv(int a, int b) {\n",
@@ -177,25 +182,30 @@ def engine_state(cfg, incs, at, dev):
     return fresh_stats(st)
 
 
-def config_states(names, dev) -> dict:
+def config_states(names, dev, faults=None) -> dict:
     """{config: (cfg, state, K)} for the named configs, built on the card
-    through the one-block kernel."""
+    through the one-block kernel, each under the fault plan ``faults``."""
     out = {}
+
+    def with_faults(cfg):
+        return dataclasses.replace(cfg, faults=faults)
+
     with mock.patch.object(ops, "cluster_geometry", lambda *a, **k: None):
         if "paper" in names:
             incs = make_stream(StreamSpec(increments=10, sampling="edge",
                                           seed=1, **PAPER_FULL))
-            cfg = paper_cfg(**PAPER_FULL)
+            cfg = with_faults(paper_cfg(**PAPER_FULL))
             out["paper"] = (cfg, engine_state(cfg, incs, 9, dev), 512)
         if "ci" in names:
             ci = dict(n_vertices=2000, n_edges=20_000)
             incs = make_stream(StreamSpec(increments=10, sampling="edge",
                                           seed=1, **ci))
-            cfg = paper_cfg(**ci)
+            cfg = with_faults(paper_cfg(**ci))
             out["ci"] = (cfg, engine_state(cfg, incs, 5, dev), 512)
         if "fingerprint" in names:
             ref, cfg = json_cfg(ROOT / "src" / "repro_torch" / "data"
                                 / "fingerprint_32x32.json")
+            cfg = with_faults(cfg)
             incs = make_stream(StreamSpec(**ref["spec"]))
             out["fingerprint"] = (cfg, engine_state(cfg, incs,
                                                     len(incs) // 2, dev),
@@ -203,6 +213,7 @@ def config_states(names, dev) -> dict:
         if "pinned" in names:
             ref, cfg = json_cfg(ROOT / "tests" / "data"
                                 / "pre_lanes_reference.json")
+            cfg = with_faults(cfg)
             incs = make_stream(StreamSpec(**ref["spec"]))
             out["pinned"] = (cfg, engine_state(cfg, incs, 0, dev), 64)
     return out
@@ -316,6 +327,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--configs", default="paper,ci,fingerprint,pinned")
     ap.add_argument("--paths", default="block,cluster")
+    ap.add_argument("--faults", action="store_true",
+                    help="every config under a zero-rate fault plan")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("cca_cycle_variants: no CUDA device")
@@ -335,9 +348,10 @@ def main() -> None:
     paths = args.paths.split(",")
     dev = torch.device("cuda")
     t0 = time.time()
-    states = config_states(names, dev)
+    states = config_states(names, dev,
+                           FaultPlan(seed=7) if args.faults else None)
     print(f"states built in {time.time() - t0:.1f}s", flush=True)
-    result = {"card": smi, "configs": {}}
+    result = {"card": smi, "faults": args.faults, "configs": {}}
     for name in names:
         cfg, st, K = states[name]
         result["configs"][name] = run_config(name, cfg, st, K, libs, paths)

@@ -45,16 +45,35 @@ rhizome_cap=4 row at paper scale) the increment, cycle and chunk of the
 error and its full text, the flight recorder's wedge report included, to
 ``src/repro_torch/data/telemetry_fingerprint.json``.
 
+``--faults``: runs the JAX engine with ``telemetry=True`` under fault
+plans (DESIGN §9), one process a stream, all started together: the fault
+smoke (``benchmarks/resilience_smoke.py::fault_smoke``'s plan and stream,
+the jnp backend only) at the engine grids ci and mid, the 8x8 hub stream of
+``tests/test_resilience.py`` under a zero-rate plan and its four plans
+(drop, dup and corrupt; two blackouts; dups only; drop and corrupt over
+three increments), the
+pinned 8x8 stream at lanes=1 under drop and corrupt, and the paper
+experiments' 32x32 config (``benchmarks/paper_experiments.py::_engine``)
+at 20,000 vertices and 400,000 edges (ten edge-sampled increments, seed 1)
+under the paper plan of ``chip_smoke.py`` (the fault smoke's with a
+512-cycle blackout), whose repair pass livelocks.  Writes each
+increment's counters, ``flt``, frame count (telemetry on; the 32x32 row
+runs without it) and the digest of every leaf of the state it ends in
+(``obs.frames.state_digests``), and a livelock's increment, cycle, chunk
+and ``flt``, to ``src/repro_torch/data/fault_fingerprint.json``.
+
 ``chip_smoke.py`` and the port's tests replay these files.  Outside the
 tests, this is the only file of the port's tooling that imports JAX: it
 runs ``repro`` (and the JAX package's ``benchmarks``), and takes from
-``repro_torch`` only ``obs.frames.frame_record``, the one definition of
-how a frame log is fingerprinted, which the replays use too.
+``repro_torch`` only ``obs.frames.frame_record`` and ``state_digests``,
+the one definition of how a frame log and a state are fingerprinted,
+which the replays use too.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/record_torch_fingerprint.py
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/record_torch_fingerprint.py --paper-ci
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/record_torch_fingerprint.py --skew
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/record_torch_fingerprint.py --telemetry
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/record_torch_fingerprint.py --faults
 """
 import argparse
 import concurrent.futures
@@ -77,6 +96,7 @@ OUT = DATA / "fingerprint_32x32.json"
 PAPER_OUT = DATA / "paper_ci_fingerprint.json"
 SKEW_OUT = DATA / "skew_fingerprint.json"
 TELEMETRY_OUT = DATA / "telemetry_fingerprint.json"
+FAULTS_OUT = DATA / "fault_fingerprint.json"
 COMMAND = "PYTHONPATH=src JAX_PLATFORMS=cpu python tools/record_torch_fingerprint.py"
 MAX_CYCLES = 2_000_000
 # (app, sampling, allocator, per-cycle traces) of the --paper-ci streams
@@ -362,6 +382,115 @@ def main_telemetry() -> None:
     print(f"wrote {TELEMETRY_OUT}")
 
 
+# the --faults streams: (name, kind, scale or the hub's increments, plan)
+FAULT_HUB_SPLITS = ((0, None),)
+FAULT_STREAMS = (
+    ("fault_smoke ci", "smoke", "ci", None),
+    ("fault_smoke mid", "smoke", "mid", None),
+    ("hub zero-rate", "hub", FAULT_HUB_SPLITS, dict(seed=7)),
+    ("hub drop/dup/corrupt", "hub", FAULT_HUB_SPLITS,
+     dict(seed=7, drop_rate=0.05, dup_rate=0.03, corrupt_rate=0.02)),
+    ("hub blackouts", "hub", FAULT_HUB_SPLITS,
+     dict(seed=7, blackouts=((0, 1, 2, 0, 64), (0, 2, 2, 0, 64)))),
+    ("hub dups", "hub", FAULT_HUB_SPLITS, dict(seed=11, dup_rate=0.08)),
+    ("hub drop/corrupt, three increments", "hub",
+     ((0, 150), (150, 300), (300, None)),
+     dict(seed=3, drop_rate=0.04, corrupt_rate=0.02)),
+    ("pinned lanes=1 drop/corrupt", "pinned", None,
+     dict(seed=5, drop_rate=0.05, corrupt_rate=0.03)),
+    ("paper config 20K/400K", "paper", (20_000, 400_000),
+     dict(seed=7, drop_rate=0.04, dup_rate=0.02, corrupt_rate=0.02,
+          blackouts=((0, 1, 2, 0, 512),))))
+
+
+def fault_stream(name: str, kind: str, arg, plan) -> dict:
+    """One --faults stream through the JAX engine, with telemetry on but
+    for the 32x32 row."""
+    sys.path.insert(0, str(ROOT))
+    from repro.core.engine import LivelockError
+    from repro.graph.streams import hub_edges
+    from repro.resilience import FaultPlan
+    from repro_torch.obs.frames import state_digests
+    t0 = time.time()
+    out = dict(name=name, kind=kind)
+    if kind == "smoke":
+        from benchmarks.engine_throughput import ENGINE_SCALES, _cfg
+        p = ENGINE_SCALES[arg]
+        plan = dict(seed=7, drop_rate=0.04, dup_rate=0.02, corrupt_rate=0.02,
+                    blackouts=((0, 1, 2, 0, p["chunk"]),))
+        cfg = _cfg(p, "jnp", faults=FaultPlan(**plan), telemetry=True)
+        incs = make_stream(StreamSpec(
+            n_vertices=p["n_vertices"], n_edges=p["n_edges"], increments=3,
+            sampling="edge", seed=3))
+        out["scale"] = arg
+    elif kind == "hub":   # tests/test_resilience.py::_hub_stream, _cfg
+        cfg = EngineConfig(height=8, width=8, n_vertices=256, edge_cap=8,
+                           ghost_slots=24, queue_cap=32, chan_cap=16,
+                           chunk=64, lanes=2, max_cycles=200_000,
+                           telemetry=True, faults=FaultPlan(**plan))
+        e = hub_edges(256, 0, 120, seed=3)
+        one = np.float32(1.0).view(np.int32)
+        e = np.concatenate([e, np.full((len(e), 1), one, np.int64)],
+                           1).astype(np.int32)
+        incs = [e[lo:hi] for lo, hi in arg]
+        out["splits"] = [list(x) for x in arg]
+    elif kind == "paper":
+        from benchmarks.paper_experiments import _engine
+        n, m = arg
+        cfg = dataclasses.replace(_engine(n, "bfs", n_edges=m).cfg,
+                                  faults=FaultPlan(**plan))
+        incs = make_stream(StreamSpec(increments=10, sampling="edge",
+                                      seed=1, n_vertices=n, n_edges=m))
+        out["size"] = [n, m]
+    else:
+        ref = json.loads((ROOT / "tests" / "data"
+                          / "pre_lanes_reference.json").read_text())
+        cfg = EngineConfig(**ref["cfg"], telemetry=True,
+                           faults=FaultPlan(**plan))
+        incs = make_stream(StreamSpec(**ref["spec"]))
+    out.update(cfg={k: v for k, v in dataclasses.asdict(cfg).items()
+                    if k != "faults"},
+               plan=dataclasses.asdict(cfg.faults))
+    eng = StreamingEngine(cfg, "bfs")
+    eng.seed(0, 0.0)
+    rows = []
+    for i, e in enumerate(incs):
+        try:
+            r = eng.run_increment(e, max_cycles=MAX_CYCLES)
+        except LivelockError as ex:
+            out["livelock"] = dict(increment=i, cycle=ex.cycle,
+                                   chunk=ex.chunk,
+                                   flt=np.asarray(eng.state.flt).tolist())
+            break
+        rows.append(dict(
+            cycles=r.cycles, hops=r.hops, execs=r.execs, stalls=r.stalls,
+            allocs=r.allocs, flt=np.asarray(eng.state.flt).tolist(),
+            frames=len(r.frames) if r.frames else 0,
+            state=state_digests({k: np.asarray(v) for k, v in
+                                 eng.state._asdict().items()})))
+    out["increments"] = rows
+    print(f"{name}: {[r['cycles'] for r in rows]} cycles, flt "
+          f"{[r['flt'] for r in rows]}, livelock {out.get('livelock')} in "
+          f"{time.time() - t0:.1f}s", flush=True)
+    return out
+
+
+def main_faults() -> None:
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(
+            len(FAULT_STREAMS), mp_context=ctx) as pool:
+        runs = list(pool.map(fault_stream, *zip(*FAULT_STREAMS)))
+    out = dict(command=COMMAND + " --faults", commit=_commit(),
+               engine="repro (JAX, jnp backend, telemetry=True)",
+               digest="obs.frames.state_digests: first 16 hex digits of the "
+                      "sha256 of each leaf's int32 bytes (float32 leaves "
+                      "by their bits, bool leaves as 0/1), little-endian, "
+                      "C order",
+               max_cycles=MAX_CYCLES, source=0, streams=runs)
+    FAULTS_OUT.write_text(json.dumps(out, indent=1) + "\n")
+    print(f"wrote {FAULTS_OUT}")
+
+
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--paper-ci", action="store_true",
@@ -370,8 +499,12 @@ if __name__ == "__main__":
                     help="record skew_fingerprint.json instead")
     ap.add_argument("--telemetry", action="store_true",
                     help="record telemetry_fingerprint.json instead")
+    ap.add_argument("--faults", action="store_true",
+                    help="record fault_fingerprint.json instead")
     args = ap.parse_args()
-    if args.telemetry:
+    if args.faults:
+        main_faults()
+    elif args.telemetry:
         main_telemetry()
     elif args.skew:
         main_skew()
