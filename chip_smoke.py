@@ -175,6 +175,42 @@ counters; the engine's loss detector and repair pass), right after phase
      faulty, faulty, clean).  The off
      path against the parent commit: ``tools/cca_cycle_ab.py``
 
+Durable state, livelock recovery and the ingest guard (host-side: the
+checkpointer in the JAX package's format, ``StreamingEngine.checkpoint``
+/ ``restore``, ``run_increment(ckpt=, recover=)``, ``RecoveryPolicy``
+and ``migrate_state``, ``ingest_guard``; the same cycle kernel, in the
+escalated configs' lanes and in its telemetry and fault instances),
+right after phase 30, each with the counts set to 0 just before:
+
+ 31. kill and resume at full size: the paper stream with an async
+     checkpoint before each of increments 0-4 and a blocking one after
+     them, the engine dropped, a new one restored from it replaying
+     increments 5-9: every leaf, the totals and total_cycles == phase
+     5's, 102 launches and 50,030 cycles on the cluster kernel, BFS ==
+     oracle; each checkpoint's bytes, host snapshot and writer-thread
+     write seconds and the restore's; then ``kill_resume_smoke("ci")``
+     (totals 41,157 / 7,868 / 14 / 109)
+ 32. recovery: (a) ``recovery_smoke``, the 8x8 hub wedge recovered at
+     lanes 2, wedge cycle 704; (b) the paper stream under the paper plan
+     with ``RecoveryPolicy(max_attempts=2)``, telemetry off: each failed
+     attempt's lanes, queue_cap, cycle, chunk and launches by kernel, how
+     it ends (BFS == oracle if it recovers, the attempt log in the
+     re-raised message if not), the chunk in which each attempt wedged
+     held against the plain version on both kernels
+ 33. the ingest guard at full width: the paper stream with
+     ``ingest_guard=True`` on the cluster kernel's telemetry instance:
+     per increment the budget before and after, spill passes, cycles and
+     launches; every final frame reconciles with the counters; BFS ==
+     oracle
+ 34. ``src/repro_torch/data/resilience_fingerprint.json`` (the JAX
+     engine: kill-and-resume at ci, the recovery smoke, the guarded hub
+     stream through both drivers, the 20K / 400K paper-plan stream under
+     ``RecoveryPolicy(max_attempts=2)``) replayed exactly
+ 35. what checkpoints cost: ``profile_resilience("paper")``, the paper
+     stream with no checkpoint, one before every increment and one before
+     every second, in turns (never, 1, 2, 2, 1, never), walls after
+     ``ckpt.wait()``
+
 The GNN and DLRM serving forwards (every aggregation a launch of the
 scatter-SpMM kernel, every DLRM lookup one launch of the EmbeddingBag
 kernel):
@@ -1573,6 +1609,337 @@ def fault_phase_cost(incs, cfg_p, st, s_plain, cfg_f, st_f, s_plain_f
     return out
 
 
+# ---- durable state, recovery and the ingest guard (phases 31-35) ----
+
+RESILIENCE_FP = json.loads((ROOT / "src" / "repro_torch" / "data"
+                            / "resilience_fingerprint.json").read_text())
+CKPT_DIR = ROOT / "build" / "ckpt"    # checkpoints, removed after each run
+
+
+def reset_counts() -> None:
+    ops.launches = 0
+    ops.path_launches = dict.fromkeys(ops.PATHS, 0)
+
+
+def since(before: dict) -> dict:
+    return {p: ops.path_launches[p] - before[p] for p in ops.PATHS}
+
+
+def save_stats(ck) -> dict:
+    """The newest save of ``ck`` once written: bytes, host snapshot and
+    writer-thread seconds."""
+    ck.wait()
+    return dict(ck.last)
+
+
+def resilience_phase_resume(cfg_p, incs, eng5, want) -> dict:
+    """Phase 31: kill and resume at full size.  The paper stream on the
+    paper config with an async checkpoint before each of increments 0-4
+    and a blocking one after them (step 5); the engine dropped; a new one
+    restored from step 5 replays increments 5-9: every leaf, the totals
+    and ``total_cycles`` equal to phase 5's uninterrupted run, the 102
+    launches and 50,030 cycles of the whole stream, all on the cluster
+    kernel, BFS the oracle's.  Each checkpoint's bytes, host snapshot and
+    writer-thread write seconds, and the restore's.  Then
+    ``kill_resume_smoke("ci")``: totals 41,157 / 7,868 / 14 / 109."""
+    import tempfile
+    from repro_torch.train import Checkpointer
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    out = {}
+    with tempfile.TemporaryDirectory(dir=CKPT_DIR) as d:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        eng = StreamingEngine(cfg_p, "bfs")
+        eng.seed(0, 0.0)
+        ck, saves = Checkpointer(d), []
+        for i, e in enumerate(incs[:5]):
+            if i:
+                saves.append(save_stats(ck))
+            eng.run_increment(e, ckpt=ck, max_cycles=2_000_000)
+        saves.append(save_stats(ck))
+        eng.checkpoint(ck)                     # the boundary after 0-4
+        saves.append(save_stats(ck))
+        del eng                                # the "kill"
+        torch.cuda.synchronize()
+        t1 = time.time()
+        res = StreamingEngine.restore(cfg_p, "bfs", Checkpointer(d))
+        torch.cuda.synchronize()
+        restore_s = time.time() - t1
+        if res.stream_pos != 5:
+            raise AssertionError(f"31: restored at {res.stream_pos}, not 5")
+        for e in incs[5:]:
+            res.run_increment(e, max_cycles=2_000_000)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    la = dict(ops.path_launches)
+    if la != {"block": 0, "cluster": 102} or res.total_cycles != 50_030:
+        raise AssertionError(f"31: launches {la}, {res.total_cycles} "
+                             f"cycles, not 102 and 50,030")
+    leaf_diff(res.state, eng5.state)
+    if (res.totals, res.total_cycles) != (eng5.totals, eng5.total_cycles):
+        raise AssertionError(f"31: totals {res.totals} != {eng5.totals}")
+    if not (res.values() == want).all():
+        raise AssertionError("31: BFS != oracle after the resume")
+    mib = [x["bytes"] / 2**20 for x in saves]
+    print(f"[31] paper stream, async checkpoints before increments 0-4, a "
+          f"blocking one at step 5, killed, restored in {restore_s:.3f}s, "
+          f"increments 5-9 replayed: every leaf, totals {res.totals} and "
+          f"total_cycles {res.total_cycles} == phase 5's uninterrupted run; "
+          f"{la} launches; BFS == oracle; wall {wall:.3f}s (host clock, "
+          f"set-up, six saves and the restore included)", flush=True)
+    print(f"[31] checkpoints: {mib[0]:.1f} MiB each ({saves[0]['bytes']} "
+          f"bytes); host snapshot "
+          f"{[round(x['snapshot_s'], 4) for x in saves]} s, write on the "
+          f"writer thread {[round(x['write_s'], 4) for x in saves]} s",
+          flush=True)
+    out["paper"] = dict(saves=saves, restore_s=restore_s, wall_s=wall,
+                        launches=la, total_cycles=res.total_cycles)
+    del res
+    t0 = time.time()
+    ci = pe.kill_resume_smoke("ci", out_dir=CKPT_DIR)
+    if ci["totals"] != dict(hops=41157, execs=7868, stalls=14, allocs=109):
+        raise AssertionError(f"31: kill_resume_smoke('ci') totals "
+                             f"{ci['totals']}")
+    print(f"[31] kill_resume_smoke('ci'): {ci['status']}, resumed at "
+          f"{ci['resumed_at']}, totals {ci['totals']} "
+          f"({time.time() - t0:.1f}s)", flush=True)
+    out["ci"] = {k: ci[k] for k in ("status", "resumed_at", "totals")}
+    return out
+
+
+@contextlib.contextmanager
+def livelock_records(ring: collections.deque, attempts: list, mark: dict):
+    """While the block runs, every ``LivelockError`` the engine raises
+    first appends to ``attempts`` its config's lanes and queue_cap, cycle,
+    chunk, the launches by kernel since ``mark`` (a copy of
+    ``ops.path_launches``, moved on to now), and the config and input of
+    the chunk in which the machine wedged (``ring[0]``, see
+    ``keep_inputs``)."""
+    from repro_torch.core import engine as engine_mod
+    raise_livelock = engine_mod._raise_livelock
+
+    def recorded(cfg, *, cycle, chunk, frames=None):
+        attempts.append(dict(lanes=cfg.lanes, queue_cap=cfg.queue_cap,
+                             cycle=cycle, chunk=chunk, launches=since(mark),
+                             wedged=ring[0]))
+        mark.update(ops.path_launches)
+        raise_livelock(cfg, cycle=cycle, chunk=chunk, frames=frames)
+
+    with mock.patch.object(engine_mod, "_raise_livelock", recorded):
+        yield
+
+
+def resilience_phase_recovery(cfg_p, incs, want) -> dict:
+    """Phase 32: (a) ``recovery_smoke``, the 8x8 hub wedge: lanes 1 -> 2,
+    one attempt, wedge cycle 704, BFS == oracle, the report naming wedged
+    cells; (b) the paper stream under ``PAPER_PLAN`` (telemetry off) with
+    ``RecoveryPolicy(max_attempts=2)``, the counts set to 0 just before:
+    each failed attempt's lanes, queue_cap, cycle, chunk and launches by
+    kernel, and how it ends (BFS == oracle if it recovers, the attempt
+    log in the message if the budget runs out); the chunk in which each
+    attempt wedged held against the plain version on the kernels its
+    config fits (the cluster kernel where a band fits, and the one-block
+    kernel)."""
+    from repro_torch.resilience import RecoveryPolicy
+    out = {}
+    reset_counts()
+    t0 = time.time()
+    rec = pe.recovery_smoke()
+    la = dict(ops.path_launches)
+    if (rec["escalated_lanes"], rec["attempts"], rec["wedge_cycle"]) != \
+            (2, 1, 704) or la["block"] or not la["cluster"]:
+        raise AssertionError(f"32a: {rec}, launches {la}")
+    print(f"[32] (a) recovery_smoke: {rec['status']}, lanes 1 -> "
+          f"{rec['escalated_lanes']}, {rec['attempts']} attempt, wedge "
+          f"cycle {rec['wedge_cycle']} (chunk {rec['log'][0]['chunk']}), "
+          f"{rec['cycles']} cycles under lanes=2, {la} launches; BFS == "
+          f"oracle; report: {rec['log'][0]['wedge'].splitlines()[1]} "
+          f"({time.time() - t0:.1f}s)", flush=True)
+    out["recovery_smoke"] = dict(
+        {k: rec[k] for k in ("status", "escalated_lanes", "attempts",
+                             "wedge_cycle", "cycles")}, launches=la)
+    cfg = dataclasses.replace(cfg_p, faults=PAPER_PLAN)
+    reset_counts()
+    eng = StreamingEngine(cfg, "bfs")
+    eng.seed(0, 0.0)
+    ring = collections.deque(maxlen=LIVELOCK_CHUNKS + 1)
+    attempts, rows, ending, mark = [], [], None, {}
+    policy = RecoveryPolicy(max_attempts=2)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with keep_inputs(ring), livelock_records(ring, attempts, mark):
+        for i, e in enumerate(incs):
+            n0 = len(attempts)
+            mark.update(ops.path_launches)
+            try:
+                r = eng.run_increment(e, max_cycles=2_000_000,
+                                      recover=policy)
+            except LivelockError as ex:
+                msg = str(ex)
+                lines = [f"attempt {k}: lanes=" for k in range(3)]
+                if "recovery budget exhausted (2 escalations)" not in msg \
+                        or not all(x in msg for x in lines):
+                    raise AssertionError(f"32b: the re-raised message "
+                                         f"lacks the attempt log: {msg}")
+                ending = dict(outcome="exhausted", increment=i,
+                              cycle=ex.cycle, chunk=ex.chunk,
+                              log=msg.splitlines()[-3:])
+                break
+            rows.append(dict(cycles=r.cycles, lanes=eng.cfg.lanes,
+                             failed=len(attempts) - n0,
+                             launches=since(mark)))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(ops.path_launches)   # before the checks launch more
+    if ending is None:
+        if not (eng.values() == want).all():
+            raise AssertionError("32b: recovered, but BFS != oracle")
+        ending = dict(outcome="recovered", lanes=eng.cfg.lanes)
+    ring.clear()
+    for a in attempts:
+        cfg_w, st_w = a.pop("wedged")
+        paths = (("cluster", "block") if ops.cluster_geometry(cfg_w)
+                 else ("block",))
+        t1 = time.time()
+        d, s_w, _ = kernel_vs_plain(cfg_w, BFS, st_w, paths=paths)
+        a["held_on"] = list(paths)
+        print(f"[32] (b) attempt at lanes={a['lanes']} queue_cap="
+              f"{a['queue_cap']}: wedged at cycle {a['cycle']} (chunk "
+              f"{a['chunk']}) after {a['launches']} launches; the chunk in "
+              f"which it wedged (cycle {int(st_w.cycle)}..{int(s_w.cycle) - 1}"
+              f"), {'in' if cfg_w.faults == PAPER_PLAN.safe() else 'before'} "
+              f"the repair pass: the fault instances of the kernels "
+              f"{paths} == plain on every leaf (max |d| {d}; "
+              f"{time.time() - t1:.1f}s)", flush=True)
+        del st_w, s_w
+    print(f"[32] (b) paper stream under the paper plan with "
+          f"RecoveryPolicy(max_attempts=2): {ending}; increments before: "
+          f"{rows}; {len(attempts)} failed attempts; launches "
+          f"{launches}; wall {wall:.3f}s (host clock, the per-launch input "
+          f"copies included)", flush=True)
+    if launches["block"] or not launches["cluster"]:
+        raise AssertionError(f"32b: launches {launches}")
+    out["paper_plan"] = dict(ending, increments=rows, attempts=attempts,
+                             launches=launches, wall_s=wall)
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def resilience_phase_guard(cfg_p, incs, want, plain_rows) -> dict:
+    """Phase 33: the paper stream with ``ingest_guard=True`` (and the
+    telemetry it reads: the cluster kernel's ``kTm`` instance), the counts
+    set to 0 just before: per increment the budget before and after,
+    every budget set (one a spill pass and one at the end), the cycles and
+    launches; every final frame reconciling with the counters
+    (``check_frames``); BFS == oracle; where the guard never limited a
+    load (no spill pass), the counters equal phase 5's."""
+    cfg = dataclasses.replace(cfg_p, ingest_guard=True, telemetry=True)
+    reset_counts()
+    eng = StreamingEngine(cfg, "bfs")
+    eng.seed(0, 0.0)
+    traj, rows = pe.guard_budgets(eng), []
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for e in incs:
+        before, l0 = eng._ingest_budget, ops.launches
+        r = eng.run_increment(e, max_cycles=2_000_000)
+        pe.check_frames(r, len(e))
+        rows.append(dict(budget_before=before,
+                         budget_after=eng._ingest_budget,
+                         spill_passes=len(traj) - 1, cycles=r.cycles,
+                         launches=ops.launches - l0, hops=r.hops,
+                         execs=r.execs, stalls=r.stalls, allocs=r.allocs))
+        traj.clear()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    la = dict(ops.path_launches)
+    if la["block"] or not la["cluster"]:
+        raise AssertionError(f"33: launches {la}")
+    if not (eng.values() == want).all():
+        raise AssertionError("33: BFS != oracle under the guard")
+    keys = ("cycles", "hops", "execs", "stalls", "allocs")
+    same = [i for i, (r, p) in enumerate(zip(rows, plain_rows))
+            if r["spill_passes"] == 0]
+    for i in same:
+        if {k: rows[i][k] for k in keys} != plain_rows[i]:
+            raise AssertionError(f"33: increment {i} loaded whole, but its "
+                                 f"counters differ from phase 5's")
+    print(f"[33] paper stream, ingest_guard=True (telemetry on): budgets "
+          f"{[(r['budget_before'], r['budget_after']) for r in rows]}, "
+          f"spill passes {[r['spill_passes'] for r in rows]}, cycles "
+          f"{[r['cycles'] for r in rows]}, launches "
+          f"{[r['launches'] for r in rows]} ({la}); every final frame "
+          f"reconciles; BFS == oracle; counters == phase 5's in the "
+          f"{len(same)} increments loaded whole; wall {wall:.3f}s",
+          flush=True)
+    del eng
+    return dict(increments=rows, launches=la, wall_s=wall)
+
+
+def resilience_phase_replay() -> dict:
+    """Phase 34: ``src/repro_torch/data/resilience_fingerprint.json`` (the
+    JAX engine: kill-and-resume at ci, the recovery smoke, the guarded hub
+    stream through both drivers at ``io_stream_cap`` 32 and 8, and the
+    paper config at 20K / 400K under the paper plan with
+    ``RecoveryPolicy(max_attempts=2)``) replayed exactly through
+    ``paper_experiments.resilience_replay``: every recorded field, the
+    digest of every final leaf, the recovery logs and messages included;
+    launches by kernel."""
+    out = {}
+    for rec in RESILIENCE_FP["streams"]:
+        t0 = time.time()
+        before = dict(ops.path_launches)
+        got = pe.resilience_replay(rec)
+        bad = sorted(k for k in got if got[k] != rec[k])
+        if bad:
+            raise AssertionError(f"34 {rec['name']}: {bad} differ from the "
+                                 f"JAX engine's")
+        la = since(before)
+        if not la["cluster"]:
+            raise AssertionError(f"34 {rec['name']}: launches {la}")
+        note = ""
+        if rec["kind"] == "paper_recover":
+            ex = got.get("exhausted")
+            note = (f"; {got['outcome']}"
+                    + (f" in increment {ex['increment']} after attempts at "
+                       f"cycles {[a['cycle'] for a in ex['log']]}" if ex
+                       else ""))
+        print(f"[34] {rec['name']}: {', '.join(sorted(got))} == the JAX "
+              f"engine's{note} ({la} launches, {time.time() - t0:.1f}s)",
+              flush=True)
+        out[rec["name"]] = dict(launches=la, seconds=time.time() - t0)
+    return out
+
+
+def resilience_phase_cost() -> dict:
+    """Phase 35: what checkpoints cost on the paper stream, in turns
+    (``profile_resilience("paper")``: none, every increment, every second,
+    every second, every increment, none; the first increment untimed, the
+    wall of the other nine taken after ``ckpt.wait()``)."""
+    t0 = time.time()
+    rec = pe.profile_resilience("paper", ckpt_dir=CKPT_DIR)
+    walls = collections.defaultdict(list)
+    for r in rec["runs"]:
+        walls[r["every"]].append(r["wall_s"])
+    base = float(np.mean(walls[0]))
+    saves = [x for r in rec["runs"] for x in r["saves"]]
+    print(f"[35] checkpoint cadence on the paper stream, in turns: "
+          + "; ".join(f"every {k or 'never'}: "
+                      f"{' / '.join(f'{w:.3f}' for w in v)} s "
+                      f"({np.mean(v) / base:.2f}x)"
+                      for k, v in sorted(walls.items()))
+          + f" (9 timed increments, host clock after ckpt.wait()); "
+          f"{len(saves)} saves of {saves[0]['bytes'] / 2**20:.1f} MiB: host "
+          f"snapshot {np.mean([x['snapshot_s'] for x in saves]):.4f} s, "
+          f"write {np.mean([x['write_s'] for x in saves]):.4f} s mean "
+          f"({time.time() - t0:.1f}s)", flush=True)
+    return dict(walls={str(k): v for k, v in walls.items()},
+                snapshot_s=[x["snapshot_s"] for x in saves],
+                write_s=[x["write_s"] for x in saves],
+                bytes=saves[0]["bytes"])
+
 def experiment_phases(smi: str) -> dict:
     """Phase 17: the paper's experiments at 50K vertices / 1M edges through
     ``launch/paper_experiments.py``, every launch on the cluster kernel
@@ -2962,6 +3329,14 @@ def main() -> None:
                                 s_plain_f)
     del st_f, s_plain_f
 
+    # ---- 31-35. durable state, recovery and the ingest guard: kill and
+    # resume at full size, recovery, the guard, the replays, the cost ----
+    res_resume = resilience_phase_resume(cfg_p, incs, eng, want)
+    res_recovery = resilience_phase_recovery(cfg_p, incs, want)
+    res_guard = resilience_phase_guard(cfg_p, incs, want, plain_rows)
+    res_replay = resilience_phase_replay()
+    res_cost = resilience_phase_cost()
+
     cca_entry = {
         "name": "cca_cycle_chunk", "route": "cuda",
         "source": "src/repro_torch/kernels/cca_cycle/csrc/"
@@ -2979,7 +3354,7 @@ def main() -> None:
         "library_ms": None, "chunk_cycles": ran, "ptxas": cca_ptxas,
         "branches": ["traces", "ingest_only", "random_allocator", "lanes",
                      "park", "rhizomes", "widest", "reliable", "telemetry",
-                     "faults"],
+                     "faults", "recovery", "ingest_guard"],
         "telemetry": dict(tm_paths, **tm_cost),
         "faults": dict(
             smokes=flt_smokes,
@@ -2987,6 +3362,9 @@ def main() -> None:
                 "cycles", "launches", "wall_s", "increments", "livelock")
                 if m in v} for k, v in flt_paths.items()},
             **flt_cost),
+        "resilience": dict(
+            resume=res_resume, recovery=res_recovery, guard=res_guard,
+            replay=res_replay, checkpoint_cost=res_cost),
         "traced_ms": t_traced, "untraced_ms_in_turns": t_untraced,
         "paper_experiments": {
             "launches": experiments["launches"],

@@ -116,16 +116,19 @@ class EngineConfig:
         rules) and ``NotImplementedError`` on a knob the port does not
         carry yet."""
         not_yet = [name for name, off in (
-            ("ingest_guard (ROADMAP.md queue 1, item 4(b))",
-             not self.ingest_guard),
             ("qbatch>1", self.qbatch == 1),
             ("n_vals>1", self.n_vals == 1),
-            ("n_io_cells other than width",
-             self.n_io_cells in (0, self.width)),
         ) if not off]
         if not_yet:
             raise NotImplementedError(
                 f"repro_torch does not port {', '.join(not_yet)} yet")
+        if self.n_io_cells not in (0, self.width):
+            raise NotImplementedError(
+                f"n_io_cells={self.n_io_cells} on a {self.width}-wide grid: "
+                "the JAX engine's io_stage delivers [n_io_cells]-shaped "
+                "messages into the [width]-shaped row-0 queues and fails "
+                "on it with a broadcast error, so there is no reference "
+                "behaviour to port (ROADMAP.md item 5); use 0 or the width")
         # the derived capacities below divide by these two
         if self.lanes < 1:
             raise ValueError("lanes must be >= 1")
@@ -164,6 +167,9 @@ class EngineConfig:
         for ok, msg in checks:
             if not ok:
                 raise ValueError(msg)
+        if self.ingest_guard and not self.telemetry:
+            raise ValueError("ingest_guard needs the tm_hiw telemetry "
+                             "plane (set telemetry=True, DESIGN §9)")
         if self.faults is not None:
             from repro_torch.resilience.faults import FaultPlan
             if not isinstance(self.faults, FaultPlan):

@@ -48,11 +48,22 @@ as ``OP_REPAIR`` traffic through the IO cells and runs device-loop passes
 under the plan's safe twin until the values are exact again.  Its cycles
 count in the increment's; the device loop's counters and frames include
 it, the traced loop adds no trace row and no frame for it.
+
+Durable state and recovery (DESIGN §9) are host-side, as in the JAX
+engine: ``checkpoint`` / ``restore`` and ``run_increment(ckpt=)`` write
+and read the JAX engine's checkpoint format; ``run_increment(recover=)``
+keeps a copy of the boundary on the state's device and, on a livelock,
+migrates it into an escalated config and retries.  With
+``cfg.ingest_guard`` each load of new edges is limited by a budget
+learnt from the ``tm_hiw`` plane, updated before each spill reload of
+the device loop and at each increment's end; as in the JAX engine, the
+traced loop's spill reloads and the repair pass's rows are not limited.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -64,8 +75,9 @@ from repro_torch.core.config import EngineConfig
 from repro_torch.core.exec_stage import phase0_stage, staging_stage
 from repro_torch.core.ingest import io_stage, load_stream
 from repro_torch.core.routing import hop_stage, park_stage
-from repro_torch.core.state import (TM_HOP, TM_L_OCC, MachineState,
-                                    init_state, resolve_device)
+from repro_torch.core.state import (TM_HOP, TM_HW_AQ, TM_L_OCC,
+                                    MachineState, init_state, resolve_device,
+                                    state_from_numpy)
 from repro_torch.obs import frames as obs_frames
 from repro_torch.obs.flight import render_wedge_report
 
@@ -215,7 +227,10 @@ class StreamingEngine:
                                 device=self.device)
         self.total_cycles = 0
         self.totals = dict(hops=0, execs=0, stalls=0, allocs=0)
-        self.stream_pos = 0
+        # resilience bookkeeping (DESIGN §9)
+        self.stream_pos = 0         # increments done == checkpoint step
+        self.recovery_log = []      # one dict a failed recovery attempt
+        self._ingest_budget = None  # the ingest guard's admission limit
 
     def seed(self, vid: int, value: float, val_idx: int = 0):
         """Host-write a value into every rhizome root of ``vid`` (e.g. the
@@ -228,22 +243,74 @@ class StreamingEngine:
 
     def run_increment(self, edges: np.ndarray, max_cycles: int | None = None,
                       collect_traces: bool = False, recover=None,
-                      ckpt=None) -> IncrementResult:
+                      ckpt=None, ckpt_block: bool = False) -> IncrementResult:
         """Ingest ``edges`` (int32 ``[m, 3]``: src, dst, weight bits) and
         run to quiescence.  Raises :class:`LivelockError` on a detected
         deadlock.  ``collect_traces=True`` returns the per-cycle
         ``active_per_cycle`` and ``in_flight_per_cycle`` (the same state
-        and totals either way)."""
-        for name, on in (("recover", recover is not None),
-                         ("ckpt", ckpt is not None)):
-            if on:
-                raise NotImplementedError(
-                    f"repro_torch does not port run_increment({name}=...) "
-                    "yet (ROADMAP.md queue 1, item 4(b): durable state and "
-                    "recovery)")
+        and totals either way).
+
+        The resilience knobs (DESIGN §9), both off by default:
+
+        * ``ckpt`` -- a :class:`repro_torch.train.Checkpointer`: publish a
+          boundary checkpoint (step ``stream_pos``) before this increment
+          is ingested, async unless ``ckpt_block``.  A crash
+          mid-increment restores the boundary and replays the increment
+          bit-exactly.
+        * ``recover`` -- a :class:`repro_torch.resilience.RecoveryPolicy`:
+          on :class:`LivelockError`, go back to the boundary, escalate
+          lanes / queue_cap as the policy says, back off exponentially and
+          retry the increment.  Each failed attempt is appended to
+          ``recovery_log`` (with the wedge report when telemetry is on);
+          once the budget is spent the error re-raises with the attempt
+          log in its message.  A successful escalation keeps the relieved
+          config for the rest of the stream.  A failed attempt's cycles
+          count in neither ``total_cycles`` nor ``totals``.
+        """
+        if ckpt is not None:
+            self.checkpoint(ckpt, block=ckpt_block)
+        if recover is None:
+            return self._run_increment(edges, max_cycles, collect_traces)
+        from repro_torch.resilience.recover import (boundary_snapshot,
+                                                    migrate_state)
+        base_cfg = self.cfg
+        # the boundary is the recovery point: quiescent, so migrate_state
+        # can re-seat it under an escalated config
+        snapshot = boundary_snapshot(self.state)
+        for attempt in range(recover.max_attempts + 1):
+            try:
+                return self._run_increment(edges, max_cycles, collect_traces)
+            except LivelockError as e:
+                entry = dict(attempt=attempt, cycle=e.cycle, chunk=e.chunk,
+                             lanes=self.cfg.lanes,
+                             queue_cap=self.cfg.queue_cap, wedge=str(e))
+                self.recovery_log.append(entry)
+                if attempt >= recover.max_attempts:
+                    log = "\n".join(
+                        f"  attempt {n['attempt']}: lanes={n['lanes']} "
+                        f"queue_cap={n['queue_cap']} wedged at cycle "
+                        f"{n['cycle']}" for n in self.recovery_log)
+                    raise LivelockError(
+                        f"{e}\nrecovery budget exhausted "
+                        f"({recover.max_attempts} escalations):\n{log}",
+                        cycle=e.cycle, chunk=e.chunk,
+                        frames=e.frames) from e
+                new_cfg = recover.escalate(base_cfg, attempt + 1)
+                delay = recover.backoff_s * (2 ** attempt)
+                entry["backoff_s"] = delay
+                entry["escalated_to"] = dict(lanes=new_cfg.lanes,
+                                             queue_cap=new_cfg.queue_cap)
+                if delay:
+                    time.sleep(delay)
+                self.cfg = new_cfg
+                self.state = migrate_state(new_cfg, self.app, snapshot)
+                self._ingest_budget = None  # re-learn under the new sizing
+
+    def _run_increment(self, edges, max_cycles, collect_traces):
         cfg = self.cfg
         limit = max_cycles or cfg.max_cycles
-        self.state, spill = load_stream(cfg, self.state, edges)
+        self.state, spill = load_stream(cfg, self.state, edges,
+                                        limit=self._ingest_limit())
         zero = torch.zeros((), dtype=torch.int32, device=self.device)
         self.state = self.state._replace(
             stat_hops=zero.clone(), stat_exec=zero.clone(),
@@ -284,12 +351,93 @@ class StreamingEngine:
             counters = tuple(torch.stack(
                 [self.state.stat_hops, self.state.stat_exec,
                  self.state.stat_stall, self.state.stat_allocs]).tolist())
+        if cfg.ingest_guard:
+            # learn the next increment's admission budget from this one's
+            # action-queue hi-water marks
+            self._update_ingest_budget()
         self.stream_pos += 1
         self.total_cycles += cycles
         res = IncrementResult(cycles, *traces, *counters, frames)
         for k, v in zip(("hops", "execs", "stalls", "allocs"), counters):
             self.totals[k] += v
         return res
+
+    # -- the ingest guard: tm_hiw-gated admission (DESIGN §9) --
+
+    def _ingest_limit(self) -> int | None:
+        return self._ingest_budget if self.cfg.ingest_guard else None
+
+    def _update_ingest_budget(self) -> None:
+        """AIMD-style admission control from the action-queue hi-water
+        plane: halve the admission budget a load when a cell's queue
+        crested within the reserve band of ``queue_cap`` (the §4.2
+        pre-wedge signature), double it back while the fabric runs below
+        half the band; never below ``io_cells``, never above the stream
+        buffers' ``io_cells * io_stream_cap``."""
+        cfg = self.cfg
+        ceiling = cfg.queue_cap - cfg.aq_reserve - cfg.sys_reserve
+        cap = cfg.io_cells * cfg.io_stream_cap
+        hiw = int(self.state.tm_hiw[..., TM_HW_AQ].max())
+        cur = cap if self._ingest_budget is None else self._ingest_budget
+        if hiw >= ceiling:
+            cur = max(cfg.io_cells, cur // 2)
+        elif hiw < max(1, ceiling // 2):
+            cur = min(cap, cur * 2)
+        self._ingest_budget = cur
+
+    # -- durable state: boundary checkpoint / restore (DESIGN §9) --
+
+    def checkpoint(self, ckpt, step: int | None = None,
+                   block: bool = True) -> int:
+        """Publish every state leaf, the stream cursor and the config
+        fingerprint through ``ckpt`` (a
+        :class:`repro_torch.train.Checkpointer`) at step ``step`` (default
+        ``stream_pos``).  Sound only at an increment boundary, where
+        ``run_increment(ckpt=...)`` calls it.  ``block=False`` copies the
+        state to host memory and writes on the writer thread.  The files
+        are the JAX engine's: it restores them (strictly under its
+        ``backend="jnp"``, the backend the fingerprint names)."""
+        from repro_torch.resilience.checkpoint import stream_manifest
+        step = self.stream_pos if step is None else step
+        save = ckpt.save if block else ckpt.save_async
+        save(step, self.state._asdict(), extra=stream_manifest(self))
+        return step
+
+    @classmethod
+    def restore(cls, cfg: EngineConfig, app: str, ckpt,
+                step: int | None = None, strict: bool = True,
+                verify: bool = True, device=None) -> "StreamingEngine":
+        """An engine rebuilt from a boundary checkpoint on ``device``
+        (``None``: the card): replaying the rest of the stream from its
+        ``stream_pos`` reproduces the uninterrupted run bit-exactly.
+        ``strict`` refuses a checkpoint saved under another config or app;
+        it accepts one written by the JAX engine under either of its
+        backends (both run one state layout bit-exactly).  Every leaf
+        must have the dtype and shape ``init_state`` gives ``cfg``."""
+        from repro_torch.resilience.checkpoint import (JAX_BACKENDS,
+                                                       config_fingerprint)
+        eng = cls(cfg, app, device=device)
+        like = init_state(eng.cfg, device="meta")._asdict()
+        tree, extra, step = ckpt.restore(like, step=step, verify=verify)
+        if strict:
+            fps = [config_fingerprint(eng.cfg, b) for b in JAX_BACKENDS]
+            if extra.get("config") not in fps:
+                raise ValueError(
+                    f"checkpoint step {step} was saved under config "
+                    f"{extra.get('config')}, engine is {fps[0]}: restoring "
+                    "across configs would reinterpret the address/queue "
+                    "layout silently (strict=False only for post-mortem "
+                    "inspection)")
+            if extra.get("app") != eng.app.name:
+                raise ValueError(
+                    f"checkpoint app '{extra.get('app')}' != engine app "
+                    f"'{eng.app.name}'")
+        eng.state = state_from_numpy(eng.cfg, tree, device=eng.device)
+        eng.stream_pos = int(extra.get("stream_pos", step))
+        eng.total_cycles = int(extra.get("total_cycles", 0))
+        eng.totals.update({k: int(v) for k, v in
+                           extra.get("totals", {}).items()})
+        return eng
 
     @staticmethod
     def _spill_msg(limit: int, spill) -> str:
@@ -310,7 +458,10 @@ class StreamingEngine:
             if q and len(spill):
                 # io_stream_cap overflow residue: the loaded prefix is
                 # consumed at quiescence, so reload the rest
-                self.state, spill = load_stream(cfg, self.state, spill)
+                if cfg.ingest_guard:
+                    self._update_ingest_budget()
+                self.state, spill = load_stream(cfg, self.state, spill,
+                                                limit=self._ingest_limit())
                 continue
             return cycles, q, noprog, counters, spill
 

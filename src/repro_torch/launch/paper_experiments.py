@@ -18,6 +18,11 @@ or figure, with the same scales, engine config and row keys.
              fault_smoke (``--faults``): ``bench_engine``'s stream under
              a seeded fault plan, repaired to the exact BFS values
              (``benchmarks/resilience_smoke.py::fault_smoke``)
+             kill_resume_smoke, recovery_smoke, profile_resilience
+             (``--resilience``): a checkpointed stream killed and
+             resumed bit-exactly, the lanes=1 hub wedge recovered by
+             escalation, and the checkpoint cadence's cost
+             (``benchmarks/resilience_smoke.py``)
 
 Cycle counts, hops, execs, energies and modelled times do not depend on
 the device; wall times are reported only where the engine ran on the card.
@@ -25,7 +30,9 @@ Every chunk is one launch of the cycle kernel on the card (the plain
 PyTorch version on the CPU).  The rows are printed as JSON, one line a
 benchmark; only ``--profile`` writes files (the telemetry run's Chrome
 trace and congestion heatmap, under ``build/profile/``) and ``--out``
-(the fault smokes' records, under the directory it names).
+(the fault smokes' records, under the directory it names); the
+resilience smokes' checkpoints go to temporary directories (under
+``--out`` when given), removed when each run ends.
 
     PYTHONPATH=src python -m repro_torch.launch.paper_experiments --scale ci
     PYTHONPATH=src python -m repro_torch.launch.paper_experiments \\
@@ -34,6 +41,8 @@ trace and congestion heatmap, under ``build/profile/``) and ``--out``
         --only engine --profile
     PYTHONPATH=src python -m repro_torch.launch.paper_experiments \\
         --faults --out build/faults
+    PYTHONPATH=src python -m repro_torch.launch.paper_experiments \\
+        --resilience --scale paper --out build/ckpt
 """
 from __future__ import annotations
 
@@ -42,6 +51,7 @@ import dataclasses
 import functools
 import json
 import pathlib
+import tempfile
 import time
 
 import numpy as np
@@ -101,18 +111,24 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _engine(n_vertices: int, app: str, allocator="vicinity", chunk=512,
-            n_edges: int = 0, device=None) -> StreamingEngine:
+def experiment_config(n_vertices: int, n_edges: int = 0,
+                      allocator="vicinity", chunk=512) -> EngineConfig:
+    """``benchmarks/paper_experiments.py::_engine``'s 32x32 config."""
     # ghost capacity must cover the spilled edge blocks: ~E/edge_cap
     # RPVO blocks across 1024 cells, x2 for placement skew (exhausting
     # ghost slots livelocks the allocate forwarding chain -- DESIGN §4.2)
     ghosts = max(64, 2 * n_edges // (8 * 1024), 3 * n_vertices // 1024)
-    cfg = EngineConfig(height=32, width=32, n_vertices=n_vertices,
-                       edge_cap=8, ghost_slots=ghosts,
-                       queue_cap=64, chan_cap=16, futq_cap=16,
-                       io_stream_cap=2 ** 21, chunk=chunk,
-                       allocator=allocator)
-    eng = StreamingEngine(cfg, app, device=device)
+    return EngineConfig(height=32, width=32, n_vertices=n_vertices,
+                        edge_cap=8, ghost_slots=ghosts,
+                        queue_cap=64, chan_cap=16, futq_cap=16,
+                        io_stream_cap=2 ** 21, chunk=chunk,
+                        allocator=allocator)
+
+
+def _engine(n_vertices: int, app: str, allocator="vicinity", chunk=512,
+            n_edges: int = 0, device=None) -> StreamingEngine:
+    eng = StreamingEngine(experiment_config(n_vertices, n_edges, allocator,
+                                            chunk), app, device=device)
     if app != "ingest_only":
         eng.seed(0, 0.0)
     return eng
@@ -726,6 +742,261 @@ def fault_replay(rec: dict, pinned_spec: dict, device=None):
     return out, eng
 
 
+# ------------------- durable state and recovery (DESIGN §9) -------------------
+
+def same_state(a, b) -> str | None:
+    """The first leaf in which states ``a`` and ``b`` differ (float leaves
+    compared as bits), or None."""
+    for name in a._fields:
+        x, y = getattr(a, name), getattr(b, name)
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if x.shape != y.shape or not torch.equal(x, y.to(x.device)):
+            return name
+    return None
+
+
+def kill_resume_smoke(scale="ci", device=None, out_dir=None) -> dict:
+    """``benchmarks/resilience_smoke.py::kill_resume_smoke``: ``fault_smoke``'s
+    grid and stream (seed 3, three increments) without faults, run once
+    uninterrupted and once with an async checkpoint before each of the
+    first two increments and a blocking one after them; that engine is
+    dropped (the "kill"), a new one restored from the checkpoint replays
+    the last increment, and every leaf must equal the uninterrupted run's,
+    as must the totals and BFS the oracle's.  Checkpoints go under
+    ``out_dir`` (default: a temporary directory), removed at the end."""
+    from repro_torch.core.state import state_to_numpy
+    from repro_torch.obs.frames import state_digests
+    from repro_torch.train import Checkpointer
+    dev = resolve_device(device)
+    p = ENGINE_SCALES[scale]
+    incs = make_stream(StreamSpec(n_vertices=p["n_vertices"],
+                                  n_edges=p["n_edges"], increments=3,
+                                  sampling="edge", seed=3))
+    want = bfs_levels(p["n_vertices"], np.concatenate(incs), 0)
+    cfg = engine_config(scale)
+    ref = StreamingEngine(cfg, "bfs", device=dev)
+    ref.seed(0, 0.0)
+    for e in incs:
+        ref.run_increment(e, max_cycles=MAX_CYCLES)
+    with tempfile.TemporaryDirectory(dir=out_dir) as d:
+        eng = StreamingEngine(cfg, "bfs", device=dev)
+        eng.seed(0, 0.0)
+        ck = Checkpointer(d)
+        for e in incs[:2]:
+            eng.run_increment(e, ckpt=ck, max_cycles=MAX_CYCLES)
+        eng.checkpoint(ck)
+        del eng                                       # the "kill"
+        res = StreamingEngine.restore(cfg, "bfs", Checkpointer(d),
+                                      device=dev)
+        resumed_at = res.stream_pos
+        res.run_increment(incs[2], max_cycles=MAX_CYCLES)
+    bad = same_state(res.state, ref.state)
+    if bad or (res.totals, res.total_cycles) != (ref.totals,
+                                                 ref.total_cycles):
+        raise AssertionError(f"kill-and-resume diverged (leaf {bad}, totals "
+                             f"{res.totals} / {ref.totals})")
+    np.testing.assert_array_equal(res.values(p["n_vertices"]), want)
+    return dict(status="bit-exact", scale=scale, resumed_at=resumed_at,
+                totals=dict(res.totals), total_cycles=res.total_cycles,
+                state=state_digests(state_to_numpy(res.state)))
+
+
+def wedge_config(**kw) -> EngineConfig:
+    """The lanes=1 hub wedge of the JAX package's
+    ``benchmarks/resilience_smoke.py::recovery_smoke`` (and
+    ``tests/test_resilience.py::_wedge_cfg``), with ``kw`` on top."""
+    return EngineConfig(**dict(dict(
+        height=8, width=8, n_vertices=128, edge_cap=4, ghost_slots=48,
+        queue_cap=20, chan_cap=16, futq_cap=4, chunk=64, lanes=1,
+        max_cycles=200_000, telemetry=True), **kw))
+
+
+def recovery_smoke(device=None) -> dict:
+    """``benchmarks/resilience_smoke.py::recovery_smoke``: the degree-200
+    hub stream on ``wedge_config`` wedges at lanes=1 and completes under
+    ``RecoveryPolicy(max_attempts=2)`` at lanes=2, BFS equal to the
+    oracle, one attempt logged with the flight recorder's report naming
+    the wedged cells.  The record has the JAX benchmark's fields, the log
+    and the increment's counters and final leaf digests."""
+    from repro_torch.core.state import state_to_numpy
+    from repro_torch.obs.frames import state_digests
+    from repro_torch.resilience import RecoveryPolicy
+    dev = resolve_device(device)
+    edges = hub_stream(128, 200)
+    eng = StreamingEngine(wedge_config(), "bfs", device=dev)
+    eng.seed(0, 0.0)
+    r = eng.run_increment(edges, recover=RecoveryPolicy(max_attempts=2))
+    np.testing.assert_array_equal(eng.values(),
+                                  bfs_levels(128, edges[:, :2], 0))
+    log = eng.recovery_log
+    if eng.cfg.lanes != 2 or len(log) != 1 or \
+            "wedged cell" not in log[0]["wedge"]:
+        raise AssertionError(f"recovery: lanes {eng.cfg.lanes}, log {log}")
+    return dict(status="recovered", escalated_lanes=eng.cfg.lanes,
+                attempts=len(log), wedge_cycle=log[0]["cycle"], log=log,
+                cycles=r.cycles, hops=r.hops, execs=r.execs,
+                stalls=r.stalls, allocs=r.allocs,
+                state=state_digests(state_to_numpy(eng.state)))
+
+
+def profile_resilience(scale="ci", device=None,
+                       cadences=(0, 1, 2, 2, 1, 0), ckpt_dir=None) -> dict:
+    """``benchmarks/resilience_smoke.py::profile_resilience``'s checkpoint
+    cadence sweep: a stream whose first increment is run untimed, then the
+    rest timed with an async checkpoint before every ``n``-th increment
+    (``n = 0``: none), one fresh engine a run of ``cadences``, in that
+    order (by default in turns); the wall is taken after ``ckpt.wait()``.
+    ``scale`` ``ci`` or ``mid``: the JAX benchmark's ``bench_engine``
+    stream (seed 3, four increments) on its grid; ``paper``: the paper
+    experiments' 50K / 1M stream (ten increments) on ``_engine``'s 32x32
+    config.  Each run records its wall and each save's bytes, host
+    snapshot and (writer-thread) write seconds; checkpoints go under
+    ``ckpt_dir`` (default: a temporary directory), removed after each
+    run.  Walls are reported on the card only."""
+    from repro_torch.train import Checkpointer
+    dev = resolve_device(device)
+    if scale in ENGINE_SCALES:
+        p = ENGINE_SCALES[scale]
+        incs = make_stream(StreamSpec(n_vertices=p["n_vertices"],
+                                      n_edges=p["n_edges"], increments=4,
+                                      sampling="edge", seed=3))
+        cfg = engine_config(scale)
+    else:
+        incs = stream_increments("edge", scale)
+        cfg = experiment_config(**_scale(scale))
+    runs = []
+    for every in cadences:
+        eng = StreamingEngine(cfg, "bfs", device=dev)
+        eng.seed(0, 0.0)
+        eng.run_increment(incs[0], max_cycles=MAX_CYCLES)
+        saves = []
+        with tempfile.TemporaryDirectory(dir=ckpt_dir) as d:
+            ck = Checkpointer(d)
+            _sync(dev)
+            t0 = time.time()
+            for i, e in enumerate(incs[1:]):
+                use = every and i % every == 0
+                if use and ck.last:
+                    ck.wait()
+                    saves.append(dict(ck.last))
+                eng.run_increment(e, max_cycles=MAX_CYCLES,
+                                  ckpt=ck if use else None)
+            ck.wait()
+            _sync(dev)
+            wall = time.time() - t0
+            if ck.last:
+                saves.append(dict(ck.last))
+        runs.append(dict(every=every, wall_s=wall if dev.type == "cuda"
+                         else None, total_cycles=eng.total_cycles,
+                         saves=saves))
+        del eng
+    if len({r["total_cycles"] for r in runs}) != 1:
+        raise AssertionError(f"the cadences changed the stream's cycles: "
+                             f"{[r['total_cycles'] for r in runs]}")
+    return dict(scale=scale, increments=len(incs) - 1, runs=runs)
+
+def guard_budgets(eng: StreamingEngine) -> list:
+    """Hook ``eng``'s ingest guard: the returned list collects every
+    budget ``_update_ingest_budget`` sets, in order."""
+    traj, update = [], eng._update_ingest_budget
+
+    def hooked():
+        update()
+        traj.append(eng._ingest_budget)
+
+    eng._update_ingest_budget = hooked
+    return traj
+
+
+def resilience_replay(rec: dict, device=None) -> dict:
+    """One stream of ``data/resilience_fingerprint.json`` through the
+    port, recorded as ``tools/record_torch_fingerprint.py --resilience``
+    records the JAX engine, by ``rec["kind"]``: ``"kill_resume"``
+    (``kill_resume_smoke`` at ``rec["scale"]``), ``"recovery"``
+    (``recovery_smoke``), ``"guard"`` (the hub stream under the guard,
+    cut at ``rec["splits"]``, through the device loop and the traced
+    loop: every budget the guard sets, counters and final leaf digests)
+    or ``"paper_recover"`` (the paper experiments' 32x32 config at
+    ``rec["size"]`` under ``rec["plan"]`` with ``RecoveryPolicy(
+    **rec["policy"])``: each increment's counters, lanes, failed attempts
+    and digests, and where the budget runs out the increment, cycle,
+    chunk, message, attempts and digests).  Returns the record's
+    measured fields; the caller compares them with ``rec``'s."""
+    from repro_torch.core.state import state_to_numpy
+    from repro_torch.obs.frames import state_digests
+    from repro_torch.resilience import RecoveryPolicy
+
+    def digests(eng):
+        return state_digests(state_to_numpy(eng.state))
+
+    def config(**kw):
+        return EngineConfig(**{k: v for k, v in dict(rec["cfg"], **kw)
+                               .items()
+                               if k in EngineConfig.__dataclass_fields__})
+
+    kind = rec["kind"]
+    if kind == "kill_resume":
+        got = kill_resume_smoke(rec["scale"], device)
+        return {k: got[k] for k in ("resumed_at", "totals", "total_cycles",
+                                    "state")}
+    if kind == "recovery":
+        got = recovery_smoke(device)
+        eng_keys = ("log", "cycles", "hops", "execs", "stalls", "allocs",
+                    "state")
+        return dict({k: got[k] for k in eng_keys},
+                    lanes=got["escalated_lanes"],
+                    totals={k: got[k] for k in ("hops", "execs", "stalls",
+                                                "allocs")},
+                    total_cycles=got["cycles"])
+    if kind == "guard":
+        e = hub_stream()
+        drivers = {}
+        for name in ("device", "traced"):
+            eng = StreamingEngine(config(), "bfs", device=device)
+            eng.seed(0, 0.0)
+            traj, rows = guard_budgets(eng), []
+            for lo, hi in rec["splits"]:
+                before = eng._ingest_budget
+                r = eng.run_increment(e[lo:hi],
+                                      collect_traces=name == "traced")
+                rows.append(dict(budget_before=before,
+                                 budget_after=eng._ingest_budget,
+                                 budgets=list(traj), cycles=r.cycles,
+                                 hops=r.hops, execs=r.execs,
+                                 stalls=r.stalls, allocs=r.allocs,
+                                 state=digests(eng)))
+                traj.clear()
+            drivers[name] = rows
+        return dict(drivers=drivers)
+    plan = rec["plan"]
+    cfg = config(faults=FaultPlan(**dict(plan, blackouts=tuple(
+        tuple(b) for b in plan["blackouts"]))))
+    n, m = rec["size"]
+    incs = stream_increments("edge", dict(n_vertices=n, n_edges=m))
+    eng = StreamingEngine(cfg, "bfs", device=device)
+    eng.seed(0, 0.0)
+    rows, out = [], {}
+    for i, e in enumerate(incs):
+        log0 = len(eng.recovery_log)
+        try:
+            r = eng.run_increment(e, max_cycles=MAX_CYCLES,
+                                  recover=RecoveryPolicy(**rec["policy"]))
+        except LivelockError as ex:
+            out["exhausted"] = dict(
+                increment=i, cycle=ex.cycle, chunk=ex.chunk,
+                message=str(ex), log=eng.recovery_log[log0:],
+                state=digests(eng))
+            break
+        rows.append(dict(cycles=r.cycles, hops=r.hops, execs=r.execs,
+                         stalls=r.stalls, allocs=r.allocs,
+                         flt=eng.state.flt.tolist(), lanes=eng.cfg.lanes,
+                         queue_cap=eng.cfg.queue_cap,
+                         log=eng.recovery_log[log0:], state=digests(eng)))
+    out.update(increments=rows,
+               outcome="exhausted" if "exhausted" in out else "recovered")
+    return json.loads(json.dumps(out))
+
 BENCHES = {
     "increments": lambda s, d: {
         sampling: bench_cycles_per_increment(s, sampling, d)[0]
@@ -754,11 +1025,37 @@ def main(argv=None) -> None:
     ap.add_argument("--faults", action="store_true",
                     help="run only the fault smokes, at the engine grids "
                          "ci and mid")
+    ap.add_argument("--resilience", action="store_true",
+                    help="run only the durable-state and recovery smokes: "
+                         "kill-and-resume at the engine grids ci and mid, "
+                         "the recovery smoke, and the checkpoint cadence "
+                         "sweep at --scale (ci, mid: the engine grids; "
+                         "paper: the 50K / 1M stream)")
     ap.add_argument("--out", default=None,
                     help="--faults: write each smoke's record under this "
-                         "directory")
+                         "directory; --resilience: write the checkpoints "
+                         "there (in temporary directories, removed after)")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
+    if args.out is not None:
+        pathlib.Path(args.out).mkdir(parents=True, exist_ok=True)
+    if args.resilience:
+        runs = [("kill_resume_smoke", scale, functools.partial(
+            kill_resume_smoke, scale, dev, args.out))
+            for scale in ENGINE_SCALES]
+        runs += [("recovery_smoke", "ci", functools.partial(
+            recovery_smoke, dev)),
+            ("profile_resilience", args.scale, functools.partial(
+                profile_resilience, args.scale, dev, ckpt_dir=args.out))]
+        for name, scale, fn in runs:
+            t0 = time.time()
+            rec = fn()
+            rec.pop("state", None)
+            out = {"bench": name, "scale": scale, "rows": rec}
+            if dev.type == "cuda":
+                out["seconds"] = time.time() - t0
+            print(json.dumps(out), flush=True)
+        return
     if args.faults:
         for scale in ENGINE_SCALES:
             t0 = time.time()

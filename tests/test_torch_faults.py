@@ -145,20 +145,28 @@ def test_flt_leaf_has_the_jax_shape(on):
 
 
 def test_unported_resilience_knobs_still_raise():
-    """Faults are carried; durable state and recovery (ROADMAP.md queue 1,
-    item 4(b)) are not: the ingest guard, qbatch > 1 beside a plan (which
-    JAX refuses too), checkpoints and the recovery policy raise
-    ``NotImplementedError`` naming the roadmap item."""
+    """Faults, durable state, recovery and the ingest guard are carried
+    (ROADMAP.md queue 1, item 4(b), done): ``qbatch > 1`` beside a plan
+    (which JAX refuses too) still raises ``NotImplementedError``, the
+    guard without its telemetry plane is refused as JAX refuses it, and
+    checkpoints and the recovery policy run beside a plan."""
+    import tempfile
+    from repro_torch.resilience import RecoveryPolicy
+    from repro_torch.train import Checkpointer
     kw = dict(height=4, width=4, n_vertices=16, ghost_slots=8)
-    with pytest.raises(NotImplementedError, match="4\\(b\\)"):
-        EngineConfig(**kw, telemetry=True, ingest_guard=True).validate()
+    EngineConfig(**kw, telemetry=True, ingest_guard=True).validate()
+    with pytest.raises(ValueError, match="ingest_guard"):
+        EngineConfig(**kw, ingest_guard=True).validate()
     with pytest.raises(NotImplementedError):
         EngineConfig(**kw, faults=FaultPlan(), qbatch=2).validate()
     eng = StreamingEngine(EngineConfig(**kw, faults=FaultPlan(seed=1)),
                           "bfs", device="cpu")
-    for arg in ("recover", "ckpt"):
-        with pytest.raises(NotImplementedError, match="4\\(b\\)"):
-            eng.run_increment(np.zeros((0, 3), np.int32), **{arg: object()})
+    with tempfile.TemporaryDirectory() as d:
+        ck = Checkpointer(d)
+        eng.run_increment(np.zeros((0, 3), np.int32), ckpt=ck,
+                          ckpt_block=True, recover=RecoveryPolicy())
+        assert ck.all_steps() == [0] and eng.stream_pos == 1
+    assert eng.recovery_log == []
 
 
 def random_state(lanes, telemetry, plan, seed):

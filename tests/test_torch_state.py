@@ -5,6 +5,7 @@ Inputs come from numpy seeds; states cross between the packages as numpy
 (``state_to_numpy`` / ``state_from_numpy``).  Tolerance is exact: integer
 leaves equal, float32 leaves equal as bits.
 """
+import dataclasses
 import json
 import os
 import pathlib
@@ -185,8 +186,8 @@ def test_load_stream_matches_jax(limit):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(telemetry=True, ingest_guard=True),
-    dict(faults=FaultPlan(), qbatch=2), dict(ingest_guard=True),
+    dict(n_io_cells=5),
+    dict(faults=FaultPlan(), qbatch=2), dict(qbatch=4, n_vals=4),
     dict(qbatch=2),
     dict(n_vals=2), dict(n_io_cells=3)])
 def test_validate_rejects_unported_knobs(knob):
@@ -198,11 +199,12 @@ def test_engine_rejects_unported_apps_and_options():
     cfg = EngineConfig(height=4, width=4, n_vertices=16, ghost_slots=8)
     with pytest.raises(NotImplementedError):
         StreamingEngine(cfg, "pagerank", device="cpu")
-    eng = StreamingEngine(cfg, "bfs", device="cpu")
-    edges = np.zeros((0, 3), np.int32)
-    for kw in (dict(recover=object()), dict(ckpt=object())):
-        with pytest.raises(NotImplementedError):
-            eng.run_increment(edges, **kw)
+    with pytest.raises(NotImplementedError, match="n_io_cells"):
+        StreamingEngine(dataclasses.replace(cfg, n_io_cells=3), "bfs",
+                        device="cpu")
+    # restoring onto a mesh waits for the distribution slice
+    with pytest.raises(TypeError, match="shardings"):
+        StreamingEngine.restore(cfg, "bfs", None, shardings=object())
 
 
 def test_device_defaults_to_cuda(monkeypatch):
@@ -230,7 +232,10 @@ def test_port_imports_nothing_of_jax_or_repro():
             "repro_torch.kernels.flash_attention.ops, "
             "repro_torch.models.transformer, repro_torch.configs.lm_archs, "
             "repro_torch.obs, repro_torch.obs.metrics, "
-            "repro_torch.launch.serve, repro_torch.launch.paper_experiments; "
+            "repro_torch.launch.serve, repro_torch.launch.paper_experiments, "
+            "repro_torch.train, repro_torch.train.checkpoint, "
+            "repro_torch.resilience, repro_torch.resilience.checkpoint, "
+            "repro_torch.resilience.recover, repro_torch.resilience.faults; "
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

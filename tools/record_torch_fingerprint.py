@@ -97,6 +97,7 @@ PAPER_OUT = DATA / "paper_ci_fingerprint.json"
 SKEW_OUT = DATA / "skew_fingerprint.json"
 TELEMETRY_OUT = DATA / "telemetry_fingerprint.json"
 FAULTS_OUT = DATA / "fault_fingerprint.json"
+RESILIENCE_OUT = DATA / "resilience_fingerprint.json"
 COMMAND = "PYTHONPATH=src JAX_PLATFORMS=cpu python tools/record_torch_fingerprint.py"
 MAX_CYCLES = 2_000_000
 # (app, sampling, allocator, per-cycle traces) of the --paper-ci streams
@@ -490,6 +491,180 @@ def main_faults() -> None:
     FAULTS_OUT.write_text(json.dumps(out, indent=1) + "\n")
     print(f"wrote {FAULTS_OUT}")
 
+# the --resilience streams: (name, kind, argument)
+PAPER_PLAN = dict(seed=7, drop_rate=0.04, dup_rate=0.02, corrupt_rate=0.02,
+                  blackouts=((0, 1, 2, 0, 512),))
+RESILIENCE_STREAMS = (
+    ("kill_resume ci", "kill_resume", "ci"),
+    ("recovery_smoke", "recovery", None),
+    ("guarded hub io_stream_cap=32", "guard", (32, ((0, None),))),
+    ("guarded hub io_stream_cap=8, two increments", "guard",
+     (8, ((0, 150), (150, None)))),
+    ("paper config 20K/400K, paper plan, RecoveryPolicy(max_attempts=2)",
+     "paper_recover", (20_000, 400_000)))
+
+
+def _hub(n=256, degree=120, seed=3):
+    from repro.graph.streams import hub_edges
+    e = hub_edges(n, 0, degree, seed=seed)
+    one = np.float32(1.0).view(np.int32)
+    return np.concatenate([e, np.full((len(e), 1), one, np.int64)],
+                          1).astype(np.int32)
+
+
+def _digests(eng) -> dict:
+    from repro_torch.obs.frames import state_digests
+    return state_digests({k: np.asarray(v)
+                          for k, v in eng.state._asdict().items()})
+
+
+def _budget_hook(eng) -> list:
+    """Every budget ``_update_ingest_budget`` sets, in order."""
+    traj, update = [], eng._update_ingest_budget
+
+    def hooked():
+        update()
+        traj.append(eng._ingest_budget)
+
+    eng._update_ingest_budget = hooked
+    return traj
+
+
+def resilience_stream(name: str, kind: str, arg) -> dict:
+    """One --resilience stream through the JAX engine (jnp backend)."""
+    import tempfile
+    sys.path.insert(0, str(ROOT))
+    from repro.core.engine import LivelockError
+    from repro.resilience import FaultPlan, RecoveryPolicy
+    from repro.train.checkpoint import Checkpointer
+    t0 = time.time()
+    out = dict(name=name, kind=kind)
+    if kind == "kill_resume":
+        # benchmarks/resilience_smoke.py::kill_resume_smoke, jnp only
+        from benchmarks.engine_throughput import ENGINE_SCALES, _cfg
+        from benchmarks.resilience_smoke import _stream
+        p = ENGINE_SCALES[arg]
+        incs, _ = _stream(p)
+        cfg = _cfg(p, "jnp")
+        ref = StreamingEngine(cfg, "bfs")
+        ref.seed(0, 0.0)
+        for inc in incs:
+            ref.run_increment(inc, max_cycles=MAX_CYCLES)
+        with tempfile.TemporaryDirectory() as d:
+            eng = StreamingEngine(cfg, "bfs")
+            eng.seed(0, 0.0)
+            ck = Checkpointer(d)
+            for inc in incs[:2]:
+                eng.run_increment(inc, ckpt=ck, max_cycles=MAX_CYCLES)
+            eng.checkpoint(ck)
+            del eng
+            res = StreamingEngine.restore(cfg, "bfs", Checkpointer(d))
+            res.run_increment(incs[2], max_cycles=MAX_CYCLES)
+        got, want = _digests(res), _digests(ref)
+        assert got == want, "kill-and-resume diverged"
+        out.update(scale=arg, cfg=dataclasses.asdict(cfg), resumed_at=2,
+                   totals=dict(res.totals), total_cycles=res.total_cycles,
+                   state=got)
+    elif kind == "recovery":
+        # benchmarks/resilience_smoke.py::recovery_smoke
+        cfg = EngineConfig(height=8, width=8, n_vertices=128, edge_cap=4,
+                           ghost_slots=48, queue_cap=20, chan_cap=16,
+                           futq_cap=4, chunk=64, lanes=1,
+                           max_cycles=200_000, telemetry=True)
+        eng = StreamingEngine(cfg, "bfs")
+        eng.seed(0, 0.0)
+        r = eng.run_increment(_hub(128, 200), recover=RecoveryPolicy(
+            max_attempts=2))
+        out.update(cfg=dataclasses.asdict(cfg), policy=dict(max_attempts=2),
+                   log=eng.recovery_log, lanes=eng.cfg.lanes,
+                   cycles=r.cycles, hops=r.hops, execs=r.execs,
+                   stalls=r.stalls, allocs=r.allocs,
+                   totals=dict(eng.totals), total_cycles=eng.total_cycles,
+                   state=_digests(eng))
+    elif kind == "guard":
+        # tests/test_resilience.py::_cfg with the guard, on _hub_stream
+        cap, splits = arg
+        cfg = EngineConfig(height=8, width=8, n_vertices=256, edge_cap=8,
+                           ghost_slots=24, queue_cap=32, chan_cap=16,
+                           chunk=64, lanes=2, max_cycles=200_000,
+                           telemetry=True, ingest_guard=True,
+                           io_stream_cap=cap)
+        e = _hub()
+        out.update(cfg=dataclasses.asdict(cfg),
+                   splits=[list(x) for x in splits], drivers={})
+        for traced in (False, True):
+            eng = StreamingEngine(cfg, "bfs")
+            eng.seed(0, 0.0)
+            traj = _budget_hook(eng)
+            rows = []
+            for lo, hi in splits:
+                before = eng._ingest_budget
+                r = eng.run_increment(e[lo:hi], collect_traces=traced)
+                rows.append(dict(budget_before=before,
+                                 budget_after=eng._ingest_budget,
+                                 budgets=list(traj), cycles=r.cycles,
+                                 hops=r.hops, execs=r.execs,
+                                 stalls=r.stalls, allocs=r.allocs,
+                                 state=_digests(eng)))
+                traj.clear()
+            out["drivers"]["traced" if traced else "device"] = rows
+    else:
+        from benchmarks.paper_experiments import _engine
+        n, m = arg
+        cfg = dataclasses.replace(_engine(n, "bfs", n_edges=m).cfg,
+                                  faults=FaultPlan(**PAPER_PLAN))
+        incs = make_stream(StreamSpec(increments=10, sampling="edge",
+                                      seed=1, n_vertices=n, n_edges=m))
+        out.update(size=[n, m], cfg={k: v for k, v in
+                                     dataclasses.asdict(cfg).items()
+                                     if k != "faults"},
+                   plan=dataclasses.asdict(cfg.faults),
+                   policy=dict(max_attempts=2))
+        eng = StreamingEngine(cfg, "bfs")
+        eng.seed(0, 0.0)
+        rows = []
+        for i, e in enumerate(incs):
+            log0 = len(eng.recovery_log)
+            try:
+                r = eng.run_increment(e, max_cycles=MAX_CYCLES,
+                                      recover=RecoveryPolicy(max_attempts=2))
+            except LivelockError as ex:
+                out["exhausted"] = dict(
+                    increment=i, cycle=ex.cycle, chunk=ex.chunk,
+                    message=str(ex), log=eng.recovery_log[log0:],
+                    state=_digests(eng))
+                break
+            rows.append(dict(cycles=r.cycles, hops=r.hops, execs=r.execs,
+                             stalls=r.stalls, allocs=r.allocs,
+                             flt=np.asarray(eng.state.flt).tolist(),
+                             lanes=eng.cfg.lanes,
+                             queue_cap=eng.cfg.queue_cap,
+                             log=eng.recovery_log[log0:],
+                             state=_digests(eng)))
+            print(f"{name}: increment {i} {rows[-1]['cycles']} cycles, "
+                  f"lanes {eng.cfg.lanes}, {len(rows[-1]['log'])} "
+                  f"attempts failed ({time.time() - t0:.1f}s)", flush=True)
+        out["increments"] = rows
+        out["outcome"] = "exhausted" if "exhausted" in out else "recovered"
+    print(f"{name}: done in {time.time() - t0:.1f}s", flush=True)
+    return json.loads(json.dumps(out))
+
+
+def main_resilience() -> None:
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(
+            len(RESILIENCE_STREAMS), mp_context=ctx) as pool:
+        runs = list(pool.map(resilience_stream, *zip(*RESILIENCE_STREAMS)))
+    out = dict(command=COMMAND + " --resilience", commit=_commit(),
+               engine="repro (JAX, jnp backend)",
+               digest="obs.frames.state_digests: first 16 hex digits of the "
+                      "sha256 of each leaf's int32 bytes (float32 leaves "
+                      "by their bits, bool leaves as 0/1), little-endian, "
+                      "C order",
+               max_cycles=MAX_CYCLES, source=0, streams=runs)
+    RESILIENCE_OUT.write_text(json.dumps(out, indent=1) + "\n")
+    print(f"wrote {RESILIENCE_OUT}")
+
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -501,8 +676,12 @@ if __name__ == "__main__":
                     help="record telemetry_fingerprint.json instead")
     ap.add_argument("--faults", action="store_true",
                     help="record fault_fingerprint.json instead")
+    ap.add_argument("--resilience", action="store_true",
+                    help="record resilience_fingerprint.json instead")
     args = ap.parse_args()
-    if args.faults:
+    if args.resilience:
+        main_resilience()
+    elif args.faults:
         main_faults()
     elif args.telemetry:
         main_telemetry()
