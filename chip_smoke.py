@@ -12,8 +12,8 @@ does on every config here):
   1. device: the card's name and power limit; no CUDA device -> exit 1
   2. build: nvcc for sm_90a, all four kernels at once, with the ptxas
      registers, spills and static shared memory of both cycle kernels'
-     four instances each (without and with telemetry, without and with
-     faults); fails if a cluster instance spills
+     six instances each (without and with telemetry; plain, with faults
+     or query-batched); fails if a cluster instance spills
   3. cycle kernel vs plain PyTorch version on the card, every leaf and the
      launch record exactly equal (tolerance 0), each launch counted on the
      kernel it took: (a) the pinned 8x8 config chunk by chunk to
@@ -207,9 +207,42 @@ right after phase 30, each with the counts set to 0 just before:
      stream through both drivers, the 20K / 400K paper-plan stream under
      ``RecoveryPolicy(max_attempts=2)``) replayed exactly
  35. what checkpoints cost: ``profile_resilience("paper")``, the paper
-     stream with no checkpoint, one before every increment and one before
-     every second, in turns (never, 1, 2, 2, 1, never), walls after
-     ``ckpt.wait()``
+     stream with no checkpoint and one before every increment, in turns
+     (never, 1, 1, never), walls after ``ckpt.wait()``
+
+Multi-tenant serving (``repro_torch.mq``: ``batch_app``, ``MQSession``,
+``FrontDesk``, ``launch/serve_bench.py``; the cycle kernels'
+query-batched instances, qbatch = Q > 1), right after phase 35, each with
+the counts set to 0 just before and its time printed:
+
+ 36. the query-batched instances against the plain version, every leaf
+     (qchg / qlast included) and the launch record exactly equal: (a)
+     ``tests/test_mq.py``'s 8x8 config on the MIX8 weighted stream (Q =
+     8), chunk by chunk to quiescence, on the cluster kernel (8 CTAs of 1
+     row) and forced onto the one-block kernel, telemetry on and off, the
+     plain version on a CPU copy of each input; (b) the serving preset at
+     paper scale (32x32, Q = 8): three mid-stream states, one K=256 chunk
+     each, on the one-block kernel (no band fits), where
+     ``path="cluster"`` raises
+ 37. ``src/repro_torch/data/mq_fingerprint.json`` (the JAX engine: the
+     Q=1 session on the pinned stream, MIX8, mid-stream admit / retire /
+     recycle, the Q=3 parity config, ``bench_serve("ci")`` with its eight
+     serial runs and the record of ``results/bench_serve.json``, the
+     paper config at 2,000 vertices / 20K edges with an all-BFS Q=8
+     batch) replayed exactly: every increment's counters, qchg / qlast,
+     lifecycle and leaf digests, each slot's values, the receipts
+ 38. serving at full size: ``bench_serve("paper")`` (32x32, 4,096
+     vertices, 20,000 symmetric weighted R-MAT edges in 10 increments,
+     QUERY_MIX at Q = 8, telemetry and the ingest guard on): every tenant
+     == its serial run, the bfs / sssp / cc / widest tenants == the
+     oracles; batch against serial cycles, the speedup, latency p50 / p99
+     in cycles, deferrals, the walls, launches by kernel and instance
+ 39. the paper's 50K / 1M stream on the paper config under an all-BFS
+     Q = 8 batch from ``batch_sources(50000)`` (source 0 one of them):
+     each slot == the BFS oracle from its source; cycles against phase
+     5's 50,030, ns a machine cycle against phase 6's one-block chunk,
+     launches, the wall.  A livelock prints the engine's message and
+     holds the wedged chunk against the plain version
 
 The GNN and DLRM serving forwards (every aggregation a launch of the
 scatter-SpMM kernel, every DLRM lookup one launch of the EmbeddingBag
@@ -322,7 +355,8 @@ from repro_torch.core import (LIVELOCK_CHUNKS, EngineConfig,  # noqa: E402
 from repro_torch.core.apps import BFS  # noqa: E402
 from repro_torch.core.msg import DIR_W  # noqa: E402
 from repro_torch.core.ingest import load_stream  # noqa: E402
-from repro_torch.core.reference import bfs_levels  # noqa: E402
+from repro_torch.core.reference import (bfs_levels, cc_labels,  # noqa: E402
+                                        sssp_dists)
 from repro_torch.data.graphs import build_graph  # noqa: E402
 from repro_torch.data.pipeline import (RecSysBatchSpec,  # noqa: E402
                                        recsys_batch)
@@ -342,7 +376,9 @@ from repro_torch.kernels.spmm.ref import (scatter_spmm_ref,  # noqa: E402
                                           spmm_ordered, spmm_sorted_coo_ref)
 from repro_torch.launch import paper_experiments as pe  # noqa: E402
 from repro_torch.launch import serve as lm_serve  # noqa: E402
+from repro_torch.launch import serve_bench as sb  # noqa: E402
 from repro_torch.models import dlrm, gnn, transformer  # noqa: E402
+from repro_torch.mq import FrontDesk, MQSession  # noqa: E402
 from repro_torch.resilience import (FLT_CORRUPT, FLT_DROP,  # noqa: E402
                                     FaultPlan)
 
@@ -498,32 +534,35 @@ def on_path(before, path, n):
 
 
 CYCLE_INSTANCES = tuple(f"{k}{t}{f}" for k in ("cluster", "block")
-                        for t in ("", "_telemetry") for f in ("", "_faults"))
+                        for t in ("", "_telemetry")
+                        for f in ("", "_faults", "_query"))
 
 
 def cycle_ptxas(report: str) -> dict:
     """Phase 2: the registers, spills and static shared memory of both
-    cycle kernels, each in its four instances, without and with telemetry,
-    without and with faults (``cluster``, ``cluster_telemetry``,
-    ``cluster_faults``, ``cluster_telemetry_faults``, and ``block...`` the
+    cycle kernels, each in its six instances, without and with telemetry,
+    plain, with faults or query-batched (``cluster``,
+    ``cluster_telemetry``, ``cluster_faults``, ``cluster_telemetry_faults``,
+    ``cluster_query``, ``cluster_telemetry_query``, and ``block...`` the
     same), printed; raises if a cluster instance spills or an instance is
     missing."""
     out = {}
     for name, info in _build.ptxas_functions(report).items():
         m = re.search(r"(cca_cycle_cluster_kernel|cca_cycle_kernel)"
-                      r"ILb([01])ELb([01])E", name)
+                      r"ILb([01])ELb([01])ELb([01])E", name)
         if not m:
             continue
         kind = ("cluster" if "cluster" in m[1] else "block") + (
             "_telemetry" if m[2] == "1" else "") + (
-            "_faults" if m[3] == "1" else "")
+            "_faults" if m[3] == "1" else "") + (
+            "_query" if m[4] == "1" else "")
         out[kind] = info
         print(f"[2] {kind} kernel: {info.get('registers')} registers, "
               f"{info.get('spill_stores')} bytes spill stores, "
               f"{info.get('spill_loads')} bytes spill loads, "
               f"{info.get('stack')} bytes stack, static smem "
               f"{info.get('smem', 0)} bytes", flush=True)
-    for kind in CYCLE_INSTANCES[:4]:
+    for kind in CYCLE_INSTANCES[:6]:
         c = out.get(kind, {})
         if not c or c.get("spill_stores", 1) or c.get("spill_loads", 1):
             raise AssertionError(f"{kind} cycle kernel: spills or no report "
@@ -1915,11 +1954,14 @@ def resilience_phase_replay() -> dict:
 
 def resilience_phase_cost() -> dict:
     """Phase 35: what checkpoints cost on the paper stream, in turns
-    (``profile_resilience("paper")``: none, every increment, every second,
-    every second, every increment, none; the first increment untimed, the
-    wall of the other nine taken after ``ckpt.wait()``)."""
+    (``profile_resilience("paper")``: none, every increment, every
+    increment, none; the first increment untimed, the wall of the other
+    nine taken after ``ckpt.wait()``)."""
     t0 = time.time()
-    rec = pe.profile_resilience("paper", ckpt_dir=CKPT_DIR)
+    # never and every increment, in turns: the every-second cadence is cut
+    # to keep the whole smoke near 12 minutes
+    rec = pe.profile_resilience("paper", cadences=(0, 1, 1, 0),
+                                ckpt_dir=CKPT_DIR)
     walls = collections.defaultdict(list)
     for r in rec["runs"]:
         walls[r["every"]].append(r["wall_s"])
@@ -1939,6 +1981,301 @@ def resilience_phase_cost() -> dict:
                 snapshot_s=[x["snapshot_s"] for x in saves],
                 write_s=[x["write_s"] for x in saves],
                 bytes=saves[0]["bytes"])
+
+# ---- multi-tenant serving (phases 36-39) ----
+
+MQ_FP = json.loads((ROOT / "src" / "repro_torch" / "data"
+                    / "mq_fingerprint.json").read_text())
+# tests/test_mq.py's mixed Q=8 batch: (app, source) a slot
+MIX8 = (("bfs", 0), ("bfs", 7), ("sssp", 3), ("sssp", 11), ("cc", 0),
+        ("widest", 5), ("reliable", 9), ("bfs", 23))
+
+
+def mq_cfg(**kw):
+    """``tests/test_mq.py::_mq_cfg``."""
+    base = dict(height=8, width=8, n_vertices=128, edge_cap=8,
+                ghost_slots=64, queue_cap=64, chan_cap=32, futq_cap=8,
+                io_stream_cap=2048, lanes=4, chunk=128)
+    base.update(kw)
+    return EngineConfig(**base)
+
+
+def query_since(before: dict) -> dict:
+    return {p: ops.query_launches[p] - before[p] for p in ops.PATHS}
+
+
+def widest_oracle(n, edges, source):
+    """Maximin bottleneck capacity by Bellman-Ford (``tests/test_mq.py``)."""
+    cap = np.zeros(n, np.float64)
+    cap[source] = 1e9
+    w = edges[:, 2].astype(np.int32).view(np.float32).astype(np.float64)
+    s, d = edges[:, 0], edges[:, 1]
+    while True:
+        new = cap.copy()
+        np.maximum.at(new, d, np.minimum(cap[s], w))
+        if np.array_equal(new, cap):
+            return cap.astype(np.float32)
+        cap = new
+
+
+def mq_session(cfg, mix, admit_all=True):
+    """An ``MQSession`` on the card over ``mix`` ((app, source) a slot),
+    every tenant admitted into its slot when ``admit_all``."""
+    ses = MQSession(cfg, qbatch=len(mix), apps=[a for a, _ in mix])
+    if admit_all:
+        for q, (app, src) in enumerate(mix):
+            ses.admit(app, src, slot=q)
+    return ses
+
+
+def timed_chunk(fn, cfg, app, st, n_cycles, **kw):
+    """One chunk of ``fn`` (the kernel's wrapper or the plain version) on a
+    copy of ``st``, timed by CUDA events: ``(ms, state, record)``."""
+    s = clone(st)
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    a.record()
+    s2, qr = fn(cfg, app, s, n_cycles, **kw)
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b), s2, qr
+
+
+def mq_phase_kernels() -> tuple[float, dict]:
+    """Phase 36: the query-batched instances of both kernels against the
+    plain version, (a) 8x8 MIX8 chunk by chunk, both kernels, telemetry on
+    and off; (b) three mid-stream states of the paper-scale serving
+    preset, one K=256 chunk each on the one-block kernel, which the route
+    takes because no band fits (``path="cluster"`` raises): the kernel's
+    and the plain version's times and the byte bound (the mutable state
+    read and written once).  Returns ``(max abs difference (0), (b)'s
+    times)``."""
+    t_all = time.time()
+    reset_counts()
+    ses = mq_session(mq_cfg(telemetry=True), MIX8)
+    cfg = ses.eng.cfg
+    geometry = ops.cluster_geometry(cfg)
+    qb = dict(ops.query_launches)
+    worst, _, chunks, cycles = chunks_vs_plain(
+        "36a", cfg, ses.eng.app, ses.eng.state, sb.weighted_stream(),
+        also_without_telemetry=True)
+    if query_since(qb) != {"block": 2 * chunks, "cluster": 2 * chunks}:
+        raise AssertionError(f"36a: query-batched launches "
+                             f"{query_since(qb)}, {chunks} chunks")
+    print(f"[36a] 8x8 MIX8 (Q=8, {cfg.msg_words}-word records), cluster "
+          f"kernel {geometry} (n_ctas, rows, bytes a CTA) and one-block "
+          f"kernel, telemetry on and off: == plain on every leaf over "
+          f"{chunks} chunks, {cycles} cycles (max |d| {worst}; "
+          f"{time.time() - t_all:.1f}s)", flush=True)
+
+    t0 = time.time()
+    p = sb.SCALES["paper"]
+    incs = sb._stream(p)
+    ses = mq_session(sb._serve_cfg(p), sb.QUERY_MIX, admit_all=False)
+    cfg = ses.eng.cfg
+    if ops.cluster_geometry(cfg) is not None:
+        raise AssertionError("36b: a band fits the paper serving preset")
+    try:
+        ops.route(cfg, "cluster")
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("36b: path='cluster' did not raise")
+    fd = FrontDesk(ses)
+    for app, src in sb.QUERY_MIX:
+        if app == "cc":
+            ses.admit(app, src)
+        else:
+            fd.submit(app, src)
+    times = dict(ms=[], plain_ms=[], bound_ms=[], cycles=[])
+    for i, e in enumerate(incs[:9]):
+        if i in (2, 5, 8):
+            st, _ = load_stream(cfg, clone(ses.eng.state), e)
+            st = fresh_stats(st)._replace(qchg=torch.zeros_like(st.qchg))
+            mutable = sum(t.numel() * t.element_size()
+                          for k, t in st._asdict().items()
+                          if k != "io_edges")
+            t_plain, sr, qr = timed_chunk(cca_cycle_chunk_ref, cfg,
+                                          ses.eng.app, st, 256)
+            before, qb = dict(ops.path_launches), dict(ops.query_launches)
+            t_kern, sk, qk = timed_chunk(ops.cca_cycle_chunk, cfg,
+                                         ses.eng.app, st, 256)
+            on_path(before, "block", 1)
+            if query_since(qb) != {"block": 1, "cluster": 0}:
+                raise AssertionError("36b: not a query-batched launch")
+            if not torch.equal(qk, qr):
+                raise AssertionError(f"36b: launch record {qk.tolist()} != "
+                                     f"{qr.tolist()}")
+            worst = max(worst, leaf_diff(sk, sr))
+            ran = int(qr[1])
+            bound = 1e3 * 2 * mutable / H100_BYTES_PER_S
+            for k, v in zip(times, (t_kern, t_plain, bound, ran)):
+                times[k].append(v)
+            print(f"[36b] paper serving preset (32x32, Q=8) before "
+                  f"increment {i}: one K=256 chunk on the one-block kernel "
+                  f"== plain on every leaf ({ran} cycles, cycle "
+                  f"{int(sr.cycle)}): kernel {t_kern:.4f} ms "
+                  f"({1e6 * t_kern / ran:.1f} ns a cycle), plain "
+                  f"{t_plain:.1f} ms, bound {bound:.4f} ms (2 x "
+                  f"{mutable / 2**20:.1f} MiB mutable state over 3.35 TB/s;"
+                  f" {t_kern / bound:.0f}x)", flush=True)
+        fd.step(e)
+    print(f"[36b] path='cluster' refused: {refused} "
+          f"({time.time() - t0:.1f}s)", flush=True)
+    print(f"[36] done in {time.time() - t_all:.1f}s", flush=True)
+    return worst, times
+
+
+def mq_phase_replay() -> dict:
+    """Phase 37: every run of ``mq_fingerprint.json`` through
+    ``serve_bench.mq_replay`` on the card, exactly; launches by kernel and
+    instance."""
+    t_all = time.time()
+    pinned = json.loads((ROOT / "tests" / "data"
+                         / "pre_lanes_reference.json").read_text())
+    out = {}
+    for rec in MQ_FP["runs"]:
+        t0 = time.time()
+        reset_counts()
+        qb = dict(ops.query_launches)
+        got = sb.mq_replay(rec, pinned=pinned)
+        bad = sorted(k for k in rec if got.get(k) != rec[k])
+        if bad:
+            raise AssertionError(f"37 {rec['name']}: {bad} differ from the "
+                                 f"JAX engine's")
+        la, lq = dict(ops.path_launches), query_since(qb)
+        if not ops.launches:
+            raise AssertionError(f"37 {rec['name']}: no launch")
+        note = ""
+        if rec["kind"] == "serve":
+            r = got["record"]
+            note = (f"; batch {r['batch_cycles']} / serial "
+                    f"{r['serial_cycles_total']} cycles, speedup "
+                    f"{r['speedup']}, all exact {r['all_exact']}, "
+                    f"deferrals {r['deferrals']} (== "
+                    f"results/bench_serve.json)")
+        elif rec["kind"] == "paper_q8":
+            note = (f"; {got['outcome']}, "
+                    f"{sum(i['cycles'] for i in got['increments'])} cycles")
+        print(f"[37] {rec['name']}: == the JAX engine's{note} (launches "
+              f"{la}, query-batched {lq}; {time.time() - t0:.1f}s)",
+              flush=True)
+        out[rec["name"]] = dict(launches=la, query_launches=lq,
+                                seconds=time.time() - t0)
+    print(f"[37] done in {time.time() - t_all:.1f}s", flush=True)
+    return out
+
+
+def mq_phase_serve() -> dict:
+    """Phase 38: ``bench_serve("paper")`` at full size, every tenant ==
+    its serial run and the bfs / sssp / cc / widest tenants == the
+    oracles."""
+    t0 = time.time()
+    reset_counts()
+    qb = dict(ops.query_launches)
+    values = {}
+    rec = sb.bench_serve("paper", out_values=values)
+    la, lq = dict(ops.path_launches), query_since(qb)
+    if not rec["all_exact"]:
+        raise AssertionError(f"38: tenants != their serial runs: "
+                             f"{rec['queries']}")
+    p = sb.SCALES["paper"]
+    edges = np.concatenate(sb._stream(p))
+    n = p["n_vertices"]
+    w = edges[:, 2].astype(np.int32).view(np.float32)
+    for (app, src), v in values.items():
+        if app == "bfs":
+            want = bfs_levels(n, edges, src)
+        elif app == "sssp":
+            want = sssp_dists(n, edges, w, src)
+        elif app == "cc":
+            want = cc_labels(n, edges)
+        else:
+            want = widest_oracle(n, edges, src)
+        assert v.shape == want.shape and np.isfinite(v).all()
+        if app == "sssp":
+            np.testing.assert_allclose(v, want, rtol=1e-5,
+                                       err_msg=f"38: {app}@{src}")
+        elif not np.array_equal(v, want):
+            raise AssertionError(f"38: {app}@{src} != the oracle")
+    if lq["block"] == 0 or lq["cluster"]:
+        raise AssertionError(f"38: query-batched launches {lq}")
+    walls = rec["wall_s"]
+    print(f"[38] bench_serve('paper') (32x32, 4,096 vertices, 20,000 "
+          f"edges, Q=8): batch {rec['batch_cycles']} cycles against serial "
+          f"{rec['serial_cycles_total']} (speedup {rec['speedup']}), "
+          f"latency p50 {rec['p50_cycles']} / p99 {rec['p99_cycles']} "
+          f"cycles, deferrals {rec['deferrals']}; all 8 tenants == their "
+          f"serial runs, bfs / sssp (rtol 1e-5) / cc / widest == the "
+          f"oracles; wall batch {walls['batch']:.3f}s, serial "
+          f"{sum(walls['serial']):.3f}s ({' / '.join(f'{x:.3f}' for x in walls['serial'])}); "
+          f"launches {la}, query-batched {lq} ({time.time() - t0:.1f}s)",
+          flush=True)
+    return dict(record={k: rec[k] for k in (
+        "batch_cycles", "serial_cycles_total", "speedup", "p50_cycles",
+        "p99_cycles", "deferrals", "all_exact", "wall_s")},
+        launches=la, query_launches=lq)
+
+
+def mq_phase_paper(t_block_ns: float) -> dict:
+    """Phase 39: the 50K / 1M paper stream under an all-BFS Q=8 batch.
+    Each slot == the BFS oracle from its source, or a livelock whose
+    wedged chunk equals the plain version."""
+    t_all = time.time()
+    incs = make_stream(StreamSpec(increments=10, sampling="edge", seed=1,
+                                  **PAPER_FULL))
+    sources = sb.batch_sources(PAPER_FULL["n_vertices"])
+    ses = mq_session(paper_cfg(**PAPER_FULL), [("bfs", v) for v in sources])
+    cfg = ses.eng.cfg
+    ring = collections.deque(maxlen=LIVELOCK_CHUNKS + 1)
+    reset_counts()
+    qb = dict(ops.query_launches)
+    events, cycles, livelock = [], 0, None
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with keep_inputs(ring), timed_launches(events):
+        try:
+            for i, e in enumerate(incs):
+                cycles += ses.run_increment(e, max_cycles=2_000_000).cycles
+        except LivelockError as ex:
+            livelock = dict(increment=i, cycle=ex.cycle, chunk=ex.chunk)
+            print(f"[39] livelock in increment {i}: {ex}", flush=True)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    la, lq = dict(ops.path_launches), query_since(qb)
+    if la["cluster"] or lq["block"] != la["block"] or not la["block"]:
+        raise AssertionError(f"39: launches {la}, query-batched {lq}")
+    kern_ms = sum(a.elapsed_time(b) for a, b in events)
+    out = dict(sources=sources, cycles=cycles, launches=la, wall_s=wall,
+               kernel_ms=kern_ms, livelock=livelock)
+    total = cycles + (livelock["cycle"] if livelock else 0)
+    out["cycles"] = total
+    if livelock is None:
+        edges = np.concatenate(incs)
+        for q, src in enumerate(sources):
+            want = bfs_levels(PAPER_FULL["n_vertices"], edges, src)
+            got = ses.values(q)
+            assert got.shape == want.shape and np.isfinite(got).all()
+            if not np.array_equal(got, want):
+                raise AssertionError(f"39: slot {q} (bfs@{src}) != oracle")
+        status = "every slot == the BFS oracle from its source"
+    else:
+        cfg_w, st_w = ring[0]
+        d, _, _ = kernel_vs_plain(cfg_w, ses.eng.app, st_w, None, ("auto",))
+        status = (f"livelocked at cycle {livelock['cycle']} (chunk "
+                  f"{livelock['chunk']}); the wedged chunk == plain "
+                  f"(max |d| {d})")
+    ns = 1e6 * kern_ms / max(1, total)
+    out["ns_per_cycle"] = ns
+    ratio = ns / t_block_ns
+    print(f"[39] 50K/1M paper stream, all-BFS Q=8 from {sources}: "
+          f"{total} cycles (Q=1 phase 5: 50,030), {status}; launches "
+          f"{la}, {ns:.1f} ns a machine cycle by CUDA events ({ratio:.2f}x "
+          f"phase 6's one-block Q=1 chunk, {t_block_ns:.1f}); wall "
+          f"{wall:.3f}s ({time.time() - t_all:.1f}s)", flush=True)
+    return out
+
 
 def experiment_phases(smi: str) -> dict:
     """Phase 17: the paper's experiments at 50K vertices / 1M edges through
@@ -3337,6 +3674,14 @@ def main() -> None:
     res_replay = resilience_phase_replay()
     res_cost = resilience_phase_cost()
 
+    # ---- 36-39. multi-tenant serving: the query-batched instances, the
+    # fingerprint, bench_serve at full size, the paper stream under Q=8 ----
+    d_mq, mq_chunk = mq_phase_kernels()
+    worst = max(worst, d_mq)
+    mq_replays = mq_phase_replay()
+    mq_serve = mq_phase_serve()
+    mq_paper = mq_phase_paper(1e6 * t_block / ran)
+
     cca_entry = {
         "name": "cca_cycle_chunk", "route": "cuda",
         "source": "src/repro_torch/kernels/cca_cycle/csrc/"
@@ -3354,7 +3699,16 @@ def main() -> None:
         "library_ms": None, "chunk_cycles": ran, "ptxas": cca_ptxas,
         "branches": ["traces", "ingest_only", "random_allocator", "lanes",
                      "park", "rhizomes", "widest", "reliable", "telemetry",
-                     "faults", "recovery", "ingest_guard"],
+                     "faults", "recovery", "ingest_guard", "qbatch"],
+        "query_batched": dict(
+            chunk_q8_k256=dict(path="block", ms=mq_chunk["ms"],
+                               plain_ms=mq_chunk["plain_ms"],
+                               bound_ms=mq_chunk["bound_ms"],
+                               bound_by="bytes",
+                               cycles=mq_chunk["cycles"]),
+            launches=dict(mq_serve["query_launches"]),
+            replays=mq_replays, serve_paper=mq_serve,
+            paper_stream_q8=mq_paper),
         "telemetry": dict(tm_paths, **tm_cost),
         "faults": dict(
             smokes=flt_smokes,

@@ -9,6 +9,11 @@ min-monotone with ``1e9`` as "unreached"; ``widest`` and ``reliable``
 are max-monotone with ``0`` as "unreached", so their ``combine``,
 ``fwd_merge`` and ``fwd_neutral`` flip.  ``code`` is the app's number in
 the CUDA cycle kernel (``kernels/cca_cycle/csrc/cca_cycle.cu``).
+
+A query-batched composite (``repro_torch.mq.batch_app``, DESIGN §10) has
+``qbatch = n_vals = Q > 1``, per-slot tuples for ``init_val`` and
+``fwd_neutral``, its scalar apps in ``slot_apps`` and ``code`` -1: the
+kernel takes the slot apps' codes instead.
 """
 from __future__ import annotations
 
@@ -31,15 +36,27 @@ class DiffusionApp:
     edge_value: Callable
     # vals[..., VN] -> bool [...]: propagate on edge-insert?
     propagate_on_insert: Callable
-    init_val: float = INF
+    # "unreached": relax(v, init_val) is a no-op; a tuple per query slot
+    init_val: float | tuple = INF
     n_vals: int = 1
     # host-side merge of one vertex's values across its rhizome roots
     combine: Callable = np.minimum
     # coalescing rule of the deferred app-forward register, and the
     # element that loses every merge
     fwd_merge: Callable = torch.minimum
-    fwd_neutral: float = INF
+    fwd_neutral: float | tuple = INF
+    # query-batch width: > 1 marks a composite whose functions act on the
+    # whole [..., qbatch] value vector, made of the scalar slot_apps
     qbatch: int = 1
+    slot_apps: tuple = ()
+
+
+def neutral_vec(vals, device=None):
+    """A per-slot tuple as a ``[Q]`` float32 tensor on ``device``; a
+    scalar passes through unchanged."""
+    if not isinstance(vals, tuple):
+        return vals
+    return torch.tensor(vals, dtype=torch.float32, device=device)
 
 
 def _min_relax(vals, incoming):

@@ -5,8 +5,8 @@ fields (``backend`` dropped -- the device decides) and the same derived
 capacities, so a config built with the same arguments lays the machine
 state out exactly as the JAX engine does, virtual lanes and rhizome
 vertex objects included, and ``faults`` takes the port's own
-``resilience.FaultPlan``.  Knobs the port does not carry yet are rejected
-by :meth:`EngineConfig.validate` with ``NotImplementedError`` instead of
+``resilience.FaultPlan``.  Knobs the port does not carry are rejected by
+:meth:`EngineConfig.validate` with ``NotImplementedError`` instead of
 being ignored.
 """
 from __future__ import annotations
@@ -14,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
-from repro_torch.core.msg import MSG_WORDS
+from repro_torch.core.msg import msg_words
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,7 +49,8 @@ class EngineConfig:
 
     # --- app ---
     n_vals: int = 1               # per-slot application values
-    qbatch: int = 1               # query-batch width
+    qbatch: int = 1               # query-batch width (repro_torch.mq,
+                                  # DESIGN §10): n_vals == qbatch > 1
 
     # --- engine ---
     max_cycles: int = 1_000_000
@@ -99,7 +100,7 @@ class EngineConfig:
 
     @property
     def msg_words(self) -> int:
-        return MSG_WORDS + max(0, self.qbatch - 1)
+        return msg_words(self.qbatch)
 
     @property
     def aq_reserve(self) -> int:
@@ -115,13 +116,13 @@ class EngineConfig:
         """Raise ``ValueError`` on a malformed config (the JAX engine's
         rules) and ``NotImplementedError`` on a knob the port does not
         carry yet."""
-        not_yet = [name for name, off in (
-            ("qbatch>1", self.qbatch == 1),
-            ("n_vals>1", self.n_vals == 1),
-        ) if not off]
-        if not_yet:
+        if self.qbatch == 1 and self.n_vals != 1:
             raise NotImplementedError(
-                f"repro_torch does not port {', '.join(not_yet)} yet")
+                f"n_vals={self.n_vals} at qbatch=1: no JAX path reaches it "
+                "(StreamingEngine sets n_vals from the app, and only a "
+                "query-batched composite, mq.batch_app, has n_vals > 1, "
+                "with qbatch == n_vals), so there is no reference "
+                "behaviour to port")
         if self.n_io_cells not in (0, self.width):
             raise NotImplementedError(
                 f"n_io_cells={self.n_io_cells} on a {self.width}-wide grid: "
@@ -167,6 +168,23 @@ class EngineConfig:
         for ok, msg in checks:
             if not ok:
                 raise ValueError(msg)
+        if self.qbatch < 1:
+            raise ValueError("qbatch must be >= 1")
+        if self.qbatch > 32:
+            raise ValueError(
+                "qbatch > 32 overflows the int32 qsel bitmask (msg word 3, "
+                "DESIGN §10); shard tenants over several sessions instead")
+        if self.qbatch > 1:
+            if self.faults is not None:
+                raise ValueError(
+                    "faults + qbatch > 1 is unsupported: the OP_REPAIR io "
+                    "sentinel rows carry a single value word (DESIGN "
+                    "§9/§10); run fault injection on a qbatch=1 engine")
+            if self.n_vals != self.qbatch:
+                raise ValueError(
+                    "qbatch > 1 requires n_vals == qbatch (the query axis "
+                    "IS the value axis; StreamingEngine sets both from the "
+                    "app)")
         if self.ingest_guard and not self.telemetry:
             raise ValueError("ingest_guard needs the tm_hiw telemetry "
                              "plane (set telemetry=True, DESIGN §9)")

@@ -207,18 +207,35 @@ def _roots(cfg: EngineConfig, n: int):
                        np.arange(cfg.rhizome_cap, dtype=np.int64)[:, None])
 
 
+def _resolve_app(app) -> DiffusionApp:
+    """A bundled app by name, or a :class:`DiffusionApp` whose app (or,
+    for a composite, every slot app) is one the kernel has a code for."""
+    if isinstance(app, DiffusionApp):
+        for a in app.slot_apps or (app,):
+            if APPS.get(a.name) != a:
+                raise NotImplementedError(
+                    f"repro_torch ports the apps {sorted(APPS)}, not "
+                    f"{a.name!r}")
+        return app
+    if app not in APPS:
+        raise NotImplementedError(
+            f"repro_torch ports the apps {sorted(APPS)}, not {app!r}")
+    return APPS[app]
+
+
 class StreamingEngine:
     """Host-side driver: the accelerator-style main() of paper Listing 1.
 
-    ``device=None`` means the card (``cuda``); pass ``device="cpu"`` to
-    run the plain PyTorch version.
+    ``app`` is the name of a bundled app or a :class:`DiffusionApp`, such
+    as a query-batched composite of ``repro_torch.mq.batch_app``, whose
+    ``n_vals`` and ``qbatch`` the config takes.  ``device=None`` means the
+    card (``cuda``); pass ``device="cpu"`` to run the plain PyTorch
+    version.
     """
 
-    def __init__(self, cfg: EngineConfig, app: str = "bfs", device=None):
-        if app not in APPS:
-            raise NotImplementedError(
-                f"repro_torch ports the apps {sorted(APPS)}, not {app!r}")
-        self.app = APPS[app]
+    def __init__(self, cfg: EngineConfig, app: str | DiffusionApp = "bfs",
+                 device=None):
+        self.app = _resolve_app(app)
         self.cfg = dataclasses.replace(cfg, n_vals=self.app.n_vals,
                                        qbatch=self.app.qbatch)
         self.device = resolve_device(device)
@@ -315,6 +332,11 @@ class StreamingEngine:
         self.state = self.state._replace(
             stat_hops=zero.clone(), stat_exec=zero.clone(),
             stat_stall=zero.clone(), stat_allocs=zero.clone())
+        if cfg.qbatch > 1:
+            # the per-query relax counters count this increment's activity;
+            # qlast persists, each slot's absolute settle cycle
+            self.state = self.state._replace(
+                qchg=torch.zeros_like(self.state.qchg))
         if cfg.faults is not None:
             # the fault counters reset with the counters: the loss
             # detector reconciles each increment on its own
@@ -404,7 +426,7 @@ class StreamingEngine:
         return step
 
     @classmethod
-    def restore(cls, cfg: EngineConfig, app: str, ckpt,
+    def restore(cls, cfg: EngineConfig, app: str | DiffusionApp, ckpt,
                 step: int | None = None, strict: bool = True,
                 verify: bool = True, device=None) -> "StreamingEngine":
         """An engine rebuilt from a boundary checkpoint on ``device``
@@ -645,13 +667,16 @@ class StreamingEngine:
             rings.append(ring.host())
         return cycle - start, bool(q), noprog, (hops, execs, stalls, allocs)
 
-    def values(self, n: int | None = None, val_idx: int = 0) -> np.ndarray:
-        """Vertex values, ``float32 [n]``: the app's ``combine`` (min, or
-        max for the max-monotone apps) over every rhizome root of each
-        vertex."""
+    def values(self, n: int | None = None, val_idx: int = 0,
+               combine=None) -> np.ndarray:
+        """Vertex values of value slot ``val_idx``, ``float32 [n]``: the
+        app's ``combine`` (min, or max for the max-monotone apps) over
+        every rhizome root of each vertex, or ``combine`` when given (a
+        query-batched composite passes the combine of the query living in
+        ``val_idx``)."""
         r, c, s = _roots(self.cfg, n or self.cfg.n_vertices)
         v = self.state.vals[..., val_idx].cpu().numpy()[r, c, s]
-        return functools.reduce(self.app.combine, v)
+        return functools.reduce(combine or self.app.combine, v)
 
     def vertex_object_stats(self) -> dict:
         """Ghost usage and locality of the hierarchical vertex objects,

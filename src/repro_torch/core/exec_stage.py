@@ -5,9 +5,13 @@ instruction (phase 0 of an action) or the staging of one new message
 (``propagate``).  An action occupies its cell for ``1 + T`` cycles -- one
 mutate cycle plus one per emission, with backpressure stalls when the
 target buffer is full (paper §4; ``core/exec_stage.py`` of the JAX
-package, whose handlers this file carries for ``qbatch=1``, with the
-telemetry planes and the fault plan's seals; at ``lanes > 1`` a remote
-emission that finds its lane full parks in the cell's park ring):
+package, whose handlers this file carries, with the telemetry planes and
+the fault plan's seals; at ``lanes > 1`` a remote emission that finds its
+lane full parks in the cell's park ring).  At ``qbatch`` Q > 1 (DESIGN
+§10) the value, the emission snapshot and the forward register carry a
+``[Q]`` vector, app-like messages carry it in words 2 and 5.., a
+qsel-masked relax changes a cell where any slot changed, and phase 0
+counts each slot's changes into ``qchg`` / ``qlast``:
 
   OP_INSERT_EDGE  insert-edge-action with the ghost/future protocol
   OP_APP          the application action (bfs-action et al.)
@@ -29,12 +33,13 @@ import torch
 from repro_torch.core import rings
 from repro_torch.core.alloc import (choose_alloc_cell, rhizome_addr,
                                     rhizome_owner_vid)
-from repro_torch.core.apps import DiffusionApp
+from repro_torch.core.apps import DiffusionApp, neutral_vec
 from repro_torch.core.config import EngineConfig
-from repro_torch.core.msg import (OP_ALLOC, OP_APP, OP_INSERT_EDGE,
-                                  OP_LINK_RHIZOME, OP_REPAIR, OP_RHIZOME_FWD,
-                                  OP_SET_FUTURE, TB_AQ_SELF, f2i, i2f,
-                                  make_msg, msg_seal, seal_msg)
+from repro_torch.core.msg import (MSG_WORDS, OP_ALLOC, OP_APP,
+                                  OP_INSERT_EDGE, OP_LINK_RHIZOME, OP_REPAIR,
+                                  OP_RHIZOME_FWD, OP_SET_FUTURE, TB_AQ_SELF,
+                                  f2i, i2f, make_msg, make_qmsg, msg_qvals,
+                                  msg_seal, pad_msg, qsel_mask, seal_msg)
 from repro_torch.core.routing import deliver, msg_lane, yx_target_buffer
 from repro_torch.core.state import (G_NULL, G_PENDING, G_SET, TM_ALLOC,
                                     TM_BCAST, TM_EXEC, TM_PARK, TM_STAGE,
@@ -80,13 +85,26 @@ def _pick(*cases, default):
     return out
 
 
+def _msg_makers(cfg: EngineConfig):
+    """``(qmsg, wm)``: the app-like message maker (a scalar payload at
+    ``qbatch == 1``, the ``[..., Q]`` vector otherwise) and the padding of
+    a classic record to ``cfg.msg_words``."""
+    if cfg.qbatch == 1:
+        return (lambda op, dst, val: make_msg(op, dst, f2i(val))), \
+            (lambda m: m)
+    return (lambda op, dst, val: make_qmsg(op, dst, f2i(val))), \
+        (lambda m: pad_msg(m, cfg.msg_words))
+
+
 # --------------------------------------------------------------------------
 # EXEC-A: staging -- the active action emits its next message (1 per cycle)
 # --------------------------------------------------------------------------
 
 def staging_stage(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
                   rows, cols):
-    W, S, E = cfg.width, cfg.slots, cfg.edge_cap
+    H, W, S, E = cfg.height, cfg.width, cfg.slots, cfg.edge_cap
+    QB = cfg.qbatch
+    qmsg, wm = _msg_makers(cfg)
     active = st.cvalid & (st.cphase >= 1) & (st.cphase <= st.cT)
 
     op = st.cmsg[..., 0]
@@ -112,19 +130,18 @@ def staging_stage(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
     ek = torch.clamp(kd, 0, E - 1)
     e_dst = sel(st.edst, slot).gather(-1, ek.long()[..., None])[..., 0]
     e_w = sel(st.ew, slot).gather(-1, ek.long()[..., None])[..., 0]
-    app_edge_msg = make_msg(OP_APP, e_dst, f2i(app.edge_value(st.cemit, e_w)))
+    app_edge_msg = qmsg(OP_APP, e_dst, app.edge_value(st.cemit, e_w))
     gs = sel(st.gstate, slot)
     ga = sel(st.gaddr, slot)
     fwd_op = (OP_APP if cfg.faults is None
               else torch.where(is_rp, OP_REPAIR, OP_APP))
-    app_fwd_msg = make_msg(fwd_op, ga, f2i(st.cemit))
+    app_fwd_msg = qmsg(fwd_op, ga, st.cemit)
     rss = sel(st.rstate, slot)
     n_bcast = torch.where(is_app & (slot < cfg.root_slots) & (rss == G_SET),
                           cfg.rhizome_cap - 1, 0)
     v_self = slot * cfg.n_cells + cellid
     sib = torch.clamp(kd - ne + 1, 1, max(cfg.rhizome_cap - 1, 1))
-    bc_msg = make_msg(OP_RHIZOME_FWD, rhizome_addr(cfg, v_self, sib),
-                      f2i(st.cemit))
+    bc_msg = qmsg(OP_RHIZOME_FWD, rhizome_addr(cfg, v_self, sib), st.cemit)
     is_bcast = is_app & (kd >= ne) & (kd < ne + n_bcast)
     appl_is_fwd = is_appl & (kd >= ne + n_bcast) & (k >= st.cdrain)
 
@@ -134,19 +151,28 @@ def staging_stage(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
     fqh_cur = sel(st.fq_head, slot)
     fq_e = rings.ring_peek(sel(st.fq, slot), fqh_cur)        # [H,W,3]
     sf_is_ins = fq_e[..., 0] == OP_INSERT_EDGE
+    if QB == 1:
+        sf_fq_app = make_msg(OP_APP, ga, fq_e[..., 1])
+    else:
+        # a deferred-queue entry carries one value word; slots 1.. ride
+        # as their app's init_val (no-op relaxes)
+        qn = f2i(neutral_vec(app.init_val, ga.device))[1:].expand(
+            H, W, QB - 1)
+        sf_fq_app = make_qmsg(OP_APP, ga, torch.cat([fq_e[..., 1:2], qn],
+                                                    dim=-1))
     sf_fq_msg = torch.where(
         sf_is_ins[..., None],
-        make_msg(OP_INSERT_EDGE, ga, fq_e[..., 1], fq_e[..., 2]),
-        make_msg(OP_APP, ga, fq_e[..., 1]))
+        wm(make_msg(OP_INSERT_EDGE, ga, fq_e[..., 1], fq_e[..., 2])),
+        sf_fq_app)
     sf_from_fq = is_sf & (fqn_cur > 0)
     sf_from_fwd = is_sf & (fqn_cur == 0)   # the coalesced forward
     fwd_here = sel(st.fwd_val, slot)
     sf_msg = torch.where(sf_from_fq[..., None], sf_fq_msg,
-                         make_msg(OP_APP, ga, f2i(fwd_here)))
+                         qmsg(OP_APP, ga, fwd_here))
 
     # ---- rf activation drain: re-inject a deferred insert locally ----
     rf_drain = is_rf & (k < st.cdrain)
-    drain_msg = make_msg(OP_INSERT_EDGE, dst, fq_e[..., 1], fq_e[..., 2])
+    drain_msg = wm(make_msg(OP_INSERT_EDGE, dst, fq_e[..., 1], fq_e[..., 2]))
 
     appl_msg = _pick((rf_drain, drain_msg), (appl_is_fwd, app_fwd_msg),
                      (is_bcast, bc_msg), default=app_edge_msg)
@@ -161,8 +187,13 @@ def staging_stage(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
     #      per-slot monotone forward register (never stalls) ----
     to_reg = active & appl_is_fwd & (gs == G_PENDING)
     ohreg = _oh(slot, S, to_reg)
-    fwd_val = torch.where(ohreg, app.fwd_merge(st.fwd_val, st.cemit[..., None]),
-                          st.fwd_val)
+    if QB == 1:
+        fwd_val = torch.where(
+            ohreg, app.fwd_merge(st.fwd_val, st.cemit[..., None]), st.fwd_val)
+    else:
+        fwd_val = torch.where(
+            ohreg[..., None],
+            app.fwd_merge(st.fwd_val, st.cemit[..., None, :]), st.fwd_val)
     fwd_pending = st.fwd_pending | ohreg
 
     tb = yx_target_buffer(cfg, emis[..., 1] // S, rows, cols)
@@ -192,7 +223,8 @@ def staging_stage(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
     fq_n = put(st.fq_n, slot, n2, fq_pop)
     fq_head = put(st.fq_head, slot, h2, fq_pop)
     sf_clear = ok_total & sf_from_fwd
-    fwd_val = put(fwd_val, slot, app.fwd_neutral, sf_clear)
+    fwd_val = put(fwd_val, slot, neutral_vec(app.fwd_neutral, ga.device),
+                  sf_clear)
     fwd_pending = fwd_pending & ~_oh(slot, S, sf_clear)
 
     # ---- advance / retire ----
@@ -225,6 +257,8 @@ def phase0_stage(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
                  rows, cols, busy_at_start):
     H, W, S, E = cfg.height, cfg.width, cfg.slots, cfg.edge_cap
     FQ, Q = cfg.futq_cap, cfg.queue_cap
+    QB = cfg.qbatch
+    _, wm = _msg_makers(cfg)
     cellid = rows * W + cols
 
     has = ~busy_at_start & (st.aq_n > 0)
@@ -290,11 +324,16 @@ def phase0_stage(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
     nedges = st.nedges + _oh(slot, S, p_room).to(torch.int32)
     prop = app.propagate_on_insert(vals_s)
     ins_T = (p_room & prop).to(torch.int32)
-    ins_out = make_msg(OP_APP, a0,
-                       f2i(app.edge_value(vals_s[..., 0], i2f(a1))))
+    if QB == 1:
+        ins_out = make_msg(OP_APP, a0,
+                           f2i(app.edge_value(vals_s[..., 0], i2f(a1))))
+    else:
+        # the insert's propagation carries the whole query vector: one
+        # wave serves every tenant
+        ins_out = make_qmsg(OP_APP, a0, f2i(app.edge_value(vals_s, i2f(a1))))
 
     # -- fwd: recursively propagate the insert to the ghost
-    fwd_out = make_msg(OP_INSERT_EDGE, sel(st.gaddr, slot), a0, a1)
+    fwd_out = wm(make_msg(OP_INSERT_EDGE, sel(st.gaddr, slot), a0, a1))
 
     # -- defer: enqueue the insert on the pending future (Fig. 4 step 3)
     push_mask = p_defer | p_null | p_rlink | p_rdef
@@ -309,12 +348,16 @@ def phase0_stage(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
     tgt_cell = choose_alloc_cell(cfg, rows, cols, st.arot)
     arot = st.arot + p_null.to(torch.int32)
     null_out = make_msg(OP_ALLOC, tgt_cell * S, dst, f2i(vals_s[..., 0]))
+    if QB > 1:
+        # OP_ALLOC carries the requester's whole value vector: slot 0 in
+        # word 3, slots 1.. in the extension words
+        null_out = torch.cat([null_out, f2i(vals_s[..., 1:])], dim=-1)
 
     # -- rlink: mark pending, request activation at the canonical root
     rstate = put(st.rstate, slot, G_PENDING, p_rlink)
     owner = rhizome_owner_vid(cfg, cellid, slot)
     owner_root = (owner % cfg.n_cells) * S + owner // cfg.n_cells
-    rlink_out = make_msg(OP_LINK_RHIZOME, owner_root, cellid * S + slot)
+    rlink_out = wm(make_msg(OP_LINK_RHIZOME, owner_root, cellid * S + slot))
 
     # ---------------- APP / RHIZOME-FWD relax (Listing 5) ----------------
     relaxing = is_app | is_rf
@@ -322,8 +365,19 @@ def phase0_stage(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
     if is_rp is not None:
         relaxing = relaxing | is_rp
         app_like = is_app | is_rp
-    new_vals, changed = app.relax(vals_s, i2f(a0))
-    changed = changed & relaxing
+    if QB == 1:
+        new_vals, changed = app.relax(vals_s, i2f(a0))
+        changed = changed & relaxing
+    else:
+        # the vector relax: the payload spans every slot, and the qsel
+        # mask (word 3, 0 = all) sends a deselected slot its init_val,
+        # so an admission seed relaxes exactly one tenant
+        inc = i2f(msg_qvals(m, QB))                          # [H,W,QB]
+        inc = torch.where(qsel_mask(a1, QB), inc,
+                          neutral_vec(app.init_val, inc.device))
+        new_vals, changed_q = app.relax(vals_s, inc)
+        changed_q = changed_q & relaxing[..., None]
+        changed = changed_q.any(dim=-1)
     vals = put(st.vals, slot, new_vals, relaxing)
     n_bcast = torch.where(app_like & (slot < cfg.root_slots) & (rs == G_SET),
                           cfg.rhizome_cap - 1, 0)
@@ -343,26 +397,37 @@ def phase0_stage(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
 
     # ---------------- LINK-RHIZOME (canonical-root handler) ----------
     rstate = put(rstate, slot, G_SET, is_lr)
-    lr_out = make_msg(OP_RHIZOME_FWD, a0, f2i(vals_s[..., 0]))
+    if QB == 1:
+        lr_out = make_msg(OP_RHIZOME_FWD, a0, f2i(vals_s[..., 0]))
+    else:
+        lr_out = make_qmsg(OP_RHIZOME_FWD, a0, f2i(vals_s))
 
     # ---------------- ALLOC (system action) ----------------
     alc_room = is_alc & (st.nfree < S)
     alc_full = is_alc & ~(st.nfree < S)
     g_new = st.nfree
-    gseed = torch.full_like(vals_s, app.init_val)
-    gseed[..., 0] = i2f(a1)
+    if QB == 1:
+        gseed = torch.full_like(vals_s, app.init_val)
+        gseed[..., 0] = i2f(a1)
+    else:
+        # the allocation request carried the requester's value vector, so
+        # the ghost starts synced
+        gseed = i2f(torch.cat([a1[..., None], m[..., MSG_WORDS:]], dim=-1))
     vals = put(vals, g_new, gseed, alc_room)
     nedges = put(nedges, g_new, 0, alc_room)
     gaddr0 = put(st.gaddr, g_new, -1, alc_room)
     gstate = put(gstate, g_new, G_NULL, alc_room)
     fq_n = put(fq_n, g_new, 0, alc_room)
     fq_head = put(st.fq_head, g_new, 0, alc_room)
-    fwd_val = put(st.fwd_val, g_new, app.fwd_neutral, alc_room)
+    fwd_val = put(st.fwd_val, g_new,
+                  neutral_vec(app.fwd_neutral, a0.device), alc_room)
     fwd_pending = st.fwd_pending & ~_oh(g_new, S, alc_room)
     new_addr = cellid * S + st.nfree
     nfree = st.nfree + alc_room.to(torch.int32)
-    alc_ok_out = make_msg(OP_SET_FUTURE, a0, new_addr)
+    alc_ok_out = wm(make_msg(OP_SET_FUTURE, a0, new_addr))
     alc_fwd_out = make_msg(OP_ALLOC, ((cellid + 1) % cfg.n_cells) * S, a0, a1)
+    if QB > 1:
+        alc_fwd_out = torch.cat([alc_fwd_out, m[..., MSG_WORDS:]], dim=-1)
 
     # ---------------- SET-FUTURE (continuation return) ----------
     gaddr = put(gaddr0, slot, a0, is_sf)
@@ -395,12 +460,20 @@ def phase0_stage(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
         cvalid=st.cvalid | (pop & (T > 0)),
         cphase=torch.where(pop, 1, st.cphase),
         cT=torch.where(pop, T, st.cT),
-        cemit=torch.where(relaxing, new_vals[..., 0], st.cemit),
+        cemit=(torch.where(relaxing, new_vals[..., 0], st.cemit) if QB == 1
+               else torch.where(relaxing[..., None], new_vals, st.cemit)),
         cout=cout,
         cdrain=torch.where(pop, torch.where(is_rf, drain_n, 0), st.cdrain),
         stat_exec=st.stat_exec + (pop & (T == 0)).sum(dtype=torch.int32),
         stat_allocs=st.stat_allocs + alc_room.sum(dtype=torch.int32),
         stat_stall=st.stat_stall + rotate.sum(dtype=torch.int32))
+    if QB > 1:
+        # per-query activity: a slot that relaxed nowhere this cycle is a
+        # cycle closer to its own quiescence; the session diffs qchg over
+        # increments and reads qlast as the slot's settle cycle
+        dq = changed_q.sum(dim=(0, 1), dtype=torch.int32)
+        st = st._replace(qchg=st.qchg + dq,
+                         qlast=torch.where(dq > 0, st.cycle, st.qlast))
     if cfg.faults is not None:
         flt = st.flt.clone()
         flt[FLT_CORRUPT] += bad.sum(dtype=torch.int32)

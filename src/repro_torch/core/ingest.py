@@ -17,7 +17,7 @@ from repro_torch.core import rings
 from repro_torch.core.alloc import rhizome_addr
 from repro_torch.core.config import EngineConfig
 from repro_torch.core.msg import (OP_INSERT_EDGE, OP_REPAIR, make_msg,
-                                  seal_msg)
+                                  pad_msg, seal_msg)
 from repro_torch.core.routing import (deliver, manhattan_hops, msg_lane,
                                      yx_target_buffer)
 from repro_torch.core.state import TM_IO, MachineState, root_addr
@@ -91,6 +91,10 @@ def io_stage(cfg: EngineConfig, st: MachineState, rows, cols):
     best = torch.argmin(dist + pref * half_diam, dim=1)  # first minimum
     tgt = cand.gather(1, best[:, None])[:, 0]
     msg = make_msg(OP_INSERT_EDGE, tgt, root_addr(cfg, cur[:, 1]), cur[:, 2])
+    if cfg.qbatch > 1:
+        # an insert's payload is (dst, weight): the extension words of a
+        # query-batched record are dead here
+        msg = pad_msg(msg, cfg.msg_words)
     if cfg.faults is not None:
         # a repair sentinel row (vid, -(k+1), value bits) is no edge: it
         # re-injects vid's durable value at its rhizome root k as an

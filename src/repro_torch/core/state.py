@@ -69,7 +69,7 @@ class MachineState(NamedTuple):
     fq_n: torch.Tensor        # [H,W,S] i32
     fq_head: torch.Tensor     # [H,W,S] i32
     # --- coalesced deferred app-forward ---
-    fwd_val: torch.Tensor     # [H,W,S] f32
+    fwd_val: torch.Tensor     # [H,W,S] f32 ([H,W,S,Q] at qbatch Q > 1)
     fwd_pending: torch.Tensor  # [H,W,S] bool
     # --- per-cell action queue ---
     aq: torch.Tensor          # [H,W,Q,MSG] i32
@@ -90,6 +90,7 @@ class MachineState(NamedTuple):
     cphase: torch.Tensor      # [H,W] i32   emissions staged so far + 1
     cT: torch.Tensor          # [H,W] i32   total emissions of the action
     cemit: torch.Tensor       # [H,W] f32   emission source value
+                              #   ([H,W,Q] at qbatch Q > 1)
     cout: torch.Tensor        # [H,W,MSG] i32 precomputed single emission
     cdrain: torch.Tensor      # [H,W] i32   deferred-queue drains
     # --- IO cells (streaming ingestion) ---
@@ -113,10 +114,12 @@ class MachineState(NamedTuple):
     #     (resilience.faults' FLT_* indices), a [1] dummy, never touched,
     #     while it is off ---
     flt: torch.Tensor
-    # --- planes of knobs the port does not carry yet: fixed-shape
-    #     dummies, never touched (the JAX engine's off-path shapes) ---
-    qchg: torch.Tensor        # [1] i32
-    qlast: torch.Tensor       # [1] i32
+    # --- per-query quiescence counters (repro_torch.mq, DESIGN §10): at
+    #     qbatch Q > 1, qchg[q] counts slot q's changed relaxes (reset
+    #     each increment with the counters) and qlast[q] is the machine
+    #     cycle of its last one; [1] dummies, never touched, at Q = 1 ---
+    qchg: torch.Tensor        # [Q] i32
+    qlast: torch.Tensor       # [Q] i32
 
 
 def resolve_device(device) -> torch.device:
@@ -129,10 +132,12 @@ def resolve_device(device) -> torch.device:
     return torch.device("cuda" if device is None else device)
 
 
-def init_state(cfg: EngineConfig, init_vals: float = 1e9,
-               fwd_init: float = 1e9, device=None) -> MachineState:
+def init_state(cfg: EngineConfig, init_vals: float | tuple = 1e9,
+               fwd_init: float | tuple = 1e9, device=None) -> MachineState:
     """Fresh machine: all vertices allocated as roots, no edges, empty
-    queues.  ``device=None`` means ``cuda``."""
+    queues.  ``init_vals`` and ``fwd_init`` (the forward register's
+    neutral element) may be per-query ``[n_vals]`` sequences at
+    ``cfg.qbatch > 1``.  ``device=None`` means ``cuda``."""
     from repro_torch.resilience.faults import N_FLT   # (imports core)
     cfg.validate()
     dev = resolve_device(device)
@@ -140,7 +145,7 @@ def init_state(cfg: EngineConfig, init_vals: float = 1e9,
     VN, FQ, Q = cfg.n_vals, cfg.futq_cap, cfg.queue_cap
     VL, LC = cfg.lanes, cfg.lane_capacity
     IO, L = cfg.io_cells, cfg.io_stream_cap
-    WM = cfg.msg_words
+    QB, WM = cfg.qbatch, cfg.msg_words
 
     def z32(*s):
         return torch.zeros(s, dtype=torch.int32, device=dev)
@@ -148,8 +153,18 @@ def init_state(cfg: EngineConfig, init_vals: float = 1e9,
     def full(s, v, dt):
         return torch.full(s, v, dtype=dt, device=dev)
 
+    def ffill(s, v):
+        # a scalar, or a per-query vector along the last axis
+        if np.ndim(v) == 0:
+            return full(s, float(v), torch.float32)
+        return torch.tensor(np.asarray(v, np.float32),
+                            device=dev).expand(s).contiguous()
+
+    # at qbatch > 1 the emission snapshot and the forward register carry
+    # the query axis too
+    qax = () if QB == 1 else (QB,)
     return MachineState(
-        vals=full((H, W, S, VN), init_vals, torch.float32),
+        vals=ffill((H, W, S, VN), init_vals),
         nedges=z32(H, W, S),
         edst=full((H, W, S, E), -1, torch.int32),
         ew=full((H, W, S, E), 0.0, torch.float32),
@@ -160,7 +175,7 @@ def init_state(cfg: EngineConfig, init_vals: float = 1e9,
         nfree=full((H, W), cfg.primary_slots, torch.int32),
         fq=z32(H, W, S, FQ, 3),
         fq_n=z32(H, W, S), fq_head=z32(H, W, S),
-        fwd_val=full((H, W, S), fwd_init, torch.float32),
+        fwd_val=ffill((H, W, S) + qax, fwd_init),
         fwd_pending=full((H, W, S), False, torch.bool),
         aq=z32(H, W, Q, WM), aq_n=z32(H, W), aq_head=z32(H, W),
         ch=z32(H, W, N_DIRS, VL, LC, WM),
@@ -171,7 +186,7 @@ def init_state(cfg: EngineConfig, init_vals: float = 1e9,
         cmsg=z32(H, W, WM),
         cvalid=full((H, W), False, torch.bool),
         cphase=z32(H, W), cT=z32(H, W),
-        cemit=full((H, W), 0.0, torch.float32),
+        cemit=full((H, W) + qax, 0.0, torch.float32),
         cout=z32(H, W, WM),
         cdrain=z32(H, W),
         io_edges=z32(IO, L, 3), io_n=z32(IO), io_pos=z32(IO),
@@ -183,7 +198,7 @@ def init_state(cfg: EngineConfig, init_vals: float = 1e9,
                       else (1, 1, 1, 1)), N_TM_LANE),
         tm_hiw=z32(*((H, W) if cfg.telemetry else (1, 1)), N_TM_HIW),
         flt=z32(N_FLT if cfg.faults is not None else 1),
-        qchg=z32(1), qlast=z32(1),
+        qchg=z32(QB), qlast=z32(QB),
     )
 
 

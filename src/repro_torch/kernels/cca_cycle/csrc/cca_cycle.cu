@@ -10,10 +10,10 @@
 // kernel equals it leaf for leaf and bit for bit.  Scope: any lanes (the
 // round-robin lane arbiter, the escape lane, transit parking and the park
 // stage), any rhizome_cap (rhizome roots, the link protocol, the sibling
-// broadcast and the IO cells' root choice), qbatch=1, apps
-// bfs/sssp/cc/ingest_only and the max-monotone widest and reliable, the
-// vicinity and random allocators, the telemetry planes, and a fault plan's
-// hazards, seals and OP_REPAIR.  Given a trace
+// broadcast and the IO cells' root choice), apps bfs/sssp/cc/ingest_only
+// and the max-monotone widest and reliable, the vicinity and random
+// allocators, the telemetry planes, a fault plan's hazards, seals and
+// OP_REPAIR, and query batches of up to 32 slot apps (qbatch > 1).  Given a trace
 // pointer, a launch also fills the row (active cells, messages in flight
 // after the cycle) of each cycle it runs, the stats of `engine.cycle_step`.
 //
@@ -57,8 +57,8 @@
 // per cycle.
 //
 // The per-cell device functions are shared by both kernels and templated on
-// where the per-cell leaves live (`Cells<false>`: device memory, indexed by
-// cell; `Cells<true>`: this CTA's shared memory, indexed by cell within the
+// where the per-cell leaves live (`Cells<false, ...>`: device memory, indexed by
+// cell; `Cells<true, ...>`: this CTA's shared memory, indexed by cell within the
 // band, a neighbour band's cells through the cluster's shared memory
 // window).  The slot-indexed leaves (vals .. fwd_pending), the vicinity
 // table and the IO streams stay in device memory for both.
@@ -109,8 +109,31 @@
 // the counters, and each CTA adds its sums into flt once a launch.  All of
 // it is integer arithmetic, so the kernels equal the plain version bit for
 // bit with faults too.
+//
+// Query batching (cfg.qbatch = Q > 1, DESIGN §10) is a third compile-time
+// parameter of both kernels (`kQ`; never with kFlt, which the config
+// refuses), so the instances without it are the code of the kernels
+// without it: their records are the compile-time MSGW = 5 words.  In the
+// kQ instances every record stride is the runtime msgw = 5 + Q - 1.
+// Words 0..4 keep their registers; the extension words (payload slots
+// 1..Q-1) move in loops straight between buffers and vals, fwd_val, cemit
+// (Q floats a cell) and cout, never through a whole-record local array
+// (`copy_rec`, `put_rec`: an `Ext` functor names word w's source).  Each
+// slot q has its own app, 4 bits of QDims' qapp0..3: relaxes, edge_value,
+// fwd_merge, reached and the neutral fills take its code.  An app-like
+// message's word 3 is its qsel mask (0: every slot); a deselected slot
+// relaxes against its app's init_val, a no-op.  A relax changes the cell
+// where any slot changed, and the insert's, the ghost's and the link-ack's
+// messages carry every slot's value, unchanged slots too (the reference's
+// over-propagation).  Each changed slot adds one to this CTA's qchg sum
+// and takes the machine cycle into its qlast maximum (shared memory,
+// 2 x Q + 1 words after the cluster layout, the dynamic shared memory of
+// the one-block kernel), added into the state's qchg / qlast once a launch:
+// the cycle only grows, and the host sets qlast to the boundary cycle at
+// admission, so a maximum is the reference's last write.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
 #include <string.h>
 
@@ -140,6 +163,7 @@ enum { FLT_DROP = 0, FLT_DUP = 1, FLT_CORRUPT = 2, FLT_BLACKOUT = 3,
 constexpr int GRANT_LANE = 0xFFFF, GRANT_DROP = 1 << 16, GRANT_DUP = 1 << 17;
 constexpr int MSGW = 5;
 constexpr float INF = 1e9f;
+constexpr int MAX_QB = 32;   // query slots at most (the qsel mask's bits)
 constexpr int MAX_CTAS = 16;   // the largest (non-portable) cluster
 
 // Scalar geometry, in the order of ops.py::_dims.  telemetry 1 takes the
@@ -157,6 +181,18 @@ struct Dims {
   int n_ctas, smem_bytes;
 };
 constexpr int N_DIMS = sizeof(Dims) / sizeof(int);
+
+// Query batching, the ints that follow Dims' in ops.py::_dims: Q, the
+// record's words (5 + Q - 1), and slot q's app code in bits 4 (q % 8) ..
+// of qapp[q / 8].  They ride at the end of Leaves, whose address the
+// kernels take anyway: with them in Dims (152 bytes, not 128) the compiler
+// stopped holding Dims in registers and reloaded its fields through its
+// address at each use, and the instances without kQ lost 1-6 registers
+// and 2-6% a chunk.
+struct QDims {
+  int qb, msgw, qapp0, qapp1, qapp2, qapp3;
+};
+constexpr int N_QDIMS = sizeof(QDims) / sizeof(int);
 
 // Device pointers, in the order of ops.py::KERNEL_POINTERS.
 struct Leaves {
@@ -176,13 +212,16 @@ struct Leaves {
   int* flt;          // [N_FLT] fault counters ([1] dummy without faults)
   const int* offs;   // [n_offs, 2] vicinity (dy, dx) table
   const int* blackouts;   // [n_blackouts, 5] (row, col, dir, start, n)
-  int* outbox;       // [cells, MSGW] granted heads of the current round
+  int* outbox;       // [cells, msgw] granted heads of the current round
   int* grant;        // [cells] granted lane + 1, 0 for none
   int* qwork;        // [cells] sum over slots of fq_n + fwd_pending
   int* rec;          // [8] the launch record
   int* trace;        // [n_cycles, 2] (active, in_flight) a cycle, or null
+  int* qchg;         // [Q] per-query changed relaxes ([1] dummy at Q = 1)
+  int* qlast;        // [Q] per-query cycle of the last one
+  QDims q;           // not a pointer: from the dims array (cca_cycle_launch)
 };
-constexpr int N_PTRS = sizeof(Leaves) / sizeof(void*);
+constexpr int N_PTRS = offsetof(Leaves, q) / sizeof(void*);
 
 // Phase clocks (probe builds only): 0 the quiescence test, 1 + 2d the read
 // and 2 + 2d the write of hop direction d (N, S, W, E), 9 exec, 10 the
@@ -301,6 +340,24 @@ __device__ __forceinline__ bool reached(int app, float v) {
   return max_app(app) ? v > 0.0f : v < INF;
 }
 
+// (kQ) The slot apps' codes, 4 bits a slot, by value (so a functor that
+// carries them takes no kernel parameter's address); init_val and
+// fwd_neutral of a slot are the same element for every bundled app.
+struct SlotApps {
+  int w0, w1, w2, w3;
+  __device__ __forceinline__ int operator()(int q) const {
+    int w = q < 8 ? w0 : q < 16 ? w1 : q < 24 ? w2 : w3;
+    return (w >> (4 * (q & 7))) & 15;
+  }
+};
+__device__ __forceinline__ int slot_app(const QDims& Q, int q) {
+  return SlotApps{Q.qapp0, Q.qapp1, Q.qapp2, Q.qapp3}(q);
+}
+
+// The dynamic shared memory of both kernels: the cluster kernel's band
+// layout, and (kQ) the per-query sums.
+extern __shared__ __align__(16) int cca_dyn_smem[];
+
 // Add `v`, summed over the warp, into *at (one atomic a warp).  The lanes
 // of a partial last warp are named exactly.
 __device__ __forceinline__ void trace_add(int* at, int v) {
@@ -315,6 +372,7 @@ __device__ __forceinline__ void copy_msg(int* dst, const int* src) {
   for (int w = 0; w < MSGW; ++w) dst[w] = src[w];
 }
 
+
 // Where the per-cell leaves of a kernel live.  Each pointer holds one
 // entry per cell of the band [c0, c0 + nb), at local index l(c); the
 // one-block kernel's band is the whole grid in device memory (c0 = 0), the
@@ -324,10 +382,11 @@ __device__ __forceinline__ void copy_msg(int* dst, const int* src) {
 // IO cell.  kTm: the telemetry instance, whose planes (`tm_cell`,
 // `tm_lane`, `tm_hiw`) are in device memory, indexed by cell.  kFlt: the
 // fault instance.
-template <bool kCluster, bool kTm, bool kFlt>
+template <bool kCluster, bool kTm, bool kFlt, bool kQ>
 struct Cells {
   static constexpr bool kTelemetry = kTm;
   static constexpr bool kFaults = kFlt;
+  static constexpr bool kQb = kQ;
   int *aq, *aq_n, *aq_head, *ch, *ch_n, *ch_head, *ch_rr, *pk_n, *cmsg;
   bool* cvalid;
   int *cphase, *cT;
@@ -338,7 +397,14 @@ struct Cells {
   int c0, nb, box_dir, grant_dir;
   int rank, n_ctas;   // cluster kernel: this CTA's rank, the CTA count
   int* qflag;         // cluster kernel: [MAX_CTAS] each CTA's busy flag
+  int mw, qb;         // kQ: the record's words, the query slots
+  int qsum_off;       // kQ: word offset of the qchg / qlast sums in
+                      // cca_dyn_smem
 
+  // A record's words: MSGW, or at kQ the runtime 5 + Q - 1.
+  __device__ __forceinline__ int wd() const {
+    if constexpr (kQ) return mw; else return MSGW;
+  }
   __device__ __forceinline__ int l(int c) const {
     return kCluster ? c - c0 : c;
   }
@@ -351,7 +417,7 @@ struct Cells {
     return r == rank ? at : cg::this_cluster().map_shared_rank(at, r);
   }
   __device__ __forceinline__ int* box(int d, int c) const {
-    return outbox + d * box_dir + l(c) * MSGW;
+    return outbox + d * box_dir + l(c) * wd();
   }
   __device__ __forceinline__ int& granted(int d, int c) const {
     return grant[d * grant_dir + l(c)];
@@ -390,18 +456,45 @@ struct Cells {
   }
 };
 
+// A whole record of X's width from src to dst; at kQ words 5.. in a loop.
+template <class C>
+__device__ __forceinline__ void copy_rec(const C& X, int* dst,
+                                         const int* src) {
+  copy_msg(dst, src);
+  if constexpr (C::kQb)
+    for (int w = MSGW; w < X.wd(); ++w) dst[w] = src[w];
+}
+
+// A record into dst: words 0..4 from msg, at kQ words 5.. from ext(w),
+// or zeros without an `ext` (a classic record's dead extension words).
+template <class C, class Ext>
+__device__ __forceinline__ void put_rec(const C& X, int* dst, const int* msg,
+                                        const Ext& ext) {
+  copy_msg(dst, msg);
+  if constexpr (C::kQb)
+    for (int w = MSGW; w < X.wd(); ++w) dst[w] = ext(w);
+}
+template <class C>
+__device__ __forceinline__ void put_rec(const C& X, int* dst,
+                                        const int* msg) {
+  copy_msg(dst, msg);
+  if constexpr (C::kQb)
+    for (int w = MSGW; w < X.wd(); ++w) dst[w] = 0;
+}
+
 // routing.deliver for one cell: the local action queue (tb == TB_AQ, gated
 // by aq_room) or lane `lane` of channel tb (gated by lane capacity).  The
 // ring of (direction tb, lane) is entry (l * 4 + tb) * L + lane of ch_n.
-template <class C>
+// At kQ, `ext` (none, or one functor) gives the record's words 5.. .
+template <class C, class... Ext>
 __device__ bool deliver(const Dims& D, const C& X, int c, const int* msg,
-                        int tb, int lane, bool aq_room) {
+                        int tb, int lane, bool aq_room, const Ext&... ext) {
   int l = X.l(c);
   if (tb == TB_AQ) {
     if (!aq_room) return false;
     int n = X.aq_n[l];
     int tail = fmod_(X.aq_head[l] + n, D.Q);
-    copy_msg(X.aq + ((size_t)l * D.Q + tail) * MSGW, msg);
+    put_rec(X, X.aq + ((size_t)l * D.Q + tail) * X.wd(), msg, ext...);
     X.aq_n[l] = n + 1;
     return true;
   }
@@ -410,7 +503,7 @@ __device__ bool deliver(const Dims& D, const C& X, int c, const int* msg,
   int n = X.ch_n[k];
   if (n >= D.LC) return false;
   int tail = fmod_(X.ch_head[k] + n, D.LC);
-  copy_msg(X.ch + ((size_t)k * D.LC + tail) * MSGW, msg);
+  put_rec(X, X.ch + ((size_t)k * D.LC + tail) * X.wd(), msg, ext...);
   X.ch_n[k] = n + 1;
   return true;
 }
@@ -426,7 +519,7 @@ __device__ __forceinline__ bool admissible(const Dims& D, const C& X, int k,
                                            int j, int recv, int rr, int rc,
                                            const int*& head) {
   if (X.ch_n[k] <= 0) return false;
-  head = X.ch + ((size_t)k * D.LC + fmod_(X.ch_head[k], D.LC)) * MSGW;
+  head = X.ch + ((size_t)k * D.LC + fmod_(X.ch_head[k], D.LC)) * X.wd();
   int tb = yx_tb(D, fdiv(head[1], D.S), rr, rc);
   return tb == TB_AQ ? ext_room(D, head[0], *X.peer(X.aq_n, recv, 1, 0))
                      : *X.peer(X.ch_n, recv, 4 * D.L, tb * D.L + j) < D.LC;
@@ -512,7 +605,7 @@ __device__ void hop_read(const Dims& D, const Leaves& P, const C& X, int c,
     }
     if (grant) {
       int* box = X.box(d, c);
-      copy_msg(box, win);
+      copy_rec(X, box, win);
       if constexpr (C::kFaults) grant |= fault_flags(D, box, 4 * c + d, cyc);
     }
   }
@@ -543,12 +636,23 @@ __device__ int hop_write(const Dims& D, const C& X, int c, int d,
       n.drop += 1;
     } else if (g) {
       int msg[MSGW];
-      copy_msg(msg, X.peer(X.outbox + d * X.box_dir, snd, MSGW, 0));
-      int tb = yx_tb(D, fdiv(msg[1], D.S), row, col);
-      delivered = deliver(D, X, c, msg, tb, g - 1,
-                          ext_room(D, msg[0], X.aq_n[X.l(c)]));
-      hops = delivered;
-      if (delivered && tb == d) rin = g - 1;
+      if constexpr (C::kQb) {
+        const int* src = X.peer(X.outbox + d * X.box_dir, snd, X.wd(), 0);
+        copy_msg(msg, src);
+        int tb = yx_tb(D, fdiv(msg[1], D.S), row, col);
+        delivered = deliver(D, X, c, msg, tb, g - 1,
+                            ext_room(D, msg[0], X.aq_n[X.l(c)]),
+                            [src](int w) { return src[w]; });
+        hops = delivered;
+        if (delivered && tb == d) rin = g - 1;
+      } else {
+        copy_msg(msg, X.peer(X.outbox + d * X.box_dir, snd, MSGW, 0));
+        int tb = yx_tb(D, fdiv(msg[1], D.S), row, col);
+        delivered = deliver(D, X, c, msg, tb, g - 1,
+                            ext_room(D, msg[0], X.aq_n[X.l(c)]));
+        hops = delivered;
+        if (delivered && tb == d) rin = g - 1;
+      }
       if (delivered && (flags & GRANT_DUP)) n.dup += 1;
     }
   }
@@ -592,15 +696,30 @@ __device__ void park(const Dims& D, const Leaves& P, const C& X, int c) {
   int l = X.l(c), n = X.pk_n[l];
   if (n <= 0) return;
   int h = P.pk_head[c];
-  int* ring = P.pk + (size_t)c * D.PK * MSGW;
   int head[MSGW];
-  copy_msg(head, ring + fmod_(h, D.PK) * MSGW);
-  int tb = yx_tb(D, fdiv(head[1], D.S), c / D.W, c % D.W);
-  if (deliver(D, X, c, head, tb, msg_lane(D, head[0], head[1]), false)) {
-    X.pk_n[l] = n - 1;
-    if constexpr (C::kTelemetry) X.count(c, TM_UNPARK);
+  if constexpr (C::kQb) {
+    const int W = X.wd();
+    int* ring = P.pk + (size_t)c * D.PK * W;
+    const int* hp = ring + fmod_(h, D.PK) * W;
+    copy_msg(head, hp);
+    int tb = yx_tb(D, fdiv(head[1], D.S), c / D.W, c % D.W);
+    if (deliver(D, X, c, head, tb, msg_lane(D, head[0], head[1]), false,
+                [hp](int w) { return hp[w]; })) {
+      X.pk_n[l] = n - 1;
+      if constexpr (C::kTelemetry) X.count(c, TM_UNPARK);
+    } else {
+      copy_rec(X, ring + fmod_(h + n, D.PK) * W, hp);
+    }
   } else {
-    copy_msg(ring + fmod_(h + n, D.PK) * MSGW, head);
+    int* ring = P.pk + (size_t)c * D.PK * MSGW;
+    copy_msg(head, ring + fmod_(h, D.PK) * MSGW);
+    int tb = yx_tb(D, fdiv(head[1], D.S), c / D.W, c % D.W);
+    if (deliver(D, X, c, head, tb, msg_lane(D, head[0], head[1]), false)) {
+      X.pk_n[l] = n - 1;
+      if constexpr (C::kTelemetry) X.count(c, TM_UNPARK);
+    } else {
+      copy_msg(ring + fmod_(h + n, D.PK) * MSGW, head);
+    }
   }
   P.pk_head[c] = fmod_(h + 1, D.PK);
 }
@@ -614,12 +733,17 @@ __device__ bool staging(const Dims& D, const Leaves& P, const C& X, int c,
   if (!X.cvalid[l]) return false;
   int cphase = X.cphase[l], cT = X.cT[l];
   if (cphase < 1 || cphase > cT) return false;
-  const int* cm = X.cmsg + (size_t)l * MSGW;
+  const int W = X.wd();
+  const int* cm = X.cmsg + (size_t)l * W;
   int op = cm[0], dst = cm[1];
   int S = D.S, slot = fmod_(dst, S);
   size_t idx = (size_t)c * S + slot;
   int k = cphase - 1, cdrain = X.cdrain[l];
-  float cemit = X.cemit[l];
+  // (kQ) the Q value slots of (cell, slot) and the Q-float emission
+  // snapshot
+  const size_t vi = C::kQb ? idx * X.qb : 0;
+  const float* cev = C::kQb ? X.cemit + (size_t)l * X.qb : nullptr;
+  float cemit = C::kQb ? cev[0] : X.cemit[l];
   // (fault instance) an OP_REPAIR emits as OP_APP does; only its ghost
   // forward keeps the opcode
   const bool is_rp = C::kFaults && op == OP_REPAIR;
@@ -637,6 +761,11 @@ __device__ bool staging(const Dims& D, const Leaves& P, const C& X, int c,
   bool rf_drain = is_rf && k < cdrain;
 
   int emis[MSGW] = {0, 0, 0, 0, 0};
+  // (kQ) where the extension words come from: zeros, the snapshot, its
+  // edge values, the forward register, the slot apps' init_val, cout
+  enum { X_ZERO, X_CEMIT, X_EDGE, X_FWD, X_INIT, X_COUT };
+  int xk = X_ZERO;
+  float ew = 0.0f;
   if (is_appl) {
     if (rf_drain) {
       emis[0] = OP_INSERT_EDGE; emis[1] = dst; emis[2] = fq_e[1];
@@ -644,6 +773,7 @@ __device__ bool staging(const Dims& D, const Leaves& P, const C& X, int c,
     } else if (appl_is_fwd) {
       emis[0] = is_rp ? OP_REPAIR : OP_APP; emis[1] = ga;
       emis[2] = f2i(cemit);
+      xk = X_CEMIT;
     } else if (is_bcast) {
       int v = slot * (D.H * D.W) + c;
       int hi = D.rhizome_cap > 1 ? D.rhizome_cap - 1 : 1;
@@ -652,11 +782,18 @@ __device__ bool staging(const Dims& D, const Leaves& P, const C& X, int c,
       emis[0] = OP_RHIZOME_FWD;
       emis[1] = cell * S + sib * D.root_slots + fdiv(v, D.H * D.W);
       emis[2] = f2i(cemit);
+      xk = X_CEMIT;
     } else {
       int ek = min(max(kd, 0), D.E - 1);
       emis[0] = OP_APP;
       emis[1] = P.edst[idx * D.E + ek];
-      emis[2] = f2i(edge_value(D.app, cemit, P.ew[idx * D.E + ek]));
+      if constexpr (C::kQb) {
+        ew = P.ew[idx * D.E + ek];
+        emis[2] = f2i(edge_value(slot_app(P.q, 0), cemit, ew));
+        xk = X_EDGE;
+      } else {
+        emis[2] = f2i(edge_value(D.app, cemit, P.ew[idx * D.E + ek]));
+      }
     }
   } else if (is_sf) {
     if (sf_from_fq) {
@@ -665,12 +802,16 @@ __device__ bool staging(const Dims& D, const Leaves& P, const C& X, int c,
         emis[3] = fq_e[2];
       } else {
         emis[0] = OP_APP; emis[1] = ga; emis[2] = fq_e[1];
+        xk = X_INIT;
       }
     } else {
-      emis[0] = OP_APP; emis[1] = ga; emis[2] = f2i(P.fwd_val[idx]);
+      emis[0] = OP_APP; emis[1] = ga;
+      emis[2] = f2i(P.fwd_val[C::kQb ? vi : idx]);
+      xk = X_FWD;
     }
   } else {
-    copy_msg(emis, X.cout + (size_t)l * MSGW);
+    copy_msg(emis, X.cout + (size_t)l * W);
+    xk = X_COUT;
   }
   // every emission is sealed, phase 0's cout too
   if constexpr (C::kFaults) emis[4] = msg_seal(emis);
@@ -680,9 +821,43 @@ __device__ bool staging(const Dims& D, const Leaves& P, const C& X, int c,
   bool to_reg = appl_is_fwd && gs == G_PENDING;
   bool ok_total, parked = false;
   if (to_reg) {
-    P.fwd_val[idx] = fwd_merge(D.app, P.fwd_val[idx], cemit);
+    if constexpr (C::kQb) {
+      for (int q = 0; q < X.qb; ++q)
+        P.fwd_val[vi + q] = fwd_merge(slot_app(P.q, q), P.fwd_val[vi + q],
+                                      cev[q]);
+    } else {
+      P.fwd_val[idx] = fwd_merge(D.app, P.fwd_val[idx], cemit);
+    }
     if (!P.fwd_pending[idx]) { P.fwd_pending[idx] = true; X.qwork[l] += 1; }
     ok_total = true;
+  } else if constexpr (C::kQb) {
+    // extension word w = slot q = w - 4 of the emission (the functor
+    // carries its sources by value)
+    const SlotApps sa{P.q.qapp0, P.q.qapp1, P.q.qapp2, P.q.qapp3};
+    const float* fwd = P.fwd_val + vi;
+    const int* crow = X.cout + (size_t)l * W;
+    auto ext = [=](int w) -> int {
+      int q = w - (MSGW - 1);
+      switch (xk) {
+        case X_CEMIT: return f2i(cev[q]);
+        case X_EDGE: return f2i(edge_value(sa(q), cev[q], ew));
+        case X_FWD: return f2i(fwd[q]);
+        case X_INIT: return f2i(fwd_neutral(sa(q)));
+        case X_COUT: return crow[w];
+      }
+      return 0;
+    };
+    int tb = yx_tb(D, fdiv(emis[1], S), c / D.W, c % D.W);
+    ok_total = deliver(D, X, c, emis, tb, msg_lane(D, emis[0], emis[1]),
+                       X.aq_n[l] < D.Q, ext);
+    if (!ok_total && D.L > 1 && tb != TB_AQ && X.pk_n[l] < D.PK) {
+      int pn = X.pk_n[l];
+      put_rec(X, P.pk + ((size_t)c * D.PK + fmod_(P.pk_head[c] + pn, D.PK)) *
+                            W, emis, ext);
+      X.pk_n[l] = pn + 1;
+      n.stall += 1;
+      ok_total = parked = true;
+    }
   } else {
     int tb = yx_tb(D, fdiv(emis[1], S), c / D.W, c % D.W);
     ok_total = deliver(D, X, c, emis, tb, msg_lane(D, emis[0], emis[1]),
@@ -704,7 +879,12 @@ __device__ bool staging(const Dims& D, const Leaves& P, const C& X, int c,
     X.qwork[l] -= 1;
   }
   if (ok_total && sf_from_fwd) {
-    P.fwd_val[idx] = fwd_neutral(D.app);
+    if constexpr (C::kQb) {
+      for (int q = 0; q < X.qb; ++q)
+        P.fwd_val[vi + q] = fwd_neutral(slot_app(P.q, q));
+    } else {
+      P.fwd_val[idx] = fwd_neutral(D.app);
+    }
     if (P.fwd_pending[idx]) { P.fwd_pending[idx] = false; X.qwork[l] -= 1; }
   }
   int new_phase = cphase + (ok_total ? 1 : 0);
@@ -731,8 +911,12 @@ __device__ bool phase0(const Dims& D, const Leaves& P, const C& X, int c,
   if (busy0 || aqn <= 0) return false;
   int S = D.S, NC = D.H * D.W, Q = D.Q;
   int aqh = X.aq_head[l];
+  const int W = X.wd();
+  // the popped record stays at the queue's head while phase 0 runs: its
+  // extension words are read from there
+  const int* mrow = X.aq + ((size_t)l * Q + fmod_(aqh, Q)) * W;
   int m[MSGW];
-  copy_msg(m, X.aq + ((size_t)l * Q + fmod_(aqh, Q)) * MSGW);
+  copy_msg(m, mrow);
   int op = m[0], dst = m[1], a0 = m[2], a1 = m[3];
   if constexpr (C::kFaults) {
     // the seal check: an application message corrupted in transit is
@@ -747,7 +931,8 @@ __device__ bool phase0(const Dims& D, const Leaves& P, const C& X, int c,
   const bool is_rp = C::kFaults && op == OP_REPAIR;
   int slot = fmod_(dst, S);
   size_t idx = (size_t)c * S + slot;
-  float vs = P.vals[idx];
+  const size_t vi = C::kQb ? idx * X.qb : 0;   // (kQ) its Q value slots
+  float vs = P.vals[C::kQb ? vi : idx];
   int ne = P.nedges[idx], gs = P.gstate[idx], fqn = P.fq_n[idx];
   int rs = P.rstate[idx];
   bool on_s = P.rhz_on[idx];
@@ -768,7 +953,10 @@ __device__ bool phase0(const Dims& D, const Leaves& P, const C& X, int c,
 
   // a deferred insert with a full future queue rotates to the queue tail
   if ((p_defer || p_rlink || p_rdef) && fqn >= D.FQ) {
-    copy_msg(X.aq + ((size_t)l * Q + fmod_(aqh + aqn, Q)) * MSGW, m);
+    if constexpr (C::kQb)
+      copy_rec(X, X.aq + ((size_t)l * Q + fmod_(aqh + aqn, Q)) * W, mrow);
+    else
+      copy_msg(X.aq + ((size_t)l * Q + fmod_(aqh + aqn, Q)) * MSGW, m);
     X.aq_head[l] = fmod_(aqh + 1, Q);
     n.stall += 1;
     if constexpr (C::kTelemetry) X.count(c, TM_STALL);
@@ -778,16 +966,30 @@ __device__ bool phase0(const Dims& D, const Leaves& P, const C& X, int c,
   int T = 0;
   int out[MSGW] = {0, 0, 0, 0, 0};
   bool set_out = false;
+  // (kQ) where out's extension words come from: zeros, the edge values of
+  // the slot's values, the values, the popped record's
+  enum { OX_ZERO, OX_EDGE, OX_VALS, OX_MSG };
+  int ox = OX_ZERO;
   int drain_n = 0;
   if (p_room) {
     size_t e = idx * D.E + min(ne, D.E - 1);
     P.edst[e] = a0;
     P.ew[e] = i2f(a1);
     P.nedges[idx] = ne + 1;
-    // propagate on insert (Listing 4, line 7)
-    T = reached(D.app, vs) ? 1 : 0;
+    // propagate on insert (Listing 4, line 7); at kQ where any tenant
+    // would, the message carrying every slot's edge value
+    if constexpr (C::kQb) {
+      bool any = false;
+      for (int q = 0; q < X.qb; ++q)
+        any |= reached(slot_app(P.q, q), P.vals[vi + q]);
+      T = any ? 1 : 0;
+      out[2] = f2i(edge_value(slot_app(P.q, 0), vs, i2f(a1)));
+      ox = OX_EDGE;
+    } else {
+      T = reached(D.app, vs) ? 1 : 0;
+      out[2] = f2i(edge_value(D.app, vs, i2f(a1)));
+    }
     out[0] = OP_APP; out[1] = a0;
-    out[2] = f2i(edge_value(D.app, vs, i2f(a1)));
     set_out = true;
   } else if (p_fwd) {
     T = 1;
@@ -821,6 +1023,7 @@ __device__ bool phase0(const Dims& D, const Leaves& P, const C& X, int c,
       T = 1;
       out[0] = OP_ALLOC; out[1] = tgt * S; out[2] = dst;
       out[3] = f2i(vs);
+      ox = OX_VALS;   // the requester's value vector, slots 1..
       set_out = true;
     } else if (p_rlink) {
       P.rstate[idx] = G_PENDING;
@@ -833,12 +1036,36 @@ __device__ bool phase0(const Dims& D, const Leaves& P, const C& X, int c,
       set_out = true;
     }
   } else if (is_app || is_rf || is_rp) {
-    float inc = i2f(a0);
-    // the app's relax: a min, a max for widest and reliable, or for
-    // ingest_only no change at all
-    bool changed = relaxes(D.app, inc, vs);
-    P.vals[idx] = changed ? inc : vs;
-    X.cemit[l] = changed ? inc : vs;
+    bool changed;
+    if constexpr (C::kQb) {
+      // the vector relax: slot q's payload (word 2, then 4 + q), or its
+      // init_val where the qsel mask (word 3, 0 = all) leaves it out
+      changed = false;
+      int* qsum = cca_dyn_smem + X.qsum_off;
+      const int cyc = qsum[2 * X.qb];   // this cycle (qsum_cycle)
+      for (int q = 0; q < X.qb; ++q) {
+        int app = slot_app(P.q, q);
+        float v = P.vals[vi + q];
+        float inc = (a1 == 0 || ((a1 >> q) & 1))
+                        ? i2f(q ? mrow[MSGW - 1 + q] : a0)
+                        : fwd_neutral(app);
+        bool ch = relaxes(app, inc, v);
+        P.vals[vi + q] = ch ? inc : v;
+        X.cemit[(size_t)l * X.qb + q] = ch ? inc : v;
+        if (ch) {
+          changed = true;
+          atomicAdd(qsum + q, 1);
+          atomicMax(qsum + X.qb + q, cyc);
+        }
+      }
+    } else {
+      float inc = i2f(a0);
+      // the app's relax: a min, a max for widest and reliable, or for
+      // ingest_only no change at all
+      changed = relaxes(D.app, inc, vs);
+      P.vals[idx] = changed ? inc : vs;
+      X.cemit[l] = changed ? inc : vs;
+    }
     int gl = gs != G_NULL ? 1 : 0;
     if (is_app || is_rp) {
       int n_bcast = (slot < D.root_slots && rs == G_SET) ? D.rhizome_cap - 1
@@ -853,20 +1080,32 @@ __device__ bool phase0(const Dims& D, const Leaves& P, const C& X, int c,
     P.rstate[idx] = G_SET;
     T = 1;
     out[0] = OP_RHIZOME_FWD; out[1] = a0; out[2] = f2i(vs);
+    ox = OX_VALS;
     set_out = true;
   } else if (is_alc) {
     int g = X.nfree[l];
     T = 1;
     if (g < S) {
       size_t gi = (size_t)c * S + g;
-      P.vals[gi] = i2f(a1);
+      if constexpr (C::kQb) {
+        // the ghost starts from the requester's value vector
+        for (int q = 0; q < X.qb; ++q)
+          P.vals[gi * X.qb + q] = i2f(q ? mrow[MSGW - 1 + q] : a1);
+      } else {
+        P.vals[gi] = i2f(a1);
+      }
       P.nedges[gi] = 0;
       P.gaddr[gi] = -1;
       P.gstate[gi] = G_NULL;
       X.qwork[l] -= P.fq_n[gi] + (P.fwd_pending[gi] ? 1 : 0);
       P.fq_n[gi] = 0;
       P.fq_head[gi] = 0;
-      P.fwd_val[gi] = fwd_neutral(D.app);
+      if constexpr (C::kQb) {
+        for (int q = 0; q < X.qb; ++q)
+          P.fwd_val[gi * X.qb + q] = fwd_neutral(slot_app(P.q, q));
+      } else {
+        P.fwd_val[gi] = fwd_neutral(D.app);
+      }
       P.fwd_pending[gi] = false;
       X.nfree[l] = g + 1;
       n.allocs += 1;
@@ -875,6 +1114,7 @@ __device__ bool phase0(const Dims& D, const Leaves& P, const C& X, int c,
     } else {
       out[0] = OP_ALLOC; out[1] = fmod_(c + 1, NC) * S; out[2] = a0;
       out[3] = a1;
+      ox = OX_MSG;   // the request's value vector travels on
     }
     set_out = true;
   } else if (is_sf) {
@@ -883,11 +1123,30 @@ __device__ bool phase0(const Dims& D, const Leaves& P, const C& X, int c,
     T = fqn + (fwdp ? 1 : 0);
   }
 
-  if (set_out) copy_msg(X.cout + (size_t)l * MSGW, out);
+  if constexpr (C::kQb) {
+    const SlotApps sa{P.q.qapp0, P.q.qapp1, P.q.qapp2, P.q.qapp3};
+    const float* v = P.vals + vi;
+    const float w_ins = i2f(a1);
+    if (set_out)
+      put_rec(X, X.cout + (size_t)l * W, out, [=](int w) -> int {
+        int q = w - (MSGW - 1);
+        switch (ox) {
+          case OX_EDGE: return f2i(edge_value(sa(q), v[q], w_ins));
+          case OX_VALS: return f2i(v[q]);
+          case OX_MSG: return mrow[w];
+        }
+        return 0;
+      });
+  } else {
+    if (set_out) copy_msg(X.cout + (size_t)l * MSGW, out);
+  }
   X.aq_n[l] = aqn - 1;
   X.aq_head[l] = fmod_(aqh + 1, Q);
   if (T > 0) X.cvalid[l] = true; else n.exec += 1;
-  copy_msg(X.cmsg + (size_t)l * MSGW, m);
+  if constexpr (C::kQb)
+    copy_rec(X, X.cmsg + (size_t)l * W, mrow);
+  else
+    copy_msg(X.cmsg + (size_t)l * MSGW, m);
   X.cphase[l] = 1;
   X.cT[l] = T;
   X.cdrain[l] = is_rf ? drain_n : 0;
@@ -1001,22 +1260,28 @@ __device__ __forceinline__ void tm_hiwater(const C& X, int c) {
   if (pkn) atomicMax(hw + TM_HW_PK, pkn);
 }
 
+// (kQ) The word of the CTA's per-query sums that holds the current cycle.
+template <class C>
+__device__ __forceinline__ int& qsum_cycle(const C& X) {
+  return cca_dyn_smem[X.qsum_off + 2 * X.qb];
+}
+
 // Up to D.n_cycles machine cycles over the band of X, frozen at quiescence;
 // the schedule of both kernels.  Returns the cycles run; `quiet` is the
 // quiescence test's last value.  With P.trace, each thread counts its
 // cells' activity in the exec loop and their channel occupancy in the next
 // quiescence test (the one after a launch's last cycle too), and each warp
 // adds its sums into the cycle's trace row: no barrier of its own.
-template <bool kCluster, bool kTm, bool kFlt>
+template <bool kCluster, bool kTm, bool kFlt, bool kQ>
 __device__ int run_cycles(const Dims& D, const Leaves& P,
-                          const Cells<kCluster, kTm, kFlt>& X, Counts& n,
+                          const Cells<kCluster, kTm, kFlt, kQ>& X, Counts& n,
                           int& quiet, PhaseClock& clk) {
   const int first = X.c0 + threadIdx.x, end = X.c0 + X.nb,
             nt = blockDim.x;
-  // the machine cycle at launch start (the fault hash's; *P.cycle is
-  // written only after the last cycle)
+  // the machine cycle at launch start (the fault hash's and qlast's;
+  // *P.cycle is written only after the last cycle)
   int cycle0 = 0;
-  if constexpr (kFlt) cycle0 = *P.cycle;
+  if constexpr (kFlt || kQ) cycle0 = *P.cycle;
   int ran = 0;
   for (;;) {
     int busy = 0;
@@ -1034,6 +1299,9 @@ __device__ int run_cycles(const Dims& D, const Leaves& P,
     }
     clk.stamp(0);
     if (quiet || ran == D.n_cycles) break;
+    // (kQ) this cycle for phase 0's qlast, read after the hop barriers
+    if constexpr (kQ)
+      if (threadIdx.x == 0) qsum_cycle(X) = cycle0 + ran;
     if constexpr (kTm)
       for (int c = first; c < end; c += nt) tm_occupancy(D, X, c);
 #pragma unroll
@@ -1074,9 +1342,9 @@ __device__ int run_cycles(const Dims& D, const Leaves& P,
 // device memory, one outbox and grant buffer for the four rounds.  Built on
 // the host and passed as a kernel parameter, as the leaves are, so its
 // pointers are read from parameter space and held in no register.
-template <bool kTm, bool kFlt>
-Cells<false, kTm, kFlt> device_cells(const Dims& D, const Leaves& P) {
-  Cells<false, kTm, kFlt> X;
+template <bool kTm, bool kFlt, bool kQ>
+Cells<false, kTm, kFlt, kQ> device_cells(const Dims& D, const Leaves& P) {
+  Cells<false, kTm, kFlt, kQ> X;
   X.aq = P.aq; X.aq_n = P.aq_n; X.aq_head = P.aq_head;
   X.ch = P.ch; X.ch_n = P.ch_n; X.ch_head = P.ch_head; X.ch_rr = P.ch_rr;
   X.pk_n = P.pk_n; X.cmsg = P.cmsg; X.cvalid = P.cvalid;
@@ -1087,7 +1355,33 @@ Cells<false, kTm, kFlt> device_cells(const Dims& D, const Leaves& P) {
   X.tm_cell = P.tm_cell; X.tm_lane = P.tm_lane; X.tm_hiw = P.tm_hiw;
   X.c0 = 0; X.nb = D.H * D.W; X.box_dir = 0; X.grant_dir = 0;
   X.rank = 0; X.n_ctas = 1; X.qflag = nullptr;
+  X.mw = P.q.msgw; X.qb = P.q.qb; X.qsum_off = 0;
   return X;
+}
+
+// (kQ) The CTA's per-query sums in cca_dyn_smem: qchg counts at 0..Q-1,
+// qlast maxima (-1: none) at Q..2Q-1, and at 2Q the current machine cycle
+// (thread 0 writes it as a cycle starts).  Set before the first quiescence
+// test's barrier; added into the state's qchg / qlast once a launch, after
+// the last one's.
+template <class C>
+__device__ void qsum_init(const C& X) {
+  if constexpr (C::kQb) {
+    int* sum = cca_dyn_smem + X.qsum_off;
+    for (int i = threadIdx.x; i < 2 * X.qb; i += blockDim.x)
+      sum[i] = i < X.qb ? 0 : -1;
+  }
+}
+template <class C>
+__device__ void qsum_flush(const Leaves& P, const C& X) {
+  if constexpr (C::kQb) {
+    __syncthreads();
+    const int* sum = cca_dyn_smem + X.qsum_off;
+    for (int q = threadIdx.x; q < X.qb; q += blockDim.x) {
+      if (sum[q]) atomicAdd(P.qchg + q, sum[q]);
+      if (sum[X.qb + q] >= 0) atomicMax(P.qlast + q, sum[X.qb + q]);
+    }
+  }
 }
 
 // (fault instances) Add the CTA's fault counts into P.flt: one sum a
@@ -1108,14 +1402,15 @@ __device__ void add_flt(const Leaves& P, int* sum, const Counts& n) {
   }
 }
 
-template <bool kTm, bool kFlt>
+template <bool kTm, bool kFlt, bool kQ>
 __global__ void __launch_bounds__(1024, 1)
 cca_cycle_kernel(const Dims D, const Leaves P,
-                 const Cells<false, kTm, kFlt> X) {
+                 const Cells<false, kTm, kFlt, kQ> X) {
   PhaseClock clk;
   clk.start();
   const int NC = D.H * D.W, tid = threadIdx.x, nt = blockDim.x;
   for (int c = tid; c < NC; c += nt) init_qwork(D, P, X, c);
+  qsum_init(X);
   // the trace rows start at 0 (the first quiescence test's barrier orders
   // this before any warp adds into them)
   if (P.trace)
@@ -1124,6 +1419,7 @@ cca_cycle_kernel(const Dims D, const Leaves P,
   Counts n = {0, 0, 0, 0, 0, 0, 0, 0};
   int quiet;
   int ran = run_cycles(D, P, X, n, quiet, clk);
+  qsum_flush(P, X);
   __shared__ int sum[4];
   add_flt<kFlt>(P, sum, n);
   if (tid < 4) sum[tid] = 0;
@@ -1152,12 +1448,14 @@ cca_cycle_kernel(const Dims D, const Leaves P,
   clk.flush(0);
 }
 
-// Launch the one-block kernel's instance (kTm, kFlt).
-template <bool kTm, bool kFlt>
+// Launch the one-block kernel's instance (kTm, kFlt, kQ); kQ takes its
+// per-query sums as dynamic shared memory.
+template <bool kTm, bool kFlt, bool kQ>
 void block_launch(const Dims& D, const Leaves& P, int threads,
                   cudaStream_t stream) {
-  cca_cycle_kernel<kTm, kFlt><<<1, threads, 0, stream>>>(
-      D, P, device_cells<kTm, kFlt>(D, P));
+  const int smem = kQ ? (2 * P.q.qb + 1) * (int)sizeof(int) : 0;
+  cca_cycle_kernel<kTm, kFlt, kQ><<<1, threads, smem, stream>>>(
+      D, P, device_cells<kTm, kFlt, kQ>(D, P));
 }
 
 }  // namespace
@@ -1172,11 +1470,18 @@ void block_launch(const Dims& D, const Leaves& P, int threads,
 extern "C" int cca_cycle_launch(void* const* ptrs, int n_ptrs,
                                 const int* dims, int n_dims, void* stream,
                                 int* path) {
-  if (n_ptrs != N_PTRS || n_dims != N_DIMS) return cudaErrorInvalidValue;
+  if (n_ptrs != N_PTRS || n_dims != N_DIMS + N_QDIMS)
+    return cudaErrorInvalidValue;
   Dims D;
   Leaves P;
   memcpy(&D, dims, sizeof(D));
-  memcpy(&P, ptrs, sizeof(P));
+  memcpy(&P, ptrs, N_PTRS * sizeof(void*));
+  memcpy(&P.q, dims + N_DIMS, sizeof(QDims));
+  // no instance has both faults and query batching (the config refuses it)
+  const QDims& Q = P.q;
+  if (Q.qb < 1 || Q.qb > MAX_QB || Q.msgw != MSGW + Q.qb - 1 ||
+      (D.faults && Q.qb > 1))
+    return cudaErrorInvalidValue;
   if (D.n_ctas > 0) {
     int err = cluster_launch(D, P, (cudaStream_t)stream);
     if (err) return err;
@@ -1186,10 +1491,12 @@ extern "C" int cca_cycle_launch(void* const* ptrs, int n_ptrs,
   int cells = D.H * D.W;
   int threads = cells < 1024 ? cells : 1024;
   void (*launch)(const Dims&, const Leaves&, int, cudaStream_t) =
-      D.telemetry ? (D.faults ? block_launch<true, true>
-                              : block_launch<true, false>)
-                  : (D.faults ? block_launch<false, true>
-                              : block_launch<false, false>);
+      Q.qb > 1 ? (D.telemetry ? block_launch<true, false, true>
+                              : block_launch<false, false, true>)
+      : D.telemetry ? (D.faults ? block_launch<true, true, false>
+                                : block_launch<true, false, false>)
+                    : (D.faults ? block_launch<false, true, false>
+                                : block_launch<false, false, false>);
   launch(D, P, threads, (cudaStream_t)stream);
   int err = cudaGetLastError();
   if (!err) *path = 0;
@@ -1200,11 +1507,13 @@ extern "C" int cca_cycle_launch(void* const* ptrs, int n_ptrs,
 // bytes (the layout of `cluster_layout`), or a negative code if the
 // geometry is not one the cluster kernel runs.
 extern "C" int cca_cycle_cluster_smem(const int* dims, int n_dims) {
-  if (n_dims != N_DIMS) return ERR_GEOMETRY;
+  if (n_dims != N_DIMS + N_QDIMS) return ERR_GEOMETRY;
   Dims D;
+  QDims Q;
   memcpy(&D, dims, sizeof(D));
-  if (!cluster_geometry_ok(D)) return ERR_GEOMETRY;
-  return cluster_layout(D).bytes;
+  memcpy(&Q, dims + N_DIMS, sizeof(Q));
+  if (!cluster_geometry_ok(D, Q)) return ERR_GEOMETRY;
+  return layout_of(D, Q).bytes;
 }
 
 // Text of a code returned by cca_cycle_launch, for the wrapper's exception.

@@ -54,46 +54,58 @@ struct ClusterLayout {
   int aq, aq_n, aq_head, ch, ch_n, ch_head, ch_rr, pk_n, cmsg, cphase, cT,
       cemit, cout, cdrain, arot, nfree;
   int qwork, outbox, grant, io_n, io_pos, qflag, cnt;
+  int qsum;     // kQ: the per-query sums and the cycle, 2 x Q + 1 words
   int cvalid;   // byte offset
   int bytes;
 };
 
-__host__ __device__ inline ClusterLayout cluster_layout(const Dims& D) {
+// The layout of the instances without (kQ false) and with query batching:
+// records of MSGW or Q.msgw words, one or Q.qb floats of cemit a cell.
+template <bool kQ>
+__host__ __device__ inline ClusterLayout cluster_layout(const Dims& D,
+                                                        const QDims& Q) {
   ClusterLayout L;
   const int nb = D.H / D.n_ctas * D.W;
+  const int MW = kQ ? Q.msgw : MSGW, QB = kQ ? Q.qb : 1;
   int o = 0;
   L.nb = nb;
-  L.aq = o; o += nb * D.Q * MSGW;
+  L.aq = o; o += nb * D.Q * MW;
   L.aq_n = o; o += nb;
   L.aq_head = o; o += nb;
-  L.ch = o; o += nb * 4 * D.L * D.LC * MSGW;
+  L.ch = o; o += nb * 4 * D.L * D.LC * MW;
   L.ch_n = o; o += nb * 4 * D.L;
   L.ch_head = o; o += nb * 4 * D.L;
   L.ch_rr = o; o += nb * 4;
   L.pk_n = o; o += nb;
-  L.cmsg = o; o += nb * MSGW;
+  L.cmsg = o; o += nb * MW;
   L.cphase = o; o += nb;
   L.cT = o; o += nb;
-  L.cemit = o; o += nb;
-  L.cout = o; o += nb * MSGW;
+  L.cemit = o; o += nb * QB;
+  L.cout = o; o += nb * MW;
   L.cdrain = o; o += nb;
   L.arot = o; o += nb;
   L.nfree = o; o += nb;
   L.qwork = o; o += nb;
-  L.outbox = o; o += 4 * nb * MSGW;
+  L.outbox = o; o += 4 * nb * MW;
   L.grant = o; o += 4 * nb;
   L.io_n = o; o += D.IO;
   L.io_pos = o; o += D.IO;
   L.qflag = o; o += MAX_CTAS;
   L.cnt = o; o += MAX_CTAS * 4;
+  L.qsum = o; o += kQ ? 2 * Q.qb + 1 : 0;
   L.cvalid = 4 * o;
   L.bytes = 4 * o + nb;
   return L;
 }
 
-inline bool cluster_geometry_ok(const Dims& D) {
+// The host's view: the layout of the instance D launches.
+inline ClusterLayout layout_of(const Dims& D, const QDims& Q) {
+  return Q.qb > 1 ? cluster_layout<true>(D, Q) : cluster_layout<false>(D, Q);
+}
+
+inline bool cluster_geometry_ok(const Dims& D, const QDims& Q) {
   if (D.n_ctas < 1 || D.n_ctas > MAX_CTAS || D.H % D.n_ctas) return false;
-  ClusterLayout L = cluster_layout(D);
+  ClusterLayout L = layout_of(D, Q);
   return D.IO <= L.nb && L.bytes <= SMEM_LIMIT;
 }
 
@@ -138,23 +150,22 @@ template <class C>
 __device__ void move_band(const Dims& D, const Leaves& P, const C& X,
                           bool in) {
   const size_t c0 = X.c0;
-  const int nb = X.nb;
-  move_words(X.aq, P.aq + c0 * D.Q * MSGW, nb * D.Q * MSGW, in);
+  const int nb = X.nb, MW = X.wd(), QB = C::kQb ? X.qb : 1;
+  move_words(X.aq, P.aq + c0 * D.Q * MW, nb * D.Q * MW, in);
   move_words(X.aq_n, P.aq_n + c0, nb, in);
   move_words(X.aq_head, P.aq_head + c0, nb, in);
   const size_t nch = 4 * D.L;   // rings a cell
-  move_words(X.ch, P.ch + c0 * nch * D.LC * MSGW, nb * nch * D.LC * MSGW,
-             in);
+  move_words(X.ch, P.ch + c0 * nch * D.LC * MW, nb * nch * D.LC * MW, in);
   move_words(X.ch_n, P.ch_n + c0 * nch, nb * nch, in);
   move_words(X.ch_head, P.ch_head + c0 * nch, nb * nch, in);
   move_words(X.ch_rr, P.ch_rr + c0 * 4, nb * 4, in);
   move_words(X.pk_n, P.pk_n + c0, nb, in);
-  move_words(X.cmsg, P.cmsg + c0 * MSGW, nb * MSGW, in);
+  move_words(X.cmsg, P.cmsg + c0 * MW, nb * MW, in);
   move_words(X.cphase, P.cphase + c0, nb, in);
   move_words(X.cT, P.cT + c0, nb, in);
   move_words(reinterpret_cast<int*>(X.cemit),
-             reinterpret_cast<int*>(P.cemit) + c0, nb, in);
-  move_words(X.cout, P.cout + c0 * MSGW, nb * MSGW, in);
+             reinterpret_cast<int*>(P.cemit) + c0 * QB, nb * QB, in);
+  move_words(X.cout, P.cout + c0 * MW, nb * MW, in);
   move_words(X.cdrain, P.cdrain + c0, nb, in);
   move_words(X.arot, P.arot + c0, nb, in);
   move_words(X.nfree, P.nfree + c0, nb, in);
@@ -168,16 +179,16 @@ __device__ void move_band(const Dims& D, const Leaves& P, const C& X,
   }
 }
 
-template <bool kTm, bool kFlt>
+template <bool kTm, bool kFlt, bool kQ>
 __global__ void __launch_bounds__(CLUSTER_THREADS, 1)
 cca_cycle_cluster_kernel(const Dims D, const Leaves P) {
   PhaseClock clk;
   clk.start();
   extern __shared__ __align__(16) int smem[];
   cg::cluster_group cluster = cg::this_cluster();
-  const ClusterLayout L = cluster_layout(D);
+  const ClusterLayout L = cluster_layout<kQ>(D, P.q);
   const int rank = cluster.block_rank(), tid = threadIdx.x;
-  Cells<true, kTm, kFlt> X;
+  Cells<true, kTm, kFlt, kQ> X;
   X.aq = smem + L.aq; X.aq_n = smem + L.aq_n; X.aq_head = smem + L.aq_head;
   X.ch = smem + L.ch; X.ch_n = smem + L.ch_n; X.ch_head = smem + L.ch_head;
   X.ch_rr = smem + L.ch_rr; X.pk_n = smem + L.pk_n; X.cmsg = smem + L.cmsg;
@@ -189,11 +200,15 @@ cca_cycle_cluster_kernel(const Dims D, const Leaves P) {
   X.qwork = smem + L.qwork; X.outbox = smem + L.outbox;
   X.grant = smem + L.grant;
   X.tm_cell = P.tm_cell; X.tm_lane = P.tm_lane; X.tm_hiw = P.tm_hiw;
-  X.c0 = rank * L.nb; X.nb = L.nb; X.box_dir = L.nb * MSGW;
+  if constexpr (kQ) {
+    X.mw = P.q.msgw; X.qb = P.q.qb; X.qsum_off = L.qsum;
+  }
+  X.c0 = rank * L.nb; X.nb = L.nb; X.box_dir = L.nb * X.wd();
   X.grant_dir = L.nb; X.rank = rank; X.n_ctas = D.n_ctas;
   X.qflag = smem + L.qflag;
 
   move_band(D, P, X, true);
+  qsum_init(X);
   for (int c = X.c0 + tid; c < X.c0 + X.nb; c += blockDim.x)
     init_qwork(D, P, X, c);
   // the trace rows start at 0, before any CTA adds its band's sums
@@ -207,6 +222,7 @@ cca_cycle_cluster_kernel(const Dims D, const Leaves P) {
   int ran = run_cycles(D, P, X, n, quiet, clk);
 
   move_band(D, P, X, false);
+  qsum_flush(P, X);
   int* sum = smem + L.cnt + 4 * rank;   // this CTA's row, here and in CTA 0
   add_flt<kFlt>(P, sum, n);   // the row in CTA 0 is read only after this
   if (tid < 4) sum[tid] = 0;
@@ -248,16 +264,19 @@ cca_cycle_cluster_kernel(const Dims D, const Leaves P) {
 // card can place such a cluster at all.  Returns 0, a CUDA error code or
 // an ERR_* code; never launches anything else.
 int cluster_launch(const Dims& D, const Leaves& P, cudaStream_t stream) {
-  if (!cluster_geometry_ok(D)) return ERR_GEOMETRY;
-  const ClusterLayout L = cluster_layout(D);
+  if (!cluster_geometry_ok(D, P.q)) return ERR_GEOMETRY;
+  const ClusterLayout L = layout_of(D, P.q);
   if (L.bytes != D.smem_bytes) return ERR_SMEM;
   int threads = (L.nb + 31) / 32 * 32;
   if (threads > CLUSTER_THREADS) threads = CLUSTER_THREADS;
   void (*kernel)(const Dims, const Leaves) =
-      D.telemetry ? (D.faults ? cca_cycle_cluster_kernel<true, true>
-                              : cca_cycle_cluster_kernel<true, false>)
-                  : (D.faults ? cca_cycle_cluster_kernel<false, true>
-                              : cca_cycle_cluster_kernel<false, false>);
+      P.q.qb > 1
+          ? (D.telemetry ? cca_cycle_cluster_kernel<true, false, true>
+                         : cca_cycle_cluster_kernel<false, false, true>)
+      : D.telemetry ? (D.faults ? cca_cycle_cluster_kernel<true, true, false>
+                                : cca_cycle_cluster_kernel<true, false, false>)
+                    : (D.faults ? cca_cycle_cluster_kernel<false, true, false>
+                                : cca_cycle_cluster_kernel<false, false, false>);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
   if (e) return e;
@@ -280,8 +299,9 @@ int cluster_launch(const Dims& D, const Leaves& P, cudaStream_t stream) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
 
-  // device, n_ctas, threads, bytes, instance (2 x telemetry + faults)
-  const int instance = 2 * D.telemetry + D.faults;
+  // device, n_ctas, threads, bytes, instance (4 x query batching + 2 x
+  // telemetry + faults)
+  const int instance = 4 * (P.q.qb > 1) + 2 * D.telemetry + D.faults;
   static int checked[5] = {-1, 0, 0, 0, 0};
   int dev = 0;
   e = cudaGetDevice(&dev);

@@ -20,7 +20,12 @@ their fault instances, which inject the plan's hazards in the hop stage,
 seal and check the messages, run ``OP_REPAIR`` and count into ``flt`` as
 ``core.engine.cycle_body`` does; the plan reaches the kernel as the hash
 keys and thresholds in `struct Dims` and the blackout windows as a small
-int32 table on the state's device.
+int32 table on the state's device.  With ``cfg.qbatch`` Q > 1 (a
+composite app of ``repro_torch.mq.batch_app``) it takes their
+query-batched instances: records of ``cfg.msg_words`` words, Q values a
+slot, and the per-query counters ``qchg`` / ``qlast``; the slot apps
+reach the kernel as a table of Q app codes in `struct Dims`, so a new
+mix of tenants is a new table for the next launch.
 
 Two kernels compute the same chunk (``path``):
 
@@ -65,6 +70,7 @@ ALLOCATORS = ("vicinity", "random")   # `struct Dims`' allocator codes
 
 launches = 0   # kernel launches made by cca_cycle_chunk, both paths
 path_launches = dict.fromkeys(PATHS, 0)   # the same launches by kernel
+query_launches = dict.fromkeys(PATHS, 0)  # those of them at qbatch > 1
 
 # state leaves handed to the kernel, in the order of `struct Leaves`
 KERNEL_LEAVES = (
@@ -140,8 +146,9 @@ def cluster_geometry(cfg: EngineConfig, n_ctas: int | None = None
     A geometry is ``n`` CTAs of ``H / n`` rows each: ``n`` divides the
     height and is at most 16, and a CTA's bytes fit the 232,448 a CTA may
     opt into: its band's cells (``cluster_cell_bytes`` each), the IO
-    cursors (``io_n``, ``io_pos``) and the cluster's words (a busy flag
-    and 4 counters for each of up to 16 CTAs).  Given ``n_ctas``, that
+    cursors (``io_n``, ``io_pos``), the cluster's words (a busy flag and 4
+    counters for each of up to 16 CTAs) and, at ``qbatch`` Q > 1, the
+    per-query sums and the current cycle (2 x Q + 1 words).  Given ``n_ctas``, that
     geometry or ``None``; else the largest ``n`` that fits: the most SMs,
     the least shared memory each.  (On the H100, 8 CTAs of 4 rows and 16
     of 2 ran the fingerprint config's chunk within 1% of each other, and
@@ -153,7 +160,9 @@ def cluster_geometry(cfg: EngineConfig, n_ctas: int | None = None
     for n in cands:
         if 1 <= n <= MAX_CTAS and H % n == 0:
             nbytes = (H // n * cfg.width * cluster_cell_bytes(cfg)
-                      + 2 * 4 * cfg.io_cells + 4 * 5 * MAX_CTAS)
+                      + 2 * 4 * cfg.io_cells + 4 * 5 * MAX_CTAS
+                      + (4 * (2 * cfg.qbatch + 1) if cfg.qbatch > 1
+                         else 0))
             if nbytes <= SMEM_LIMIT:
                 return n, H // n, nbytes
     return None
@@ -179,12 +188,27 @@ def _blackout_table(blackouts: tuple, device: torch.device):
                         device=device).reshape(-1, 5)
 
 
+def _query_dims(cfg: EngineConfig, app: DiffusionApp) -> list[int]:
+    """`struct Dims`' query fields: Q, the record's words and the slot
+    apps' codes, 4 bits a slot, 8 slots an int (zeros at Q = 1)."""
+    packed = [0] * 4
+    if cfg.qbatch > 1:
+        if len(app.slot_apps) != cfg.qbatch:
+            raise ValueError(f"app {app.name!r} has {len(app.slot_apps)} "
+                             f"slot apps, the config qbatch={cfg.qbatch}")
+        for q, a in enumerate(app.slot_apps):
+            packed[q // 8] |= a.code << (4 * (q % 8))
+        # the int32 view of each packed word
+        packed = [w - (1 << 32) if w >= 1 << 31 else w for w in packed]
+    return [cfg.qbatch, cfg.msg_words, *packed]
+
+
 def _dims(cfg: EngineConfig, app: DiffusionApp, n_offs: int,
           n_cycles: int, geometry: tuple[int, int, int] | None
           ) -> list[int]:
     """Scalar geometry, in the order of `struct Dims` (``telemetry`` 0 or
     1, the fault fields of ``_fault_dims``; ``n_ctas`` and the bytes a CTA
-    0 for the one-block kernel)."""
+    0 for the one-block kernel; the query fields of ``_query_dims``)."""
     n_ctas, _, nbytes = geometry or (0, 0, 0)
     return [cfg.height, cfg.width, cfg.slots, cfg.edge_cap, cfg.queue_cap,
             cfg.futq_cap, cfg.lane_capacity, cfg.lanes, cfg.park_capacity,
@@ -192,15 +216,16 @@ def _dims(cfg: EngineConfig, app: DiffusionApp, n_offs: int,
             cfg.root_slots, cfg.primary_slots, cfg.rhizome_cap,
             cfg.rhizome_stride, cfg.aq_reserve, cfg.sys_reserve, n_offs,
             app.code, ALLOCATORS.index(cfg.allocator), n_cycles,
-            int(cfg.telemetry), *_fault_dims(cfg), n_ctas, nbytes]
+            int(cfg.telemetry), *_fault_dims(cfg), n_ctas, nbytes,
+            *_query_dims(cfg, app)]
 
 
 def _launch_args(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
                  n_cycles: int, geometry=None, trace=None):
     """The kernel's tensors, in the order of `struct Leaves` (the state
     leaves, the vicinity table, the blackout table or ``None``, the
-    per-cell scratch, the record, the trace rows or ``None``), and its
-    `struct Dims`."""
+    per-cell scratch, the record, the trace rows or ``None``, the
+    per-query counters ``qchg`` and ``qlast``), and its `struct Dims`."""
     dev = st.aq.device
     offs = torch.as_tensor(vicinity_offsets(cfg.vicinity_hops), device=dev)
     blackouts = (_blackout_table(cfg.faults.blackouts, dev)
@@ -214,7 +239,7 @@ def _launch_args(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
     cells = 1 if geometry else cfg.n_cells
     tensors = [getattr(st, k) for k in KERNEL_LEAVES] + [
         offs, blackouts, scratch(cells * cfg.msg_words), scratch(cells),
-        scratch(cells), scratch(8), trace]
+        scratch(cells), scratch(8), trace, st.qchg, st.qlast]
     return tensors, _dims(cfg, app, len(offs), n_cycles, geometry)
 
 
@@ -280,7 +305,7 @@ def cca_cycle_chunk(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
     2]`` tensor on the state's device, gets the ``(active, in_flight)``
     row of each cycle run (rows ``0 .. cycles run - 1``).  Each kernel
     launch adds one to the module's ``launches`` and to its kernel's entry
-    of ``path_launches``.
+    of ``path_launches`` (and of ``query_launches`` at ``qbatch > 1``).
     """
     global launches
     cfg.validate()
@@ -296,7 +321,7 @@ def cca_cycle_chunk(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
         raise ValueError(f"cca_cycle_chunk runs on cuda or cpu, not {dev}")
     lib = _library()
     tensors, dims = _launch_args(cfg, app, st, n_cycles, geometry, trace)
-    rec = tensors[-2]
+    rec = tensors[-4]
     ptrs = (ctypes.c_void_p * len(tensors))(
         *[0 if t is None else t.data_ptr() for t in tensors])
     dims_c = (ctypes.c_int * len(dims))(*dims)
@@ -310,4 +335,6 @@ def cca_cycle_chunk(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
                            + lib.cca_cycle_error_string(err).decode())
     launches += 1
     path_launches[PATHS[kernel.value]] += 1
+    if cfg.qbatch > 1:
+        query_launches[PATHS[kernel.value]] += 1
     return st, rec[5:7]

@@ -4,6 +4,7 @@ shared memory a CTA of it takes, and how ``cca_cycle_chunk`` checks
 ``path=`` and ``n_ctas=``.  No card needed: a CPU call runs the plain
 version and launches nothing.  ``tests/test_torch_kernel.py`` runs both
 kernels on the card."""
+import dataclasses
 import json
 import pathlib
 import re
@@ -173,18 +174,32 @@ def _c_struct_fields(name):
 
 
 def test_c_structs_match_the_wrapper():
-    """`struct Dims` has one int for each entry of ``_dims`` (n_ctas and
-    the bytes a CTA last); `struct Leaves` one pointer for each tensor the
-    wrapper hands over, for both kernels."""
+    """`struct Dims` then `struct QDims` have one int for each entry of
+    ``_dims`` (n_ctas and the bytes a CTA last of Dims; Q, the record's
+    words and the packed slot app codes in QDims); `struct Leaves` one
+    pointer for each tensor the wrapper hands over, for both kernels,
+    then the QDims it carries."""
+    from repro_torch.mq import batch_app
     cfg = FITS["ci"]
+    n_dims = len(_c_struct_fields("Dims"))
     for geometry in (None, ops.cluster_geometry(cfg)):
         dims = ops._dims(cfg, BFS, 9, 512, geometry)
-        assert len(dims) == len(_c_struct_fields("Dims"))
+        assert len(dims) == n_dims + len(_c_struct_fields("QDims"))
     assert _c_struct_fields("Dims")[-2:] == ["n_ctas", "smem_bytes"]
-    assert ops._dims(cfg, BFS, 9, 512, None)[-2:] == [0, 0]
-    assert ops._dims(cfg, BFS, 9, 512, (16, 2, 178816))[-2:] == [16, 178816]
+    assert _c_struct_fields("QDims") == ["qb", "msgw", "qapp0", "qapp1",
+                                         "qapp2", "qapp3"]
+    assert ops._dims(cfg, BFS, 9, 512, None)[n_dims - 2:] == \
+        [0, 0, 1, 5, 0, 0, 0, 0]
+    assert ops._dims(cfg, BFS, 9, 512, (16, 2, 178816))[n_dims - 2:n_dims] \
+        == [16, 178816]
+    # nine slots: bfs 0, widest 4, cc 2, reliable 5, ..., the ninth in qapp1
+    app = batch_app(["bfs", "widest", "cc", "reliable", "sssp", "bfs",
+                     "bfs", "widest", "reliable"])
+    q9 = dataclasses.replace(cfg, qbatch=9, n_vals=9)
+    assert ops._dims(q9, app, 9, 512, None)[n_dims:] == [
+        9, 13, 0 | 4 << 4 | 2 << 8 | 5 << 12 | 1 << 16 | 4 << 28, 5, 0, 0]
     leaves = _c_struct_fields("Leaves")
     assert leaves[:len(ops.KERNEL_LEAVES)] == list(ops.KERNEL_LEAVES)
     assert leaves[len(ops.KERNEL_LEAVES):] == ["offs", "blackouts", "outbox",
                                                "grant", "qwork", "rec",
-                                               "trace"]
+                                               "trace", "qchg", "qlast", "q"]

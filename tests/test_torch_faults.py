@@ -147,7 +147,7 @@ def test_flt_leaf_has_the_jax_shape(on):
 def test_unported_resilience_knobs_still_raise():
     """Faults, durable state, recovery and the ingest guard are carried
     (ROADMAP.md queue 1, item 4(b), done): ``qbatch > 1`` beside a plan
-    (which JAX refuses too) still raises ``NotImplementedError``, the
+    raises ``ValueError`` with the JAX engine's text, as JAX refuses it, the
     guard without its telemetry plane is refused as JAX refuses it, and
     checkpoints and the recovery policy run beside a plan."""
     import tempfile
@@ -157,7 +157,7 @@ def test_unported_resilience_knobs_still_raise():
     EngineConfig(**kw, telemetry=True, ingest_guard=True).validate()
     with pytest.raises(ValueError, match="ingest_guard"):
         EngineConfig(**kw, ingest_guard=True).validate()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="faults \\+ qbatch > 1"):
         EngineConfig(**kw, faults=FaultPlan(), qbatch=2).validate()
     eng = StreamingEngine(EngineConfig(**kw, faults=FaultPlan(seed=1)),
                           "bfs", device="cpu")

@@ -186,13 +186,29 @@ def test_load_stream_matches_jax(limit):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(n_io_cells=5),
-    dict(faults=FaultPlan(), qbatch=2), dict(qbatch=4, n_vals=4),
-    dict(qbatch=2),
-    dict(n_vals=2), dict(n_io_cells=3)])
+    dict(n_io_cells=5), dict(n_io_cells=3), dict(n_vals=2)])
 def test_validate_rejects_unported_knobs(knob):
+    """Knobs with no reference behaviour to port: ``n_io_cells`` other
+    than 0 or the width (the JAX engine fails on them) and ``n_vals > 1``
+    at ``qbatch = 1`` (no JAX path reaches it)."""
     with pytest.raises(NotImplementedError):
         EngineConfig(height=4, width=4, n_vertices=16, **knob).validate()
+
+
+@pytest.mark.parametrize("knob, text", [
+    (dict(faults=FaultPlan(), qbatch=2), "faults \\+ qbatch > 1"),
+    (dict(qbatch=2), "requires n_vals == qbatch"),
+    (dict(qbatch=33), "overflows the int32 qsel")])
+def test_validate_rejects_bad_query_batches(knob, text):
+    """The JAX engine's rules for ``qbatch``, with its text."""
+    with pytest.raises(ValueError, match=text):
+        EngineConfig(height=4, width=4, n_vertices=16, **knob).validate()
+
+
+@pytest.mark.parametrize("q", [2, 4, 32])
+def test_validate_accepts_query_batches(q):
+    EngineConfig(height=4, width=4, n_vertices=16, qbatch=q,
+                 n_vals=q).validate()
 
 
 def test_engine_rejects_unported_apps_and_options():
@@ -235,7 +251,9 @@ def test_port_imports_nothing_of_jax_or_repro():
             "repro_torch.launch.serve, repro_torch.launch.paper_experiments, "
             "repro_torch.train, repro_torch.train.checkpoint, "
             "repro_torch.resilience, repro_torch.resilience.checkpoint, "
-            "repro_torch.resilience.recover, repro_torch.resilience.faults; "
+            "repro_torch.resilience.recover, repro_torch.resilience.faults, "
+            "repro_torch.mq, repro_torch.mq.app, repro_torch.mq.session, "
+            "repro_torch.mq.frontdesk, repro_torch.launch.serve_bench; "
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -62,6 +62,20 @@ runs without it) and the digest of every leaf of the state it ends in
 (``obs.frames.state_digests``), and a livelock's increment, cycle, chunk
 and ``flt``, to ``src/repro_torch/data/fault_fingerprint.json``.
 
+``--mq``: runs the JAX engine's multi-tenant layer (``repro.mq``, jnp
+backend), one process a run, all started together: the Q=1 session on the
+pinned stream (``tests/test_mq.py::test_q1_bit_exact_vs_recorded_engine``),
+``test_mq``'s MIX8 batch, its mid-stream admit / retire / recycle
+sequence and its Q=3 parity config, ``benchmarks/serve_bench.py``'s
+``bench_serve("ci")`` (its batch and its eight serial runs; the record it
+builds must equal ``results/bench_serve.json``, which is not written), and
+the paper experiments' 32x32 config at 2,000 vertices / 20K edges with an
+all-BFS Q=8 batch from eight seeded sources (``SOURCES_SEED``; source 0
+one of them).  Writes each run's per-increment counters, ``qchg`` /
+``qlast`` and state digests, the digest of every final leaf, each slot's
+values and lifecycle, and the receipts, or a livelock's increment, cycle,
+chunk and text, to ``src/repro_torch/data/mq_fingerprint.json``.
+
 ``chip_smoke.py`` and the port's tests replay these files.  Outside the
 tests, this is the only file of the port's tooling that imports JAX: it
 runs ``repro`` (and the JAX package's ``benchmarks``), and takes from
@@ -74,6 +88,8 @@ which the replays use too.
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/record_torch_fingerprint.py --skew
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/record_torch_fingerprint.py --telemetry
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/record_torch_fingerprint.py --faults
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/record_torch_fingerprint.py --resilience
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/record_torch_fingerprint.py --mq
 """
 import argparse
 import concurrent.futures
@@ -98,6 +114,7 @@ SKEW_OUT = DATA / "skew_fingerprint.json"
 TELEMETRY_OUT = DATA / "telemetry_fingerprint.json"
 FAULTS_OUT = DATA / "fault_fingerprint.json"
 RESILIENCE_OUT = DATA / "resilience_fingerprint.json"
+MQ_OUT = DATA / "mq_fingerprint.json"
 COMMAND = "PYTHONPATH=src JAX_PLATFORMS=cpu python tools/record_torch_fingerprint.py"
 MAX_CYCLES = 2_000_000
 # (app, sampling, allocator, per-cycle traces) of the --paper-ci streams
@@ -666,6 +683,239 @@ def main_resilience() -> None:
     print(f"wrote {RESILIENCE_OUT}")
 
 
+# --mq runs: (name, kind, argument)
+MQ_RUNS = (("q1 pinned", "q1", None), ("mix8", "mix8", None),
+           ("admit retire recycle", "admit", None),
+           ("q3 parity", "q3", None), ("bench_serve ci", "serve", "ci"),
+           ("paper ci q8 bfs", "paper_q8", (2000, 20_000)))
+SOURCES_SEED = 39   # the Q=8 BFS batch's sources: 0 and seven drawn
+
+
+def batch_sources(n: int, q: int = 8, seed: int = SOURCES_SEED) -> list:
+    """Vertex 0 and ``q - 1`` distinct others drawn with ``seed``
+    (``repro_torch.launch.serve_bench.batch_sources``)."""
+    rng = np.random.default_rng(seed)
+    others = rng.choice(np.arange(1, n), q - 1, replace=False)
+    return [0] + sorted(int(v) for v in others)
+
+
+def _mq_values(ses, n=None) -> list:
+    from repro_torch.obs.frames import plane_digest
+    out = []
+    for q in range(ses.qbatch):
+        v = np.asarray(ses.values(q, n), np.float32)
+        rec = dict(digest=plane_digest(v.view(np.int32)))
+        if len(v) <= 256:
+            rec["values"] = [float(x) for x in v]
+        out.append(rec)
+    return out
+
+
+def _mq_slots(ses) -> list:
+    return [dict(app=s.app.name if s.app is not None else None,
+                 source=s.source, generation=s.generation, state=s.state,
+                 admit_cycle=s.admit_cycle, settle_cycle=s.settle_cycle,
+                 increments=s.increments) for s in ses.slots]
+
+
+def _mq_step(ses, edges, **kw) -> dict:
+    """One session increment as the fingerprint records it."""
+    r = ses.run_increment(edges, **kw)
+    st = ses.eng.state
+    return dict(edges=len(edges), cycles=r.cycles, hops=r.hops,
+                execs=r.execs, stalls=r.stalls, allocs=r.allocs,
+                qchg=np.asarray(st.qchg).tolist(),
+                qlast=np.asarray(st.qlast).tolist(),
+                cycle=int(st.cycle), slots=_mq_slots(ses),
+                state=_digests(ses.eng))
+
+
+def _mq_final(ses, n=None) -> dict:
+    return dict(state=_digests(ses.eng), values=_mq_values(ses, n),
+                slots=_mq_slots(ses), total_cycles=ses.eng.total_cycles)
+
+
+def mq_run(name: str, kind: str, arg) -> dict:
+    """One --mq run through the JAX engine (jnp backend)."""
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "tests"))
+    from repro.core.apps import APPS
+    from repro.core.engine import LivelockError
+    from repro.mq.frontdesk import FrontDesk
+    from repro.mq.session import MQSession, QuerySlot
+    t0 = time.time()
+    out = dict(name=name, kind=kind)
+    empty = np.zeros((0, 3), np.int32)
+    if kind == "q1":
+        ref = json.loads((ROOT / "tests" / "data"
+                          / "pre_lanes_reference.json").read_text())
+        cfg = EngineConfig(**ref["cfg"])
+        ses = MQSession(cfg, qbatch=1)
+        ses.eng.seed(0, 0.0)
+        ses.slots[0] = QuerySlot(app=APPS["bfs"], source=0, state="active")
+        incs = make_stream(StreamSpec(**ref["spec"]))
+        rows = [_mq_step(ses, e, max_cycles=500_000) for e in incs]
+        rows.append(_mq_step(ses, empty))
+        out.update(cfg=dataclasses.asdict(ses.eng.cfg), spec=ref["spec"],
+                   increments=rows, final=_mq_final(ses, 128))
+    elif kind in ("mix8", "admit", "q3"):
+        import test_mq as T
+        if kind == "mix8":
+            cfg = T._mq_cfg()
+            stream = dict(n=128, n_edges=360, increments=2, seed=11)
+            mix = T.MIX8
+        elif kind == "q3":
+            cfg = T._mq_cfg(height=4, width=4, n_vertices=64, edge_cap=8,
+                            ghost_slots=32, queue_cap=64, chan_cap=32,
+                            futq_cap=8, io_stream_cap=1024, lanes=4,
+                            chunk=64)
+            stream = dict(n=64, n_edges=120, increments=2, seed=9)
+            mix = (("bfs", 0), ("sssp", 3), ("widest", 5))
+        else:
+            cfg = T._mq_cfg()
+            stream = dict(n=128, n_edges=240, increments=3, seed=5)
+            mix = (("bfs", 0), ("sssp", 3))
+        incs = T._weighted_stream(**stream)
+        ses = MQSession(cfg, qbatch=len(mix), apps=[a for a, _ in mix])
+        out.update(cfg=dataclasses.asdict(ses.eng.cfg), stream=stream,
+                   mix=[list(m) for m in mix])
+        if kind == "admit":
+            steps = []
+            ses.admit("bfs", 0, slot=0)
+            steps.append(dict(do="admit bfs 0 slot 0", slots=_mq_slots(ses)))
+            steps.append(dict(do="increment 0", **_mq_step(ses, incs[0])))
+            ses.admit("sssp", 3, slot=1)
+            steps.append(dict(do="admit sssp 3 slot 1",
+                              slots=_mq_slots(ses)))
+            for i in (1, 2):
+                steps.append(dict(do=f"increment {i}",
+                                  **_mq_step(ses, incs[i])))
+            steps.append(dict(do="empty", **_mq_step(ses, empty)))
+            steps.append(dict(do="values", values=_mq_values(ses)))
+            steps.append(dict(do="retire 1", receipt=ses.retire(1)))
+            ses.admit("widest", 5, slot=1)
+            steps.append(dict(do="admit widest 5 slot 1",
+                              slots=_mq_slots(ses)))
+            steps.append(dict(do="empty", **_mq_step(ses, empty)))
+            steps.append(dict(do="values", values=_mq_values(ses)))
+            out.update(steps=steps, final=_mq_final(ses))
+        else:
+            for q, (app, src) in enumerate(mix):
+                ses.admit(app, src, slot=q)
+            rows = [_mq_step(ses, e) for e in incs]
+            if kind == "mix8":
+                rows.append(_mq_step(ses, empty))
+            out.update(increments=rows, final=_mq_final(ses))
+            if kind == "mix8":
+                out["receipts"] = [ses.retire(q) for q in range(len(mix))]
+    elif kind == "serve":
+        # benchmarks/serve_bench.py::bench_serve, each beat recorded
+        from benchmarks.serve_bench import (QUERY_MIX, SCALES, _serial_run,
+                                            _serve_cfg, _stream)
+        from repro.obs import metrics
+        p = SCALES[arg]
+        cfg = _serve_cfg(p)
+        incs = _stream(p)
+        Q = len(QUERY_MIX)
+        ses = MQSession(cfg, qbatch=Q, apps=[a for a, _ in QUERY_MIX])
+        fd = FrontDesk(ses)
+        for app, src in QUERY_MIX:
+            if app == "cc":
+                ses.admit(app, src)
+            else:
+                fd.submit(app, src)
+        beats = []
+        for e in incs + [empty]:
+            fd.pump()
+            beats.append(_mq_step(ses, e))
+            fd.pos += 1
+            for q in ses.settled_slots():
+                fd.receipts.append(ses.retire(q))
+            beats[-1]["receipts"] = len(fd.receipts)
+        batch_cycles = sum(b["cycles"] for b in beats)
+        for q, s in enumerate(ses.slots):
+            if s.state != "free":
+                fd.receipts.append(ses.retire(q))
+        batch_values = {q: np.asarray(ses.values(q)) for q in range(Q)}
+        slot_of = {(r["app"], r["source"]): r["slot"] for r in fd.receipts}
+        final = _mq_final(ses)
+        serial = []
+        for app, src in QUERY_MIX:
+            eng, cyc = _serial_run(cfg, app, src, incs)
+            serial.append(dict(app=app, source=src, cycles=cyc,
+                               exact=bool(np.array_equal(
+                                   eng.values(),
+                                   batch_values[slot_of[(app, src)]])),
+                               state=_digests(eng)))
+        lat = [r["latency_cycles"] for r in fd.receipts
+               if r["latency_cycles"] is not None]
+        summary = metrics.summarize(lat, unit="cycles")
+        total = sum(s["cycles"] for s in serial)
+        rec = dict(
+            scale=arg, qbatch=Q,
+            queries=[dict(slot=slot_of[(a, s)], app=a, source=s,
+                          serial_cycles=serial[q]["cycles"],
+                          exact=serial[q]["exact"])
+                     for q, (a, s) in enumerate(QUERY_MIX)],
+            receipts=fd.receipts, latency=summary,
+            p50_cycles=summary.get("p50"), p99_cycles=summary.get("p99"),
+            batch_cycles=int(batch_cycles), serial_cycles_total=int(total),
+            speedup=round(float(total) / max(1, batch_cycles), 3),
+            all_exact=all(s["exact"] for s in serial),
+            deferrals=fd.deferrals)
+        rec = json.loads(json.dumps(rec))
+        if arg == "ci":
+            want = json.loads((ROOT / "results"
+                               / "bench_serve.json").read_text())
+            assert rec == want, "bench_serve('ci') != results/bench_serve.json"
+        out.update(scale=arg, cfg=dataclasses.asdict(ses.eng.cfg),
+                   beats=beats, final=final, serial=serial, record=rec)
+    else:
+        from benchmarks.paper_experiments import _engine
+        n, m = arg
+        cfg = _engine(n, "bfs", n_edges=m).cfg
+        sources = batch_sources(n)
+        ses = MQSession(cfg, qbatch=len(sources),
+                        apps=["bfs"] * len(sources))
+        for q, src in enumerate(sources):
+            ses.admit("bfs", src, slot=q)
+        incs = make_stream(StreamSpec(increments=10, sampling="edge",
+                                      seed=1, n_vertices=n, n_edges=m))
+        out.update(size=[n, m], cfg=dataclasses.asdict(ses.eng.cfg),
+                   sources=sources, sources_seed=SOURCES_SEED)
+        rows = []
+        try:
+            for i, e in enumerate(incs + [empty]):
+                rows.append(_mq_step(ses, e, max_cycles=MAX_CYCLES))
+                print(f"{name}: increment {i} {rows[-1]['cycles']} cycles "
+                      f"({time.time() - t0:.1f}s)", flush=True)
+        except LivelockError as ex:
+            out["livelock"] = dict(increment=len(rows), cycle=ex.cycle,
+                                   chunk=ex.chunk, message=str(ex),
+                                   state=_digests(ses.eng))
+        out.update(increments=rows, final=_mq_final(ses, n))
+        out["outcome"] = "livelock" if "livelock" in out else "quiescent"
+    print(f"{name}: done in {time.time() - t0:.1f}s", flush=True)
+    return json.loads(json.dumps(out))
+
+
+def main_mq() -> None:
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(
+            len(MQ_RUNS), mp_context=ctx) as pool:
+        runs = list(pool.map(mq_run, *zip(*MQ_RUNS)))
+    out = dict(command=COMMAND + " --mq", commit=_commit(),
+               engine="repro (JAX, jnp backend)",
+               digest="obs.frames.state_digests: first 16 hex digits of the "
+                      "sha256 of each leaf's int32 bytes (float32 leaves "
+                      "by their bits, bool leaves as 0/1), little-endian, "
+                      "C order; values by the same digest of their float32 "
+                      "bits",
+               max_cycles=MAX_CYCLES, runs=runs)
+    MQ_OUT.write_text(json.dumps(out, indent=1) + "\n")
+    print(f"wrote {MQ_OUT}")
+
+
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--paper-ci", action="store_true",
@@ -678,8 +928,12 @@ if __name__ == "__main__":
                     help="record fault_fingerprint.json instead")
     ap.add_argument("--resilience", action="store_true",
                     help="record resilience_fingerprint.json instead")
+    ap.add_argument("--mq", action="store_true",
+                    help="record mq_fingerprint.json instead")
     args = ap.parse_args()
-    if args.resilience:
+    if args.mq:
+        main_mq()
+    elif args.resilience:
         main_resilience()
     elif args.faults:
         main_faults()
