@@ -12,8 +12,9 @@ does on every config here):
   1. device: the card's name and power limit; no CUDA device -> exit 1
   2. build: nvcc for sm_90a, all four kernels at once, with the ptxas
      registers, spills and static shared memory of both cycle kernels'
-     six instances each (without and with telemetry; plain, with faults
-     or query-batched); fails if a cluster instance spills
+     seven instances each (without and with telemetry; plain, with faults
+     or query-batched; the tile instance); fails if a cluster instance
+     spills
   3. cycle kernel vs plain PyTorch version on the card, every leaf and the
      launch record exactly equal (tolerance 0), each launch counted on the
      kernel it took: (a) the pinned 8x8 config chunk by chunk to
@@ -244,6 +245,35 @@ the counts set to 0 just before and its time printed:
      launches, the wall.  A livelock prints the engine's message and
      holds the wedged chunk against the plain version
 
+Distribution (``repro_torch.dist``: the cell grid tiled over the ranks
+of a ``(data, model)`` mesh, a halo two cells deep, one cycle a tile step
+of the cycle kernels' tile instance ``kTl``, the halo's hop leaves
+exchanged and the quiescence flag reduced after every cycle; on one card
+the ranks are ``LocalTiles``, the same launches and exchange code as the
+process-group path, which NCCL cannot run on one card), right after
+phase 39, each with its time:
+
+ 40. the JAX parity config (8x8, 64 vertices, 160 edges, chunk 32) and the
+     pinned 8x8 stream tiled over (2, 1), (4, 1), (8, 1), (2, 2) and
+     (4, 2): chunk by chunk, every leaf of the gathered tiles == the
+     unsharded kernel's run and the launch records equal, and == the
+     plain tile step on the CPU (every mesh on the parity config, (2, 2)
+     on the pinned stream, cut for time: the plain tiles run on the CPU);
+     BFS == oracle; every tile step one launch of the tile instance
+ 41. the 32x32 fingerprint stream (2,000 / 20K, 2,372 cycles) tiled over
+     (4, 1) and (2, 2), each increment to quiescence through
+     ``dist.cca.run_to_quiescence`` (one host read a chunk): counters and
+     values == ``src/repro_torch/data/fingerprint_32x32.json``
+ 42. the distribution path's main run: phase 6's full-size state (50K /
+     1M) over (4, 1), four K=128 chunks with the counts set to 0 just
+     before, each == the unsharded kernel on every leaf; launches by
+     kernel, ms a cycle, the halo exchange's and the flag reduction's ms
+     a cycle alone
+ 43. ``launch.dist_bench`` at ci and mid over 1, 2, 4 and 8 tiles
+ 44. gcn-cora on full_graph_sm with a 4-tile mesh registered (owner-
+     partitioned edges, ``graph.partition.spmm_partitioned``) against the
+     unsharded forward, 2e-2
+
 The GNN and DLRM serving forwards (every aggregation a launch of the
 scatter-SpMM kernel, every DLRM lookup one launch of the EmbeddingBag
 kernel):
@@ -379,6 +409,11 @@ from repro_torch.launch import serve as lm_serve  # noqa: E402
 from repro_torch.launch import serve_bench as sb  # noqa: E402
 from repro_torch.models import dlrm, gnn, transformer  # noqa: E402
 from repro_torch.mq import FrontDesk, MQSession  # noqa: E402
+from repro_torch.dist import cca  # noqa: E402
+from repro_torch.dist.ctx import set_dist_mesh  # noqa: E402
+from repro_torch.graph.partition import partition_edges  # noqa: E402
+from repro_torch.launch import dist_bench  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.resilience import (FLT_CORRUPT, FLT_DROP,  # noqa: E402
                                     FaultPlan)
 
@@ -535,34 +570,36 @@ def on_path(before, path, n):
 
 CYCLE_INSTANCES = tuple(f"{k}{t}{f}" for k in ("cluster", "block")
                         for t in ("", "_telemetry")
-                        for f in ("", "_faults", "_query"))
+                        for f in ("", "_faults", "_query")) + (
+    "cluster_tile", "block_tile")
 
 
 def cycle_ptxas(report: str) -> dict:
     """Phase 2: the registers, spills and static shared memory of both
-    cycle kernels, each in its six instances, without and with telemetry,
-    plain, with faults or query-batched (``cluster``,
+    cycle kernels, each in its seven instances, without and with
+    telemetry, plain, with faults or query-batched (``cluster``,
     ``cluster_telemetry``, ``cluster_faults``, ``cluster_telemetry_faults``,
-    ``cluster_query``, ``cluster_telemetry_query``, and ``block...`` the
-    same), printed; raises if a cluster instance spills or an instance is
-    missing."""
+    ``cluster_query``, ``cluster_telemetry_query``), and the tile instance
+    (``cluster_tile``; ``block...`` the same), printed; raises if a cluster
+    instance spills or an instance is missing."""
     out = {}
     for name, info in _build.ptxas_functions(report).items():
         m = re.search(r"(cca_cycle_cluster_kernel|cca_cycle_kernel)"
-                      r"ILb([01])ELb([01])ELb([01])E", name)
+                      r"ILb([01])ELb([01])ELb([01])ELb([01])E", name)
         if not m:
             continue
         kind = ("cluster" if "cluster" in m[1] else "block") + (
             "_telemetry" if m[2] == "1" else "") + (
             "_faults" if m[3] == "1" else "") + (
-            "_query" if m[4] == "1" else "")
+            "_query" if m[4] == "1" else "") + (
+            "_tile" if m[5] == "1" else "")
         out[kind] = info
         print(f"[2] {kind} kernel: {info.get('registers')} registers, "
               f"{info.get('spill_stores')} bytes spill stores, "
               f"{info.get('spill_loads')} bytes spill loads, "
               f"{info.get('stack')} bytes stack, static smem "
               f"{info.get('smem', 0)} bytes", flush=True)
-    for kind in CYCLE_INSTANCES[:6]:
+    for kind in CYCLE_INSTANCES[:6] + ("cluster_tile",):
         c = out.get(kind, {})
         if not c or c.get("spill_stores", 1) or c.get("spill_loads", 1):
             raise AssertionError(f"{kind} cycle kernel: spills or no report "
@@ -2277,6 +2314,261 @@ def mq_phase_paper(t_block_ns: float) -> dict:
     return out
 
 
+# ---- distribution: the grid tiled over ranks (phases 40-44) ----
+
+DIST_MESHES = ((2, 1), (4, 1), (8, 1), (2, 2), (4, 2))
+
+
+def reset_launch_counts() -> None:
+    ops.launches = 0
+    ops.path_launches = dict.fromkeys(ops.PATHS, 0)
+    ops.tile_launches = dict.fromkeys(ops.PATHS, 0)
+
+
+def sharded_stream(cfg, incs, mesh_shape, plain: bool) -> dict:
+    """One stream chunk by chunk, three ways from one seeded state: the
+    unsharded kernel, the grid tiled over a ``mesh_shape`` mesh of
+    ``LocalTiles`` on the card (the tile instance) and, where ``plain``,
+    the same tiles on the CPU (the plain tile step).  Every chunk every
+    leaf of the gathered tiles equals the unsharded run's (and the plain
+    tiles'), the launch records too; BFS == oracle at the end.  Returns
+    the chunks, cycles and the tile launches by kernel."""
+    eng = StreamingEngine(cfg, "bfs")
+    eng.seed(0, 0.0)
+    cfg, one = eng.cfg, eng.state
+    k_sst = cca.shard_state(cfg, one, make_host_mesh(*mesh_shape))
+    p_sst = (cca.shard_state(cfg, to_device(one, "cpu"),
+                             make_host_mesh(*mesh_shape, device="cpu"))
+             if plain else None)
+    before = dict(ops.tile_launches)
+    chunks = cycles = 0
+    for e in incs:
+        one, spill = load_stream(cfg, one, e)
+        assert len(spill) == 0
+        one = fresh_stats(one)
+        for sst in (k_sst, p_sst):
+            if sst is not None:
+                assert len(cca.load_stream(cfg, sst, e)) == 0
+                cca.reset_counters(sst)
+        c0, q = int(one.cycle), False
+        while not q:
+            k_sst, kr = cca.run_chunk(cfg, BFS, k_sst)
+            one, r1 = ops.cca_cycle_chunk(cfg, BFS, one)
+            got = cca.gather_state(k_sst)
+            leaf_diff(got, one)
+            if not torch.equal(kr, r1):
+                raise AssertionError(f"{mesh_shape}: record {kr.tolist()} "
+                                     f"!= unsharded {r1.tolist()}")
+            if p_sst is not None:
+                p_sst, pr = cca.run_chunk(cfg, BFS, p_sst)
+                leaf_diff(got, to_device(cca.gather_state(p_sst), "cuda"))
+                assert pr.tolist() == kr.tolist()
+            q, chunks = bool(kr[0]), chunks + 1
+        cycles += int(one.cycle) - c0
+    eng.state = one
+    want = bfs_levels(cfg.n_vertices, np.concatenate(incs), 0)
+    if not (eng.values() == want).all():
+        raise AssertionError(f"{mesh_shape}: BFS != oracle")
+    got = {p: ops.tile_launches[p] - before[p] for p in ops.PATHS}
+    n_tiles = mesh_shape[0] * mesh_shape[1]
+    if sum(got.values()) != n_tiles * chunks * cfg.chunk:
+        raise AssertionError(f"{mesh_shape}: tile launches {got}, "
+                             f"{chunks} chunks of {n_tiles} tiles")
+    return dict(chunks=chunks, cycles=cycles, tile_launches=got)
+
+
+def dist_phase_parity() -> dict:
+    """Phase 40: the JAX parity config and the pinned 8x8 stream, tiled
+    over every mesh of ``DIST_MESHES``, held chunk by chunk against the
+    unsharded kernel, and against the plain tile step on the CPU (every
+    mesh on the parity config, (2, 2) on the pinned stream)."""
+    out = {}
+    pinned = json.loads((ROOT / "tests" / "data"
+                         / "pre_lanes_reference.json").read_text())
+    streams = (("parity", *dist_bench.scale_config("ci"), DIST_MESHES),
+               ("pinned", EngineConfig(**pinned["cfg"]),
+                make_stream(StreamSpec(**pinned["spec"])), ((2, 2),)))
+    for name, cfg, incs, plain in streams:
+        incs = [incs] if isinstance(incs, np.ndarray) else incs
+        for m in DIST_MESHES:
+            t0 = time.time()
+            r = sharded_stream(cfg, incs, m, m in plain)
+            r["wall_s"] = round(time.time() - t0, 3)
+            out[f"{name} {m[0]}x{m[1]}"] = r
+            print(f"[40] {name} on a {m[0]}x{m[1]} mesh of LocalTiles: "
+                  f"{r['chunks']} chunks, {r['cycles']} cycles, gathered "
+                  f"tiles == unsharded kernel"
+                  + (" == plain tiles" if m in plain else "")
+                  + f" on every leaf, chunk by chunk; BFS == oracle; tile "
+                  f"launches {r['tile_launches']} ({r['wall_s']}s)",
+                  flush=True)
+    return out
+
+
+def dist_phase_fingerprint() -> dict:
+    """Phase 41: the 32x32 fingerprint stream tiled over (4, 1) and (2, 2),
+    each increment to quiescence through ``dist.cca.run_to_quiescence``,
+    its counters and the final values the fingerprint's."""
+    fp = json.loads((ROOT / "src" / "repro_torch" / "data"
+                     / "fingerprint_32x32.json").read_text())
+    cfg_fields = EngineConfig.__dataclass_fields__
+    cfg = EngineConfig(**{k: v for k, v in fp["cfg"].items()
+                          if k in cfg_fields})
+    incs = make_stream(StreamSpec(**fp["spec"]))
+    want = [{k: r[k] for k in ("cycles", "hops", "execs", "stalls",
+                               "allocs")} for r in fp["increments"]]
+    out = {}
+    for m in ((4, 1), (2, 2)):
+        eng = StreamingEngine(cfg, "bfs")
+        eng.seed(0, 0.0)
+        sst = cca.shard_state(eng.cfg, eng.state, make_host_mesh(*m))
+        before = dict(ops.tile_launches)
+        t0 = time.time()
+        rows = []
+        for e in incs:
+            assert len(cca.load_stream(eng.cfg, sst, e)) == 0
+            cca.reset_counters(sst)
+            cyc, q, _, (h, x, st_, al) = cca.run_to_quiescence(
+                eng.cfg, BFS, sst, limit=fp["max_cycles"])
+            assert q, f"{m}: not quiescent"
+            rows.append(dict(cycles=cyc, hops=h, execs=x, stalls=st_,
+                             allocs=al))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        if rows != want:
+            raise AssertionError(f"41 {m}: {rows} != the fingerprint")
+        eng.state = cca.gather_state(sst)
+        assert (eng.values() == np.float32(fp["values"])).all()
+        got = {p: ops.tile_launches[p] - before[p] for p in ops.PATHS}
+        cycles = sum(r["cycles"] for r in rows)
+        out[f"{m[0]}x{m[1]}"] = dict(cycles=cycles, wall_s=round(wall, 3),
+                                     tile_launches=got)
+        print(f"[41] 32x32 fingerprint on a {m[0]}x{m[1]} mesh of "
+              f"LocalTiles reproduced exactly: {cycles} cycles, {wall:.3f}s "
+              f"wall, tile launches {got}", flush=True)
+    return out
+
+
+def cuda_events_ms(fn) -> float:
+    a, b = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b)
+
+
+def dist_phase_paper(cfg_p, st) -> dict:
+    """Phase 42, the distribution path's main run: phase 6's full-size
+    state (50K / 1M, the last increment loaded) tiled over a (4, 1) mesh,
+    four K=128 chunks, the counts set to 0 just before; each chunk's
+    gathered state == the unsharded kernel's on every leaf.  The ms a
+    chunk and a cycle by CUDA events; then 128 halo exchanges and 128
+    flag reductions alone, the ms of each a cycle."""
+    mesh = make_host_mesh(4, 1)
+    sst = cca.shard_state(cfg_p, clone(st), mesh)
+    one = clone(st)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    times, cycles, d = [], 0, 0.0
+    for k in range(4):
+        box = {}
+
+        def chunk():
+            box["r"] = cca.run_chunk(cfg_p, BFS, sst, n_cycles=128)[1]
+        times.append(cuda_events_ms(chunk))
+        kr = box["r"]
+        one, r1 = ops.cca_cycle_chunk(cfg_p, BFS, one, 128)
+        d = max(d, leaf_diff(cca.gather_state(sst), one))
+        if not torch.equal(kr, r1):
+            raise AssertionError(f"42: record {kr.tolist()} != "
+                                 f"{r1.tolist()}")
+        cycles += int(kr[1])
+    launches, by_path = ops.launches, dict(ops.path_launches)
+    tiles = dict(ops.tile_launches)
+    if launches != 4 * 128 * 4 + 4 or sum(tiles.values()) != 4 * 128 * 4:
+        raise AssertionError(f"42: launches {launches} {by_path}, tile "
+                             f"launches {tiles}")
+    ex_ms = cuda_events_ms(lambda: [sst.exchange() for _ in range(128)])
+    red_ms = cuda_events_ms(lambda: [sst.reduce_quiet()
+                                     for _ in range(128)])
+    ms_cycle = sum(times) / cycles
+    geo = ops.tile_route(cfg_p, sst.grid.shape)
+    words = int(sst.plan.send.numel())
+    print(f"[42] 50K/1M state on a 4x1 mesh of LocalTiles ({sst.grid.shape} "
+          f"cells a tile, cluster geometry {geo}): 4 K=128 chunks == the "
+          f"unsharded kernel on every leaf, {cycles} cycles; chunks "
+          f"{', '.join(f'{t:.3f}' for t in times)} ms = {ms_cycle:.4f} ms a "
+          f"cycle; the halo exchange alone {ex_ms / 128:.4f} ms a cycle "
+          f"({words} words), the flag reduction {red_ms / 128:.4f} ms; "
+          f"launches {launches} by kernel {by_path}, of them tile steps "
+          f"{tiles} (4 tiles x 128 cycles x 4 chunks)", flush=True)
+    return dict(launches=launches, launches_by_path=by_path,
+                tile_launches=tiles, chunk_ms=times, ms_per_cycle=ms_cycle,
+                exchange_ms_per_cycle=ex_ms / 128,
+                reduce_ms_per_cycle=red_ms / 128, halo_words=words,
+                tile_shape=list(sst.grid.shape), geometry=geo,
+                max_abs_err=d, cycles=cycles)
+
+
+def dist_phase_bench() -> dict:
+    """Phase 43: ``dist_bench`` at ci and mid over 1/2/4/8 tiles."""
+    out = {}
+    for scale in ("ci", "mid"):
+        out[scale] = rows = dist_bench.run_local(scale)
+        for r in rows:
+            print(f"[43] dist_bench {scale}: {json.dumps(r)}", flush=True)
+    return out
+
+
+def dist_phase_gcn() -> dict:
+    """Phase 44: the gcn forward (gcn-cora at published width) on
+    full_graph_sm with a 4-tile mesh registered (owner-partitioned edges,
+    ``spmm_partitioned``) against the unsharded forward, 2e-2 as JAX's
+    test holds it."""
+    shapes = {s.name: s for s in gnn_shapes()}
+    spec = shapes["full_graph_sm"]
+    cfg = dataclasses.replace(gnn_archs.GCN_CORA, d_in=spec.dim("d_feat"))
+    dev = torch.device("cuda")
+    g = build_graph(cfg, spec, device=dev)
+    params = gnn.init_gnn_params(
+        cfg, torch.Generator(device=dev).manual_seed(44))
+    want = gnn.gnn_forward(cfg, params, g)
+    n = g.x.shape[0]
+    part = torch.from_numpy(partition_edges(g.edge_index.cpu().numpy(), n,
+                                            4)).to(dev)
+    set_dist_mesh(make_host_mesh(4, 1))
+    try:
+        t0 = time.time()
+        got = gnn.gnn_forward(cfg, params, gnn.Graph(x=g.x, edge_index=part))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        set_dist_mesh(None)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+    print(f"[44] gcn-cora on full_graph_sm ({n} nodes, "
+          f"{part.shape[1]} partitioned edge slots over 4 tiles): the mesh "
+          f"forward == the unsharded forward within 2e-2 (max |d| {err:.3g}; "
+          f"{wall:.3f}s)", flush=True)
+    return dict(max_abs_err=err, wall_s=wall, edge_slots=int(part.shape[1]))
+
+
+def dist_phases(cfg_p, st) -> dict:
+    """Phases 40-44, each with its time."""
+    out = {}
+    for name, fn in (("parity", dist_phase_parity),
+                     ("fingerprint", dist_phase_fingerprint),
+                     ("paper", lambda: dist_phase_paper(cfg_p, st)),
+                     ("bench", dist_phase_bench), ("gcn", dist_phase_gcn)):
+        t0 = time.time()
+        out[name] = fn()
+        print(f"[40-44] {name}: {time.time() - t0:.1f}s", flush=True)
+    return out
+
+
 def experiment_phases(smi: str) -> dict:
     """Phase 17: the paper's experiments at 50K vertices / 1M edges through
     ``launch/paper_experiments.py``, every launch on the cluster kernel
@@ -3682,6 +3974,10 @@ def main() -> None:
     mq_serve = mq_phase_serve()
     mq_paper = mq_phase_paper(1e6 * t_block / ran)
 
+    # ---- 40-44. distribution: the grid tiled over ranks, one cycle a tile
+    # step of the kernels' tile instance, the halo exchanged a cycle ----
+    dist = dist_phases(cfg_p, st)
+
     cca_entry = {
         "name": "cca_cycle_chunk", "route": "cuda",
         "source": "src/repro_torch/kernels/cca_cycle/csrc/"
@@ -3699,7 +3995,14 @@ def main() -> None:
         "library_ms": None, "chunk_cycles": ran, "ptxas": cca_ptxas,
         "branches": ["traces", "ingest_only", "random_allocator", "lanes",
                      "park", "rhizomes", "widest", "reliable", "telemetry",
-                     "faults", "recovery", "ingest_guard", "qbatch"],
+                     "faults", "recovery", "ingest_guard", "qbatch",
+                     "tile"],
+        "tile": dict(
+            main_path=dist["paper"], launches=dist["paper"]["tile_launches"],
+            ms_per_cycle=dist["paper"]["ms_per_cycle"],
+            exchange_ms_per_cycle=dist["paper"]["exchange_ms_per_cycle"],
+            parity=dist["parity"], fingerprint=dist["fingerprint"],
+            dist_bench=dist["bench"], gcn_partitioned=dist["gcn"]),
         "query_batched": dict(
             chunk_q8_k256=dict(path="block", ms=mq_chunk["ms"],
                                plain_ms=mq_chunk["plain_ms"],

@@ -73,11 +73,11 @@ from repro_torch.core.alloc import rhizome_rcs
 from repro_torch.core.apps import APPS, DiffusionApp
 from repro_torch.core.config import EngineConfig
 from repro_torch.core.exec_stage import phase0_stage, staging_stage
-from repro_torch.core.ingest import io_stage, load_stream
+from repro_torch.core.ingest import _io_cells, io_stage, load_stream
 from repro_torch.core.routing import hop_stage, park_stage
 from repro_torch.core.state import (TM_HOP, TM_HW_AQ, TM_L_OCC,
-                                    MachineState, init_state, resolve_device,
-                                    state_from_numpy)
+                                    MachineState, init_state, owned,
+                                    resolve_device, state_from_numpy)
 from repro_torch.obs import frames as obs_frames
 from repro_torch.obs.flight import render_wedge_report
 
@@ -94,44 +94,86 @@ class CycleStats(NamedTuple):
     quiescent: torch.Tensor   # bool
 
 
-def _rc(cfg: EngineConfig, device):
-    rows = torch.arange(cfg.height, dtype=torch.int32, device=device)
-    cols = torch.arange(cfg.width, dtype=torch.int32, device=device)
-    return (rows[:, None].expand(cfg.height, cfg.width),
-            cols[None, :].expand(cfg.height, cfg.width))
+def _rc(cfg: EngineConfig, device, tile=None, shape=None):
+    """The global row and column of every cell of the state's arrays,
+    ``[h, w]`` int32 each: the whole grid, or a ``tile``'s arrays of
+    ``shape``."""
+    h, w = (cfg.height, cfg.width) if tile is None else shape
+    r0, c0 = (0, 0) if tile is None else (tile.r0, tile.c0)
+    rows = torch.arange(r0, r0 + h, dtype=torch.int32, device=device)
+    cols = torch.arange(c0, c0 + w, dtype=torch.int32, device=device)
+    return rows[:, None].expand(h, w), cols[None, :].expand(h, w)
 
 
-def quiescent(st: MachineState) -> torch.Tensor:
-    """0-d bool: no work left anywhere in the machine."""
-    return ((st.aq_n.sum() == 0) & (st.ch_n.sum() == 0)
-            & (st.pk_n.sum() == 0) & ~st.cvalid.any()
-            & (st.fq_n.sum() == 0) & ~st.fwd_pending.any()
-            & ((st.io_n - st.io_pos).sum() == 0))
+def quiescent(st: MachineState, tile=None) -> torch.Tensor:
+    """0-d bool: no work left anywhere in the machine (on a ``tile``: in
+    the cells and IO cells it owns)."""
+    if tile is None:
+        return ((st.aq_n.sum() == 0) & (st.ch_n.sum() == 0)
+                & (st.pk_n.sum() == 0) & ~st.cvalid.any()
+                & (st.fq_n.sum() == 0) & ~st.fwd_pending.any()
+                & ((st.io_n - st.io_pos).sum() == 0))
+    own = tile.own_mask(*st.aq_n.shape, st.aq_n.device)
+    io = _io_cells(st.io_n.shape[0], tile, st.io_n.device)
+    pending = (0 if io is None
+               else (st.io_n[io[0]] - st.io_pos[io[0]]).sum())
+    return (~(owned(st.aq_n != 0, own).any() | owned(st.ch_n != 0, own).any()
+              | owned(st.pk_n != 0, own).any() | owned(st.cvalid, own).any()
+              | owned(st.fq_n != 0, own).any()
+              | owned(st.fwd_pending, own).any())
+            & (pending == 0))
 
 
-def cycle_body(cfg: EngineConfig, app: DiffusionApp, st: MachineState):
+def cycle_body(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
+               tile=None):
     """One machine cycle: hop -> park (lanes > 1) -> staging -> phase0 ->
     io.  Returns the new state and the per-cell activity masks and hop
-    count of the cycle."""
-    rows, cols = _rc(cfg, st.aq_n.device)
+    count of the cycle.  On a ``tile`` (``core.state.Tile``) the stages
+    route in global coordinates and count the owned cells only; the
+    cells it does not own come out stale (its halo), for the caller's
+    exchange to refresh."""
+    dev = st.aq_n.device
+    rows, cols = _rc(cfg, dev, tile, tuple(st.aq_n.shape))
+    own = None if tile is None else tile.own_mask(*st.aq_n.shape, dev)
     busy0 = st.cvalid
     if cfg.telemetry:
         # lane occupancy at cycle entry (mean depth = TM_L_OCC / cycles)
         tm = st.tm_lane.clone()
         tm[..., TM_L_OCC] += st.ch_n
         st = st._replace(tm_lane=tm)
-    st, hops = hop_stage(cfg, st, rows, cols)
+    st, hops = hop_stage(cfg, st, rows, cols, own)
     if cfg.lanes > 1:
         # while the lane slots the hops just vacated are free
         st = park_stage(cfg, st, rows, cols)
-    st, active_a = staging_stage(cfg, app, st, rows, cols)
-    st, popped = phase0_stage(cfg, app, st, rows, cols, busy0)
-    st = io_stage(cfg, st, rows, cols)
+    st, active_a = staging_stage(cfg, app, st, rows, cols, own)
+    st, popped = phase0_stage(cfg, app, st, rows, cols, busy0, own)
+    st = io_stage(cfg, st, rows, cols, tile)
     if cfg.telemetry:
         hw = torch.stack([st.aq_n, st.pk_n], dim=-1)
         st = st._replace(tm_hiw=torch.maximum(st.tm_hiw, hw))
     st = st._replace(cycle=st.cycle + 1, stat_hops=st.stat_hops + hops)
     return st, (active_a, popped, hops)
+
+
+def run_chunk(cfg: EngineConfig, app: DiffusionApp, st: MachineState):
+    """One chunk of ``cfg.chunk`` cycles, frozen once quiescent
+    (``repro/core/engine.py::run_chunk``): one launch of the cycle kernel
+    for a state on the card, the plain version on the CPU.  Returns
+    ``(state, int32 [quiescent at end, cycles run])``; the per-cycle
+    stats of JAX's scan come from ``ops.cca_cycle_chunk(trace=)``."""
+    from repro_torch.kernels.cca_cycle.ops import cca_cycle_chunk
+    return cca_cycle_chunk(cfg, app, st)
+
+
+def run_chunk_body(cfg: EngineConfig, app: DiffusionApp,
+                   st: MachineState) -> MachineState:
+    """Exactly ``cfg.chunk`` cycles, never frozen
+    (``repro/core/engine.py::run_chunk_body``).  A cycle of a quiescent
+    machine moves nothing but the cycle counter (no queue, channel, park
+    ring, action, deferred task or stream entry to act on), so this is
+    :func:`run_chunk` with the cycles it froze added to ``cycle``."""
+    st, rec = run_chunk(cfg, app, st)
+    return st._replace(cycle=st.cycle + (cfg.chunk - rec[1]))
 
 
 def cycle_step(cfg: EngineConfig, app: DiffusionApp, st: MachineState):

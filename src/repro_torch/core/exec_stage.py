@@ -43,7 +43,8 @@ from repro_torch.core.msg import (MSG_WORDS, OP_ALLOC, OP_APP,
 from repro_torch.core.routing import deliver, msg_lane, yx_target_buffer
 from repro_torch.core.state import (G_NULL, G_PENDING, G_SET, TM_ALLOC,
                                     TM_BCAST, TM_EXEC, TM_PARK, TM_STAGE,
-                                    TM_STALL, MachineState, tm_cell_add)
+                                    TM_STALL, MachineState, owned,
+                                    tm_cell_add)
 
 
 def _oh(idx, n, mask=None):
@@ -101,8 +102,8 @@ def _msg_makers(cfg: EngineConfig):
 # --------------------------------------------------------------------------
 
 def staging_stage(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
-                  rows, cols):
-    H, W, S, E = cfg.height, cfg.width, cfg.slots, cfg.edge_cap
+                  rows, cols, own=None):
+    W, S, E = cfg.width, cfg.slots, cfg.edge_cap
     QB = cfg.qbatch
     qmsg, wm = _msg_makers(cfg)
     active = st.cvalid & (st.cphase >= 1) & (st.cphase <= st.cT)
@@ -157,7 +158,7 @@ def staging_stage(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
         # a deferred-queue entry carries one value word; slots 1.. ride
         # as their app's init_val (no-op relaxes)
         qn = f2i(neutral_vec(app.init_val, ga.device))[1:].expand(
-            H, W, QB - 1)
+            *ga.shape, QB - 1)
         sf_fq_app = make_qmsg(OP_APP, ga, torch.cat([fq_e[..., 1:2], qn],
                                                     dim=-1))
     sf_fq_msg = torch.where(
@@ -237,10 +238,10 @@ def staging_stage(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
         fq_n=fq_n, fq_head=fq_head,
         fwd_val=fwd_val, fwd_pending=fwd_pending,
         cphase=new_phase, cvalid=st.cvalid & ~done,
-        stat_exec=st.stat_exec + done.sum(dtype=torch.int32),
+        stat_exec=st.stat_exec + owned(done, own).sum(dtype=torch.int32),
         # a parked emission counts as a stall too
-        stat_stall=st.stat_stall + stall.sum(dtype=torch.int32)
-        + parked.sum(dtype=torch.int32))
+        stat_stall=st.stat_stall + owned(stall, own).sum(dtype=torch.int32)
+        + owned(parked, own).sum(dtype=torch.int32))
     if cfg.telemetry:
         # a park is no TM_STALL: sum(TM_STALL) + sum(TM_PARK) == stalls
         st = tm_cell_add(st, (TM_STAGE, active & ok_total),
@@ -254,8 +255,8 @@ def staging_stage(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
 # --------------------------------------------------------------------------
 
 def phase0_stage(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
-                 rows, cols, busy_at_start):
-    H, W, S, E = cfg.height, cfg.width, cfg.slots, cfg.edge_cap
+                 rows, cols, busy_at_start, own=None):
+    W, S, E = cfg.width, cfg.slots, cfg.edge_cap
     FQ, Q = cfg.futq_cap, cfg.queue_cap
     QB = cfg.qbatch
     _, wm = _msg_makers(cfg)
@@ -464,19 +465,21 @@ def phase0_stage(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
                else torch.where(relaxing[..., None], new_vals, st.cemit)),
         cout=cout,
         cdrain=torch.where(pop, torch.where(is_rf, drain_n, 0), st.cdrain),
-        stat_exec=st.stat_exec + (pop & (T == 0)).sum(dtype=torch.int32),
-        stat_allocs=st.stat_allocs + alc_room.sum(dtype=torch.int32),
-        stat_stall=st.stat_stall + rotate.sum(dtype=torch.int32))
+        stat_exec=st.stat_exec
+        + owned(pop & (T == 0), own).sum(dtype=torch.int32),
+        stat_allocs=st.stat_allocs + owned(alc_room, own).sum(
+            dtype=torch.int32),
+        stat_stall=st.stat_stall + owned(rotate, own).sum(dtype=torch.int32))
     if QB > 1:
         # per-query activity: a slot that relaxed nowhere this cycle is a
         # cycle closer to its own quiescence; the session diffs qchg over
         # increments and reads qlast as the slot's settle cycle
-        dq = changed_q.sum(dim=(0, 1), dtype=torch.int32)
+        dq = owned(changed_q, own).sum(dim=(0, 1), dtype=torch.int32)
         st = st._replace(qchg=st.qchg + dq,
                          qlast=torch.where(dq > 0, st.cycle, st.qlast))
     if cfg.faults is not None:
         flt = st.flt.clone()
-        flt[FLT_CORRUPT] += bad.sum(dtype=torch.int32)
+        flt[FLT_CORRUPT] += owned(bad, own).sum(dtype=torch.int32)
         st = st._replace(flt=flt)
     if cfg.telemetry:
         st = tm_cell_add(st, (TM_EXEC, pop), (TM_ALLOC, alc_room),

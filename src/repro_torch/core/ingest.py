@@ -68,15 +68,38 @@ def load_stream(cfg: EngineConfig, st: MachineState, edges: np.ndarray,
     return st, edges[~placed]
 
 
-def io_stage(cfg: EngineConfig, st: MachineState, rows, cols):
-    """One injection attempt per IO cell per cycle (vectorized on row 0)."""
-    S, Q, IO = cfg.slots, cfg.queue_cap, cfg.io_cells
+def _io_cells(IO: int, tile, dev):
+    """The IO cells a stage serves: their IO indices (= their global
+    columns) and their row and columns in the state's arrays -- all of row
+    0 without a tile; on a tile (``core.state.Tile``) the IO cells it owns,
+    ``None`` if it owns none."""
+    if tile is None:
+        io = torch.arange(IO, device=dev)
+        return io, 0, io
+    row = -tile.r0
+    g0, g1 = max(tile.c0 + tile.oc0, 0), min(tile.c0 + tile.oc1, IO)
+    if not tile.or0 <= row < tile.or1 or g0 >= g1:
+        return None
+    io = torch.arange(g0, g1, device=dev)
+    return io, row, io - tile.c0
+
+
+def io_stage(cfg: EngineConfig, st: MachineState, rows, cols, tile=None):
+    """One injection attempt per IO cell per cycle (vectorized on row 0;
+    on a ``tile``, over the IO cells it owns)."""
+    S, Q = cfg.slots, cfg.queue_cap
     dev = st.io_pos.device
-    pend = st.io_pos < st.io_n                                  # [IO]
-    cur = st.io_edges[torch.arange(IO, device=dev),
-                      torch.clamp(st.io_pos, max=cfg.io_stream_cap - 1).long()]
-    r0 = torch.zeros(IO, dtype=torch.int32, device=dev)
-    c0 = torch.arange(IO, dtype=torch.int32, device=dev)
+    cells = _io_cells(cfg.io_cells, tile, dev)
+    if cells is None:
+        return st
+    io, row, lc = cells
+    n = io.numel()
+    io_pos = st.io_pos[io]
+    pend = io_pos < st.io_n[io]                                 # [n]
+    cur = st.io_edges[io, torch.clamp(io_pos,
+                                      max=cfg.io_stream_cap - 1).long()]
+    r0 = torch.zeros(n, dtype=torch.int32, device=dev)
+    c0 = io.to(torch.int32)
     # the insert goes to the source vertex's rhizome root k with the least
     # dist + pref * half_diam: pref = (k - io_pos) % R rotates a hub's
     # inserts over its roots, unless another root is more than half a
@@ -84,10 +107,10 @@ def io_stage(cfg: EngineConfig, st: MachineState, rows, cols):
     # rhizome_cap=1).  The edge's destination names its canonical root.
     R = cfg.rhizome_cap
     ks = torch.arange(R, dtype=torch.int32, device=dev)[None, :]
-    cand = rhizome_addr(cfg, cur[:, 0:1], ks)                   # [IO, R]
+    cand = rhizome_addr(cfg, cur[:, 0:1], ks)                   # [n, R]
     dist = manhattan_hops(cfg, cand // S, r0[:, None], c0[:, None])
     half_diam = max(1, (cfg.height + cfg.width - 2) // 2)
-    pref = (ks - st.io_pos[:, None]) % R
+    pref = (ks - io_pos[:, None]) % R
     best = torch.argmin(dist + pref * half_diam, dim=1)  # first minimum
     tgt = cand.gather(1, best[:, None])[:, 0]
     msg = make_msg(OP_INSERT_EDGE, tgt, root_addr(cfg, cur[:, 1]), cur[:, 2])
@@ -108,18 +131,19 @@ def io_stage(cfg: EngineConfig, st: MachineState, rows, cols):
     tb = yx_target_buffer(cfg, tgt // S, r0, c0)
     # injected inserts are application traffic: the app-level AQ reserve
     aq0, aqn0, ch0, chn0, accepted = deliver(
-        cfg, st.aq[0], st.aq_n[0], st.aq_head[0],
-        st.ch[0], st.ch_n[0], st.ch_head[0], msg, tb,
+        cfg, st.aq[row, lc], st.aq_n[row, lc], st.aq_head[row, lc],
+        st.ch[row, lc], st.ch_n[row, lc], st.ch_head[row, lc], msg, tb,
         msg_lane(cfg, msg[..., 0], msg[..., 1]), pend,
-        rings.ring_free(st.aq_n[0], Q, cfg.aq_reserve + cfg.sys_reserve))
-    aq, aq_n, ch, ch_n = (st.aq.clone(), st.aq_n.clone(), st.ch.clone(),
-                          st.ch_n.clone())
-    aq[0], aq_n[0], ch[0], ch_n[0] = aq0, aqn0, ch0, chn0
-    st = st._replace(aq=aq, aq_n=aq_n, ch=ch, ch_n=ch_n,
-                     io_pos=st.io_pos + accepted.to(torch.int32))
+        rings.ring_free(st.aq_n[row, lc], Q, cfg.aq_reserve + cfg.sys_reserve))
+    aq, aq_n, ch, ch_n, pos = (st.aq.clone(), st.aq_n.clone(), st.ch.clone(),
+                               st.ch_n.clone(), st.io_pos.clone())
+    aq[row, lc], aq_n[row, lc], ch[row, lc], ch_n[row, lc] = \
+        aq0, aqn0, ch0, chn0
+    pos[io] = io_pos + accepted.to(torch.int32)
+    st = st._replace(aq=aq, aq_n=aq_n, ch=ch, ch_n=ch_n, io_pos=pos)
     if cfg.telemetry:
         # IO cell i sits on row 0, column i
         tm = st.tm_cell.clone()
-        tm[0, :, TM_IO] += accepted.to(torch.int32)
+        tm[row, lc, TM_IO] += accepted.to(torch.int32)
         st = st._replace(tm_cell=tm)
     return st

@@ -24,7 +24,8 @@ from repro_torch.core.msg import (DIR_E, DIR_N, DIR_S, DIR_W, N_DIRS,
                                   OP_SET_FUTURE, TB_AQ_SELF, TB_CHAN_E,
                                   TB_CHAN_N, TB_CHAN_S, TB_CHAN_W)
 from repro_torch.core.state import (TM_HOP, TM_L_BLOCK, TM_L_GRANT,
-                                    TM_UNPARK, MachineState, tm_cell_add)
+                                    TM_UNPARK, MachineState, owned,
+                                    tm_cell_add)
 
 
 def is_protocol(op):
@@ -143,14 +144,17 @@ def shift_to_sender(arr, d):
     return arr
 
 
-def valid_receiver_mask(cfg: EngineConfig, d, device):
-    """``[H, W]`` bool: True where a receiver's direction-``d`` sender
-    exists on the mesh (not a torus wrap of the roll)."""
+def valid_receiver_mask(cfg: EngineConfig, d, rows, cols):
+    """``[h, w]`` bool: True where a receiver at global ``(rows, cols)``
+    and its direction-``d`` sender both lie on the mesh (not a torus wrap
+    of the roll, nor a tile's phantom cell outside the grid)."""
     H, W = cfg.height, cfg.width
-    r = torch.arange(H, device=device)[:, None]
-    c = torch.arange(W, device=device)[None, :]
-    m = {DIR_N: r < H - 1, DIR_S: r > 0, DIR_W: c < W - 1, DIR_E: c > 0}[d]
-    return m.expand(H, W)
+    dy, dx = _SHIFT[d]
+
+    def inside(r, c):
+        return (r >= 0) & (r < H) & (c >= 0) & (c < W)
+
+    return inside(rows, cols) & inside(rows - dy, cols - dx)
 
 
 def _aq_room(cfg: EngineConfig, op, aq_n):
@@ -164,7 +168,7 @@ def _aq_room(cfg: EngineConfig, op, aq_n):
                                        + cfg.sys_reserve))
 
 
-def hop_stage(cfg: EngineConfig, st: MachineState, rows, cols):
+def hop_stage(cfg: EngineConfig, st: MachineState, rows, cols, own=None):
     """One routing cycle: every link carries at most one message, the
     round-robin lane arbiter picks which.  Each direction round reads the
     receivers' queue counts as the earlier rounds of this cycle left
@@ -182,7 +186,9 @@ def hop_stage(cfg: EngineConfig, st: MachineState, rows, cols):
     the drop count; a duplicated flit is delivered and kept by the
     sender; a corrupted flit has a bit of its value word flipped in the
     copy that travels, for the seal check at pop to catch.
-    Returns ``(state, hops_this_cycle)``."""
+    ``rows`` / ``cols`` are the cells' global coordinates; on a tile
+    (``own``, its owned cells) the hops and fault counts are the owned
+    receivers' and senders'.  Returns ``(state, hops_this_cycle)``."""
     L, LC = cfg.lanes, cfg.lane_capacity
     dev = rows.device
     hops = torch.zeros((), dtype=torch.int32, device=dev)
@@ -207,7 +213,7 @@ def hop_stage(cfg: EngineConfig, st: MachineState, rows, cols):
                               rings._iota(3, dev)[:, None, None, None] + 1)
 
     for d in (DIR_N, DIR_S, DIR_W, DIR_E):
-        valid = valid_receiver_mask(cfg, d, dev)
+        valid = valid_receiver_mask(cfg, d, rows, cols)
         heads = rings.ring_peek(ch[:, :, d], ch_head[:, :, d])  # [H,W,L,MSG]
         occ = ch_n[:, :, d] > 0                                 # [H,W,L]
         msg_r = shift_to_receiver(heads, d)
@@ -225,12 +231,10 @@ def hop_stage(cfg: EngineConfig, st: MachineState, rows, cols):
             for (br, bc, bd, b0, bn) in plan.blackouts:
                 if bd != d:
                     continue
-                dead = torch.zeros((cfg.height, cfg.width), dtype=torch.bool,
-                                   device=dev)
-                dead[br, bc] = True
-                dead &= (st.cycle >= b0) & (st.cycle < b0 + bn)
-                flt[FLT_BLACKOUT] += (dead[..., None] & adm_s).sum(
-                    dtype=torch.int32)
+                dead = ((rows == br) & (cols == bc)
+                        & (st.cycle >= b0) & (st.cycle < b0 + bn))
+                flt[FLT_BLACKOUT] += owned(dead[..., None] & adm_s,
+                                           own).sum(dtype=torch.int32)
                 adm_s = adm_s & ~dead[..., None]
 
         # round-robin grant: the admissible lane closest after ch_rr wins
@@ -284,10 +288,10 @@ def hop_stage(cfg: EngineConfig, st: MachineState, rows, cols):
         if dup_s is not None:
             dup_r = accepted_r & shift_to_receiver(dup_s, d)
             popped_r = departed_r & ~dup_r      # the sender keeps a dup
-            flt[FLT_DUP] += dup_r.sum(dtype=torch.int32)
+            flt[FLT_DUP] += owned(dup_r, own).sum(dtype=torch.int32)
         if drop_r is not None:
-            flt[FLT_DROP] += drop_r.sum(dtype=torch.int32)
-        hops = hops + departed_r.sum(dtype=torch.int32)
+            flt[FLT_DROP] += owned(drop_r, own).sum(dtype=torch.int32)
+        hops = hops + owned(departed_r, own).sum(dtype=torch.int32)
         # pop the granted lane at the sender (after the push above: a
         # cell that forwards straight on pushes with the pre-pop count);
         # the pointer moves past the lane on every departure

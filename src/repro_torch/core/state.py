@@ -122,6 +122,40 @@ class MachineState(NamedTuple):
     qlast: torch.Tensor       # [Q] i32
 
 
+class Tile(NamedTuple):
+    """Where a tile of the cell grid sits (``repro_torch.dist.cca``): a
+    state whose per-cell leaves are ``[h, w, ...]`` covers the global rows
+    ``r0 .. r0 + h - 1`` and columns ``c0 .. c0 + w - 1`` (a halo around
+    the cells it owns; rows or columns outside the grid are phantom cells,
+    empty and never reached), and owns the cells ``[or0, or1) x [oc0,
+    oc1)`` of its own arrays.  Routing, addresses, the allocator and the IO
+    cells work in global coordinates; the counters and the quiescence test
+    count the owned cells only.  ``None`` wherever a stage takes a tile:
+    the whole grid, owned."""
+    r0: int
+    c0: int
+    or0: int
+    or1: int
+    oc0: int
+    oc1: int
+
+    def own_mask(self, h: int, w: int, device) -> torch.Tensor:
+        """``[h, w]`` bool: the owned cells."""
+        r = torch.arange(h, device=device)[:, None]
+        c = torch.arange(w, device=device)[None, :]
+        return ((r >= self.or0) & (r < self.or1)
+                & (c >= self.oc0) & (c < self.oc1))
+
+
+def owned(mask: torch.Tensor, own) -> torch.Tensor:
+    """``mask`` on a tile's owned cells (``own``, a ``[h, w]`` bool mask
+    broadcast over ``mask``'s trailing axes), ``mask`` itself without
+    one."""
+    if own is None:
+        return mask
+    return mask & own.reshape(own.shape + (1,) * (mask.dim() - 2))
+
+
 def resolve_device(device) -> torch.device:
     """The port's entry points run on the card unless told otherwise:
     ``None`` means ``cuda``, and raises when there is no card."""

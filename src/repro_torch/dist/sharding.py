@@ -1,0 +1,185 @@
+"""Sharding rules for every workload family (the port of
+``repro.dist.sharding``), as per-leaf spec tuples.
+
+Each rule returns the tree it was given with a spec in place of each leaf:
+the entries JAX's ``NamedSharding.spec`` holds, leaf by leaf, for the same
+shapes and mesh shape.  The headline map is :func:`cca_state_shardings`:
+the engine's machine state laid over the ``(data, model)`` mesh by cell
+ROWS over the data-parallel group and cell COLUMNS over ``model``, so
+each rank owns a contiguous tile of compute cells
+(``repro_torch.dist.cca`` lays the state out by this rule and says where
+its ``[IO]`` leaves depart from it).  Per leaf:
+
+* rank >= 2 with both leading dims divisible -> ``(dp, "model", ...)``,
+* rank >= 1 with the leading dim divisible   -> ``(dp, ...)``,
+* everything else                             -> replicated.
+
+Every rule degrades per dimension to replicated where an axis is missing
+from the mesh or does not divide (``ctx.resolve_spec``).
+"""
+from __future__ import annotations
+
+import math
+
+from repro_torch.dist.ctx import dp_axes_active, model_size, resolve_spec
+
+
+def pad_to(n: int, mult: int) -> int:
+    """Round ``n`` up to a multiple of ``mult`` (mult <= 1 -> n)."""
+    if mult <= 1:
+        return int(n)
+    return int(-(-int(n) // int(mult)) * int(mult))
+
+
+def tree_map(fn, tree):
+    """``fn`` on every leaf of nested dicts, lists, tuples and
+    NamedTuples (anything with a ``shape`` is a leaf)."""
+    if hasattr(tree, "shape"):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    raise TypeError(f"not a tree of arrays: {type(tree).__name__}")
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of ``tree`` (``tree_map``'s), in order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def _dp_entry(mesh):
+    """The data-parallel axis group as a spec entry."""
+    dp = dp_axes_active(mesh)
+    return dp[0] if len(dp) == 1 else tuple(dp)
+
+
+def _dp_size(mesh) -> int:
+    return math.prod(mesh.shape[a] for a in dp_axes_active(mesh)
+                     if a in mesh.axis_names)
+
+
+# ------------------------------------------------------------------ CCA ---
+
+def cca_state_spec(mesh, shape) -> tuple:
+    """The spec of one machine-state leaf of ``shape``."""
+    dp_n, tp_n = _dp_size(mesh), model_size(mesh)
+    spec = [None] * len(shape)
+    if len(shape) >= 2 and shape[0] % dp_n == 0 and shape[1] % tp_n == 0:
+        spec[0], spec[1] = "dp", "model"
+    elif len(shape) >= 1 and shape[0] and shape[0] % dp_n == 0:
+        spec[0] = "dp"
+    return resolve_spec(mesh, shape, spec)
+
+
+def cca_state_shardings(mesh, state_shape):
+    """Per-leaf specs for the engine's ``MachineState`` (``state_shape``:
+    a state, e.g. ``init_state(cfg, device="meta")``)."""
+    return tree_map(lambda l: cca_state_spec(mesh, tuple(l.shape)),
+                    state_shape)
+
+
+# ------------------------------------------------------------------- LM ---
+
+# Per-layer stacked weights: logical axes of the TRAILING dims (the
+# leading L layer-stack dim is replicated).
+_LM_LAYER_AXES = {
+    "wq": ("dp", "model"), "wk": ("dp", "model"), "wv": ("dp", "model"),
+    "wo": ("model", "dp"),
+    "ffn_wi": ("dp", "model"), "ffn_wg": ("dp", "model"),
+    "ffn_wo": ("model", "dp"),
+    "moe_wi": ("model", "dp", None), "moe_wg": ("model", "dp", None),
+    "moe_wo": ("model", None, "dp"),
+    "router": ("dp", None),
+}
+
+
+def lm_param_shardings(mesh, params_shape):
+    """FSDP (d_model over dp) x TP (heads/ffn/experts over model)."""
+    layers = {
+        k: resolve_spec(mesh, v.shape,
+                        (None, *_LM_LAYER_AXES.get(k, (None,)
+                                                   * (len(v.shape) - 1))))
+        for k, v in params_shape["layers"].items()
+    }
+    return dict(
+        embed=resolve_spec(mesh, params_shape["embed"].shape,
+                           ("model", None)),
+        unembed=resolve_spec(mesh, params_shape["unembed"].shape,
+                             ("dp", None)),
+        final_norm=resolve_spec(mesh, params_shape["final_norm"].shape,
+                                (None,)),
+        layers=layers,
+    )
+
+
+def lm_batch_shardings(mesh):
+    spec = (_dp_entry(mesh), None)
+    return dict(tokens=spec, targets=spec)
+
+
+def lm_cache_shardings(mesh, cfg, batch: int):
+    """KV cache (k, v) of ``[L, B, Tmax, K, dh]``: batch over dp; KV heads
+    over model when they divide, else the time axis."""
+    dp = _dp_entry(mesh)
+    bspec = dp if batch > 1 and batch % _dp_size(mesh) == 0 else None
+    if cfg.n_kv_heads % model_size(mesh) == 0:
+        spec = (None, bspec, None, "model", None)
+    else:
+        spec = (None, bspec, "model", None, None)
+    return (spec, spec)
+
+
+# ------------------------------------------------------------------ GNN ---
+
+def gnn_axes(mesh) -> tuple:
+    """Axes the node/edge dimension shards over (graph models flatten the
+    whole mesh into one 'graph' axis group)."""
+    return tuple(a for a in ("data", "model") if a in mesh.axis_names)
+
+
+def gnn_param_shardings(mesh, params_shape):
+    """GNN weights are tiny beside the graph: replicated."""
+    return tree_map(lambda l: (), params_shape)
+
+
+def gnn_graph_shardings(mesh, fields: dict) -> dict:
+    """Specs for the non-None Graph fields: node features row-sharded,
+    every ``*edge_index`` along the edge axis (owner-partitioned buckets
+    line up with the node blocks, ``graph/partition.py``)."""
+    ax = gnn_axes(mesh)
+    ax = ax[0] if len(ax) == 1 else ax
+    out = {}
+    for k, v in fields.items():
+        if v is None:
+            continue
+        out[k] = (None, ax) if k.endswith("edge_index") else (ax, None)
+    return out
+
+
+# ----------------------------------------------------------------- DLRM ---
+
+def dlrm_param_shardings(mesh, params_shape):
+    """Embedding tables row-sharded over 'model' (lookups route to the
+    owning shard); MLPs replicated."""
+    tp = model_size(mesh)
+    tables = [
+        resolve_spec(mesh, t.shape, ("model", None)) if t.shape[0] % tp == 0
+        else ()
+        for t in params_shape["tables"]
+    ]
+    rep = tree_map(lambda l: (), dict(bot=params_shape["bot"],
+                                      top=params_shape["top"]))
+    return dict(tables=tables, bot=rep["bot"], top=rep["top"])
+
+
+def dlrm_batch_shardings(mesh, with_candidates: bool = False):
+    dp = _dp_entry(mesh)
+    out = dict(dense=(dp, None), sparse=(dp, None, None), labels=(dp,))
+    if with_candidates:
+        out["candidates"] = ("model", None)
+    return out

@@ -131,6 +131,16 @@
 // the one-block kernel), added into the state's qchg / qlast once a launch:
 // the cycle only grows, and the host sets qlast to the boundary cycle at
 // admission, so a maximum is the reference's last write.
+//
+// Tiles (dist/cca.py, DESIGN §5) are a fourth compile-time parameter
+// (`kTl`; only without telemetry, faults and query batching): one cycle of
+// a tile of a grid sharded over ranks, its arrays the tile's cells and a
+// halo two cells deep, routing, addresses, the allocator and the IO cells
+// in the grid's coordinates (TileGeo), the counters and the quiescence test
+// over its owned cells, the first quiescence test the grid's (a flag the
+// ranks reduce between launches).  Every tile adjustment sits in an `if
+// constexpr (kTile)` branch beside the code it replaces, so the instances
+// without kTl compile from the same text as before.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -193,6 +203,20 @@ struct QDims {
   int qb, msgw, qapp0, qapp1, qapp2, qapp3;
 };
 constexpr int N_QDIMS = sizeof(QDims) / sizeof(int);
+
+// Tile mode, the ints after QDims' in ops.py::_dims: tile 1 takes the
+// kernels' tile instances (kTl), which run one cycle of a tile of a GH x GW
+// grid sharded over ranks.  Dims' H x W are then the tile's arrays: its
+// cells at global rows r0 .. r0 + H - 1 and columns c0 .. c0 + W - 1 (a halo
+// two cells deep around the cells it owns; cells off the grid are phantoms,
+// empty and never reached), of which it owns local rows [or0, or1) and
+// columns [oc0, oc1).  They and the flag's pointer (after Leaves' in the
+// pointer array) reach only the tile instances, as TileGeo: Leaves and the
+// other instances' parameters stay as they were.
+struct TDims {
+  int tile, GH, GW, r0, c0, or0, or1, oc0, oc1;
+};
+constexpr int N_TDIMS = sizeof(TDims) / sizeof(int);
 
 // Device pointers, in the order of ops.py::KERNEL_POINTERS.
 struct Leaves {
@@ -275,6 +299,14 @@ __device__ __forceinline__ bool is_protocol(int op) {
 __device__ __forceinline__ int yx_tb(const Dims& D, int dst_cell, int row,
                                      int col) {
   int dr = fdiv(dst_cell, D.W), dc = fmod_(dst_cell, D.W);
+  if (dr != row) return dr < row ? TB_N : TB_S;
+  if (dc != col) return dc < col ? TB_W : TB_E;
+  return TB_AQ;
+}
+// The same on a grid W cells wide (kTl: a tile's grid, not its arrays).
+__device__ __forceinline__ int yx_tb_w(int W, int dst_cell, int row,
+                                       int col) {
+  int dr = fdiv(dst_cell, W), dc = fmod_(dst_cell, W);
   if (dr != row) return dr < row ? TB_N : TB_S;
   if (dc != col) return dc < col ? TB_W : TB_E;
   return TB_AQ;
@@ -381,12 +413,22 @@ __device__ __forceinline__ void copy_msg(int* dst, const int* src) {
 // one buffer shared by the four rounds).  `io_n` / `io_pos` are indexed by
 // IO cell.  kTm: the telemetry instance, whose planes (`tm_cell`,
 // `tm_lane`, `tm_hiw`) are in device memory, indexed by cell.  kFlt: the
-// fault instance.
-template <bool kCluster, bool kTm, bool kFlt, bool kQ>
-struct Cells {
+// fault instance.  kTl: the tile instance, whose geometry (TileGeo) maps
+// the arrays' cells to the grid.
+template <bool kTl>
+struct TileGeo {};
+template <>
+struct TileGeo<true> {
+  int GH, GW, tr0, tc0, or0, or1, oc0, oc1;   // (tr0, tc0: TDims' r0, c0)
+  const int* gquiet;   // the grid's quiescence at cycle entry
+};
+
+template <bool kCluster, bool kTm, bool kFlt, bool kQ, bool kTl>
+struct Cells : TileGeo<kTl> {
   static constexpr bool kTelemetry = kTm;
   static constexpr bool kFaults = kFlt;
   static constexpr bool kQb = kQ;
+  static constexpr bool kTile = kTl;
   int *aq, *aq_n, *aq_head, *ch, *ch_n, *ch_head, *ch_rr, *pk_n, *cmsg;
   bool* cvalid;
   int *cphase, *cT;
@@ -401,6 +443,27 @@ struct Cells {
   int qsum_off;       // kQ: word offset of the qchg / qlast sums in
                       // cca_dyn_smem
 
+  // (kTl) cell c's global row, column and id, and whether it lies on the
+  // grid (a phantom does not) and is owned (counted, tested, executed).
+  __device__ __forceinline__ int grow(const Dims& D, int c) const {
+    return this->tr0 + c / D.W;
+  }
+  __device__ __forceinline__ int gcol(const Dims& D, int c) const {
+    return this->tc0 + c % D.W;
+  }
+  __device__ __forceinline__ int gcell(const Dims& D, int c) const {
+    return grow(D, c) * this->GW + gcol(D, c);
+  }
+  __device__ __forceinline__ bool on_grid(int r, int c) const {
+    r += this->tr0;
+    c += this->tc0;
+    return r >= 0 && r < this->GH && c >= 0 && c < this->GW;
+  }
+  __device__ __forceinline__ bool owns(const Dims& D, int c) const {
+    int r = c / D.W, q = c % D.W;
+    return r >= this->or0 && r < this->or1 && q >= this->oc0 &&
+           q < this->oc1;
+  }
   // A record's words: MSGW, or at kQ the runtime 5 + Q - 1.
   __device__ __forceinline__ int wd() const {
     if constexpr (kQ) return mw; else return MSGW;
@@ -512,8 +575,8 @@ __constant__ int kDy[4] = {-1, 1, 0, 0};  // N, S, W, E
 __constant__ int kDx[4] = {0, 0, -1, 1};
 
 // Whether the head of lane j (ring k) of a sender can enter receiver recv
-// at (rr, rc): action-queue room if it has arrived, else room in the same
-// lane of the receiver's next channel.  Sets `head` to it.
+// at (rr, rc) (kTl: of the grid): action-queue room if it has arrived, else
+// room in the same lane of the receiver's next channel.  Sets `head` to it.
 template <class C>
 __device__ __forceinline__ bool admissible(const Dims& D, const C& X, int k,
                                            int j, int recv, int rr, int rc,
@@ -521,6 +584,7 @@ __device__ __forceinline__ bool admissible(const Dims& D, const C& X, int k,
   if (X.ch_n[k] <= 0) return false;
   head = X.ch + ((size_t)k * D.LC + fmod_(X.ch_head[k], D.LC)) * X.wd();
   int tb = yx_tb(D, fdiv(head[1], D.S), rr, rc);
+  if constexpr (C::kTile) tb = yx_tb_w(X.GW, fdiv(head[1], D.S), rr, rc);
   return tb == TB_AQ ? ext_room(D, head[0], *X.peer(X.aq_n, recv, 1, 0))
                      : *X.peer(X.ch_n, recv, 4 * D.L, tb * D.L + j) < D.LC;
 }
@@ -577,6 +641,14 @@ __device__ void hop_read(const Dims& D, const Leaves& P, const C& X, int c,
   int grant = 0;
   if (rr >= 0 && rr < D.H && rc >= 0 && rc < D.W) {
     int recv = rr * D.W + rc;
+    if constexpr (C::kTile) {
+      if (!X.on_grid(rr, rc)) {   // a phantom receiver takes nothing
+        X.granted(d, c) = 0;
+        return;
+      }
+      // from here on, in the grid's coordinates
+      row += X.tr0; col += X.tc0; rr += X.tr0; rc += X.tc0;
+    }
     const int* win = nullptr;
     int n_adm;   // admissible lanes
     if (D.L == 1) {
@@ -622,6 +694,9 @@ __device__ int hop_write(const Dims& D, const C& X, int c, int d,
                          Counts& n) {
   int row = c / D.W, col = c % D.W;
   int sr = row - kDy[d], sc = col - kDx[d];
+  // (kTl) the receiver in the grid's coordinates; a phantom sender never
+  // grants
+  if constexpr (C::kTile) { row += X.tr0; col += X.tc0; }
   int hops = 0, rin = -1;   // rin: the lane of link d this cell received in
   bool delivered = false;
   if (sr >= 0 && sr < D.H && sc >= 0 && sc < D.W) {
@@ -640,6 +715,7 @@ __device__ int hop_write(const Dims& D, const C& X, int c, int d,
         const int* src = X.peer(X.outbox + d * X.box_dir, snd, X.wd(), 0);
         copy_msg(msg, src);
         int tb = yx_tb(D, fdiv(msg[1], D.S), row, col);
+        if constexpr (C::kTile) tb = yx_tb_w(X.GW, fdiv(msg[1], D.S), row, col);
         delivered = deliver(D, X, c, msg, tb, g - 1,
                             ext_room(D, msg[0], X.aq_n[X.l(c)]),
                             [src](int w) { return src[w]; });
@@ -648,6 +724,7 @@ __device__ int hop_write(const Dims& D, const C& X, int c, int d,
       } else {
         copy_msg(msg, X.peer(X.outbox + d * X.box_dir, snd, MSGW, 0));
         int tb = yx_tb(D, fdiv(msg[1], D.S), row, col);
+        if constexpr (C::kTile) tb = yx_tb_w(X.GW, fdiv(msg[1], D.S), row, col);
         delivered = deliver(D, X, c, msg, tb, g - 1,
                             ext_room(D, msg[0], X.aq_n[X.l(c)]));
         hops = delivered;
@@ -714,6 +791,8 @@ __device__ void park(const Dims& D, const Leaves& P, const C& X, int c) {
     int* ring = P.pk + (size_t)c * D.PK * MSGW;
     copy_msg(head, ring + fmod_(h, D.PK) * MSGW);
     int tb = yx_tb(D, fdiv(head[1], D.S), c / D.W, c % D.W);
+    if constexpr (C::kTile)
+      tb = yx_tb_w(X.GW, fdiv(head[1], D.S), X.grow(D, c), X.gcol(D, c));
     if (deliver(D, X, c, head, tb, msg_lane(D, head[0], head[1]), false)) {
       X.pk_n[l] = n - 1;
       if constexpr (C::kTelemetry) X.count(c, TM_UNPARK);
@@ -781,6 +860,12 @@ __device__ bool staging(const Dims& D, const Leaves& P, const C& X, int c,
       int cell = fmod_(v + sib * D.rhizome_stride, D.H * D.W);
       emis[0] = OP_RHIZOME_FWD;
       emis[1] = cell * S + sib * D.root_slots + fdiv(v, D.H * D.W);
+      if constexpr (C::kTile) {   // the grid's cells and this cell's id
+        const int NC = X.GH * X.GW;
+        v = slot * NC + X.gcell(D, c);
+        cell = fmod_(v + sib * D.rhizome_stride, NC);
+        emis[1] = cell * S + sib * D.root_slots + fdiv(v, NC);
+      }
       emis[2] = f2i(cemit);
       xk = X_CEMIT;
     } else {
@@ -860,6 +945,8 @@ __device__ bool staging(const Dims& D, const Leaves& P, const C& X, int c,
     }
   } else {
     int tb = yx_tb(D, fdiv(emis[1], S), c / D.W, c % D.W);
+    if constexpr (C::kTile)
+      tb = yx_tb_w(X.GW, fdiv(emis[1], S), X.grow(D, c), X.gcol(D, c));
     ok_total = deliver(D, X, c, emis, tb, msg_lane(D, emis[0], emis[1]),
                        X.aq_n[l] < D.Q);
     // transit parking (lanes > 1): a remote emission whose lane is full
@@ -910,6 +997,7 @@ __device__ bool phase0(const Dims& D, const Leaves& P, const C& X, int c,
   int aqn = X.aq_n[l];
   if (busy0 || aqn <= 0) return false;
   int S = D.S, NC = D.H * D.W, Q = D.Q;
+  if constexpr (C::kTile) NC = X.GH * X.GW;   // the grid's cells
   int aqh = X.aq_head[l];
   const int W = X.wd();
   // the popped record stays at the queue's head while phase 0 runs: its
@@ -1008,6 +1096,7 @@ __device__ bool phase0(const Dims& D, const Leaves& P, const C& X, int c,
       if (D.allocator == ALLOC_RANDOM) {
         // alloc.choose_alloc_cell's hash of (cell, arot), uint32 arithmetic
         unsigned x = (unsigned)c * 0x9E3779B9u;
+        if constexpr (C::kTile) x = (unsigned)X.gcell(D, c) * 0x9E3779B9u;
         x += (unsigned)arot * 0x85EBCA6Bu;
         x ^= x >> 16;
         x *= 0xC2B2AE35u;
@@ -1018,6 +1107,11 @@ __device__ bool phase0(const Dims& D, const Leaves& P, const C& X, int c,
         int r = min(max(c / D.W + P.offs[2 * kk], 0), D.H - 1);
         int cc = min(max(c % D.W + P.offs[2 * kk + 1], 0), D.W - 1);
         tgt = r * D.W + cc;
+        if constexpr (C::kTile) {   // in the grid's rows and columns
+          r = min(max(X.grow(D, c) + P.offs[2 * kk], 0), X.GH - 1);
+          cc = min(max(X.gcol(D, c) + P.offs[2 * kk + 1], 0), X.GW - 1);
+          tgt = r * X.GW + cc;
+        }
       }
       X.arot[l] = arot + 1;
       T = 1;
@@ -1029,10 +1123,13 @@ __device__ bool phase0(const Dims& D, const Leaves& P, const C& X, int c,
       P.rstate[idx] = G_PENDING;
       int kk = fdiv(slot, D.root_slots), j = fmod_(slot, D.root_slots);
       int home = fmod_(c - kk * D.rhizome_stride, NC);
+      if constexpr (C::kTile)
+        home = fmod_(X.gcell(D, c) - kk * D.rhizome_stride, NC);
       int owner = j * NC + home;
       T = 1;
       out[0] = OP_LINK_RHIZOME; out[1] = fmod_(owner, NC) * S + fdiv(owner, NC);
       out[2] = c * S + slot;
+      if constexpr (C::kTile) out[2] = X.gcell(D, c) * S + slot;
       set_out = true;
     }
   } else if (is_app || is_rf || is_rp) {
@@ -1111,8 +1208,10 @@ __device__ bool phase0(const Dims& D, const Leaves& P, const C& X, int c,
       n.allocs += 1;
       if constexpr (C::kTelemetry) X.count(c, TM_ALLOC);
       out[0] = OP_SET_FUTURE; out[1] = a0; out[2] = c * S + g;
+      if constexpr (C::kTile) out[2] = X.gcell(D, c) * S + g;
     } else {
       out[0] = OP_ALLOC; out[1] = fmod_(c + 1, NC) * S; out[2] = a0;
+      if constexpr (C::kTile) out[1] = fmod_(X.gcell(D, c) + 1, NC) * S;
       out[3] = a1;
       ox = OX_MSG;   // the request's value vector travels on
     }
@@ -1154,7 +1253,8 @@ __device__ bool phase0(const Dims& D, const Leaves& P, const C& X, int c,
   return true;
 }
 
-// ingest.io_stage for IO cell i (attached to row-0 cell i).  The insert
+// ingest.io_stage for IO cell i (attached to row-0 cell i; kTl: of the
+// grid).  The insert
 // goes to the source's rhizome root k with the least dist + pref *
 // half_diam (Manhattan distance from (0, i), pref = (k - pos) mod R), the
 // lowest k on a tie; the edge's destination names its canonical root.  The
@@ -1166,13 +1266,18 @@ __device__ void io(const Dims& D, const Leaves& P, const C& X, int i) {
   if (pos >= X.io_n[i]) return;
   const int* e = P.io_edges + ((size_t)i * D.IOL + min(pos, D.IOL - 1)) * 3;
   int NC = D.H * D.W, R = D.rhizome_cap;
+  if constexpr (C::kTile) NC = X.GH * X.GW;
   int tgt = fmod_(e[0], NC) * D.S + fdiv(e[0], NC);   // root 0
   if (R > 1) {
     int half_diam = max(1, (D.H + D.W - 2) / 2), best = 0;
+    if constexpr (C::kTile) half_diam = max(1, (X.GH + X.GW - 2) / 2);
     for (int k = 0; k < R; ++k) {
       int cell = fmod_(e[0] + k * D.rhizome_stride, NC);
       int score = fdiv(cell, D.W) + abs(fmod_(cell, D.W) - i) +
                   fmod_(k - pos, R) * half_diam;
+      if constexpr (C::kTile)
+        score = fdiv(cell, X.GW) + abs(fmod_(cell, X.GW) - i) +
+                fmod_(k - pos, R) * half_diam;
       if (k == 0 || score < best) {
         best = score;
         tgt = cell * D.S + k * D.root_slots + fdiv(e[0], NC);
@@ -1194,6 +1299,14 @@ __device__ void io(const Dims& D, const Leaves& P, const C& X, int i) {
     }
     msg[4] = msg_seal(msg);
   }
+  if constexpr (C::kTile) {   // the arrays' cell of grid cell (0, i)
+    const int lc = -X.tr0 * D.W + i - X.tc0;
+    int tb = yx_tb_w(X.GW, fdiv(tgt, D.S), 0, i);
+    if (deliver(D, X, lc, msg, tb, msg_lane(D, msg[0], msg[1]),
+                X.aq_n[X.l(lc)] < D.Q - D.aq_reserve - D.sys_reserve))
+      X.io_pos[i] = pos + 1;
+    return;
+  }
   int tb = yx_tb(D, fdiv(tgt, D.S), 0, i);
   if (deliver(D, X, i, msg, tb, msg_lane(D, msg[0], msg[1]),
               X.aq_n[X.l(i)] < D.Q - D.aq_reserve - D.sys_reserve)) {
@@ -1207,9 +1320,15 @@ __device__ void io(const Dims& D, const Leaves& P, const C& X, int i) {
 template <class C>
 __device__ __forceinline__ bool cell_busy(const Dims& D, const C& X, int c) {
   int l = X.l(c);
-  if (X.aq_n[l] != 0 || X.pk_n[l] != 0 || X.cvalid[l] || X.qwork[l] != 0 ||
-      (c < D.IO && X.io_n[c] != X.io_pos[c]))
+  if constexpr (C::kTile) {   // its IO cell, by its id in the grid
+    const int gc = X.gcell(D, c);
+    if (gc < D.IO && X.io_n[gc] != X.io_pos[gc]) return true;
+    if (X.aq_n[l] != 0 || X.pk_n[l] != 0 || X.cvalid[l] || X.qwork[l] != 0)
+      return true;
+  } else if (X.aq_n[l] != 0 || X.pk_n[l] != 0 || X.cvalid[l] ||
+             X.qwork[l] != 0 || (c < D.IO && X.io_n[c] != X.io_pos[c])) {
     return true;
+  }
   const int* chn = X.ch_n + l * 4 * D.L;
 #pragma unroll 4
   for (int k = 0; k < 4 * D.L; ++k)
@@ -1272,10 +1391,18 @@ __device__ __forceinline__ int& qsum_cycle(const C& X) {
 // cells' activity in the exec loop and their channel occupancy in the next
 // quiescence test (the one after a launch's last cycle too), and each warp
 // adds its sums into the cycle's trace row: no barrier of its own.
-template <bool kCluster, bool kTm, bool kFlt, bool kQ>
+//
+// The tile instance (kTl) runs at most one cycle (D.n_cycles 1): its first
+// quiescence test is the grid's, the flag the ranks reduced after the last
+// cycle (*gquiet: a tile quiescent alone must not freeze), and the test
+// after the cycle is over the cells it owns, for the ranks to reduce again.
+// It counts, tests and runs the exec stages of its owned cells only; the
+// hop stage runs over every cell of its arrays, so that the owned cells
+// receive from the halo exactly.
+template <bool kCluster, bool kTm, bool kFlt, bool kQ, bool kTl>
 __device__ int run_cycles(const Dims& D, const Leaves& P,
-                          const Cells<kCluster, kTm, kFlt, kQ>& X, Counts& n,
-                          int& quiet, PhaseClock& clk) {
+                          const Cells<kCluster, kTm, kFlt, kQ, kTl>& X,
+                          Counts& n, int& quiet, PhaseClock& clk) {
   const int first = X.c0 + threadIdx.x, end = X.c0 + X.nb,
             nt = blockDim.x;
   // the machine cycle at launch start (the fault hash's and qlast's;
@@ -1285,12 +1412,23 @@ __device__ int run_cycles(const Dims& D, const Leaves& P,
   int ran = 0;
   for (;;) {
     int busy = 0;
+    if constexpr (kTl) {
+      if (ran == 0) {
+        quiet = *X.gquiet;
+        __syncthreads();   // the prologue's writes before the hop reads
+      } else {
+        for (int c = first; c < end; c += nt)
+          if (X.owns(D, c)) busy |= cell_busy(D, X, c);
+        quiet = !X.any(busy);
+      }
+    } else {
 #ifdef CCA_SKELETON
     busy = 1;
 #else
     for (int c = first; c < end; c += nt) busy |= cell_busy(D, X, c);
 #endif
     quiet = !X.any(busy);
+    }
     if (P.trace && ran > 0) {
       int in_flight = 0;
       for (int c = first; c < end; c += nt)
@@ -1313,8 +1451,14 @@ __device__ int run_cycles(const Dims& D, const Leaves& P,
       X.sync(2 * d);
       clk.stamp(1 + 2 * d);
 #ifndef CCA_SKELETON
-      for (int c = first; c < end; c += nt)
-        n.hops += hop_write(D, X, c, d, n);
+      for (int c = first; c < end; c += nt) {
+        if constexpr (kTl) {
+          int h = hop_write(D, X, c, d, n);
+          if (X.owns(D, c)) n.hops += h;
+        } else {
+          n.hops += hop_write(D, X, c, d, n);
+        }
+      }
 #endif
       X.sync(2 * d + 1);
       clk.stamp(2 + 2 * d);
@@ -1322,12 +1466,18 @@ __device__ int run_cycles(const Dims& D, const Leaves& P,
 #ifndef CCA_SKELETON
     int active = 0;
     for (int c = first; c < end; c += nt) {
+      if constexpr (kTl)
+        if (!X.owns(D, c)) continue;
       bool busy0 = X.cvalid[X.l(c)];
       if (D.L > 1) park(D, P, X, c);
       bool staged = staging(D, P, X, c, n);
       bool popped = phase0(D, P, X, c, busy0, n);
       active += staged | popped;
+      if constexpr (kTl) {
+        if (X.gcell(D, c) < D.IO) io(D, P, X, X.gcell(D, c));
+      } else {
       if (c < D.IO) io(D, P, X, c);
+      }
       if constexpr (kTm) tm_hiwater(X, c);
     }
     if (P.trace) trace_add(P.trace + 2 * ran, active);
@@ -1342,9 +1492,10 @@ __device__ int run_cycles(const Dims& D, const Leaves& P,
 // device memory, one outbox and grant buffer for the four rounds.  Built on
 // the host and passed as a kernel parameter, as the leaves are, so its
 // pointers are read from parameter space and held in no register.
-template <bool kTm, bool kFlt, bool kQ>
-Cells<false, kTm, kFlt, kQ> device_cells(const Dims& D, const Leaves& P) {
-  Cells<false, kTm, kFlt, kQ> X;
+template <bool kTm, bool kFlt, bool kQ, bool kTl>
+Cells<false, kTm, kFlt, kQ, kTl> device_cells(const Dims& D, const Leaves& P,
+                                              const TileGeo<kTl>& T) {
+  Cells<false, kTm, kFlt, kQ, kTl> X;
   X.aq = P.aq; X.aq_n = P.aq_n; X.aq_head = P.aq_head;
   X.ch = P.ch; X.ch_n = P.ch_n; X.ch_head = P.ch_head; X.ch_rr = P.ch_rr;
   X.pk_n = P.pk_n; X.cmsg = P.cmsg; X.cvalid = P.cvalid;
@@ -1356,6 +1507,7 @@ Cells<false, kTm, kFlt, kQ> device_cells(const Dims& D, const Leaves& P) {
   X.c0 = 0; X.nb = D.H * D.W; X.box_dir = 0; X.grant_dir = 0;
   X.rank = 0; X.n_ctas = 1; X.qflag = nullptr;
   X.mw = P.q.msgw; X.qb = P.q.qb; X.qsum_off = 0;
+  if constexpr (kTl) static_cast<TileGeo<true>&>(X) = T;
   return X;
 }
 
@@ -1402,10 +1554,10 @@ __device__ void add_flt(const Leaves& P, int* sum, const Counts& n) {
   }
 }
 
-template <bool kTm, bool kFlt, bool kQ>
+template <bool kTm, bool kFlt, bool kQ, bool kTl>
 __global__ void __launch_bounds__(1024, 1)
 cca_cycle_kernel(const Dims D, const Leaves P,
-                 const Cells<false, kTm, kFlt, kQ> X) {
+                 const Cells<false, kTm, kFlt, kQ, kTl> X) {
   PhaseClock clk;
   clk.start();
   const int NC = D.H * D.W, tid = threadIdx.x, nt = blockDim.x;
@@ -1448,14 +1600,16 @@ cca_cycle_kernel(const Dims D, const Leaves P,
   clk.flush(0);
 }
 
-// Launch the one-block kernel's instance (kTm, kFlt, kQ); kQ takes its
-// per-query sums as dynamic shared memory.
-template <bool kTm, bool kFlt, bool kQ>
-void block_launch(const Dims& D, const Leaves& P, int threads,
-                  cudaStream_t stream) {
+// Launch the one-block kernel's instance (kTm, kFlt, kQ, kTl); kQ takes
+// its per-query sums as dynamic shared memory.
+template <bool kTm, bool kFlt, bool kQ, bool kTl>
+void block_launch(const Dims& D, const Leaves& P, const TileGeo<true>& T,
+                  int threads, cudaStream_t stream) {
   const int smem = kQ ? (2 * P.q.qb + 1) * (int)sizeof(int) : 0;
-  cca_cycle_kernel<kTm, kFlt, kQ><<<1, threads, smem, stream>>>(
-      D, P, device_cells<kTm, kFlt, kQ>(D, P));
+  TileGeo<kTl> t;
+  if constexpr (kTl) t = T;
+  cca_cycle_kernel<kTm, kFlt, kQ, kTl><<<1, threads, smem, stream>>>(
+      D, P, device_cells<kTm, kFlt, kQ, kTl>(D, P, t));
 }
 
 }  // namespace
@@ -1463,41 +1617,53 @@ void block_launch(const Dims& D, const Leaves& P, int threads,
 #include "cca_cycle_cluster.cuh"
 
 // Launch one chunk on `stream`.  `ptrs` holds N_PTRS device pointers in the
-// order of Leaves, `dims` N_DIMS ints in the order of Dims.  Writes the
+// order of Leaves and the grid's quiescence flag (null but for a tile),
+// `dims` N_DIMS ints in the order of Dims, N_QDIMS of QDims and N_TDIMS of
+// TDims.  Writes the
 // kernel launched to `*path` (0 the one-block kernel, 1 the cluster
 // kernel).  Returns 0 when the kernel was queued, a CUDA error code, or a
 // negative code of this file (`cca_cycle_error_string`).
 extern "C" int cca_cycle_launch(void* const* ptrs, int n_ptrs,
                                 const int* dims, int n_dims, void* stream,
                                 int* path) {
-  if (n_ptrs != N_PTRS || n_dims != N_DIMS + N_QDIMS)
+  if (n_ptrs != N_PTRS + 1 || n_dims != N_DIMS + N_QDIMS + N_TDIMS)
     return cudaErrorInvalidValue;
   Dims D;
   Leaves P;
+  TDims Td;
   memcpy(&D, dims, sizeof(D));
   memcpy(&P, ptrs, N_PTRS * sizeof(void*));
   memcpy(&P.q, dims + N_DIMS, sizeof(QDims));
+  memcpy(&Td, dims + N_DIMS + N_QDIMS, sizeof(TDims));
+  const TileGeo<true> T = {Td.GH, Td.GW, Td.r0, Td.c0, Td.or0, Td.or1,
+                           Td.oc0, Td.oc1, (const int*)ptrs[N_PTRS]};
   // no instance has both faults and query batching (the config refuses it)
   const QDims& Q = P.q;
   if (Q.qb < 1 || Q.qb > MAX_QB || Q.msgw != MSGW + Q.qb - 1 ||
       (D.faults && Q.qb > 1))
     return cudaErrorInvalidValue;
+  // the tile instances run one cycle of the plain machine, against a flag
+  if (Td.tile && (D.telemetry || D.faults || Q.qb > 1 || D.n_cycles > 1 ||
+                  !T.gquiet || P.trace))
+    return ERR_TILE;
   if (D.n_ctas > 0) {
-    int err = cluster_launch(D, P, (cudaStream_t)stream);
+    int err = cluster_launch(D, P, Td.tile, T, (cudaStream_t)stream);
     if (err) return err;
     *path = 1;
     return 0;
   }
   int cells = D.H * D.W;
   int threads = cells < 1024 ? cells : 1024;
-  void (*launch)(const Dims&, const Leaves&, int, cudaStream_t) =
-      Q.qb > 1 ? (D.telemetry ? block_launch<true, false, true>
-                              : block_launch<false, false, true>)
-      : D.telemetry ? (D.faults ? block_launch<true, true, false>
-                                : block_launch<true, false, false>)
-                    : (D.faults ? block_launch<false, true, false>
-                                : block_launch<false, false, false>);
-  launch(D, P, threads, (cudaStream_t)stream);
+  void (*launch)(const Dims&, const Leaves&, const TileGeo<true>&, int,
+                 cudaStream_t) =
+      Td.tile ? block_launch<false, false, false, true>
+      : Q.qb > 1 ? (D.telemetry ? block_launch<true, false, true, false>
+                                : block_launch<false, false, true, false>)
+      : D.telemetry ? (D.faults ? block_launch<true, true, false, false>
+                                : block_launch<true, false, false, false>)
+                    : (D.faults ? block_launch<false, true, false, false>
+                                : block_launch<false, false, false, false>);
+  launch(D, P, T, threads, (cudaStream_t)stream);
   int err = cudaGetLastError();
   if (!err) *path = 0;
   return err;
@@ -1507,12 +1673,14 @@ extern "C" int cca_cycle_launch(void* const* ptrs, int n_ptrs,
 // bytes (the layout of `cluster_layout`), or a negative code if the
 // geometry is not one the cluster kernel runs.
 extern "C" int cca_cycle_cluster_smem(const int* dims, int n_dims) {
-  if (n_dims != N_DIMS + N_QDIMS) return ERR_GEOMETRY;
+  if (n_dims != N_DIMS + N_QDIMS + N_TDIMS) return ERR_GEOMETRY;
   Dims D;
   QDims Q;
+  TDims T;
   memcpy(&D, dims, sizeof(D));
   memcpy(&Q, dims + N_DIMS, sizeof(Q));
-  if (!cluster_geometry_ok(D, Q)) return ERR_GEOMETRY;
+  memcpy(&T, dims + N_DIMS + N_QDIMS, sizeof(T));
+  if (!cluster_geometry_ok(D, Q, T.tile)) return ERR_GEOMETRY;
   return layout_of(D, Q).bytes;
 }
 

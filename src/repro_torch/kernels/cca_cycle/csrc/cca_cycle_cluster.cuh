@@ -42,6 +42,8 @@ enum {
                         // band lacks the IO cells or outgrows the SM
   ERR_SMEM = -2,        // the wrapper's byte count differs from the layout
   ERR_NO_CLUSTER = -3,  // the card fits no cluster of this geometry
+  ERR_TILE = -4,        // a tile launch with telemetry, faults, query
+                        // batching, a trace, more than one cycle or no flag
 };
 constexpr int CLUSTER_THREADS = 512;   // a CTA's threads at most
 constexpr int SMEM_LIMIT = 232448;     // opt-in shared memory a CTA, sm_90
@@ -103,10 +105,12 @@ inline ClusterLayout layout_of(const Dims& D, const QDims& Q) {
   return Q.qb > 1 ? cluster_layout<true>(D, Q) : cluster_layout<false>(D, Q);
 }
 
-inline bool cluster_geometry_ok(const Dims& D, const QDims& Q) {
+// (A tile keeps the IO cursors in device memory: its IO cells need not be
+// in the first band.)
+inline bool cluster_geometry_ok(const Dims& D, const QDims& Q, bool tile) {
   if (D.n_ctas < 1 || D.n_ctas > MAX_CTAS || D.H % D.n_ctas) return false;
   ClusterLayout L = layout_of(D, Q);
-  return D.IO <= L.nb && L.bytes <= SMEM_LIMIT;
+  return (tile || D.IO <= L.nb) && L.bytes <= SMEM_LIMIT;
 }
 
 inline const char* cluster_error_string(int err) {
@@ -121,6 +125,10 @@ inline const char* cluster_error_string(int err) {
     case ERR_NO_CLUSTER:
       return "cudaOccupancyMaxActiveClusters: the card fits no cluster of "
              "this geometry";
+    case ERR_TILE:
+      return "tile launch refused: the tile instances run one cycle without "
+             "telemetry, faults, query batching or a trace, and need the "
+             "grid's quiescence flag";
   }
   return "unknown cca_cycle error";
 }
@@ -173,22 +181,26 @@ __device__ void move_band(const Dims& D, const Leaves& P, const C& X,
     if (in) X.cvalid[i] = P.cvalid[c0 + i];
     else P.cvalid[c0 + i] = X.cvalid[i];
   }
+  if constexpr (!C::kTile) {   // (a tile's stay in device memory)
   if (X.rank == 0) {
     if (in) move_words(X.io_n, P.io_n, D.IO, true);
     move_words(X.io_pos, P.io_pos, D.IO, in);
   }
+  }
 }
 
-template <bool kTm, bool kFlt, bool kQ>
+// (kTl: the tile's geometry, one TileGeo<true> in Tg; the other instances
+// take no third parameter.)
+template <bool kTm, bool kFlt, bool kQ, bool kTl, class... Tg>
 __global__ void __launch_bounds__(CLUSTER_THREADS, 1)
-cca_cycle_cluster_kernel(const Dims D, const Leaves P) {
+cca_cycle_cluster_kernel(const Dims D, const Leaves P, Tg... T) {
   PhaseClock clk;
   clk.start();
   extern __shared__ __align__(16) int smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const ClusterLayout L = cluster_layout<kQ>(D, P.q);
   const int rank = cluster.block_rank(), tid = threadIdx.x;
-  Cells<true, kTm, kFlt, kQ> X;
+  Cells<true, kTm, kFlt, kQ, kTl> X;
   X.aq = smem + L.aq; X.aq_n = smem + L.aq_n; X.aq_head = smem + L.aq_head;
   X.ch = smem + L.ch; X.ch_n = smem + L.ch_n; X.ch_head = smem + L.ch_head;
   X.ch_rr = smem + L.ch_rr; X.pk_n = smem + L.pk_n; X.cmsg = smem + L.cmsg;
@@ -197,6 +209,10 @@ cca_cycle_cluster_kernel(const Dims D, const Leaves P) {
   X.cemit = reinterpret_cast<float*>(smem + L.cemit);
   X.cout = smem + L.cout; X.cdrain = smem + L.cdrain; X.arot = smem + L.arot;
   X.nfree = smem + L.nfree; X.io_n = smem + L.io_n; X.io_pos = smem + L.io_pos;
+  if constexpr (kTl) {
+    ((static_cast<TileGeo<true>&>(X) = T), ...);
+    X.io_n = P.io_n; X.io_pos = P.io_pos;
+  }
   X.qwork = smem + L.qwork; X.outbox = smem + L.outbox;
   X.grant = smem + L.grant;
   X.tm_cell = P.tm_cell; X.tm_lane = P.tm_lane; X.tm_hiw = P.tm_hiw;
@@ -256,27 +272,18 @@ cca_cycle_cluster_kernel(const Dims D, const Leaves P) {
   clk.flush(rank);
 }
 
-// Launch the cluster kernel for D's geometry on `stream` (its telemetry
-// instance where D.telemetry, its fault instance where D.faults): n_ctas
-// CTAs of one cluster, up to
-// CLUSTER_THREADS threads each, D.smem_bytes of dynamic shared memory each.
-// The first launch of a geometry and instance on a device checks that the
-// card can place such a cluster at all.  Returns 0, a CUDA error code or
-// an ERR_* code; never launches anything else.
-int cluster_launch(const Dims& D, const Leaves& P, cudaStream_t stream) {
-  if (!cluster_geometry_ok(D, P.q)) return ERR_GEOMETRY;
-  const ClusterLayout L = layout_of(D, P.q);
-  if (L.bytes != D.smem_bytes) return ERR_SMEM;
+// Launch `kernel` (one instance of the cluster kernel, `instance` its
+// number) with `args` for D's geometry on `stream`: n_ctas CTAs of one
+// cluster, up to CLUSTER_THREADS threads each, L.bytes of dynamic shared
+// memory each.  The first launch of a geometry and instance on a device
+// checks that the card can place such a cluster at all.
+template <class... A>
+int launch_instance(void (*kernel)(const Dims, const Leaves, A...),
+                    int instance, const Dims& D, const ClusterLayout& L,
+                    cudaStream_t stream, const Dims& Dv, const Leaves& P,
+                    A... args) {
   int threads = (L.nb + 31) / 32 * 32;
   if (threads > CLUSTER_THREADS) threads = CLUSTER_THREADS;
-  void (*kernel)(const Dims, const Leaves) =
-      P.q.qb > 1
-          ? (D.telemetry ? cca_cycle_cluster_kernel<true, false, true>
-                         : cca_cycle_cluster_kernel<false, false, true>)
-      : D.telemetry ? (D.faults ? cca_cycle_cluster_kernel<true, true, false>
-                                : cca_cycle_cluster_kernel<true, false, false>)
-                    : (D.faults ? cca_cycle_cluster_kernel<false, true, false>
-                                : cca_cycle_cluster_kernel<false, false, false>);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
   if (e) return e;
@@ -299,9 +306,7 @@ int cluster_launch(const Dims& D, const Leaves& P, cudaStream_t stream) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
 
-  // device, n_ctas, threads, bytes, instance (4 x query batching + 2 x
-  // telemetry + faults)
-  const int instance = 4 * (P.q.qb > 1) + 2 * D.telemetry + D.faults;
+  // device, n_ctas, threads, bytes, instance
   static int checked[5] = {-1, 0, 0, 0, 0};
   int dev = 0;
   e = cudaGetDevice(&dev);
@@ -315,9 +320,39 @@ int cluster_launch(const Dims& D, const Leaves& P, cudaStream_t stream) {
     checked[0] = dev; checked[1] = D.n_ctas; checked[2] = threads;
     checked[3] = L.bytes; checked[4] = instance;
   }
-  e = cudaLaunchKernelEx(&cfg, kernel, D, P);
+  e = cudaLaunchKernelEx(&cfg, kernel, Dv, P, args...);
   if (e) return e;
   return cudaGetLastError();
+}
+
+// Launch the cluster kernel for D's geometry on `stream`: its tile
+// instance where `tile`, else its telemetry instance where D.telemetry,
+// its fault instance where D.faults, its query-batched one where Q > 1.
+// Returns 0, a CUDA error code or an ERR_* code; never launches anything
+// else.
+int cluster_launch(const Dims& D, const Leaves& P, int tile,
+                   const TileGeo<true>& T, cudaStream_t stream) {
+  if (!cluster_geometry_ok(D, P.q, tile)) return ERR_GEOMETRY;
+  const ClusterLayout L = layout_of(D, P.q);
+  if (L.bytes != D.smem_bytes) return ERR_SMEM;
+  // instance: 8 x tile + 4 x query batching + 2 x telemetry + faults
+  if (tile) {
+    void (*tk)(const Dims, const Leaves, TileGeo<true>) =
+        cca_cycle_cluster_kernel<false, false, false, true, TileGeo<true>>;
+    return launch_instance(tk, 8, D, L, stream, D, P, T);
+  }
+  void (*kernel)(const Dims, const Leaves) =
+      P.q.qb > 1
+          ? (D.telemetry ? cca_cycle_cluster_kernel<true, false, true, false>
+                         : cca_cycle_cluster_kernel<false, false, true, false>)
+      : D.telemetry
+          ? (D.faults ? cca_cycle_cluster_kernel<true, true, false, false>
+                      : cca_cycle_cluster_kernel<true, false, false, false>)
+          : (D.faults ? cca_cycle_cluster_kernel<false, true, false, false>
+                      : cca_cycle_cluster_kernel<false, false, false, false>);
+  return launch_instance(kernel,
+                         4 * (P.q.qb > 1) + 2 * D.telemetry + D.faults, D, L,
+                         stream, D, P);
 }
 
 }  // namespace

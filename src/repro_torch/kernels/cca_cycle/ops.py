@@ -58,7 +58,8 @@ from repro_torch.core.apps import DiffusionApp
 from repro_torch.core.config import EngineConfig
 from repro_torch.core.state import MachineState, init_state
 from repro_torch.kernels import _build
-from repro_torch.kernels.cca_cycle.ref import cca_cycle_chunk_ref
+from repro_torch.kernels.cca_cycle.ref import (cca_cycle_chunk_ref,
+                                               tile_step_ref)
 from repro_torch.resilience.faults import fault_key
 
 HERE = pathlib.Path(__file__).resolve().parent
@@ -68,9 +69,10 @@ NVCC_FLAGS = _build.SM90A_FLAGS + ("--fmad=false",)   # bit-exact f32 sums
 PATHS = ("block", "cluster")   # the C entry's path codes 0, 1
 ALLOCATORS = ("vicinity", "random")   # `struct Dims`' allocator codes
 
-launches = 0   # kernel launches made by cca_cycle_chunk, both paths
+launches = 0   # kernel launches made by cca_cycle_chunk and tile steps
 path_launches = dict.fromkeys(PATHS, 0)   # the same launches by kernel
 query_launches = dict.fromkeys(PATHS, 0)  # those of them at qbatch > 1
+tile_launches = dict.fromkeys(PATHS, 0)   # those of them tile steps
 
 # state leaves handed to the kernel, in the order of `struct Leaves`
 KERNEL_LEAVES = (
@@ -138,7 +140,8 @@ def cluster_cell_bytes(cfg: EngineConfig) -> int:
     return leaves + 4 * (1 + 4 * cfg.msg_words + 4)
 
 
-def cluster_geometry(cfg: EngineConfig, n_ctas: int | None = None
+def cluster_geometry(cfg: EngineConfig, n_ctas: int | None = None,
+                     shape: tuple[int, int] | None = None
                      ) -> tuple[int, int, int] | None:
     """``(n_ctas, rows a band, shared-memory bytes a CTA)`` of the cluster
     kernel for ``cfg``, or ``None`` where no band fits.
@@ -153,13 +156,15 @@ def cluster_geometry(cfg: EngineConfig, n_ctas: int | None = None
     the least shared memory each.  (On the H100, 8 CTAs of 4 rows and 16
     of 2 ran the fingerprint config's chunk within 1% of each other, and
     on the pinned 8x8 config 1 CTA was the slowest: nothing measured
-    favours fewer CTAs; PERF.md section 6.)
+    favours fewer CTAs; PERF.md section 6.)  ``shape`` ``(h, w)``: the
+    geometry of a tile's arrays of that shape instead of the grid's (the
+    IO cursors' words stay the grid's, as the kernel lays them out).
     """
-    H = cfg.height
+    H, W = shape or (cfg.height, cfg.width)
     cands = [n_ctas] if n_ctas is not None else range(MAX_CTAS, 0, -1)
     for n in cands:
         if 1 <= n <= MAX_CTAS and H % n == 0:
-            nbytes = (H // n * cfg.width * cluster_cell_bytes(cfg)
+            nbytes = (H // n * W * cluster_cell_bytes(cfg)
                       + 2 * 4 * cfg.io_cells + 4 * 5 * MAX_CTAS
                       + (4 * (2 * cfg.qbatch + 1) if cfg.qbatch > 1
                          else 0))
@@ -203,29 +208,42 @@ def _query_dims(cfg: EngineConfig, app: DiffusionApp) -> list[int]:
     return [cfg.qbatch, cfg.msg_words, *packed]
 
 
+def _tile_dims(cfg: EngineConfig, tile) -> list[int]:
+    """`struct TDims`: ``tile`` 0 or 1, the grid's height and width, the
+    tile's origin and owned window (zeros without a tile)."""
+    if tile is None:
+        return [0] * 9
+    return [1, cfg.height, cfg.width, *tile]
+
+
 def _dims(cfg: EngineConfig, app: DiffusionApp, n_offs: int,
-          n_cycles: int, geometry: tuple[int, int, int] | None
-          ) -> list[int]:
+          n_cycles: int, geometry: tuple[int, int, int] | None,
+          tile=None, shape=None, io_len=None) -> list[int]:
     """Scalar geometry, in the order of `struct Dims` (``telemetry`` 0 or
     1, the fault fields of ``_fault_dims``; ``n_ctas`` and the bytes a CTA
-    0 for the one-block kernel; the query fields of ``_query_dims``)."""
+    0 for the one-block kernel), then the query fields of ``_query_dims``
+    and the tile fields of ``_tile_dims``.  A tile's ``Dims`` are its
+    arrays' ``shape`` and the length ``io_len`` of its IO streams."""
     n_ctas, _, nbytes = geometry or (0, 0, 0)
-    return [cfg.height, cfg.width, cfg.slots, cfg.edge_cap, cfg.queue_cap,
+    H, W = shape or (cfg.height, cfg.width)
+    return [H, W, cfg.slots, cfg.edge_cap, cfg.queue_cap,
             cfg.futq_cap, cfg.lane_capacity, cfg.lanes, cfg.park_capacity,
-            cfg.io_cells, cfg.io_stream_cap,
+            cfg.io_cells, io_len or cfg.io_stream_cap,
             cfg.root_slots, cfg.primary_slots, cfg.rhizome_cap,
             cfg.rhizome_stride, cfg.aq_reserve, cfg.sys_reserve, n_offs,
             app.code, ALLOCATORS.index(cfg.allocator), n_cycles,
             int(cfg.telemetry), *_fault_dims(cfg), n_ctas, nbytes,
-            *_query_dims(cfg, app)]
+            *_query_dims(cfg, app), *_tile_dims(cfg, tile)]
 
 
 def _launch_args(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
-                 n_cycles: int, geometry=None, trace=None):
+                 n_cycles: int, geometry=None, trace=None, tile=None,
+                 gquiet=None, rec=None):
     """The kernel's tensors, in the order of `struct Leaves` (the state
     leaves, the vicinity table, the blackout table or ``None``, the
-    per-cell scratch, the record, the trace rows or ``None``, the
-    per-query counters ``qchg`` and ``qlast``), and its `struct Dims`."""
+    per-cell scratch, the record (``rec``, else a new one), the trace rows
+    or ``None``, the per-query counters ``qchg`` and ``qlast``, the grid's
+    quiescence flag ``gquiet`` or ``None``), and its `struct Dims`."""
     dev = st.aq.device
     offs = torch.as_tensor(vicinity_offsets(cfg.vicinity_hops), device=dev)
     blackouts = (_blackout_table(cfg.faults.blackouts, dev)
@@ -236,17 +254,26 @@ def _launch_args(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
         return torch.empty(n, dtype=torch.int32, device=dev)
 
     # the cluster kernel keeps its scratch in shared memory
-    cells = 1 if geometry else cfg.n_cells
+    shape = tuple(st.aq_n.shape)
+    cells = 1 if geometry else shape[0] * shape[1]
     tensors = [getattr(st, k) for k in KERNEL_LEAVES] + [
         offs, blackouts, scratch(cells * cfg.msg_words), scratch(cells),
-        scratch(cells), scratch(8), trace, st.qchg, st.qlast]
-    return tensors, _dims(cfg, app, len(offs), n_cycles, geometry)
+        scratch(cells), scratch(8) if rec is None else rec, trace, st.qchg,
+        st.qlast, gquiet]
+    return tensors, _dims(cfg, app, len(offs), n_cycles, geometry, tile,
+                          shape, st.io_edges.shape[1])
 
 
-def _check(cfg: EngineConfig, st: MachineState) -> torch.device:
+def _check(cfg: EngineConfig, st: MachineState,
+           tile_shape: tuple[int, int] | None = None) -> torch.device:
+    """The state's device, after checking every leaf against ``cfg``'s
+    layout (a tile's: its per-cell leaves ``tile_shape`` cells,
+    its IO streams of any length)."""
     dev = st.aq.device
-    for name, (shape, dtype) in _layout(cfg).items():
+    for name, (want, dtype) in _layout(cfg).items():
         t = getattr(st, name)
+        shape = want if tile_shape is None else _tile_leaf_shape(
+            cfg, name, want, tile_shape, t)
         if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
                 or not t.is_contiguous():
             raise ValueError(
@@ -254,6 +281,23 @@ def _check(cfg: EngineConfig, st: MachineState) -> torch.device:
                 f"{t.device} (contiguous={t.is_contiguous()}); the kernel "
                 f"needs a contiguous {dtype}{list(shape)} on {dev}")
     return dev
+
+
+def _tile_leaf_shape(cfg: EngineConfig, name: str, want: tuple,
+                     tile_shape: tuple[int, int], t) -> tuple:
+    """The shape a tile's leaf ``name`` must have (``want``: the grid's)."""
+    if name == "io_edges":
+        return (want[0], t.shape[1] if t.dim() == 3 else -1, 3)
+    if name in PER_CELL_LEAVES:
+        return tuple(tile_shape) + want[2:]
+    return want
+
+
+# the leaves laid out [H, W, ...] a cell (the telemetry planes only when
+# telemetry is on)
+PER_CELL_LEAVES = tuple(k for k in KERNEL_LEAVES if k not in (
+    "io_edges", "io_n", "io_pos", "cycle", "stat_hops", "stat_exec",
+    "stat_stall", "stat_allocs", "tm_cell", "tm_lane", "tm_hiw", "flt"))
 
 
 def _check_trace(trace, n_cycles: int, dev: torch.device) -> None:
@@ -321,7 +365,7 @@ def cca_cycle_chunk(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
         raise ValueError(f"cca_cycle_chunk runs on cuda or cpu, not {dev}")
     lib = _library()
     tensors, dims = _launch_args(cfg, app, st, n_cycles, geometry, trace)
-    rec = tensors[-4]
+    rec = tensors[-5]
     ptrs = (ctypes.c_void_p * len(tensors))(
         *[0 if t is None else t.data_ptr() for t in tensors])
     dims_c = (ctypes.c_int * len(dims))(*dims)
@@ -338,3 +382,104 @@ def cca_cycle_chunk(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
     if cfg.qbatch > 1:
         query_launches[PATHS[kernel.value]] += 1
     return st, rec[5:7]
+
+
+# ---- tile mode (repro_torch.dist.cca) ----
+
+def tile_route(cfg: EngineConfig, shape: tuple[int, int], path: str = "auto",
+               n_ctas: int | None = None):
+    """``route`` for a tile whose arrays are ``shape`` cells."""
+    if path not in ("auto",) + PATHS:
+        raise ValueError(f"path must be 'auto', 'cluster' or 'block', not "
+                         f"{path!r}")
+    if path == "block":
+        return None
+    geometry = cluster_geometry(cfg, n_ctas, shape)
+    if geometry is None and (path == "cluster" or n_ctas is not None):
+        raise ValueError(f"no cluster band fits a {shape[0]}x{shape[1]} "
+                         "tile")
+    return geometry
+
+
+def _check_tile_call(cfg: EngineConfig, st: MachineState, gquiet, rec):
+    if cfg.telemetry or cfg.faults is not None or cfg.qbatch > 1:
+        raise NotImplementedError(
+            "the cycle kernel's tile instances run the machine without "
+            "telemetry, faults or query batching (ROADMAP queue 1 item 7)")
+    dev = _check(cfg, st, tuple(st.aq_n.shape))
+    for name, t, shape in (("gquiet", gquiet, ()), ("rec", rec, (8,))):
+        if t.device != dev or t.dtype != torch.int32 or \
+                tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name} is {t.dtype}{list(t.shape)} on "
+                             f"{t.device}; the tile step needs a contiguous "
+                             f"torch.int32{list(shape)} on {dev}")
+    return dev
+
+
+class TileStep:
+    """One tile's cycle on the card, its launch arguments prepared once:
+    each call launches the cycle kernel's tile instance on the state's
+    leaves, in place, and adds one to the launch counts (``launches``,
+    ``path_launches``, ``tile_launches``).  A launch runs one cycle of
+    the tile unless ``gquiet`` (int32 ``[]``, the grid's quiescence, which
+    the ranks reduce after every cycle) is set, and writes the launch
+    record into ``rec`` (int32 ``[8]``: the tile's cycle and counters, the
+    quiescence of its owned cells after the cycle, the cycles run).  The
+    tensors must not be reallocated between calls."""
+
+    def __init__(self, cfg: EngineConfig, app: DiffusionApp,
+                 st: MachineState, tile, gquiet: torch.Tensor,
+                 rec: torch.Tensor, path: str = "auto",
+                 n_ctas: int | None = None):
+        cfg.validate()
+        dev = _check_tile_call(cfg, st, gquiet, rec)
+        if dev.type != "cuda":
+            raise ValueError(f"TileStep launches on cuda, not {dev}")
+        shape = tuple(st.aq_n.shape)
+        geometry = tile_route(cfg, shape, path, n_ctas)
+        self.lib = _library()
+        tensors, dims = _launch_args(cfg, app, st, 1, geometry, None,
+                                     tuple(tile), gquiet, rec)
+        self._keep = tensors          # the scratch must outlive the calls
+        self.ptrs = (ctypes.c_void_p * len(tensors))(
+            *[0 if t is None else t.data_ptr() for t in tensors])
+        self.n_ptrs = len(tensors)
+        self.dims = (ctypes.c_int * len(dims))(*dims)
+        self.n_dims = len(dims)
+        self.dev = dev
+        self.path = PATHS[geometry is not None]
+
+    def __call__(self) -> None:
+        global launches
+        kernel = ctypes.c_int(-1)
+        with torch.cuda.device(self.dev):
+            stream = torch.cuda.current_stream(self.dev).cuda_stream
+            err = self.lib.cca_cycle_launch(self.ptrs, self.n_ptrs,
+                                            self.dims, self.n_dims, stream,
+                                            ctypes.byref(kernel))
+        if err:
+            raise RuntimeError("cca_cycle tile launch failed: "
+                               + self.lib.cca_cycle_error_string(err)
+                               .decode())
+        launches += 1
+        path_launches[PATHS[kernel.value]] += 1
+        tile_launches[PATHS[kernel.value]] += 1
+
+
+def cca_tile_step(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
+                  tile, gquiet: torch.Tensor, rec: torch.Tensor,
+                  path: str = "auto", n_ctas: int | None = None):
+    """One cycle of a tile (``core.state.Tile``) unless the grid is
+    quiescent (``gquiet``), its record into ``rec``; see
+    :class:`TileStep`.  On the card one launch of the tile instance, which
+    updates the state in place; on the CPU the plain version
+    (``ref.tile_step_ref``), which returns a new state.  Returns the
+    state."""
+    if st.aq.device.type == "cuda":
+        TileStep(cfg, app, st, tile, gquiet, rec, path, n_ctas)()
+        return st
+    dev = _check_tile_call(cfg, st, gquiet, rec)
+    if dev.type != "cpu":
+        raise ValueError(f"cca_tile_step runs on cuda or cpu, not {dev}")
+    tile_route(cfg, tuple(st.aq_n.shape), path, n_ctas)
+    return tile_step_ref(cfg, app, st, tile, gquiet, rec)

@@ -62,3 +62,25 @@ def cca_cycle_chunk_ref(cfg: EngineConfig, app: DiffusionApp,
                         if v.is_inference()})
     return st, torch.tensor([int(q), ran], dtype=torch.int32,
                             device=st.aq.device)
+
+
+def tile_step_ref(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
+                  tile, gquiet: torch.Tensor, rec: torch.Tensor):
+    """The plain version of one tile step (``ops.cca_tile_step``): a
+    ``cycle_body`` of the tile (``core.state.Tile``) unless the grid was
+    quiescent at entry (``gquiet``; a tile quiescent alone does not
+    freeze), then the record, the tile's cycle and counters, the
+    quiescence of its owned cells after the cycle and the cycles run, into
+    ``rec``.  Returns the new state."""
+    frozen = bool(gquiet)
+    with torch.inference_mode():
+        if not frozen:
+            st, _ = cycle_body(cfg, app, st, tile)
+        q = frozen or bool(quiescent(st, tile))
+    st = st._replace(**{k: v.clone() for k, v in st._asdict().items()
+                        if v.is_inference()})
+    rec.copy_(torch.stack([st.cycle, st.stat_hops, st.stat_exec,
+                           st.stat_stall, st.stat_allocs,
+                           torch.tensor(int(q)), torch.tensor(int(not frozen)),
+                           torch.tensor(0)]).to(rec))
+    return st

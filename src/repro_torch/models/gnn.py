@@ -18,7 +18,10 @@ each edge set sorted (stable, edge features permuted alike, a sorted set
 kept as it is) and its row pointers in ``Graph.rowptr``.  ``build_graph``
 returns prepared graphs; ``gnn_forward`` prepares a graph that is not,
 so it accepts what JAX's accepts, and no layer sorts, checks or searches
-the destinations again.  The gcn branch has no mesh path.
+the destinations again.  With a mesh registered (``dist.ctx``) the gcn
+branch takes ``graph.partition.spmm_partitioned``, as JAX's does: the
+graph's ``edge_index`` is then ``partition_edges``' bucketed layout over
+the mesh's ranks and ``x`` this process's node blocks.
 """
 from __future__ import annotations
 
@@ -192,6 +195,11 @@ def _edge_ones(g: Graph, cd):
 
 def gnn_forward(cfg: GNNConfig, params, g: Graph):
     cd = cfg.compute_dtype
+    if cfg.kind == "gcn":
+        from repro_torch.dist.ctx import get_dist_mesh
+        mesh = get_dist_mesh()
+        if mesh is not None:
+            return _gcn_partitioned(cfg, params, g, mesh)
     if g.rowptr is None:
         g = sort_edges(cfg, g)
     n = g.x.shape[0]
@@ -232,6 +240,25 @@ def gnn_forward(cfg: GNNConfig, params, g: Graph):
     if cfg.kind == "graphcast":
         return _graphcast_forward(cfg, params, g)
     raise ValueError(cfg.kind)
+
+
+def _gcn_partitioned(cfg: GNNConfig, params, g: Graph, mesh):
+    """The gcn forward over owner-partitioned edges: one bf16 all-gather
+    of the features a layer, the scatter local to each rank's block
+    (``repro/models/gnn.py``'s mesh branch)."""
+    from repro_torch.graph.partition import (partitioned_coeff,
+                                             spmm_partitioned)
+    cd = cfg.compute_dtype
+    n = g.x.shape[0] * mesh.size // len(mesh.local_ranks)
+    coeff = partitioned_coeff(g.edge_index, n)
+    h = g.x.to(cd)
+    for i in range(cfg.n_layers):
+        h = matmul(h, params["w"][i]) + params["b"][i]
+        agg = spmm_partitioned(h, g.edge_index, n, coeff, mesh)
+        h = agg.to(cd) + h  # + self loop
+        if i < cfg.n_layers - 1:
+            h = torch.relu(h)
+    return h
 
 
 def _graphcast_forward(cfg: GNNConfig, params, g: Graph):

@@ -174,32 +174,47 @@ def _c_struct_fields(name):
 
 
 def test_c_structs_match_the_wrapper():
-    """`struct Dims` then `struct QDims` have one int for each entry of
-    ``_dims`` (n_ctas and the bytes a CTA last of Dims; Q, the record's
-    words and the packed slot app codes in QDims); `struct Leaves` one
-    pointer for each tensor the wrapper hands over, for both kernels,
-    then the QDims it carries."""
+    """`struct Dims`, `struct QDims` then `struct TDims` have one int for
+    each entry of ``_dims`` (n_ctas and the bytes a CTA last of Dims; Q,
+    the record's words and the packed slot app codes in QDims; the tile
+    flag, the grid's height and width, the tile's origin and owned window
+    in TDims, zeros but for a tile step); `struct Leaves` one pointer for
+    each tensor the wrapper hands over, for both kernels, then the QDims
+    it carries, and the grid's quiescence flag follows them in the pointer
+    array."""
+    from repro_torch.core.state import Tile
     from repro_torch.mq import batch_app
     cfg = FITS["ci"]
     n_dims = len(_c_struct_fields("Dims"))
+    n_q = len(_c_struct_fields("QDims"))
     for geometry in (None, ops.cluster_geometry(cfg)):
         dims = ops._dims(cfg, BFS, 9, 512, geometry)
-        assert len(dims) == n_dims + len(_c_struct_fields("QDims"))
+        assert len(dims) == n_dims + n_q + len(_c_struct_fields("TDims"))
     assert _c_struct_fields("Dims")[-2:] == ["n_ctas", "smem_bytes"]
     assert _c_struct_fields("QDims") == ["qb", "msgw", "qapp0", "qapp1",
                                          "qapp2", "qapp3"]
+    assert _c_struct_fields("TDims") == ["tile", "GH", "GW", "r0", "c0",
+                                         "or0", "or1", "oc0", "oc1"]
     assert ops._dims(cfg, BFS, 9, 512, None)[n_dims - 2:] == \
-        [0, 0, 1, 5, 0, 0, 0, 0]
+        [0, 0, 1, 5, 0, 0, 0, 0] + [0] * 9
+    tile = Tile(-2, 0, 2, 10, 0, 32)
+    tdims = ops._dims(cfg, BFS, 9, 1, None, tile, (12, 32), 7)
+    assert tdims[:2] == [12, 32] and tdims[10] == 7
+    assert tdims[n_dims + n_q:] == [1, cfg.height, cfg.width, -2, 0, 2, 10,
+                                    0, 32]
     assert ops._dims(cfg, BFS, 9, 512, (16, 2, 178816))[n_dims - 2:n_dims] \
         == [16, 178816]
     # nine slots: bfs 0, widest 4, cc 2, reliable 5, ..., the ninth in qapp1
     app = batch_app(["bfs", "widest", "cc", "reliable", "sssp", "bfs",
                      "bfs", "widest", "reliable"])
     q9 = dataclasses.replace(cfg, qbatch=9, n_vals=9)
-    assert ops._dims(q9, app, 9, 512, None)[n_dims:] == [
+    assert ops._dims(q9, app, 9, 512, None)[n_dims:n_dims + n_q] == [
         9, 13, 0 | 4 << 4 | 2 << 8 | 5 << 12 | 1 << 16 | 4 << 28, 5, 0, 0]
     leaves = _c_struct_fields("Leaves")
     assert leaves[:len(ops.KERNEL_LEAVES)] == list(ops.KERNEL_LEAVES)
     assert leaves[len(ops.KERNEL_LEAVES):] == ["offs", "blackouts", "outbox",
                                                "grant", "qwork", "rec",
                                                "trace", "qchg", "qlast", "q"]
+    tensors, _ = ops._launch_args(cfg, BFS, _chunk_input(cfg), 8)
+    # every pointer of Leaves (its fields but q), then the flag's
+    assert len(tensors) == len(leaves[:-1]) + 1 and tensors[-1] is None

@@ -253,7 +253,12 @@ def test_port_imports_nothing_of_jax_or_repro():
             "repro_torch.resilience, repro_torch.resilience.checkpoint, "
             "repro_torch.resilience.recover, repro_torch.resilience.faults, "
             "repro_torch.mq, repro_torch.mq.app, repro_torch.mq.session, "
-            "repro_torch.mq.frontdesk, repro_torch.launch.serve_bench; "
+            "repro_torch.mq.frontdesk, repro_torch.launch.serve_bench, "
+            "repro_torch.dist, repro_torch.dist.ctx, "
+            "repro_torch.dist.sharding, repro_torch.dist.transport, "
+            "repro_torch.dist.cca, repro_torch.dist.pipeline, "
+            "repro_torch.graph.partition, repro_torch.launch.mesh, "
+            "repro_torch.launch.dist_bench; "
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
