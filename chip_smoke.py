@@ -294,9 +294,9 @@ kernel):
      ogb_products, gatedgcn, meshgraphnet and graphcast on full_graph_sm;
      finite outputs, equal to the CPU forward elementwise within 1e-4
      (full_graph_sm; graphcast, whose f32 function cannot meet that at
-     random init, no farther from its f64 forward than twice the CPU's
-     f32 forward), spmm launches per forward, wall per forward, peak
-     memory
+     random init, no farther from its f64 forward than twice its plain
+     f32 forward, both on the card with ``index_add_`` sums), spmm
+     launches per forward, wall per forward, peak memory
  10. EmbeddingBag kernel vs plain at RM2 widths on the 26 full-size tables
      (36.8 GB, drawn on the card, checked once by
      ``dlrm.prepare_dlrm_params`` as serving does) for serve_p99 and
@@ -324,9 +324,11 @@ path, decode attention plain PyTorch):
  13. flash kernel vs plain on the card, entry by entry (``flash_excess``:
      2e-2 x (|ref| + median |ref|) in bf16, 2e-5 x (|ref| + 1) in f32) at
      T = 4096 at the heads of llama3.2-1b (32/8, dh 64), qwen3-1.7b (16/8,
-     128) and starcoder2-3b (24/2, 128), bf16 and f32, and at llama's
-     heads at T = 32768 in bf16 (the plain version head by head: its full
-     score matrix would be 137 GB); at each shape two planted faults (the
+     128) and starcoder2-3b (24/2, 128), bf16 and f32, at arctic's heads
+     (56/8: G = 7, an odd group count) at T = 4096 in bf16, and at the
+     heads of llama (dh 64) and phi3.5-moe (32/8, dh 128) at T = 32768 in
+     bf16 (the plain version head by head: its full score matrix would be
+     137 GB); at each shape two planted faults (the
      next KV head; each row blind to the keys more than T/2 back) must
      fail the same limit; each timed beside the plain version,
      ``F.scaled_dot_product_attention`` (yardstick only, on K/V repeated
@@ -352,12 +354,55 @@ path, decode attention plain PyTorch):
      and 24 generated tokens: every request answered, decode-step p50 /
      p99, tokens/s, peak memory
 
-It ends with the kernels line (JSON) and the ok line (JSON, last).
+MoE serving (``models.transformer``: ``_route``, ``_ffn_moe`` by index
+dispatch, ``_ffn_moe_ep`` over ``LocalTiles``, ``dense_residual``, the
+aux loss; the expert products are batched ``torch.matmul``, as JAX's are
+plain XLA products; every prefill attention one flash launch a layer),
+right after phase 15:
+
+ 45. the MoE FFN against its plain version at full width, phi3.5-moe's
+     layer 0 (f32 weights) and arctic's one layer (bf16 weights):
+     ``_ffn_moe`` against ``_ffn_moe_ref`` (JAX's literal ``[S, E, cap]``
+     dispatch and combine einsums) at S = 512 in bf16, the routing shared,
+     the slots of the sort equal to the one-hot cumsum's, the output equal
+     bit for bit or within one bf16 step of the largest |out|, each timed;
+     phi3.5-moe's ``_ffn_moe_ep`` on ``LocalTiles`` at (1, 4) and (2, 2)
+     against ``_ffn_moe`` at capacity factor E / K (nothing dropped),
+     within two bf16 steps of the largest |out|
+ 46. MoE prefill at full width, the flash counts set to 0 just before
+     each and read just after (two more main paths of the kernels line):
+     phi3.5-moe at 8 of its 32 layers (cut by memory: 42.7 GB of f32
+     weights; the whole model is 168 GB) on prefill_32k at B = 1,
+     T = 32768, and arctic at 1 of its 35 layers in bf16 weights (28 GB;
+     the whole is 1.9 TB in f32) at B = 1, T = 4096: finite logits, flash
+     launches = layers on the tensor-core path, the (token, k) pairs the
+     capacity dropped, wall, tokens/s, the MoE block's share by CUDA
+     events split into routing, dispatch, expert products and combine,
+     the expert products' bound (their kept rows' flops at 989 TFLOP/s or
+     their weights read once, whichever is longer), peak memory
+ 47. MoE serving: ``serve()`` on phi3.5-moe at 8 layers, decode_32k with
+     8 slots (cut from 128: the bf16 cache is 8.6 GB at 8 layers and 8
+     slots, 137 GB at 128 and 32 layers) and max_len 32768, 16 requests
+     of 16 prompt and 24 generated tokens: every request answered,
+     decode-step p50 / p99, tokens/s, pairs dropped, peak memory; at
+     T = 128 and capacity factor E / K (no drops on either path) the
+     prefill's logits against 128 ``lm_decode_step`` calls on the
+     prefill's experts within 5e-2 x max(1, max |ref|) at every
+     position, each (token, layer) whose own router would take other
+     experts a near-tie of the prefill's router logits (within 8 bf16
+     steps), and two
+     planted faults (a token's experts moved, the cache blind to token
+     0) rejected by the same limit
+
+It ends with the kernels line (JSON; the flash kernel's ``launches``
+summed over its three main paths: llama3.2-1b's prefill_32k run and the
+two MoE prefills) and the ok line (JSON, last).
 """
 import collections
 import contextlib
 import dataclasses
 import json
+import math
 import pathlib
 import re
 import subprocess
@@ -2841,21 +2886,21 @@ def check_close(name, got, want, rtol) -> tuple[float, float]:
     return err, rel
 
 
-def f64_forward(cfg, params, g):
-    """GraphCast's ``gnn_forward`` on the CPU in float64, its segment sums
-    too (the port's sums run in f32, as the kernel's do).  Its MLPs run in
-    the activations' dtype and it has no layer norm, so nothing else
-    rounds to f32; a built graph's destinations are all in range, so a
-    plain ``index_add_`` sums them."""
+def plain_forward(cfg, params, g, dtype):
+    """GraphCast's ``gnn_forward`` in ``dtype`` on the card in plain torch
+    ops: its segment sums by ``index_add_`` (no spmm kernel; a built
+    graph's destinations are all in range) in ``dtype`` too.  Its MLPs run
+    in the activations' dtype and it has no layer norm, so in float64
+    nothing rounds to f32."""
     assert cfg.kind == "graphcast"
 
-    def sum64(msgs, edge_index, n_nodes, rowptr=None):
-        out = torch.zeros((n_nodes, *msgs.shape[1:]), dtype=msgs.dtype)
+    def plain_sum(msgs, edge_index, n_nodes, rowptr=None):
+        out = msgs.new_zeros((n_nodes, *msgs.shape[1:]))
         return out.index_add_(0, edge_index[1].long(), msgs)
 
-    with mock.patch.object(gnn, "scatter_sum", sum64):
+    with mock.patch.object(gnn, "scatter_sum", plain_sum):
         return gnn.gnn_forward(
-            dataclasses.replace(cfg, compute_dtype=torch.float64), params, g)
+            dataclasses.replace(cfg, compute_dtype=dtype), params, g)
 
 
 def vs_cpu(arch, cfg, params, g, out) -> tuple[dict, str]:
@@ -2863,30 +2908,32 @@ def vs_cpu(arch, cfg, params, g, out) -> tuple[dict, str]:
     1e-4 of |ref| + median |ref|.  GraphCast's 16 unnormalised residual
     blocks reach 1e10 at random init, and its f32 function is then no
     more accurate than that allows, on any device: it is held to its f64
-    forward instead, no farther from it than 1e-4 or twice the CPU's f32
-    forward, whichever is more."""
+    forward instead, no farther from it than 1e-4 or twice the plain f32
+    forward, whichever is more.  Both run on the card in plain torch ops
+    (``plain_forward``): on the CPU they took ~133 s of the smoke."""
+    if arch == "graphcast":
+        want64 = plain_forward(cfg, params, g, torch.float64)
+        _, card64 = scaled_err(out, want64)
+        _, plain64 = scaled_err(plain_forward(cfg, params, g,
+                                              torch.float32), want64)
+        limit = max(1e-4, 2 * plain64)
+        if not card64 <= limit:
+            raise AssertionError(f"graphcast: the card is off its f64 "
+                                 f"forward by {card64:.3g}, the plain f32 "
+                                 f"forward by {plain64:.3g} (limit "
+                                 f"{limit:.3g})")
+        return (dict(vs_f64_scaled_err=card64,
+                     plain_vs_f64_scaled_err=plain64),
+                f"off the f64 forward by {card64:.3g} (scaled), the plain "
+                f"f32 forward by {plain64:.3g} (limit max(1e-4, 2x that); "
+                f"both on the card, sums by index_add_; max |ref| "
+                f"{float(want64.abs().max()):.4g})")
     cpu_p, cpu_g = to_cpu(params), gnn.Graph(*to_cpu(tuple(g)))
     want = gnn.gnn_forward(cfg, cpu_p, cpu_g)
-    if arch != "graphcast":
-        err, rel = check_close(f"{arch} vs CPU", out.cpu(), want, 1e-4)
-        return (dict(vs_cpu_max_abs_err=err, vs_cpu_scaled_err=rel),
-                f"== CPU forward elementwise (scaled error {rel:.3g} <= "
-                f"1e-4; max |d| {err:.3g})")
-    err, rel = scaled_err(out.cpu(), want)
-    want64 = f64_forward(cfg, cpu_p, cpu_g)
-    _, card64 = scaled_err(out.cpu(), want64)
-    _, cpu64 = scaled_err(want, want64)
-    limit = max(1e-4, 2 * cpu64)
-    if not card64 <= limit:
-        raise AssertionError(f"graphcast: the card is off its f64 forward "
-                             f"by {card64:.3g}, the CPU's f32 forward by "
-                             f"{cpu64:.3g} (limit {limit:.3g})")
-    return (dict(vs_cpu_max_abs_err=err, vs_cpu_scaled_err=rel,
-                 vs_f64_scaled_err=card64, cpu_vs_f64_scaled_err=cpu64),
-            f"off the f64 forward by {card64:.3g} (scaled), the CPU's f32 "
-            f"forward by {cpu64:.3g} (limit max(1e-4, 2x that)); card vs "
-            f"CPU f32 {rel:.3g} (max |d| {err:.3g} on max |ref| "
-            f"{float(want.abs().max()):.4g})")
+    err, rel = check_close(f"{arch} vs CPU", out.cpu(), want, 1e-4)
+    return (dict(vs_cpu_max_abs_err=err, vs_cpu_scaled_err=rel),
+            f"== CPU forward elementwise (scaled error {rel:.3g} <= "
+            f"1e-4; max |d| {err:.3g})")
 
 
 def forward_wall(fn, reps) -> tuple[float, int, int, object]:
@@ -3080,7 +3127,7 @@ def spmm_phases(smi: str, dev: torch.device) -> dict:
             if g is not g_ogb:
                 tc = time.time()
                 cpu, note = vs_cpu(arch, cfg, params, g, out)
-                note = f"; {note}; CPU {time.time() - tc:.1f}s"
+                note = f"; {note}; reference {time.time() - tc:.1f}s"
             reps = 3 if g is g_ogb or arch == "graphcast" else 10
             wall, peak, peak_fwd, _ = forward_wall(
                 lambda: gnn.gnn_forward(cfg, params, g), reps)
@@ -3552,6 +3599,13 @@ def lm_phases(smi: str, dev: torch.device, ptxas: list) -> dict:
     rows = [flash_case(*shp, dtype, gen.manual_seed(13), dev)
             for shp in FLASH_SHAPES
             for dtype in (torch.bfloat16, torch.float32)]
+    # arctic's heads (56/8: G = 7, an odd group count; phase 46's shape)
+    rows.append(flash_case("arctic-480b", 1, 4096, 56, 8, 128,
+                           torch.bfloat16, gen.manual_seed(13), dev))
+    # phi3.5-moe's prefill_32k heads (32/8 at dh 128; phase 46's shape)
+    rows.append(flash_case("phi3.5-moe-42b-a6.6b", 1, 32768, 32, 8, 128,
+                           torch.bfloat16, gen.manual_seed(13), dev))
+    # last: the kernels line's row
     rows.append(flash_case("llama3.2-1b", 1, 32768, 32, 8, 64,
                            torch.bfloat16, gen.manual_seed(13), dev))
     torch.cuda.empty_cache()
@@ -3704,6 +3758,410 @@ def lm_phases(smi: str, dev: torch.device, ptxas: list) -> dict:
             "headline_shape": "llama3.2-1b T=32768 bf16", "shapes": rows,
             "prefill": prefills, "prefill_full_batch": full_batch,
             "serving": serving, "card": smi}
+
+
+# ---- MoE serving (phases 45-47) ----
+
+MOE_S = 512              # phase 45's tokens: _ffn_moe against its einsums
+MOE_PARTS = ("_route", "_dispatch", "_experts", "_combine")
+
+
+def bf16_step(x) -> float:
+    """The spacing of bf16 numbers at the largest |x|."""
+    return 2.0 ** (math.floor(math.log2(float(x.float().abs().max()))) - 7)
+
+
+def moe_vs_plain(tag, cfg, lp, gen, dev) -> dict:
+    """Phase 45 at one config: ``_ffn_moe`` (index dispatch) against
+    ``_ffn_moe_ref`` (the ``[S, E, cap]`` einsums) on the card at S = 512
+    in bf16; the slots of the sort against the one-hot cumsum's; each
+    timed."""
+    x = torch.randn((1, MOE_S, cfg.d_model), generator=gen,
+                    device=dev).to(cfg.compute_dtype)
+    _, _, topi, _ = transformer._route(cfg, lp, x[0])
+    pos = transformer._moe_slots(topi, cfg.n_experts)
+    if not torch.equal(pos, transformer._moe_slots_onehot(topi,
+                                                          cfg.n_experts)):
+        raise AssertionError(f"{tag}: the slots differ from the one-hot "
+                             f"cumsum's")
+    cap = transformer._capacity(cfg, MOE_S, 4)
+    dropped = int((pos >= cap).sum())
+    transformer.reset_moe_dropped()
+    got, aux = transformer._ffn_moe(cfg, lp, x)
+    counted = transformer.moe_dropped()
+    ref, aux_ref = transformer._ffn_moe_ref(cfg, lp, x)
+    if counted != dropped or not torch.equal(aux, aux_ref):
+        raise AssertionError(f"{tag}: dropped {counted} != {dropped} "
+                             f"or aux {float(aux)} != {float(aux_ref)}")
+    d = (got.float() - ref.float()).abs()
+    step = bf16_step(ref)
+    if not float(d.max()) <= step:
+        raise AssertionError(f"{tag}: _ffn_moe off its plain version by "
+                             f"{float(d.max())} > one bf16 step {step}")
+    row = dict(config=cfg.name, S=MOE_S, cap=cap, dropped=dropped,
+               equal_bits=bool(torch.equal(got, ref)),
+               entries_off=int((d > 0).sum()), max_abs_err=float(d.max()),
+               bf16_step=step,
+               ms=cuda_ms(lambda: transformer._ffn_moe(cfg, lp, x)),
+               plain_ms=cuda_ms(lambda: transformer._ffn_moe_ref(cfg, lp,
+                                                                 x)))
+    print(f"[45] {tag}: _ffn_moe vs _ffn_moe_ref at S={MOE_S} bf16 (cap "
+          f"{cap}, {dropped} (token, k) pairs dropped): routing equal, the "
+          f"slots of the sort == the one-hot cumsum's, keep equal; output "
+          + ("equal bit for bit" if row["equal_bits"] else
+             f"{row['entries_off']} entries one bf16 step off (cuBLAS rounds "
+             f"an einsum's f32 sums to bf16 in parts), max |d| "
+             f"{row['max_abs_err']:.3g} <= {step:.3g}")
+          + f"; {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms",
+          flush=True)
+    return dict(row, x=x)
+
+
+def moe_ep_vs_dense(cfg, lp, x) -> list:
+    """Phase 45: phi3.5-moe's ``_ffn_moe_ep`` on ``LocalTiles`` at (1, 4)
+    and (2, 2) against ``_ffn_moe`` on the card, at capacity factor E / K
+    (no rank and no expert can drop), within two bf16 steps of the
+    largest |out| (EP adds the f32 gates in f32, rounds a rank's sum to
+    bf16 and sums bf16 over ``model``; the dense path rounds the gates to
+    bf16 and the sum of both experts once)."""
+    wide = dataclasses.replace(cfg, moe_impl="ep",
+                               capacity_factor=cfg.n_experts / cfg.top_k)
+    dense, _ = transformer._ffn_moe(wide, lp, x)
+    rows = []
+    for shape in ((1, 4), (2, 2)):
+        set_dist_mesh(make_host_mesh(*shape, device=x.device))
+        try:
+            transformer.reset_moe_dropped()
+            ep, _ = transformer._ffn_moe_ep(wide, lp, x)
+            drops = transformer.moe_dropped()
+            ms = cuda_ms(lambda: transformer._ffn_moe_ep(wide, lp, x))
+        finally:
+            set_dist_mesh(None)
+        err, tol = float((ep.float() - dense.float()).abs().max()), \
+            2 * bf16_step(dense)
+        if drops or not err <= tol:
+            raise AssertionError(f"EP {shape}: {drops} dropped, off the "
+                                 f"dense dispatch by {err} > {tol}")
+        rows.append(dict(mesh=list(shape), max_abs_err=err, tol=tol, ms=ms))
+        print(f"[45] {cfg.name} layer 0 _ffn_moe_ep on LocalTiles {shape} "
+              f"(cf {wide.capacity_factor}, none dropped) == _ffn_moe within "
+              f"two bf16 steps of max |out| (max |d| {err:.3g} <= "
+              f"{tol:.3g});"
+              f" {ms:.4f} ms", flush=True)
+    return rows
+
+
+def moe_prefill_run(tag, cfg, params, tokens) -> dict:
+    """Phase 46 at one config: ``prefill`` with the flash counts set to 0
+    just before and read just after (a main path of the kernels line),
+    finite logits, the (token, k) pairs dropped, then a forward with each
+    part of the MoE block timed by CUDA events, the wall and peak
+    memory."""
+    B, T = tokens.shape
+    transformer.reset_moe_dropped()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.launches = 0
+    fa_ops.path_launches = dict.fromkeys(fa_ops.PATHS, 0)
+    t0 = time.time()
+    logits = lm_serve.prefill(cfg, params, tokens)
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    launches, by_path = fa_ops.launches, dict(fa_ops.path_launches)
+    peak = torch.cuda.max_memory_allocated()
+    if launches != cfg.n_layers or by_path["tensor_core"] != launches:
+        raise AssertionError(f"{tag}: {launches} flash launches ({by_path}),"
+                             f" not {cfg.n_layers} on the tensor-core path")
+    if logits.shape != (B, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"{tag}: logits {list(logits.shape)} not "
+                             f"finite or not [B, vocab]")
+    dropped = transformer.moe_dropped()
+    events = collections.defaultdict(list)
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = fn(*a, **kw)
+            ev[1].record()
+            events[name].append(ev)
+            return out
+        return run
+    whole = (torch.cuda.Event(enable_timing=True),
+             torch.cuda.Event(enable_timing=True))
+    with contextlib.ExitStack() as stack:
+        for name in (*MOE_PARTS, "_ffn_moe", "flash_attention"):
+            stack.enter_context(mock.patch.object(
+                transformer, name, timed(name, getattr(transformer, name))))
+        whole[0].record()
+        lm_serve.prefill(cfg, params, tokens)
+        whole[1].record()
+    torch.cuda.synchronize()
+    ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in events.items()}
+    device_ms = whole[0].elapsed_time(whole[1])
+    wall, _, _, _ = forward_wall(
+        lambda: lm_serve.prefill(cfg, params, tokens), 1)
+    S, K, E = B * T, cfg.top_k, cfg.n_experts
+    cap = transformer._capacity(cfg, S, 4)
+    # the expert products' bound: the kept rows' flops at the bf16 peak, or
+    # every layer's expert weights (as stored) read once with the rows in
+    # and out, whichever is longer
+    mats = 3 if cfg.gated_ffn else 2
+    flops = 2 * (S * K * cfg.n_layers - dropped) * cfg.d_model * cfg.d_ff \
+        * mats
+    nbytes = cfg.n_layers * (
+        E * mats * cfg.d_model * cfg.d_ff
+        * (torch.finfo(cfg.param_dtype).bits // 8)
+        + 2 * E * cap * cfg.d_model * 2)
+    flops_ms, bytes_ms = (1e3 * flops / H100_BF16_FLOPS,
+                          1e3 * nbytes / H100_BYTES_PER_S)
+    bound_ms = max(flops_ms, bytes_ms)
+    row = dict(config=cfg.name, layers=cfg.n_layers, B=B, T=T,
+               param_dtype=str(cfg.param_dtype).split(".")[-1],
+               flash_launches=launches, flash_by_path=by_path,
+               dropped=dropped, pairs=S * K * cfg.n_layers, cap=cap,
+               first_s=first_s, wall_s=wall, tok_per_s=B * T / wall,
+               device_ms=device_ms, moe_ms=ms["_ffn_moe"],
+               routing_ms=ms["_route"], dispatch_ms=ms["_dispatch"],
+               experts_ms=ms["_experts"], combine_ms=ms["_combine"],
+               attention_ms=ms["flash_attention"], experts_flops=flops,
+               experts_bytes=nbytes, experts_flops_ms=flops_ms,
+               experts_bytes_ms=bytes_ms, experts_bound_ms=bound_ms,
+               experts_bound_by="operations" if flops_ms >= bytes_ms
+               else "bytes",
+               padded_rows=E * cap * cfg.n_layers, peak_bytes=peak)
+    print(f"[46] {tag}: logits {list(logits.shape)} finite; {launches} flash "
+          f"launches ({by_path}); {dropped} of {row['pairs']} (token, k) "
+          f"pairs dropped (cap {cap} a layer); wall {wall:.4f} s (host "
+          f"clock, ends in synchronize; first call {first_s:.3f} s) = "
+          f"{B * T / wall:.1f} tokens/s; by CUDA events of {device_ms:.1f} "
+          f"ms: the MoE block {ms['_ffn_moe']:.1f} ms "
+          f"({100 * ms['_ffn_moe'] / device_ms:.1f}%: routing "
+          f"{ms['_route']:.2f}, dispatch {ms['_dispatch']:.2f}, expert "
+          f"products {ms['_experts']:.2f}, combine {ms['_combine']:.2f}), "
+          f"attention {ms['flash_attention']:.1f}; the expert products' "
+          f"bound {bound_ms:.2f} ms by {row['experts_bound_by']} (FLOP "
+          f"bound {flops_ms:.2f} ms: {flops / 1e12:.2f} TFLOP of kept rows "
+          f"at 989 TFLOP/s; byte bound {bytes_ms:.2f} ms: {nbytes / 1e9:.2f}"
+          f" GB of expert weights as stored, rows in and out, at 3.35 TB/s; "
+          f"{row['padded_rows']} rows computed, capacity padding included);"
+          f" peak {peak / 2**30:.2f} GiB", flush=True)
+    return row
+
+
+# phase 47: how far apart a near-tie's router logits may lie, in bf16 steps
+# at their magnitude (on an H100 the 15 partings of phi3.5-moe's 1,024
+# (token, layer) pairs at T = 128 lay 0 to 6.5 steps apart)
+NEAR_TIE_STEPS = 8
+FAULT_STEPS = 16         # phase 47: decode steps a planted fault runs
+
+
+def moe_decode_vs_prefill(cfg, params, tok) -> dict:
+    """Phase 47: the prefill's logits at T = 128 against 128
+    ``lm_decode_step`` calls, position by position.  At the config's
+    capacity factor the prefill drops pairs that a decode step at B = 1
+    (cap 4) never drops, so both run at cf = E / K, where neither drops.
+    Both paths round in other places (the flash kernel keeps f32 where
+    the plain decode attention rounds to bf16), so a token whose router
+    gates sit at a near-tie may take other experts on one path, and from
+    there on the paths would rightly part.  So the decode steps take the
+    prefill's experts for each (token, layer) (``_route`` returns the
+    prefill's top-k and the step's own gates at those experts,
+    renormalised), and every position is held within 5e-2 x max(1, max
+    |ref|).  Where a step's own router would take other experts, the
+    prefill's router logits of the experts kept and of those taken
+    instead must lie within ``NEAR_TIE_STEPS`` bf16 steps at their
+    magnitude (the logits are bf16 products, so two paths whose inputs
+    differ by bf16 rounding move them by a step or so), and never at
+    token 0.  Two planted faults,
+    each over the first ``FAULT_STEPS`` steps, the limit must reject:
+    token 1's experts in layer 0 moved to the next ones, and every
+    layer's cache blind to token 0 from step 2 on."""
+    T, L, E = tok.shape[1], cfg.n_layers, cfg.n_experts
+    transformer.reset_moe_dropped()
+    lm_serve.prefill(cfg, params, tok)
+    own_drops = transformer.moe_dropped()
+    wide = dataclasses.replace(cfg, capacity_factor=E / cfg.top_k)
+    route = transformer._route
+    p_routes = []
+
+    def recording(c, lp, xs):
+        out = route(c, lp, xs)
+        p_routes.append((xs @ lp["router"].to(c.compute_dtype)).float())
+        p_routes.append(out)
+        return out
+    with mock.patch.object(transformer, "_route", recording):
+        want = transformer.lm_forward(wide, params, tok)[0][0].float()
+    p_logits = torch.stack(p_routes[0::2])                   # [L, T, E]
+    p_top = torch.stack([r[2] for r in p_routes[1::2]])      # [L, T, K]
+    p_gates = torch.stack([r[0] for r in p_routes[1::2]])
+
+    def decode(n, fault=None):
+        """n decode steps on the prefill's experts -> (logits [n, vocab]
+        f32, the steps' own top-k [L, n, K])."""
+        own, calls = [], iter(range(n * L))
+
+        def forced(*a):
+            gates, _, topi, aux = route(*a)
+            t, layer = divmod(next(calls), L)
+            own.append(topi[0])
+            topi = p_top[layer, t:t + 1]
+            if fault == "route" and (t, layer) == (1, 0):
+                topi = (topi + 1) % E
+            topv = gates.gather(-1, topi)
+            return (gates, topv / topv.sum(-1, keepdim=True).clamp_min(1e-9),
+                    topi, aux)
+        cache = transformer.init_kv_cache(wide, 1, T, device=tok.device)
+        lengths = torch.zeros(1, dtype=torch.int32, device=tok.device)
+        got = []
+        with mock.patch.object(transformer, "_route", forced):
+            for t in range(n):
+                logits, cache = transformer.lm_decode_step(
+                    wide, params, tok[:, t:t + 1], cache, lengths)
+                got.append(logits[0, 0])
+                lengths += 1
+                if fault == "cache" and t == 1:
+                    for c in cache:
+                        c[:, :, 0].zero_()
+        return torch.stack(got), torch.stack(own).view(n, L, -1) \
+            .transpose(0, 1)
+
+    transformer.reset_moe_dropped()
+    got, d_top = decode(T)
+    if transformer.moe_dropped():
+        raise AssertionError(f"{transformer.moe_dropped()} pairs dropped at "
+                             f"cf {wide.capacity_factor}")
+    err = check("MoE decode vs prefill", got, want, 5e-2)
+    differ = (p_top.sort(-1).values != d_top.sort(-1).values).any(-1)
+    gaps, steps = [], []          # each parting's gates and logits apart
+    for layer, t in differ.nonzero().tolist():
+        kept, other = (list(set(p_top[layer, t].tolist())
+                            - set(d_top[layer, t].tolist())),
+                       list(set(d_top[layer, t].tolist())
+                            - set(p_top[layer, t].tolist())))
+        g, lg = p_gates[layer, t], p_logits[layer, t]
+        gaps.append(float((g[kept].min() - g[other].max()).abs()))
+        d = float((lg[kept].min() - lg[other].max()).abs())
+        steps.append(d / bf16_step(lg[kept + other]))
+        if t == 0 or not steps[-1] <= NEAR_TIE_STEPS:
+            raise AssertionError(
+                f"decode vs prefill: token {t}'s own router takes experts "
+                f"{other} for {kept} in layer {layer}, their logits "
+                f"{steps[-1]:.3g} bf16 steps apart (limit {NEAR_TIE_STEPS}; "
+                f"gates {gaps[-1]:.3g} apart)")
+    scale = max(1.0, float(want[:FAULT_STEPS].abs().max()))
+    faults = {f: float((decode(FAULT_STEPS, f)[0] - want[:FAULT_STEPS])
+                       .abs().max()) / scale for f in ("route", "cache")}
+    if not min(faults.values()) > 5e-2:
+        raise AssertionError(f"a planted fault passes the 5e-2 limit: "
+                             f"{faults}")
+    row = dict(T=T, capacity_factor=wide.capacity_factor, positions=T,
+               max_abs_err=err, last_max_abs_err=float(
+                   (got[-1] - want[-1]).abs().max()),
+               own_route_differs=int(differ.sum()),
+               own_route_differs_tokens=int(differ.any(0).sum()),
+               near_tie_gates_apart=gaps, near_tie_logit_steps=steps,
+               planted_faults_scaled=faults, dropped_at_own_cf=own_drops)
+    print(f"[47] T={T} at cf {wide.capacity_factor} (none dropped), the "
+          f"decode steps on the prefill's experts: prefill's logits == "
+          f"{T} decode steps within 5e-2 x max(1, max |ref|) at every "
+          f"position (max |d| {err:.3g}, the last position's "
+          f"{row['last_max_abs_err']:.3g}); the steps' own routers take "
+          f"other experts at {row['own_route_differs']} (token, layer) "
+          f"pairs of {row['own_route_differs_tokens']} tokens, each a "
+          f"near-tie of the prefill's router logits (at most "
+          + (f"{max(steps):.3g} bf16 steps apart, gates {max(gaps):.3g}"
+             if gaps else "none") + f"; limit {NEAR_TIE_STEPS} steps); "
+          f"planted faults off by {faults['route']:.3g} (token 1's experts "
+          f"moved) and {faults['cache']:.3g} (cache blind to token 0) x "
+          f"max(1, max |ref|) against 5e-2; at the config's cf "
+          f"{cfg.capacity_factor} the prefill drops {own_drops} pairs",
+          flush=True)
+    return row
+
+
+def moe_phases(smi: str, dev: torch.device) -> dict:
+    """Phases 45 to 47: the MoE FFN against its plain version and EP at
+    full width, the MoE prefills at full width, MoE serving."""
+    gen = torch.Generator(device=dev)
+    shapes = {s.name: s for s in lm_shapes()}
+
+    # ---- phi3.5-moe at 8 of its 32 layers (42.7 GB of f32 weights) ----
+    t0 = time.time()
+    cfg = dataclasses.replace(lm_archs.PHI35_MOE, n_layers=8)
+    params = transformer.init_lm_params(cfg, gen.manual_seed(45))
+    torch.cuda.synchronize()
+    print(f"[45] {cfg.name} at {cfg.n_layers} layers drawn on the card in "
+          f"{time.time() - t0:.1f}s ({torch.cuda.memory_allocated() / 1e9:.1f}"
+          f" GB)", flush=True)
+    lp = transformer._layer_params(params, 0)
+    phi = moe_vs_plain(f"{cfg.name} layer 0", cfg, lp, gen.manual_seed(451),
+                       dev)
+    ep = moe_ep_vs_dense(cfg, lp, phi.pop("x"))
+    print(f"[45] phi3.5-moe done in {time.time() - t0:.1f}s", flush=True)
+
+    t0 = time.time()
+    T = shapes["prefill_32k"].dim("seq_len")            # B = 1
+    tokens = torch.randint(0, cfg.vocab, (1, T), generator=gen.manual_seed(46),
+                           device=dev, dtype=torch.int32)
+    prefills = [moe_prefill_run(f"{cfg.name} {cfg.n_layers} layers "
+                                f"prefill_32k B=1 T={T}", cfg, params,
+                                tokens)]
+    print(f"[46] phi3.5-moe done in {time.time() - t0:.1f}s", flush=True)
+
+    # ---- 47. serving ----
+    t0 = time.time()
+    dec = shapes["decode_32k"]                      # 128 slots cut to 8
+    torch.cuda.reset_peak_memory_stats()
+    out, tput, metrics = lm_serve.serve(cfg, 16, 8, prompt_len=16,
+                                        gen_len=24,
+                                        max_len=dec.dim("seq_len"), seed=47,
+                                        params=params, device=dev)
+    peak = torch.cuda.max_memory_allocated()
+    if sorted(out) != list(range(16)) or any(
+            len(v) != 24 or not all(0 <= x < cfg.vocab for x in v)
+            for v in out.values()):
+        raise AssertionError("MoE serve did not answer every request with 24 "
+                             "tokens of the vocabulary")
+    serving = dict(metrics, requests=16, slots=8, max_len=dec.dim("seq_len"),
+                   peak_bytes=peak, wall_s=time.time() - t0)
+    print(f"[47] {cfg.name} ({cfg.n_layers} layers) serve: 16 requests "
+          f"answered (24 tokens each) through 8 slots, max_len "
+          f"{dec.dim('seq_len')}: {metrics['steps']} steps, decode step p50 "
+          f"{metrics['p50']:.2f} ms, p99 {metrics['p99']:.2f} ms (first "
+          f"{metrics['first_step_ms']:.1f} ms), {tput:.1f} tokens/s, "
+          f"{metrics['moe_dropped']} (token, k) pairs dropped; peak "
+          f"{peak / 2**30:.2f} GiB; {serving['wall_s']:.1f}s", flush=True)
+    decode_check = moe_decode_vs_prefill(cfg, params, tokens[:, :128])
+    print(f"[47] done in {time.time() - t0:.1f}s", flush=True)
+    del params, lp, tokens
+    torch.cuda.empty_cache()
+
+    # ---- arctic at 1 of its 35 layers, bf16 parameters ----
+    t0 = time.time()
+    acfg = dataclasses.replace(lm_archs.ARCTIC, n_layers=1,
+                               param_dtype=torch.bfloat16)
+    params = transformer.init_lm_params(acfg, gen.manual_seed(48))
+    torch.cuda.synchronize()
+    print(f"[45] {acfg.name} at {acfg.n_layers} layer, bf16 parameters, "
+          f"drawn on the card in {time.time() - t0:.1f}s "
+          f"({torch.cuda.memory_allocated() / 1e9:.1f} GB)", flush=True)
+    arctic = moe_vs_plain(f"{acfg.name} layer 0", acfg,
+                          transformer._layer_params(params, 0),
+                          gen.manual_seed(452), dev)
+    del arctic["x"]
+    tokens = torch.randint(0, acfg.vocab, (1, 4096),
+                           generator=gen.manual_seed(49), device=dev,
+                           dtype=torch.int32)
+    prefills.append(moe_prefill_run(f"{acfg.name} 1 layer B=1 T=4096", acfg,
+                                    params, tokens))
+    del params, tokens
+    torch.cuda.empty_cache()
+    print(f"[45-46] arctic done in {time.time() - t0:.1f}s", flush=True)
+    return dict(vs_plain=[phi, arctic], ep=ep, prefill=prefills,
+                serving=serving, decode_check=decode_check, card=smi)
 
 
 def main() -> None:
@@ -4056,6 +4514,23 @@ def main() -> None:
           f"{build_s:.1f}s)")
     ptxas = flash_ptxas(builds[3][1])
     flash_entry = lm_phases(smi, torch.device("cuda"), ptxas)
+
+    # ---- 45-47. MoE serving: the FFN against its plain version, EP, the
+    # prefills and serve() at full width; two more main paths of flash ----
+    t0 = time.time()
+    moe = moe_phases(smi, torch.device("cuda"))
+    runs = {"llama3.2-1b prefill_32k B=1 (5 forwards)":
+            flash_entry["launches"]}
+    by_path = dict(flash_entry["launches_by_path"])
+    for r in moe["prefill"]:
+        runs[f"{r['config']} {r['layers']} layer(s) B={r['B']} T={r['T']}"] \
+            = r["flash_launches"]
+        for k, n in r["flash_by_path"].items():
+            by_path[k] += n
+    flash_entry.update(launches=sum(runs.values()), launches_by_path=by_path,
+                       launches_by_main_path=runs, moe=moe)
+    print(f"[45-47] done in {time.time() - t0:.1f}s; flash launches by main "
+          f"path {runs}", flush=True)
     print(f"[done] all phases in {time.time() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": [cca_entry, spmm_entry, bag_entry,
                                   flash_entry]}))

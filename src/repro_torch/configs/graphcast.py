@@ -1,0 +1,7 @@
+"""--arch graphcast (exact published config; see gnn_archs.py)."""
+from repro_torch.configs.gnn_archs import GRAPHCAST as CONFIG  # noqa: F401
+from repro_torch.configs.registry import get
+
+BUNDLE = get("graphcast")
+SHAPES = {s.name: s for s in BUNDLE.shapes}
+smoke = BUNDLE.smoke

@@ -1,7 +1,8 @@
 """The five assigned LM-family transformer architectures (public configs;
-the port's copy of ``repro.configs.lm_archs``).  The two MoE configs are
-listed for their shapes and parameter counts; their forward raises until
-the MoE slice (``models.transformer``)."""
+the port's copy of ``repro.configs.lm_archs``): three dense, and two MoE
+(phi3.5-moe, arctic with its dense residual FFN), whose forward runs the
+MoE FFN of ``models.transformer`` (``_ffn_moe``, or ``_ffn_moe_ep`` with
+``moe_impl="ep"``)."""
 from __future__ import annotations
 
 import dataclasses

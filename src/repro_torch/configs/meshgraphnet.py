@@ -1,0 +1,7 @@
+"""--arch meshgraphnet (exact published config; see gnn_archs.py)."""
+from repro_torch.configs.gnn_archs import MESHGRAPHNET as CONFIG  # noqa: F401
+from repro_torch.configs.registry import get
+
+BUNDLE = get("meshgraphnet")
+SHAPES = {s.name: s for s in BUNDLE.shapes}
+smoke = BUNDLE.smoke

@@ -58,6 +58,28 @@ class Mesh:
             rank, out[name] = divmod(rank, self.shape[name])
         return {n: out[n] for n in self.axis_names}
 
+    def axis_index(self, rank: int, axes) -> int:
+        """``rank``'s coordinate on ``axes``: on one axis its index there,
+        on several the row-major index over them (the shard a dimension
+        split over those axes gives ``rank``, as in JAX)."""
+        c, idx = self.coords(rank), 0
+        for a in axes:
+            idx = idx * self.shape[a] + c[a]
+        return idx
+
+    def axis_groups(self, axes) -> list:
+        """The ranks that differ only on ``axes``, a tuple a group: groups
+        in rank order, each in the order of ``axis_index`` over ``axes``
+        (which, for axes in mesh order, is rank order too)."""
+        axes = tuple(axes)
+        groups = {}
+        for r in range(self.size):
+            c = self.coords(r)
+            key = tuple(c[a] for a in self.axis_names if a not in axes)
+            groups.setdefault(key, []).append((self.axis_index(r, axes), r))
+        return sorted(tuple(r for _, r in sorted(g))
+                      for g in groups.values())
+
     @property
     def local_ranks(self) -> tuple:
         """The ranks this process holds: every rank without a transport."""
@@ -136,9 +158,9 @@ def constrain(x, *axes):
     """``x`` unchanged.  JAX's ``constrain`` pins an array's sharding for
     GSPMD inside a traced program; eager PyTorch has no such constraint,
     and the port shards by laying tensors out per rank itself
-    (``repro_torch.dist.cca``, ``graph.partition``).  Sharded LM weights
-    come with ROADMAP queue 1 item 8.  Checks the axis count, as JAX's
-    does."""
+    (``repro_torch.dist.cca``, ``graph.partition``, the MoE experts of
+    ``models.transformer._ffn_moe_ep``); the LM's other weights stay
+    whole.  Checks the axis count, as JAX's does."""
     if _DIST_MESH is not None and len(axes) != x.dim():
         raise ValueError(
             f"constrain: got {len(axes)} axes for rank-{x.dim()} array")

@@ -98,14 +98,17 @@ _LM_LAYER_AXES = {
 }
 
 
+def lm_layer_spec(mesh, name: str, shape) -> tuple:
+    """The spec of one layer's slice (``shape`` without the ``L`` dim) of
+    the stacked leaf ``name``."""
+    return resolve_spec(mesh, shape,
+                        _LM_LAYER_AXES.get(name, (None,) * len(shape)))
+
+
 def lm_param_shardings(mesh, params_shape):
     """FSDP (d_model over dp) x TP (heads/ffn/experts over model)."""
-    layers = {
-        k: resolve_spec(mesh, v.shape,
-                        (None, *_LM_LAYER_AXES.get(k, (None,)
-                                                   * (len(v.shape) - 1))))
-        for k, v in params_shape["layers"].items()
-    }
+    layers = {k: (None, *lm_layer_spec(mesh, k, tuple(v.shape)[1:]))
+              for k, v in params_shape["layers"].items()}
     return dict(
         embed=resolve_spec(mesh, params_shape["embed"].shape,
                            ("model", None)),
@@ -115,6 +118,31 @@ def lm_param_shardings(mesh, params_shape):
                                 (None,)),
         layers=layers,
     )
+
+
+def block_slices(mesh, shape, spec, rank: int) -> tuple:
+    """The index (a slice a dimension) of the block ``rank`` holds of a
+    leaf of ``shape`` laid out by ``spec``: a dimension split over axes
+    is cut into equal blocks, ``rank``'s the one at its ``axis_index``
+    over them (what ``shard_map`` hands that rank)."""
+    out = []
+    for dim, entry in zip(shape, spec):
+        if entry is None:
+            out.append(slice(None))
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        n = math.prod(mesh.shape[a] for a in axes)
+        if dim % n:
+            raise ValueError(f"a dimension of {dim} does not split over "
+                             f"{axes} ({n} ranks)")
+        i, size = mesh.axis_index(rank, axes), dim // n
+        out.append(slice(i * size, (i + 1) * size))
+    return tuple(out)
+
+
+def shard_block(x, mesh, spec, rank: int):
+    """The block of ``x`` that ``rank`` holds under ``spec`` (a view)."""
+    return x[block_slices(mesh, tuple(x.shape), spec, rank)]
 
 
 def lm_batch_shardings(mesh):

@@ -14,6 +14,13 @@ interface, in two implementations (neither falls back to the other):
   receives them with ``batch_isend_irecv``, and scatters what arrived;
   reductions are ``all_reduce`` on device tensors.
 
+Besides the whole-world reductions, both reduce and gather over the ranks
+of chosen mesh axes (``axis_sum``, ``axis_gather``: JAX's ``psum`` and
+tiled ``all_gather`` over named axes in ``shard_map``), on blocks given
+one a local rank: ``LocalTiles`` over the groups of
+``Mesh.axis_groups``, ``ProcessGroupTiles`` over a subgroup a group (the
+world where one group is all of it).
+
 The exchange itself (``dist.cca.HaloPlan``) is the same code on both:
 pack with one gather, ``move``, unpack with one scatter.  ``LocalTiles``
 lays its packed words out so that they are already where they go, and
@@ -66,6 +73,26 @@ class LocalTiles:
     def broadcast(self, x: torch.Tensor, src: int) -> torch.Tensor:
         return x
 
+    def axis_sum(self, mesh, axes, blocks: list) -> list:
+        """For each rank, the sum of ``blocks`` (one a rank, in rank
+        order) over the ranks that differ from it only on ``axes``."""
+        out = [None] * len(blocks)
+        for group in mesh.axis_groups(axes):
+            total = torch.stack([blocks[r] for r in group]).sum(dim=0)
+            for r in group:
+                out[r] = total
+        return out
+
+    def axis_gather(self, mesh, axes, blocks: list, dim: int) -> list:
+        """For each rank, the blocks of its group on ``axes``
+        concatenated along ``dim`` in the group's order."""
+        out = [None] * len(blocks)
+        for group in mesh.axis_groups(axes):
+            whole = torch.cat([blocks[r] for r in group], dim=dim)
+            for r in group:
+                out[r] = whole
+        return out
+
     def barrier(self) -> None:
         pass
 
@@ -91,6 +118,7 @@ class ProcessGroupTiles:
             device = (f"cuda:{torch.cuda.current_device()}"
                       if self.backend == "nccl" else "cpu")
         self.device = torch.device(device)
+        self._groups = {}
 
     @classmethod
     def connect(cls, init_method: str, rank: int, world: int,
@@ -156,6 +184,41 @@ class ProcessGroupTiles:
         x = x.contiguous()
         dist.broadcast(x, src)
         return x
+
+    def _axis_group(self, mesh, axes):
+        """(size of this rank's group on ``axes``, its process group:
+        ``None`` for the world).  Every process makes every subgroup, in
+        the same order, the first time a mesh and axes are asked for."""
+        key = (tuple(mesh.shape.items()), tuple(axes))
+        if key not in self._groups:
+            groups = mesh.axis_groups(axes)
+            size, pg = len(groups[0]), None
+            if 1 < size < self.world:
+                made = [dist.new_group(list(g)) for g in groups]
+                pg = next(p for g, p in zip(groups, made) if self.rank in g)
+            self._groups[key] = (size, pg)
+        return self._groups[key]
+
+    def axis_sum(self, mesh, axes, blocks: list) -> list:
+        """This rank's block summed over its group on ``axes``."""
+        (b,) = blocks
+        y = b.clone(memory_format=torch.contiguous_format)
+        size, pg = self._axis_group(mesh, axes)
+        if size > 1:
+            dist.all_reduce(y, op=dist.ReduceOp.SUM, group=pg)
+        return [y]
+
+    def axis_gather(self, mesh, axes, blocks: list, dim: int) -> list:
+        """The blocks of this rank's group on ``axes``, concatenated
+        along ``dim`` in rank order."""
+        (b,) = blocks
+        size, pg = self._axis_group(mesh, axes)
+        if size == 1:
+            return [b]
+        b = b.contiguous()
+        parts = [torch.empty_like(b) for _ in range(size)]
+        dist.all_gather(parts, b, group=pg)
+        return [torch.cat(parts, dim=dim)]
 
     def barrier(self) -> None:
         dist.barrier()

@@ -1,6 +1,11 @@
 """LM serving (the port of ``repro.launch.serve``, with the prefill step of
 ``repro.launch.steps._lm_prefill_plan``).
 
+Both take the dense and the MoE configs (``configs/lm_archs.py``); a MoE
+layer drops the (token, k) pairs past its experts' capacity, which
+depends on the tokens routed together (a prefill's B x T, a decode
+step's B), and both report how many.
+
 ``serve`` is the continuous-batching-lite decode loop: fixed batch slots,
 each slot one request with its own cache length; a finished request is
 replaced from the queue without stopping the batch (the decode step is
@@ -23,7 +28,8 @@ import torch
 from repro_torch.core.state import resolve_device
 from repro_torch.models.transformer import (LMConfig, init_kv_cache,
                                             init_lm_params, lm_decode_step,
-                                            lm_trunk)
+                                            lm_trunk, moe_dropped,
+                                            reset_moe_dropped)
 from repro_torch.obs.metrics import render_summary, summarize
 
 # the JAX package's presets (``repro/launch/train.py``); they move to the
@@ -42,8 +48,9 @@ PRESETS = {
 def prefill(cfg: LMConfig, params, tokens: torch.Tensor) -> torch.Tensor:
     """tokens [B, T] -> the last token's logits [B, vocab] (compute dtype).
     The unembedding is applied to the last position only: the numbers of
-    ``lm_forward(...)[0][:, -1]``, without the [B, T, vocab] logits."""
-    x = lm_trunk(cfg, params, tokens)
+    ``lm_forward(...)[0][:, -1]``, without the [B, T, vocab] logits.  A
+    MoE config's dropped (token, k) pairs go to ``moe_dropped``."""
+    x, _ = lm_trunk(cfg, params, tokens)
     return x[:, -1] @ params["unembed"].to(cfg.compute_dtype)
 
 
@@ -55,7 +62,9 @@ def serve(cfg: LMConfig, n_requests: int, batch: int, prompt_len: int = 16,
     ``params=None`` draws them from a generator seeded by ``seed`` on the
     device (default ``cuda``).  Returns (generated tokens by request,
     aggregate tokens/s, metrics); a step's latency runs until the host
-    holds the next tokens."""
+    holds the next tokens.  ``moe_dropped`` in the metrics counts the
+    (token, k) pairs the steps' MoE capacities dropped (the running count
+    is reset at the start)."""
     dev = resolve_device(device)
     if params is None:
         params = init_lm_params(
@@ -73,6 +82,7 @@ def serve(cfg: LMConfig, n_requests: int, batch: int, prompt_len: int = 16,
     t0 = time.perf_counter()
     n_steps = 0
     step_times = []          # per-decode-step wall latency
+    reset_moe_dropped()
     while done < n_requests:
         # fill free slots (prefill = feeding prompt tokens one step at a
         # time here, as in the JAX package; the production prefill path
@@ -117,7 +127,7 @@ def serve(cfg: LMConfig, n_requests: int, batch: int, prompt_len: int = 16,
     print(render_summary("serve/decode_step", step_times[1:]))
     metrics = summarize([x * 1e3 for x in step_times[1:]], "ms")
     metrics.update(first_step_ms=step_times[0] * 1e3, tok_per_s=tput,
-                   steps=n_steps)
+                   steps=n_steps, moe_dropped=moe_dropped())
     return tokens_out, tput, metrics
 
 

@@ -139,10 +139,24 @@ def test_bundles_and_shapes():
 
 
 def test_moe_forward_raises_and_bad_trees_are_refused():
+    """The MoE forward runs (finite logits, aux > 0, the loss adding 0.01
+    x aux / n_layers; ``tests/test_torch_moe_lm.py`` holds it to JAX) and
+    raises on a tree holding one rank's block of the experts; a tree of
+    another config is refused."""
     _, tc = configs("PHI35_MOE")
     p = transformer.init_lm_params(tc, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        transformer.lm_forward(tc, p, torch.zeros((1, 4), dtype=torch.int32))
+    tok = torch.from_numpy(tokens(tc, 2, 8))
+    logits, aux = transformer.lm_forward(tc, p, tok)
+    assert logits.shape == (2, 8, tc.vocab)
+    assert bool(torch.isfinite(logits).all()) and float(aux) > 0
+    ce = (torch.logsumexp(logits.float(), -1)
+          - logits.gather(-1, tok[..., None].long())[..., 0].float()).mean()
+    torch.testing.assert_close(
+        transformer.lm_loss(tc, p, dict(tokens=tok, targets=tok)),
+        ce + 0.01 * aux / tc.n_layers)
+    layers = dict(p["layers"], moe_wi=p["layers"]["moe_wi"][:, :2])
+    with pytest.raises(ValueError, match="rank's block"):
+        transformer.lm_forward(tc, dict(p, layers=layers), tok)
     _, llama = configs("LLAMA32_1B")
     with pytest.raises(ValueError, match="does not fit"):
         transformer.lm_params_from_numpy(

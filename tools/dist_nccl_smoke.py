@@ -23,16 +23,32 @@ its own card, and the phases run, then it stops:
      of the scatter-SpMM kernel's unsharded sum on the bf16-rounded
      features; timed
   d. ``launch.dist_bench``'s paper row
+  m. phi3.5-moe whole (32 layers, f32, ``moe_impl="ep"``) by expert
+     parallelism at (1, 4): each card draws only its 4 experts' blocks of
+     every layer from the seed (``init_lm_params(mesh=, rank=)``; 46.7 GB
+     a card with the replicated attention and embeddings), and each
+     layer's combine is a bf16 ``all_reduce`` over the four; ``prefill``
+     at B = 1, T = 4,096: finite logits, 32 flash launches a card, the
+     wall, each card's peak memory and the ``all_reduce``'s share by CUDA
+     events.  Then the same config cut to 8 layers over NCCL against the
+     same EP over ``LocalTiles`` on rank 0's card alone (all 16 experts
+     drawn whole there, 42.7 GB): the last-token logits within 3e-2 x
+     max(1, max |ref|) (the bf16 LM tolerance; equal bits expected, as
+     each token's sum over ``model`` has at most its two experts' nonzero
+     terms)
 
 Rank 0 prints the card's name and power limit, each phase's line and one
 JSON line of the numbers.  ``--cpu`` runs the same over gloo on the CPU at
 small sizes (the parity config, a 2,000-vertex / 20K-edge 32x32 state,
-N = 4,096 / E = 100K), to check the script before a call on four cards:
+N = 4,096 / E = 100K; phase m on phi3.5-moe's smoke config at 16
+experts, 4 and 2 layers, T = 64), to check the script before a call on
+four cards:
 
     PYTHONPATH=src torchrun --standalone --nproc_per_node 4 \\
         tools/dist_nccl_smoke.py --cpu
 """
 import argparse
+import dataclasses
 import json
 import os
 import pathlib
@@ -58,6 +74,12 @@ from repro_torch.graph.segment_ops import spmm  # noqa: E402
 from repro_torch.graph.streams import StreamSpec, make_stream  # noqa: E402
 from repro_torch.kernels.cca_cycle import ops  # noqa: E402
 from repro_torch.launch import dist_bench  # noqa: E402
+from repro_torch.configs import lm_archs  # noqa: E402
+from repro_torch.dist import ctx  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.launch import serve as lm_serve  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 
 
 def say(tr, *a):
@@ -225,6 +247,138 @@ def phase_spmm(tr, dev, small) -> dict:
     return dict(ms=ms, max_abs_err=err, n=N, e=E, d=D)
 
 
+def moe_config(small, layers):
+    if small:
+        return dataclasses.replace(lm_archs._smoke(lm_archs.PHI35_MOE),
+                                   n_experts=16, n_layers=layers,
+                                   moe_impl="ep")
+    return dataclasses.replace(lm_archs.PHI35_MOE, n_layers=layers,
+                               moe_impl="ep")
+
+
+def moe_prefill(cfg, params, tokens, dev, tr) -> tuple:
+    """(last-token logits, wall s, device ms, all_reduce ms): one prefill
+    after a warm one, the prefill and each of the transport's sums over
+    ``model`` timed by CUDA events on the card (the host clock on the
+    CPU), read after it."""
+    lm_serve.prefill(cfg, params, tokens)
+    cuda = dev.type == "cuda"
+
+    def mark():
+        if not cuda:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def ms(a, b):
+        return a.elapsed_time(b) if cuda else 1e3 * (b - a)
+    sums = []
+    axis_sum = tr.axis_sum
+
+    def timed_sum(*a):
+        start = mark()
+        out = axis_sum(*a)
+        sums.append((start, mark()))
+        return out
+    tr.axis_sum = timed_sum
+    try:
+        tr.barrier()
+        sync(dev)
+        t0 = time.perf_counter()
+        start = mark()
+        logits = lm_serve.prefill(cfg, params, tokens)
+        end = mark()
+        sync(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        del tr.axis_sum
+    return (logits, wall, ms(start, end),
+            sum(ms(a, b) for a, b in sums))
+
+
+def phase_moe(tr, dev, small) -> dict:
+    """Phase m: phi3.5-moe by expert parallelism over the four ranks."""
+    rank = tr.rank
+    mesh = Mesh((1, tr.world), ("data", "model"), tr)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()          # the earlier phases' blocks
+    T = 64 if small else 4096
+    tokens = torch.randint(0, moe_config(small, 1).vocab, (1, T),
+                           generator=torch.Generator().manual_seed(7),
+                           dtype=torch.int32).to(dev)
+    out = {}
+    for layers in ((4, 2) if small else (32, 8)):
+        cfg = moe_config(small, layers)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.time()
+        params = transformer.init_lm_params(
+            cfg, torch.Generator(device=dev).manual_seed(46), mesh, rank)
+        sync(dev)
+        draw_s = time.time() - t0
+        ctx.set_dist_mesh(mesh)
+        try:
+            before = fa_ops.launches
+            logits, wall, device_ms, reduce_ms = moe_prefill(
+                cfg, params, tokens, dev, tr)
+            launches = fa_ops.launches - before
+        finally:
+            ctx.set_dist_mesh(None)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"rank {rank}: logits not finite")
+        if dev.type == "cuda" and launches != 2 * layers:
+            raise AssertionError(f"rank {rank}: {launches} flash launches in "
+                                 f"two prefills, not {2 * layers}")
+        peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+                else 0)
+        peaks = tr.all_gather([torch.tensor([float(peak)], device=dev)])
+        row = dict(layers=layers, T=T, draw_s=draw_s, wall_s=wall,
+                   device_ms=device_ms, all_reduce_ms=reduce_ms,
+                   all_reduce_share=reduce_ms / device_ms,
+                   peak_bytes_by_card=[float(p) for p in peaks],
+                   flash_launches=launches // 2)
+        say(tr, f"[m] {cfg.name} {layers} layers over (1, {tr.world}) by "
+                f"expert parallelism, B=1 T={T}: logits finite; expert "
+                f"blocks drawn in {draw_s:.1f}s; wall {wall:.4f} s a prefill"
+                f" (host clock, ends in synchronize), {T / wall:.1f} "
+                f"tokens/s; device {device_ms:.1f} ms, the all_reduce over "
+                f"model {reduce_ms:.1f} ms ({100 * reduce_ms / device_ms:.1f}"
+                f"%); peak by card "
+                f"{[round(float(p) / 2**30, 2) for p in peaks]} GiB")
+        del params
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out[f"{layers}_layers"] = row
+    # the 8-layer config over LocalTiles on rank 0's card alone
+    if rank == 0:
+        params = transformer.init_lm_params(
+            cfg, torch.Generator(device=dev).manual_seed(46))
+        ctx.set_dist_mesh(make_host_mesh(1, tr.world, device=dev))
+        try:
+            want = lm_serve.prefill(cfg, params, tokens)
+        finally:
+            ctx.set_dist_mesh(None)
+        d = float((logits.float() - want.float()).abs().max())
+        scale = max(1.0, float(want.float().abs().max()))
+        if not d <= 3e-2 * scale:
+            raise AssertionError(f"NCCL EP off LocalTiles EP by {d}")
+        out["vs_local_tiles"] = dict(layers=cfg.n_layers, max_abs_err=d,
+                                     equal_bits=bool(torch.equal(logits,
+                                                                 want)),
+                                     scale=scale)
+        say(tr, f"[m] {cfg.n_layers} layers: {tr.backend} EP's last-token "
+                f"logits == LocalTiles EP on one card within 3e-2 x max(1, "
+                f"max |ref|)"
+                f" (max |d| {d:.3g} on {scale:.3g}; equal bits "
+                f"{out['vs_local_tiles']['equal_bits']})")
+        del params
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    tr.barrier()
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--cpu", action="store_true",
@@ -258,8 +412,9 @@ def main() -> None:
                    spmm=phase_spmm(tr, dev, args.cpu))
         out["dist_bench"] = dist_bench.process_group_row(
             "ci" if args.cpu else "paper")
+        say(tr, f"[d] dist_bench: {json.dumps(out['dist_bench'])}")
+        out["moe"] = phase_moe(tr, dev, args.cpu)
         if rank == 0:
-            print(f"[d] dist_bench: {json.dumps(out['dist_bench'])}")
             print(f"[done] {time.time() - t_start:.1f}s")
             print(json.dumps(out), flush=True)
     finally:
