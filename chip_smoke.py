@@ -394,27 +394,79 @@ right after phase 15:
      planted faults (a token's experts moved, the cache blind to token
      0) rejected by the same limit
 
+Training (the autograd Functions of the three model kernels: the flash
+backward kernel, the SpMM kernel over the transposed edges, the bag
+backward kernel; ``optim``, ``launch.steps``, ``launch.train``), right
+after phase 47, each printing the card's name and power limit:
+
+ 48. the flash backward kernel against its plain backward
+     (``ref.flash_attention_bwd_ref``, f32 over query tiles) on the same
+     q, k, v, o, lse and dout, at smoke shapes and at llama3.2-1b's
+     (32/8, dh 64) and phi3.5-moe's (32/8, dh 128) heads, T = 4096,
+     B = 1, bf16: dq, dk and dv within the forward's elementwise limit
+     (2e-2 x (|ref| + median |ref|)), the same bits on a second launch, a
+     planted fault (K and V of the next KV head) rejected; ms, the bound
+     (10 dh flops a head and causal pair over 989 TFLOP/s), the plain
+     backward's ms, SDPA's backward ms (K/V repeated, as phase 13's
+     column); the forward's lse store against the plain lse; the
+     forward's ms with the lse store and without it (the serving
+     instance; ``tools/flash_parent_ab.py`` holds that one against the
+     parent commit's kernel)
+ 49. the SpMM backward (the kernel over the transposed edges) at
+     ogb_products' size (2,449,029 nodes, 61,859,140 edges, drawn on the
+     card), D = 16 and 7, against the plain backward (1e-4 x max(1,
+     max |ref|)), with ``torch.sparse.mm``'s time; the bag backward at
+     train_batch (B = 65,536, 26 x 4 lookups) on tables cut to 2^20 rows
+     against ``index_add_`` (1e-5), with ``F.embedding_bag``'s backward
+     time and the byte bound; launch counts
+ 50. one family at a time: one grad step against the same step with every
+     kernel replaced by its plain version (the flash forward and
+     backward, the SpMM, the bag forward and backward), the loss and
+     every gradient leaf: llama3.2-1b at 2 of 16 layers, full width,
+     T = 4096, B = 1, and phi3.5-moe at 1 layer, its plain run on the
+     kernel run's experts (bf16: each leaf's ||d|| / ||ref|| within 2e-2);
+     gcn-cora on ogb_products and DLRM-RM2 train_batch on the cut tables
+     (f32: 1e-4 x the leaf's max |ref|), graphcast on full_graph_sm (1e-3,
+     its 16 processor layers: ``GRAD_TOL_GRAPHCAST``); each kernel
+     launched on the kernel path and none on the plain one
+ 51. the training main path at full width: ``steps.build_plan`` for
+     llama3.2-1b train_4k, all 16 layers, remat on, T = 4096, B = 4 (cut
+     from 256 by memory and time), 4 AdamW steps under deterministic
+     algorithms: step time, tokens/s, peak memory, flash launches a step
+     (forward, recompute and backward), the ops that warned of no
+     deterministic kernel; 2 + 2 steps across a save, a kill and a
+     restore through the port's ``Checkpointer``: params and moments
+     equal to the straight run's bit for bit; ``train()`` on lm100m, with
+     and without ``--compress``, 3 steps each
+
 It ends with the kernels line (JSON; the flash kernel's ``launches``
 summed over its three main paths: llama3.2-1b's prefill_32k run and the
-two MoE prefills) and the ok line (JSON, last).
+two MoE prefills; the two backward kernels' from their training paths)
+and the ok line (JSON, last).
 """
 import collections
 import contextlib
 import dataclasses
 import json
 import math
+import os
 import pathlib
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from unittest import mock
 
-import numpy as np
-import torch
-import torch.nn.functional as F
-from torch.nn.attention import SDPBackend, sdpa_kernel
+# the deterministic cuBLAS workspace that phase 51's bit-identical resume
+# needs, read by cuBLAS when the process makes its first product
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+from torch.nn.attention import SDPBackend, sdpa_kernel  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -461,6 +513,21 @@ from repro_torch.launch import dist_bench  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.resilience import (FLT_CORRUPT, FLT_DROP,  # noqa: E402
                                     FaultPlan)
+from repro_torch.configs.base import shape as spec_shape  # noqa: E402
+from repro_torch.configs.registry import ARCHS  # noqa: E402
+from repro_torch.data.pipeline import LMBatchSpec, lm_batch  # noqa: E402
+from repro_torch.dist.sharding import tree_leaves, tree_map  # noqa: E402
+from repro_torch.kernels.embedding_bag.ref import (  # noqa: E402
+    embedding_bags_bwd_ref)
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    flash_attention_bwd_ref, flash_attention_fwd_ref)
+from repro_torch.kernels.spmm.ref import (scatter_spmm_bwd_ref,  # noqa: E402
+                                          source_rows)
+from repro_torch.launch import steps  # noqa: E402
+from repro_torch.launch import train as lm_train  # noqa: E402
+from repro_torch.optim.adamw import (AdamWConfig,  # noqa: E402
+                                     adamw_update, init_adamw)
+from repro_torch.train.checkpoint import Checkpointer  # noqa: E402
 
 H100_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (data sheet, 700 W)
 H100_L2_BYTES = 50e6         # H100 L2 (data sheet)
@@ -2778,29 +2845,32 @@ FLASH_KERNELS = {"fa_fwd_tc": ("tensor_core", "bf16"),
 
 def flash_ptxas(report: str) -> list[dict]:
     """Phase 12: one row a flash-attention instantiation (its path, head
-    width and dtype read from the mangled name), printed; raises if a
-    tensor-core kernel (bf16, or f32 as 3xTF32) spills at dh 64 or 128."""
+    width, dtype and lse store read from the mangled name), printed;
+    raises if an instance of a tensor-core kernel (bf16, or f32 as
+    3xTF32) spills at dh 64 or 128."""
     rows = []
     for name, info in _build.ptxas_functions(report).items():
-        m = re.search(r"(fa_fwd_tc|fa_fwd_tf32)ILi(\d+)E", name)
+        m = re.search(r"(fa_fwd_tc|fa_fwd_tf32)ILi(\d+)E(?:Lb(\d)E)?", name)
         if not m:
             continue
         path, dtype = FLASH_KERNELS[m[1]]
-        row = dict(path=path, dtype=dtype, dh=int(m[2]), **info)
+        row = dict(path=path, dtype=dtype, dh=int(m[2]),
+                   lse=m[3] == "1", **info)
         rows.append(row)
-        print(f"[12] {row['path']} {row['dtype']} dh={row['dh']}: "
+        print(f"[12] {row['path']} {row['dtype']} dh={row['dh']}"
+              f"{' (lse store)' if row['lse'] else ''}: "
               f"{info.get('registers')} registers at entry, "
               f"{info.get('spill_stores')} bytes spill stores, "
               f"{info.get('spill_loads')} bytes spill loads, "
               f"{info.get('stack')} bytes stack, static smem "
               f"{info.get('smem', 0)} bytes", flush=True)
     for path in ("tensor_core", "tensor_core_tf32x3"):
-        tc = {r["dh"]: r for r in rows if r["path"] == path}
         for dh in (64, 128):
-            if dh not in tc or tc[dh].get("spill_stores", 1) or tc[dh].get(
-                    "spill_loads", 1):
+            tc = [r for r in rows if r["path"] == path and r["dh"] == dh]
+            if not tc or any(r.get("spill_stores", 1) or r.get(
+                    "spill_loads", 1) for r in tc):
                 raise AssertionError(f"{path} flash kernel at dh {dh}: "
-                                     f"spills or no report ({tc.get(dh)})")
+                                     f"spills or no report ({tc})")
     return rows
 
 
@@ -4164,6 +4234,781 @@ def moe_phases(smi: str, dev: torch.device) -> dict:
                 serving=serving, decode_check=decode_check, card=smi)
 
 
+# ---- training (phases 48-51) ----
+
+TRAIN_CUT_ROWS = 1 << 20   # phases 49-50: each DLRM table cut to 2^20 rows
+TRAIN_B = 4                # phase 51: train_4k's global batch, cut from 256
+TRAIN_T = 4096             # phases 48, 50 and 51: train_4k's sequence
+# phase 48's main-path heads: (config, B, T, H, Kh, dh)
+FLASH_BWD_SHAPES = [("llama3.2-1b", 1, TRAIN_T, 32, 8, 64),
+                    ("phi3.5-moe", 1, TRAIN_T, 32, 8, 128)]
+LM100M_RUN = dict(steps=3, batch=8, seq=512)   # phase 51's train() runs
+GRAD_TOL_BF16 = 2e-2       # phase 50: ||d|| / ||ref|| of a bf16 LM leaf
+GRAD_TOL_F32 = 1e-4        # phase 50: max |d| / max |ref| of an f32 leaf
+# phase 50, GraphCast's leaves: phase 9 finds both f32 forwards (kernel and
+# plain) ~4e-4 off an f64 one (sums in other orders through 16 processor
+# layers of 512-wide MLPs); a gradient goes back through all of them
+GRAD_TOL_GRAPHCAST = 1e-3
+
+
+def card_line(tag: str, smi: str) -> None:
+    print(f"[{tag}] card: {smi}", flush=True)
+
+
+def flash_bwd_excess(got, want) -> float:
+    """The largest |got - want| over the forward's bf16 elementwise limit,
+    2e-2 x (|want| + median |want|) (``flash_excess``)."""
+    return flash_excess(got, want, torch.bfloat16)[1]
+
+
+def flash_bwd_bound(B, T, H, Kh, dh) -> tuple[float, str, int, int]:
+    """(bound ms, what bounds it, bytes, flops) of a causal bf16 backward:
+    q, k, v, o and dout read once, lse read once, dq, dk and dv written
+    once; 10 dh flops a head and causal pair (S, dP, dV, dK, dQ; S
+    counted once) over the bf16 tensor cores' 989 TFLOP/s."""
+    nbytes = 2 * B * T * dh * 2 * (H + 2 * Kh) + 2 * 2 * B * T * H * dh \
+        + 4 * B * H * T
+    flops = 10 * dh * B * H * (T * (T + 1) // 2)
+    bytes_ms = 1e3 * nbytes / H100_BYTES_PER_S
+    ops_ms = 1e3 * flops / H100_BF16_FLOPS
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", nbytes, flops)
+
+
+def flash_bwd_case(name, B, T, H, Kh, dh, gen, dev) -> dict:
+    """Phase 48 at one shape: the backward kernel against the plain
+    backward on the forward kernel's o and lse, timed beside it, SDPA's
+    backward and the bound; the lse against the plain forward's."""
+    bf = torch.bfloat16
+    q = torch.randn((B, T, H, dh), generator=gen, device=dev).to(bf)
+    k, v = (torch.randn((B, T, Kh, dh), generator=gen, device=dev).to(bf)
+            for _ in range(2))
+    do = torch.randn((B, T, H, dh), generator=gen, device=dev).to(bf)
+    o, lse = fa_ops._forward(q, k, v, True, with_lse=True)
+    tag = f"flash bwd {name} (B={B}, T={T}, H={H}, Kh={Kh}, dh={dh})"
+    plain_o, plain_lse = flash_attention_fwd_ref(q, k, v)
+    lse_err = float((lse - plain_lse).abs().max())
+    if not lse_err < 1e-3:
+        raise AssertionError(f"{tag}: the stored lse is {lse_err} off the "
+                             f"plain forward's")
+    del plain_o, plain_lse
+    kern = lambda: fa_ops.flash_attention_bwd(q, k, v, o, lse, do)  # noqa
+    plain = lambda: flash_attention_bwd_ref(q, k, v, o, lse, do)  # noqa
+    before = fa_ops.bwd_launches
+    got, again = kern(), kern()
+    torch.cuda.synchronize()
+    if fa_ops.bwd_launches != before + 2:
+        raise AssertionError(f"{tag}: {fa_ops.bwd_launches - before} "
+                             f"backward launches, not 2")
+    want = plain()
+    excess, err = {}, {}
+    for n, a, b, w in zip(("dq", "dk", "dv"), got, again, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{tag}: {n} differs between two launches")
+        excess[n] = flash_bwd_excess(a, w)
+        err[n] = float((a.float() - w).abs().max())
+    if not max(excess.values()) <= 1:
+        raise AssertionError(f"{tag}: off by {excess} x the elementwise "
+                             f"limit (max |d| {err})")
+    # a planted fault the limit must reject: K and V of the next KV head
+    fault = flash_attention_bwd_ref(q, k.roll(1, dims=2), v.roll(1, dims=2),
+                                    o, lse, do)
+    fault_excess = max(flash_bwd_excess(a, w) for a, w in zip(fault, want))
+    del fault, got, again, want
+    if not fault_excess > 1:
+        raise AssertionError(f"{tag}: the limit passes a planted fault "
+                             f"({fault_excess})")
+    G = H // Kh
+    qs = q.transpose(1, 2).detach().requires_grad_()
+    ks, vs = (t.repeat_interleave(G, dim=2).transpose(1, 2).detach()
+              .requires_grad_() for t in (k, v))
+    lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    dos = do.transpose(1, 2)
+    library = lambda: torch.autograd.grad(  # noqa: E731
+        lib_out, (qs, ks, vs), dos, retain_graph=True)
+    bound, by, nbytes, flops = flash_bwd_bound(B, T, H, Kh, dh)
+    row = dict(shape=name, B=B, T=T, H=H, Kh=Kh, dh=dh, max_abs_err=err,
+               excess=excess, fault_excess=fault_excess, lse_max_abs_err=lse_err,
+               ms=cuda_ms(kern), plain_ms=cuda_ms(plain, min_reps=1),
+               library_ms=cuda_ms(library), bound_ms=bound, bound_by=by,
+               bytes=nbytes, flops=flops)
+    del lib_out
+    row.update(tflops=flops / row["ms"] / 1e9,
+               vs_library=row["ms"] / row["library_ms"],
+               bound_share=bound / row["ms"])
+    # the forward: training (lse stored) and serving (lse off)
+    row.update(fwd_lse_ms=cuda_ms(lambda: fa_ops._forward(q, k, v, True,
+                                                          True)),
+               fwd_serve_ms=cuda_ms(lambda: fa_ops._forward(q, k, v, True,
+                                                            False)))
+    print(f"[48] {tag}: kernel {row['ms']:.4f} ms ({row['tflops']:.2f} "
+          f"TFLOP/s, {100 * row['bound_share']:.2f}% of the bound, "
+          f"{row['vs_library']:.3f}x SDPA's backward), plain "
+          f"{row['plain_ms']:.4f} ms, SDPA backward {row['library_ms']:.4f} "
+          f"ms, bound {bound:.4f} ms by {by} ({flops / 1e9:.1f} Gflop at 989 "
+          f"TFLOP/s, {nbytes / 1e9:.4f} GB); dq/dk/dv at {excess} x the "
+          f"elementwise limit (max |d| {err}), a planted fault at "
+          f"{fault_excess:.3g} x; lse max |d| {lse_err:.3g}; forward with "
+          f"lse {row['fwd_lse_ms']:.4f} ms, serving (lse off) "
+          f"{row['fwd_serve_ms']:.4f} ms", flush=True)
+    return row
+
+
+def flash_bwd_phase(smi, dev) -> dict:
+    """Phase 48: the flash backward kernel at smoke and main-path shapes."""
+    t0 = time.time()
+    card_line("48", smi)
+    gen = torch.Generator(device=dev).manual_seed(48)
+    rows = [flash_bwd_case(f"smoke dh{dh}", 2, 300, 4, 2, dh, gen, dev)
+            for dh in (16, 32, 64, 128)]
+    rows += [flash_bwd_case(*shape, gen, dev) for shape in FLASH_BWD_SHAPES]
+    torch.cuda.empty_cache()
+    print(f"[48] done in {time.time() - t0:.1f}s", flush=True)
+    return dict(shapes=rows, card=smi)
+
+
+def random_graph(n, e, gen, dev):
+    """``e`` edges over ``n`` nodes drawn on the card, sorted by
+    destination, int32 [2, e]."""
+    src = torch.randint(0, n, (e,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    dst = torch.sort(torch.randint(0, n, (e,), generator=gen, device=dev,
+                                   dtype=torch.int32))[0]
+    return torch.stack([src, dst])
+
+
+def ogb_dims() -> dict:
+    return dict(next(s for s in gnn_shapes()
+                     if s.name == "ogb_products").dims)
+
+
+def lm_cfg_for(arch: str, layers: int):
+    """``arch``'s published config cut to ``layers`` layers."""
+    return dataclasses.replace(ARCHS[arch].config, n_layers=layers)
+
+
+def plain_spmm_dx(g, src, dst, n, coeff):
+    """dx = A^T g of the plain backward (``index_add_``), dx only."""
+    rows, valid = source_rows(src, n)
+    msgs = scatter_spmm_bwd_ref(g, dst, n) * coeff[:, None]
+    return torch.zeros_like(g).index_add_(0, rows[valid], msgs[valid])
+
+
+def dlrm_cut_cfg():
+    return dataclasses.replace(DLRM_RM2, vocab_sizes=tuple(
+        min(v, TRAIN_CUT_ROWS) for v in DLRM_RM2.resolved_vocabs()))
+
+
+def dlrm_train_batch(cfg, dev, step=0):
+    b = recsys_batch(RecSysBatchSpec(
+        recsys_shapes()[0].dim("batch"), cfg.n_dense, cfg.n_sparse,
+        cfg.lookups_per_field, cfg.resolved_vocabs()), step)
+    return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+
+def spmm_bag_bwd_phase(smi, dev) -> dict:
+    """Phase 49: the SpMM kernel over the transposed edges and the bag
+    backward kernel, each against its plain backward and a library call."""
+    t0 = time.time()
+    card_line("49", smi)
+    gen = torch.Generator(device=dev).manual_seed(49)
+    ogb = ogb_dims()
+    N, E = ogb["n_nodes"], ogb["n_edges"]
+    ei = random_graph(N, E, gen, dev)
+    coeff = sym_norm_coeff(ei, N)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    tr = spmm_ops.transpose_edges(ei[0], ei[1], N, N)
+    torch.cuda.synchronize()
+    transpose_s = time.time() - t1
+    cperm = coeff[tr.perm].contiguous()
+    at = torch.sparse_csr_tensor(tr.rowptr, tr.src, cperm, size=(N, N))
+    spmm_rows = []
+    for D in (16, 7):
+        g = torch.randn((N, D), generator=gen, device=dev)
+        kern = lambda: spmm_ops.launch(  # noqa: E731
+            g, tr.src, cperm, tr.rowptr, N, transposed=True)
+        plain = lambda: plain_spmm_dx(g, ei[0], ei[1], N, coeff)  # noqa
+        library = lambda: torch.sparse.mm(at, g)  # noqa: E731
+        err = check(f"spmm bwd D={D}", kern(), plain(), 1e-4)
+        lib_err = check(f"sparse.mm D={D}", library(), plain(), 1e-4)
+        # through the autograd Function: one transposed launch a backward
+        x = torch.randn((N, D), generator=gen, device=dev,
+                        requires_grad=True)
+        before = spmm_ops.bwd_launches
+        out = spmm_ops.spmm_sorted_coo(x, ei[0], ei[1], N, coeff, None, tr)
+        (dx,) = torch.autograd.grad(out, x, g)
+        if spmm_ops.bwd_launches != before + 1:
+            raise AssertionError("spmm: the backward made no transposed "
+                                 "launch")
+        check(f"spmm autograd D={D}", dx, plain(), 1e-4)
+        nbytes = 2 * N * D * 4 + 2 * E * 4 + (N + 1) * 4
+        bound = 1e3 * nbytes / H100_BYTES_PER_S
+        row = dict(D=D, n_nodes=N, n_edges=E, max_abs_err=err,
+                   library_max_abs_err=lib_err, ms=cuda_ms(kern),
+                   plain_ms=cuda_ms(plain), library_ms=cuda_ms(library),
+                   bound_ms=bound, bound_by="bytes", bytes=nbytes,
+                   transpose_s=transpose_s)
+        spmm_rows.append(row)
+        print(f"[49] spmm backward ogb_products D={D}: kernel over the "
+              f"transposed edges {row['ms']:.4f} ms, plain (index_add_) "
+              f"{row['plain_ms']:.4f} ms, torch.sparse.mm (CSR A^T) "
+              f"{row['library_ms']:.4f} ms, bound {bound:.4f} ms by bytes "
+              f"({nbytes / 1e9:.3f} GB); max |d| {err:.3g} (sparse.mm "
+              f"{lib_err:.3g}); transposed edges built once in "
+              f"{transpose_s:.3f}s", flush=True)
+        del x, out, dx, g
+    del ei, coeff, tr, cperm, at
+    torch.cuda.empty_cache()
+
+    # ---- the bag backward at train_batch on the cut tables ----
+    cfg = dlrm_cut_cfg()
+    tables = bag_ops.prepare_tables(dlrm.init_dlrm_params(cfg, gen)["tables"])
+    vocabs = [t.shape[0] for t in tables]
+    batch = dlrm_train_batch(cfg, dev)
+    idx = batch["sparse"]
+    B, Fn, L = idx.shape
+    D = cfg.embed_dim
+    gout = torch.randn((B, Fn, D), generator=gen, device=dev)
+    kern = lambda: bag_ops.launch_bwd(tables, idx, gout)  # noqa: E731
+    plain = lambda: embedding_bags_bwd_ref(vocabs, idx, gout)  # noqa: E731
+    before = bag_ops.bwd_launches
+    got, again = kern(), kern()
+    if bag_ops.bwd_launches != before + 2:
+        raise AssertionError("bag backward: not one launch a call")
+    want = plain()
+    err = 0.0
+    for f, (a, b, w) in enumerate(zip(got, again, want)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"bag backward: field {f} differs between "
+                                 f"two launches")
+        err = max(err, check(f"bag backward field {f}", a, w, 1e-5))
+    del got, again, want
+    keys, pos, total = bag_ops.bwd_keys(tables, idx)
+    grad = torch.zeros((total, D), device=dev)
+    kernel_only = lambda: bag_ops.bwd_kernel(  # noqa: E731
+        keys, pos, gout, None, grad, Fn, L, "sum")
+    first = torch.tensor([0] + vocabs[:-1], device=dev).cumsum(0)
+    flat = (idx.long() + first[None, :, None]).reshape(B * Fn, L)
+    weight = torch.cat(list(tables)).requires_grad_()
+    lib_out = F.embedding_bag(flat, weight, mode="sum")
+    library = lambda: torch.autograd.grad(  # noqa: E731
+        lib_out, weight, gout.reshape(B * Fn, D), retain_graph=True)
+    # the call's bound: the indices and bag gradients read, the dense
+    # gradients written whole; the kernel's own: the sorted keys and
+    # positions and the bag gradients read, the touched rows written
+    nbytes = idx.numel() * 4 + gout.numel() * 4 + total * D * 4
+    bound = 1e3 * nbytes / H100_BYTES_PER_S
+    touched = int(torch.unique_consecutive(keys[keys < total]).numel())
+    kernel_bytes = keys.numel() * 16 + gout.numel() * 4 + touched * D * 4
+    kernel_bound = 1e3 * kernel_bytes / H100_BYTES_PER_S
+    bag_row = dict(B=B, F=Fn, L=L, D=D, rows=total, touched_rows=touched,
+                   max_abs_err=err, ms=cuda_ms(kern),
+                   keys_ms=cuda_ms(lambda: bag_ops.bwd_keys(tables, idx)),
+                   zero_ms=cuda_ms(lambda: torch.zeros((total, D),
+                                                       device=dev)),
+                   kernel_ms=cuda_ms(kernel_only),
+                   plain_ms=cuda_ms(plain), library_ms=cuda_ms(library),
+                   bound_ms=bound, bound_by="bytes", bytes=nbytes,
+                   kernel_bound_ms=kernel_bound, kernel_bytes=kernel_bytes)
+    print(f"[49] bag backward train_batch (B={B}, {Fn} x {L} lookups, D={D}, "
+          f"{total} rows, {touched} touched): the call {bag_row['ms']:.4f} ms "
+          f"against its bound {bound:.4f} ms by bytes ({nbytes / 1e9:.3f} "
+          f"GB: indices, bag gradients, the dense gradients written whole); "
+          f"its parts: the sort of the keys {bag_row['keys_ms']:.4f} ms, the "
+          f"zero fill {bag_row['zero_ms']:.4f} ms, the kernel "
+          f"{bag_row['kernel_ms']:.4f} ms against its own bound "
+          f"{kernel_bound:.4f} ms ({kernel_bytes / 1e9:.3f} GB: keys and "
+          f"positions, bag gradients, touched rows); plain (index_add_) "
+          f"{bag_row['plain_ms']:.4f} ms, F.embedding_bag backward "
+          f"{bag_row['library_ms']:.4f} ms; max |d| {err:.3g}; launches "
+          f"{bag_ops.bwd_launches - before}", flush=True)
+    del lib_out, weight, grad, keys, pos, tables
+    torch.cuda.empty_cache()
+    print(f"[49] done in {time.time() - t0:.1f}s", flush=True)
+    return dict(spmm=spmm_rows, bag=bag_row, card=smi)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every model kernel replaced by its plain version on the card: the
+    flash forward and backward, the SpMM (both directions) and the bag
+    forward and backward.  The wrappers and their autograd Functions look
+    these names up at each call."""
+    def fa_forward(q, k, v, causal, with_lse):
+        if with_lse:
+            return flash_attention_fwd_ref(q, k, v, causal)
+        return flash_attention_ref(q, k, v, causal), None
+
+    def fa_backward(q, k, v, o, lse, dout, causal=True):
+        return tuple(t.to(q.dtype) for t in flash_attention_bwd_ref(
+            q, k, v, o, lse, dout, causal))
+
+    def spmm_launch(x, src, coeff, rowptr, n_nodes, shape=None,
+                    transposed=False):
+        dst = torch.repeat_interleave(
+            torch.arange(n_nodes, device=x.device), rowptr.diff().long())
+        e = dst.shape[0]
+        msgs = x if src is None else x[src[:e].long()]
+        if coeff is not None:
+            msgs = msgs * coeff[:e, None]
+        return torch.zeros((n_nodes, x.shape[1]), device=x.device) \
+            .index_add_(0, dst, msgs[:e])
+
+    def bag_launch(tables, indices, weights=None, combiner="sum",
+                   shape=None):
+        return embedding_bags_ref(list(tables), indices, weights, combiner)
+
+    def bag_bwd(tables, indices, gout, weights=None, combiner="sum"):
+        return embedding_bags_bwd_ref([t.shape[0] for t in tables], indices,
+                                      gout, weights, combiner)
+    with mock.patch.object(fa_ops, "_forward", fa_forward), \
+            mock.patch.object(fa_ops, "flash_attention_bwd", fa_backward), \
+            mock.patch.object(spmm_ops, "launch", spmm_launch), \
+            mock.patch.object(bag_ops, "launch", bag_launch), \
+            mock.patch.object(bag_ops, "launch_bwd", bag_bwd):
+        yield
+
+
+@contextlib.contextmanager
+def pinned_routes(record: list, replay: bool):
+    """Each MoE layer's top-k experts: recorded in call order, or (with
+    ``replay``) those recorded taken in place of the router's own, with
+    the gates renormalised over them and the aux loss on them (phase 47's
+    way with the decode steps).  The kernel and the plain attention round
+    differently, so a near-tie token may route elsewhere; on the same
+    experts the two grad steps compute the same function.  A replay
+    appends the count of tokens whose own top-k differs to ``record``."""
+    route, it, parted = transformer._route, iter(list(record)), [0]
+
+    def wrapped(cfg, lp, xs):
+        gates, topv, topi, aux = route(cfg, lp, xs)
+        if not replay:
+            record.append(topi)
+            return gates, topv, topi, aux
+        want = next(it)
+        parted[0] += int((want != topi).any(-1).sum())
+        topv = gates.gather(-1, want)
+        topv = topv / topv.sum(-1, keepdim=True).clamp_min(1e-9)
+        frac_t = F.one_hot(want[:, 0], cfg.n_experts).float().mean(0)
+        return gates, topv, want, cfg.n_experts * (
+            frac_t * gates.mean(0)).sum()
+    with mock.patch.object(transformer, "_route", wrapped):
+        yield
+    if replay:
+        record.append(parted[0])
+
+
+def launch_counts() -> dict:
+    return dict(flash=fa_ops.launches, flash_bwd=fa_ops.bwd_launches,
+                spmm=spmm_ops.launches, spmm_bwd=spmm_ops.bwd_launches,
+                bag=bag_ops.launches, bag_bwd=bag_ops.bwd_launches)
+
+
+def grad_step(loss_fn, params):
+    """(loss, gradients of every parameter leaf) of one step."""
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = loss_fn(params)
+    grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
+    torch.cuda.synchronize()
+    return loss.detach().float(), grads
+
+
+def family_case(tag, loss_fn, params, kernels, bf16, moe=False,
+                tol=None) -> dict:
+    """Phase 50 at one family: the grad step through the kernels (each of
+    ``kernels`` launched) against the step through the plain versions
+    (none launched), the loss and every leaf; a MoE step's plain run on
+    the kernel run's experts (``pinned_routes``)."""
+    t0 = time.time()
+    before = launch_counts()
+    routes: list = []
+    with pinned_routes(routes, False) if moe else contextlib.nullcontext():
+        k_loss, k_grads = grad_step(loss_fn, params)
+    launched = {n: c - before[n] for n, c in launch_counts().items()}
+    if not all(launched[n] > 0 for n in kernels):
+        raise AssertionError(f"{tag}: kernel launches {launched}, need "
+                             f"each of {kernels}")
+    t_kern = time.time() - t0
+    before = launch_counts()
+    with plain_kernels(), (pinned_routes(routes, True) if moe
+                           else contextlib.nullcontext()):
+        p_loss, p_grads = grad_step(loss_fn, params)
+    parted = routes[-1] if moe else None
+    if launch_counts() != before:
+        raise AssertionError(f"{tag}: the plain step launched a kernel")
+    for p in tree_leaves(params):
+        p.requires_grad_(False)
+    tol = tol or (GRAD_TOL_BF16 if bf16 else GRAD_TOL_F32)
+    loss_d = abs(float(k_loss) - float(p_loss))
+    worst_max, worst_norm = 0.0, 0.0
+    for i, (a, b) in enumerate(zip(k_grads, p_grads)):
+        a, b = a.double(), b.double()
+        ref_max, ref_norm = float(b.abs().max()), float(b.norm())
+        d_max = float((a - b).abs().max()) / max(ref_max, 1e-30)
+        d_norm = float((a - b).norm()) / max(ref_norm, 1e-30)
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{tag}: leaf {i} has a non-finite entry")
+        if (d_norm if bf16 else d_max) > tol:
+            raise AssertionError(f"{tag}: leaf {i} {tuple(a.shape)} off by "
+                                 f"{d_max:.3g} of max |ref|, {d_norm:.3g} "
+                                 f"of ||ref||")
+        worst_max, worst_norm = max(worst_max, d_max), max(worst_norm, d_norm)
+    if not loss_d <= (1e-2 if bf16 else 1e-5) * max(1.0, abs(float(p_loss))):
+        raise AssertionError(f"{tag}: loss {float(k_loss)} vs plain "
+                             f"{float(p_loss)}")
+    row = dict(family=tag, loss=float(k_loss), plain_loss=float(p_loss),
+               leaves=len(k_grads), launches=launched,
+               max_rel_err=worst_max, max_norm_rel_err=worst_norm,
+               kernel_step_s=t_kern, routes_parted=parted)
+    print(f"[50] {tag}: loss {float(k_loss):.6f} (plain {float(p_loss):.6f}); "
+          f"{len(k_grads)} gradient leaves, the worst at {worst_max:.3g} of "
+          f"its max |ref| and {worst_norm:.3g} of its ||ref|| (limit "
+          f"{tol:g} of {'||ref||' if bf16 else 'max |ref|'}); launches "
+          f"{ {n: c for n, c in launched.items() if c} }"
+          + (f"; the plain run on the kernel run's experts ({parted} "
+             f"token-layers' own routers parted)" if moe else ""),
+          flush=True)
+    del k_grads, p_grads
+    return row
+
+
+def family_phase(smi, dev) -> dict:
+    """Phase 50: one grad step a family against its plain version."""
+    t0 = time.time()
+    card_line("50", smi)
+    set_dist_mesh(None)
+    gen = torch.Generator(device=dev).manual_seed(50)
+    rows = []
+    T = TRAIN_T
+    for arch, layers in (("llama3.2-1b", 2), ("phi3.5-moe-42b-a6.6b", 1)):
+        cfg = lm_cfg_for(arch, layers)
+        toks = torch.randint(0, cfg.vocab, (1, T + 1), generator=gen,
+                             device=dev, dtype=torch.int32)
+        params = transformer.init_lm_params(cfg, gen)
+        batch = dict(tokens=toks[:, :-1].contiguous(),
+                     targets=toks[:, 1:].contiguous())
+        rows.append(family_case(
+            f"{arch} {layers} layer(s) T={T}",
+            lambda p: transformer.lm_loss(cfg, p, batch), params,
+            ("flash", "flash_bwd"), bf16=True, moe=bool(cfg.n_experts)))
+        del params
+        torch.cuda.empty_cache()
+    # gcn-cora on ogb_products (the graph drawn on the card)
+    d = ogb_dims()
+    cfg = dataclasses.replace(gnn_archs.GCN_CORA, d_in=d["d_feat"])
+    ei = random_graph(d["n_nodes"], d["n_edges"], gen, dev)
+    g = gnn.add_transposed(cfg, gnn.sort_edges(cfg, gnn.Graph(
+        x=torch.randn((d["n_nodes"], d["d_feat"]), generator=gen,
+                      device=dev), edge_index=ei)))
+    batch = dict(graph=g, labels=torch.randint(
+        0, cfg.d_out, (d["n_nodes"],), generator=gen, device=dev,
+        dtype=torch.int32), mask=torch.ones(d["n_nodes"], device=dev))
+    params = gnn.init_gnn_params(cfg, gen)
+    rows.append(family_case("gcn-cora ogb_products",
+                            lambda p: gnn.gnn_loss(cfg, p, batch), params,
+                            ("spmm", "spmm_bwd"), bf16=False))
+    del g, ei, batch, params
+    torch.cuda.empty_cache()
+    # graphcast on full_graph_sm
+    spec = next(s for s in gnn_shapes() if s.name == "full_graph_sm")
+    cfg = dataclasses.replace(gnn_archs.GRAPHCAST,
+                              d_in=dict(spec.dims)["d_feat"])
+    g = build_graph(cfg, spec, np.random.default_rng(0), device=dev)
+    n = g.x.shape[0]
+    batch = dict(graph=g, labels=torch.randn((n, cfg.d_out), generator=gen,
+                                             device=dev),
+                 mask=torch.ones(n, device=dev))
+    params = gnn.init_gnn_params(cfg, gen)
+    rows.append(family_case("graphcast full_graph_sm",
+                            lambda p: gnn.gnn_loss(cfg, p, batch), params,
+                            ("spmm",), bf16=False, tol=GRAD_TOL_GRAPHCAST))
+    del g, batch, params
+    # DLRM-RM2 train_batch on the cut tables
+    cfg = dlrm_cut_cfg()
+    params = dlrm.init_dlrm_params(cfg, gen)
+    batch = dlrm_train_batch(cfg, dev)
+    rows.append(family_case("dlrm-rm2 train_batch (cut tables)",
+                            lambda p: dlrm.dlrm_loss(cfg, p, batch), params,
+                            ("bag", "bag_bwd"), bf16=False))
+    del params, batch
+    torch.cuda.empty_cache()
+    print(f"[50] done in {time.time() - t0:.1f}s", flush=True)
+    return dict(families=rows, card=smi,
+                bag_bwd_launches=rows[-1]["launches"]["bag_bwd"],
+                spmm_bwd_launches=rows[2]["launches"]["spmm_bwd"])
+
+
+STEP_PARTS = (("flash forward", ("fa_fwd_tc",)),
+              ("flash backward", ("fa_bwd_",)),
+              ("matmuls", ("gemm", "nvjet", "xmma", "cutlass")))
+
+
+def step_breakdown(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the wall, the device
+    time by part (``STEP_PARTS`` by kernel name; the rest "other", its
+    largest kernels named) and the idle share 1 - device / wall (an upper
+    bound: the profiler's host cost inflates the wall); the reason where
+    the profiler gives no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    err = profiler_error(prof.start)
+    if err:
+        return dict(reason=err)
+    t0 = time.time()
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        wall = time.time() - t0
+        err = profiler_error(prof.stop)
+    if err:
+        return dict(reason=err)
+    parts, other = {name: 0.0 for name, _ in STEP_PARTS}, {}
+    parts["other"] = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        part = next((name for name, keys in STEP_PARTS
+                     if any(k in e.key.lower() for k in keys)), "other")
+        parts[part] += us / 1e3
+        if part == "other":
+            other[e.key[:70]] = us / 1e3
+    device_ms = sum(parts.values())
+    if not device_ms:
+        return dict(reason="no device time in the trace")
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:6]
+    return dict(wall_s=wall, device_ms=device_ms, parts_ms=parts,
+                idle_share=1 - device_ms / 1e3 / wall, top_other_ms=top)
+
+
+def to_dev(tree, dev):
+    return tree_map(lambda a: torch.as_tensor(a).to(dev), tree)
+
+
+def train_phase(smi, dev) -> dict:
+    """Phase 51: llama3.2-1b train_4k at full width and depth through
+    ``steps.build_plan``, across a kill and a restore; ``train()`` on
+    lm100m with and without compression."""
+    t0 = time.time()
+    card_line("51", smi)
+    bundle = ARCHS["llama3.2-1b"]
+    spec = spec_shape("train_4k", "lm_train", seq_len=TRAIN_T,
+                      global_batch=TRAIN_B)
+    # remat on (the registry's config has it off): each layer under
+    # torch.utils.checkpoint, as jax.checkpoint
+    plan = steps.build_plan(bundle, spec, make_host_mesh(1, 1, device=dev),
+                            lm_overrides=dict(remat=True))
+    set_dist_mesh(None)
+    cfg = dataclasses.replace(bundle.config, remat=True)
+    bspec = LMBatchSpec(TRAIN_B, TRAIN_T, cfg.vocab, seed=0)
+    batches = [to_dev(lm_batch(bspec, s), dev) for s in range(4)]
+
+    def fresh():
+        params = transformer.init_lm_params(
+            cfg, torch.Generator(device=dev).manual_seed(0))
+        for a, m in zip(tree_leaves(params), tree_leaves(plan.args[0])):
+            assert a.shape == m.shape and a.dtype == m.dtype
+        return params, init_adamw(params)
+
+    def run(params, opt, which, record):
+        for s in which:
+            torch.cuda.synchronize()
+            t = time.time()
+            params, opt, loss, gnorm = plan.step(params, opt, batches[s])
+            torch.cuda.synchronize()
+            record.append(dict(step=s, s=time.time() - t, loss=float(loss),
+                               gnorm=float(gnorm)))
+        return params, opt
+
+    params, opt = fresh()
+    fa_ops.launches = fa_ops.bwd_launches = 0
+    fa_ops.path_launches = dict.fromkeys(fa_ops.PATHS, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    straight = []
+    with warnings.catch_warnings(record=True) as caught, \
+            lm_train.deterministic(dev, warn_only=True):
+        warnings.simplefilter("always")
+        params, opt = run(params, opt, range(4), straight)
+    peak = torch.cuda.max_memory_allocated()
+    fwd, bwd = fa_ops.launches, fa_ops.bwd_launches
+    blockers = sorted({str(w.message).split("\n")[0] for w in caught
+                       if "deterministic" in str(w.message)})
+    if fwd == 0 or bwd == 0:
+        raise AssertionError(f"train_4k: flash launches {fwd} forward, {bwd} "
+                             f"backward")
+    if not all(math.isfinite(r["loss"]) for r in straight):
+        raise AssertionError(f"train_4k: losses {straight}")
+    step_s = float(np.median([r["s"] for r in straight[1:]]))
+    tokens = TRAIN_B * TRAIN_T
+    print(f"[51] llama3.2-1b train_4k ({cfg.n_layers} layers, remat, "
+          f"B={TRAIN_B}, T={TRAIN_T}, AdamW): steps {[round(r['s'], 4) for r in straight]} s, "
+          f"losses {[round(r['loss'], 4) for r in straight]}; {step_s:.4f} s "
+          f"a step (median of steps 2-4) = {tokens / step_s:.1f} tokens/s; "
+          f"peak {peak / 2**30:.2f} GiB; flash launches {fwd / 4:.0f} forward "
+          f"(with the remat recompute) and {bwd / 4:.0f} backward a step "
+          f"({fa_ops.path_launches}); ops without a deterministic kernel: "
+          f"{blockers or 'none'}", flush=True)
+    # the straight run's end state to host memory: a second run beside it
+    # on the card would need ~72 of its 80 GB (an earlier phase's leftover
+    # reservations made that run out of memory)
+    final_p, final_m, final_v = (tree_map(lambda t: t.to("cpu"), tree)
+                                 for tree in (params, opt.m, opt.v))
+    del params, opt
+    torch.cuda.empty_cache()
+
+    # 2 steps, save, kill, restore, 2 steps
+    p2, o2 = fresh()
+    resumed = []
+    with lm_train.deterministic(dev, warn_only=True):
+        p2, o2 = run(p2, o2, range(2), resumed)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        ck = Checkpointer(d)
+        t = time.time()
+        ck.save(2, (p2, o2))
+        save_s = time.time() - t
+        nbytes = ck.last["bytes"]
+        del p2, o2                              # the kill
+        torch.cuda.empty_cache()
+        t = time.time()
+        (p3, o3), _, step = ck.restore((plan.args[0], plan.args[1]))
+        p3, o3 = to_dev(p3, dev), to_dev(o3, dev)
+        restore_s = time.time() - t
+    assert step == 2 and int(o3.step) == 2
+    with lm_train.deterministic(dev, warn_only=True):
+        p3, o3 = run(p3, o3, range(2, 4), resumed)
+    diffs = []
+    for name, a, b in zip(("params", "m", "v"), (p3, o3.m, o3.v),
+                          (final_p, final_m, final_v)):
+        for x, y in zip(tree_leaves(a), tree_leaves(b)):
+            y = y.to(dev)
+            if not torch.equal(x, y):
+                diffs.append((name, tuple(x.shape),
+                              float((x - y).abs().max())))
+    same = not diffs
+    losses_same = [r["loss"] for r in resumed] == [r["loss"]
+                                                   for r in straight]
+    print(f"[51] 2 + 2 steps across a save ({nbytes / 1e9:.2f} GB in "
+          f"{save_s:.2f}s), a kill and a restore ({restore_s:.2f}s): params "
+          f"and moments {'equal to the straight run bit for bit' if same else f'differ from the straight run: {diffs[:5]}'}; "
+          f"losses {'equal' if losses_same else 'differ'}", flush=True)
+    if not same and not blockers:
+        raise AssertionError(f"the resumed run differs with no op named: "
+                             f"{diffs[:5]}")
+    del final_p, final_m, final_v
+    # where a step's time goes: one more step under the profiler, and
+    # AdamW's update alone by CUDA events (zero gradients; the state is
+    # not used after)
+    breakdown = step_breakdown(lambda: plan.step(p3, o3, batches[0]))
+    zeros = tree_map(torch.zeros_like, p3)
+    a, b = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    a.record()
+    adamw_update(AdamWConfig(), zeros, o3, p3)
+    b.record()
+    torch.cuda.synchronize()
+    breakdown["adamw_ms"] = a.elapsed_time(b)
+    if "parts_ms" in breakdown:
+        print(f"[51] one train_4k step under torch.profiler: wall "
+              f"{breakdown['wall_s']:.4f} s, device {breakdown['device_ms']:.1f}"
+              f" ms (idle share <= {breakdown['idle_share']:.3f}); by part "
+              f"{ {k: round(v, 1) for k, v in breakdown['parts_ms'].items()} }"
+              f" ms; the largest others "
+              f"{[(k, round(v, 1)) for k, v in breakdown['top_other_ms']]}; "
+              f"AdamW's update alone {breakdown['adamw_ms']:.2f} ms",
+              flush=True)
+    else:
+        print(f"[51] step breakdown not measured: {breakdown['reason']}; "
+              f"AdamW's update {breakdown['adamw_ms']:.2f} ms", flush=True)
+    del p3, o3, zeros
+    torch.cuda.empty_cache()
+
+    # train() on lm100m, with and without compression
+    runs = {}
+    for compress in (False, True):
+        t = time.time()
+        _, losses = lm_train.train(lm_train.PRESETS["lm100m"],
+                                   ckpt_dir=None, compress=compress,
+                                   device=dev, log_every=1, **LM100M_RUN)
+        torch.cuda.synchronize()
+        if not all(math.isfinite(x) for x in losses) \
+                or len(losses) != LM100M_RUN["steps"]:
+            raise AssertionError(f"train(lm100m, compress={compress}): "
+                                 f"{losses}")
+        runs["compress" if compress else "plain"] = dict(
+            losses=losses, wall_s=time.time() - t)
+    print(f"[51] train(lm100m, {LM100M_RUN}): "
+          f"{ {k: [round(x, 4) for x in v['losses']] for k, v in runs.items()} }"
+          f", wall {runs['plain']['wall_s']:.2f}s / "
+          f"{runs['compress']['wall_s']:.2f}s (without / with --compress)",
+          flush=True)
+    torch.cuda.empty_cache()
+    print(f"[51] done in {time.time() - t0:.1f}s", flush=True)
+    return dict(steps=straight, resumed=resumed, step_s=step_s,
+                tokens_per_s=tokens / step_s, peak_bytes=peak,
+                flash_fwd_per_step=fwd / 4, flash_bwd_per_step=bwd / 4,
+                flash_launches=fwd, flash_bwd_launches=bwd,
+                bit_identical=same, diffs=diffs[:20], blockers=blockers,
+                breakdown=breakdown,
+                ckpt_bytes=nbytes, save_s=save_s, restore_s=restore_s,
+                lm100m=runs, card=smi)
+
+
+def training_phases(smi, dev) -> dict:
+    """Phases 48-51."""
+    t0 = time.time()
+    out = dict(flash_bwd=flash_bwd_phase(smi, dev),
+               bwd=spmm_bag_bwd_phase(smi, dev),
+               families=family_phase(smi, dev),
+               train=train_phase(smi, dev))
+    out["wall_s"] = time.time() - t0
+    print(f"[48-51] done in {out['wall_s']:.1f}s", flush=True)
+    return out
+
+
+def training_entries(tr) -> list:
+    """The kernels line's entries of the two backward kernels."""
+    main = next(r for r in tr["flash_bwd"]["shapes"]
+                if r["shape"] == "llama3.2-1b")
+    bag = tr["bwd"]["bag"]
+    return [
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention_bwd.cuh",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:71",
+         "replaces_note": "no Pallas backward exists: the gradient of that "
+                          "forward, which JAX takes by XLA's autodiff of "
+                          "flash_attention_xla",
+         "launches": tr["train"]["flash_bwd_launches"],
+         "max_abs_err": max(main["max_abs_err"].values()),
+         "ms": main["ms"], "plain_ms": main["plain_ms"],
+         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+         "library_ms": main["library_ms"],
+         "shapes": tr["flash_bwd"]["shapes"], "train": tr["train"],
+         "card": tr["flash_bwd"]["card"]},
+        {"name": "embedding_bag_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/embedding_bag/csrc/"
+                   "embedding_bag.cu",
+         "replaces": "src/repro/kernels/embedding_bag/kernel.py:38",
+         "replaces_note": "no Pallas backward exists: the gradient of that "
+                          "forward, which JAX takes by XLA's autodiff of "
+                          "the gather",
+         "launches": tr["families"]["bag_bwd_launches"],
+         "max_abs_err": bag["max_abs_err"], "ms": bag["ms"],
+         "kernel_ms": bag["kernel_ms"],
+         "kernel_bound_ms": bag["kernel_bound_ms"],
+         "plain_ms": bag["plain_ms"],
+         "bound_ms": bag["bound_ms"], "bound_by": "bytes",
+         "library_ms": bag["library_ms"], "shape": bag,
+         "card": tr["bwd"]["card"]}]
+
+
 def main() -> None:
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -4531,9 +5376,22 @@ def main() -> None:
                        launches_by_main_path=runs, moe=moe)
     print(f"[45-47] done in {time.time() - t0:.1f}s; flash launches by main "
           f"path {runs}", flush=True)
+    torch.cuda.empty_cache()
+
+    # ---- 48-51. training: the backward kernels, one step a family, the
+    # training main path at full width ----
+    tr = training_phases(smi, torch.device("cuda"))
+    spmm_entry["backward"] = dict(
+        rows=tr["bwd"]["spmm"], launches=tr["families"]["spmm_bwd_launches"],
+        launches_path="phase 50's gcn-cora ogb_products grad step")
+    bag_entry["backward"] = "embedding_bag_bwd"
+    flash_entry["backward"] = "flash_attention_bwd"
+    flash_entry["training"] = dict(
+        forward_launches=tr["train"]["flash_launches"],
+        families=tr["families"]["families"])
     print(f"[done] all phases in {time.time() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": [cca_entry, spmm_entry, bag_entry,
-                                  flash_entry]}))
+                                  flash_entry, *training_entries(tr)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))
 

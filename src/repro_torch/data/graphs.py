@@ -82,3 +82,51 @@ def sampled_subgraph_sizes(dims: dict) -> tuple[int, int]:
         frontier = frontier * f
         nodes += frontier
     return nodes, edges
+
+
+# ---------------- neighbor sampler (GraphSAGE-style fanout) ----------------
+
+class NeighborSampler:
+    """Uniform fanout sampler over a CSR adjacency (host-side, numpy; the
+    JAX package's, line for line, so the same seed draws the same
+    subgraphs).
+
+    Produces fixed-shape (padded) subgraph batches: seeds first, then each
+    hop's sampled neighbors; edges point child -> parent (message flows
+    toward the seeds, matching aggregation direction).
+    """
+
+    def __init__(self, n_nodes: int, edge_index: np.ndarray, seed: int = 0):
+        src, dst = edge_index
+        order = np.argsort(dst, kind="stable")
+        self.nbr = src[order].astype(np.int64)
+        counts = np.bincount(dst, minlength=n_nodes)
+        self.ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+        self.n = n_nodes
+        self.rng = np.random.default_rng(seed)
+
+    def sample(self, seeds: np.ndarray, fanout) -> dict:
+        nodes = [seeds.astype(np.int64)]
+        edges_src, edges_dst = [], []
+        frontier = seeds.astype(np.int64)
+        base = 0
+        for f in fanout:
+            deg = self.ptr[frontier + 1] - self.ptr[frontier]
+            # sample f neighbors (with replacement; isolated -> self)
+            r = self.rng.integers(0, 1 << 62, size=(len(frontier), f))
+            idx = self.ptr[frontier][:, None] + r % np.maximum(deg, 1)[:, None]
+            nb = np.where(deg[:, None] > 0, self.nbr[idx],
+                          frontier[:, None])
+            child_base = sum(len(x) for x in nodes)
+            parents_local = np.arange(base, base + len(frontier))
+            edges_src.append((child_base
+                              + np.arange(nb.size)).astype(np.int64))
+            edges_dst.append(np.repeat(parents_local, f))
+            nodes.append(nb.reshape(-1))
+            base += len(frontier)
+            frontier = nb.reshape(-1)
+        local_nodes = np.concatenate(nodes)
+        ei = np.stack([np.concatenate(edges_src),
+                       np.concatenate(edges_dst)]).astype(np.int32)
+        return dict(node_ids=local_nodes, edge_index=ei,
+                    n_seeds=len(seeds))

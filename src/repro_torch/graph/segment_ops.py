@@ -14,6 +14,12 @@ pointers as ``rowptr=`` (built and checked per call when not given);
 ``segment_softmax`` are plain PyTorch, as the JAX package computes them
 outside any Pallas kernel, and take edges in any order.
 
+Gradients pass through the kernel's sums (``kernels/spmm``'s autograd
+Functions).  On the card, ``spmm``'s backward is the kernel over the
+transposed edges, which it takes as ``transposed=``
+(``spmm_ops.transpose_edges``; ``models.gnn.add_transposed`` builds them
+once a graph, beside its row pointers).
+
 Semantics are ``jax.ops.segment_*``: a destination outside ``[0, n)`` is
 dropped, an empty segment sums to 0 and has the maximum ``-inf``.  A
 gather (``x[src]``) reads indices as JAX does: negative from the end,
@@ -93,14 +99,18 @@ def sym_norm_coeff(edge_index, n_nodes, eps=1e-9):
                        * take_rows(din, edge_index[1]) + eps)
 
 
-def spmm(x, edge_index, n_nodes, coeff=None, aggregator="sum", rowptr=None):
-    """A @ X via gather-scatter.  coeff: optional per-edge scalar."""
+def spmm(x, edge_index, n_nodes, coeff=None, aggregator="sum", rowptr=None,
+         transposed=None):
+    """A @ X via gather-scatter.  coeff: optional per-edge scalar;
+    transposed: the sum's transposed edges, for its backward on the card
+    (``spmm_ops.spmm_sorted_coo``)."""
     if aggregator == "sum":
         dt = x.dtype if coeff is None else torch.promote_types(x.dtype,
                                                                coeff.dtype)
-        out = spmm_ops.spmm_sorted_coo(
-            x.float().contiguous(), edge_index[0], edge_index[1], n_nodes,
-            None if coeff is None else coeff.float().contiguous(), rowptr)
+        xf = x.float().contiguous()
+        cf = None if coeff is None else coeff.float().contiguous()
+        out = spmm_ops.spmm_sorted_coo(xf, edge_index[0], edge_index[1],
+                                       n_nodes, cf, rowptr, transposed)
         return out.to(dt)
     msgs = gather_src(x, edge_index)
     if coeff is not None:

@@ -398,7 +398,98 @@ cudaError_t by_lanes(int lanes, int lt, const Args& a) {
   return cudaErrorInvalidValue;
 }
 
+// ---- backward: the tables' dense gradients ----
+//
+// Replaces no TPU kernel (the JAX package has no Pallas backward; XLA's
+// autodiff of the gather scatter-adds each bag's cotangent into a dense
+// zero table).  The wrapper sorts every lookup of the batch, all F fields
+// at once, by a key: its table row plus the rows of the tables before it
+// (a stable torch.sort, so a row's lookups stay in (b, l) order), and a
+// dropped lookup (an index outside [-V, V)) the key `total`, past every
+// row.  A warp takes 32 consecutive sorted lookups; each lookup that
+// starts a run of one key (a row the batch touches) is the warp's, and the
+// warp walks that run to its end, lanes over the row's columns (strips of
+// 128, four a lane), summing the bag gradients gout[b, f] (÷ L for the
+// mean, then × the lookup's weight) in the run's order from 0.f, and
+// writes the row once.  No atomics: every run gives the same bits, and
+// all F fields are one launch.  The rows no lookup touches stay as the
+// wrapper zeroed them.  Bound: bytes (the sorted keys and positions, the
+// bag gradients each touched row reads, the weights, and the dense
+// gradients written whole, zeros included).
+constexpr int BWD_COLS = 4;       // columns a lane in a strip of 128
+
+__global__ void bag_bwd_kernel(const long long* __restrict__ keys,
+                               const long long* __restrict__ pos,
+                               const float* __restrict__ gout,
+                               const float* __restrict__ w,
+                               float* __restrict__ grad, long long n,
+                               long long total, int F, int L, int D,
+                               int mean) {
+  const long long warp = (static_cast<long long>(blockIdx.x) * blockDim.x
+                          + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  const long long i = warp * 32 + lane;
+  const long long key = i < n ? keys[i] : total;
+  const bool start = i < n && key < total && (i == 0 || keys[i - 1] != key);
+  unsigned runs = __ballot_sync(FULL, start);
+  const float fl = static_cast<float>(L);
+  while (runs) {
+    const int j = __ffs(runs) - 1;
+    runs &= runs - 1;
+    const long long s = warp * 32 + j;
+    const long long r = __shfl_sync(FULL, key, j);
+    for (int c0 = 0; c0 < D; c0 += 32 * BWD_COLS) {
+      float acc[BWD_COLS];
+#pragma unroll
+      for (int u = 0; u < BWD_COLS; ++u) acc[u] = 0.f;
+      for (long long e = s; e < n && keys[e] == r; ++e) {
+        const long long p = pos[e];             // flat (b, f, l)
+        const long long bf = p / L;             // b F + f
+        const float* g = gout + bf * D;
+        const float wt = w != nullptr ? w[p] : 1.f;
+#pragma unroll
+        for (int u = 0; u < BWD_COLS; ++u) {
+          const int c = c0 + lane + 32 * u;
+          if (c < D) {
+            float t = g[c];
+            if (mean) t = __fdiv_rn(t, fl);
+            if (w != nullptr) t = __fmul_rn(t, wt);
+            acc[u] = __fadd_rn(acc[u], t);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < BWD_COLS; ++u) {
+        const int c = c0 + lane + 32 * u;
+        if (c < D) grad[r * D + c] = acc[u];
+      }
+    }
+  }
+}
+
 }  // namespace
+
+// grad [total, D] (zeroed by the caller; the F tables' gradients one
+// after the other) += the bags' gradients gout [B, F, D] at the n = B F L
+// lookups: keys [n] (int64, sorted: the global row of each lookup, or
+// total for a dropped one) and pos [n] (int64: its flat (b, f, l)
+// position), w [B, F, L] or null.  One launch; returns its error code.
+extern "C" int embedding_bag_bwd_launch(const long long* keys,
+                                        const long long* pos,
+                                        const float* gout, const float* w,
+                                        float* grad, long long n,
+                                        long long total, int F, int L, int D,
+                                        int mean, void* stream) {
+  if (n < 0 || total < 0 || F <= 0 || L <= 0 || D <= 0)
+    return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  const long long blocks = (n + 32 * WARPS - 1) / (32 * WARPS);
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  bag_bwd_kernel<<<static_cast<unsigned>(blocks), 32 * WARPS, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      keys, pos, gout, w, grad, n, total, F, L, D, mean);
+  return cudaGetLastError();
+}
 
 // out[B, F, D]; tables and vocabs are device arrays of F entries; idx and
 // w (null when unweighted) are [B, F, L].  (lanes, vec, lt, rounds) is the

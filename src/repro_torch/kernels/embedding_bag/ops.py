@@ -23,6 +23,19 @@ floats a lane load, the L the kernel is built for, rounds a tile), as
 ``csrc/embedding_bag.cu`` says; the C entry refuses a shape it is not
 built for.  The kernel is built with ``nvcc`` for ``sm_90a`` at first
 use (``kernels/_build.py``) and loaded with ``ctypes``.
+
+Gradients: with grad on and a table that requires it, ``embedding_bags``
+goes through ``EmbeddingBags`` (a ``torch.autograd.Function`` whose
+inputs are the F tables; a ``prepare_tables`` handle stays valid, as the
+optimizer updates the tables in place).  Its backward returns each
+table's dense gradient ``[V_f, D]``, as JAX's autodiff of the gather
+does: on the card the backward kernel (``csrc/embedding_bag.cu``'s
+``bag_bwd_kernel``: the batch's lookups sorted once by row with a stable
+``torch.sort``, then one warp a touched row summing its bags' gradients
+in that order, all F fields in one launch, no atomics, so the same bits
+every run), on the CPU the plain ``index_add_`` of
+``ref.embedding_bags_bwd_ref``.  Weights get no gradient (no caller
+trains them): a weight that requires one raises.
 """
 from __future__ import annotations
 
@@ -37,7 +50,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.embedding_bag.ref import embedding_bags_ref
+from repro_torch.kernels.embedding_bag.ref import (embedding_bags_bwd_ref,
+                                                   embedding_bags_ref)
 
 HERE = pathlib.Path(__file__).resolve().parent
 SOURCE = HERE / "csrc" / "embedding_bag.cu"
@@ -48,6 +62,7 @@ CHUNK = 8               # lookups a step of the kernel for any other L
 TILE_L = (1, 2, 4, 8)   # the L the tile kernel is built for
 
 launches = 0   # kernel launches made by embedding_bags / embedding_bag_fwd
+bwd_launches = 0   # backward kernel launches (one a backward)
 shape_launches = collections.Counter()   # the same launches by Geometry
 
 
@@ -79,6 +94,9 @@ def load(path: pathlib.Path) -> ctypes.CDLL:
     lib.embedding_bag_launch.argtypes = [ctypes.c_void_p] * 5 + [
         ctypes.c_longlong] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.embedding_bag_launch.restype = ctypes.c_int
+    lib.embedding_bag_bwd_launch.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_longlong] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.embedding_bag_bwd_launch.restype = ctypes.c_int
     lib.embedding_bag_error_string.argtypes = [ctypes.c_int]
     lib.embedding_bag_error_string.restype = ctypes.c_char_p
     return lib
@@ -273,12 +291,102 @@ def launch(tables, indices: torch.Tensor,
     return out
 
 
+def bwd_keys(tables: BagTables, indices: torch.Tensor):
+    """The backward's index preparation on the card: (keys, pos, total),
+    each lookup's global row (its table's row plus the rows of the tables
+    before it; ``total`` for a lookup outside ``[-V, V)``) sorted by a
+    stable ``torch.sort``, and its flat (b, f, l) position."""
+    F = indices.shape[1]
+    total = sum(t.shape[0] for t in tables)
+    V = tables.meta[F:]                                # int64 row counts
+    first = torch.cumsum(V, 0) - V                     # each table's first row
+    idx = indices.long()
+    idx = torch.where(idx < 0, idx + V[:, None], idx)
+    keep = (idx >= 0) & (idx < V[:, None])
+    keys, pos = torch.sort(
+        torch.where(keep, idx + first[:, None], total).reshape(-1),
+        stable=True)
+    return keys, pos, total
+
+
+def bwd_kernel(keys, pos, gout, weights, grad, F: int, L: int,
+               combiner: str) -> None:
+    """One launch of the backward kernel: ``grad`` [total, D] (zeroed)
+    gets the rows the sorted lookups touch.  Adds one to the module's
+    ``bwd_launches``."""
+    global bwd_launches
+    if keys.numel() == 0:
+        return
+    lib = _library()
+    err = lib.embedding_bag_bwd_launch(
+        keys.data_ptr(), pos.data_ptr(), gout.data_ptr(),
+        None if weights is None else weights.data_ptr(), grad.data_ptr(),
+        keys.numel(), grad.shape[0], F, L, grad.shape[1],
+        int(combiner == "mean"),
+        torch._C._cuda_getCurrentRawStream(grad.device.index))
+    if err:
+        raise RuntimeError("embedding_bag backward launch failed: "
+                           + lib.embedding_bag_error_string(err).decode())
+    bwd_launches += 1
+
+
+def launch_bwd(tables, indices: torch.Tensor, gout: torch.Tensor,
+               weights: torch.Tensor | None = None,
+               combiner: str = "sum") -> list:
+    """The F tables' dense gradients [V_f, D] f32 (views of one zeroed
+    buffer) for the bag gradients ``gout`` [B, F, D]: ``bwd_keys``, then
+    one launch of the backward kernel, on CUDA inputs; ``tables`` a
+    ``BagTables`` handle or tensors."""
+    tables = _check(tables, indices, weights, combiner)
+    if indices.device.type != "cuda":
+        raise ValueError(f"the kernel runs on cuda, not {indices.device}")
+    keys, pos, total = bwd_keys(tables, indices)
+    grad = torch.zeros((total, tables.D), dtype=torch.float32,
+                       device=indices.device)
+    bwd_kernel(keys, pos, gout.float().contiguous(), weights, grad,
+               indices.shape[1], indices.shape[2], combiner)
+    return list(torch.split(grad, [t.shape[0] for t in tables]))
+
+
+class EmbeddingBags(torch.autograd.Function):
+    """``embedding_bags`` with the tables' gradients."""
+
+    @staticmethod
+    def forward(ctx, indices, weights, combiner, tables, *leaves):
+        ctx.save_for_backward(indices, weights)
+        ctx.combiner, ctx.tables = combiner, tables
+        if indices.device.type == "cpu":
+            return embedding_bags_ref(tables, indices, weights, combiner)
+        return launch(tables, indices, weights, combiner)
+
+    @staticmethod
+    def backward(ctx, gout):
+        indices, weights = ctx.saved_tensors
+        if indices.device.type == "cpu":
+            grads = embedding_bags_bwd_ref([t.shape[0] for t in ctx.tables],
+                                           indices, gout, weights,
+                                           ctx.combiner)
+        else:
+            grads = launch_bwd(ctx.tables, indices, gout, weights,
+                               ctx.combiner)
+        return (None, None, None, None, *grads)
+
+
 def embedding_bags(tables, indices: torch.Tensor,
                    weights: torch.Tensor | None = None,
                    combiner: str = "sum") -> torch.Tensor:
     """All F fields in one launch: [B, F, L] -> [B, F, D] f32.
     ``tables``: F tensors or a ``prepare_tables`` handle.  Each kernel
-    launch adds one to the module's ``launches``."""
+    launch adds one to the module's ``launches``; with grad on and a table
+    that requires it, the output has a ``grad_fn`` (``EmbeddingBags``)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tables):
+        if weights is not None and weights.requires_grad:
+            raise NotImplementedError(
+                "embedding_bags gives the tables a gradient, not the "
+                "weights (no caller of the port trains them)")
+        tables = _check(tables, indices, weights, combiner)
+        return EmbeddingBags.apply(indices, weights, combiner, tables,
+                                   *tables)
     if indices.device.type == "cpu":
         _check(tables, indices, weights, combiner)
         return embedding_bags_ref(tables, indices, weights, combiner)

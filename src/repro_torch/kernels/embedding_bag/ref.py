@@ -66,3 +66,30 @@ def embedding_bags_ordered(tables, indices: torch.Tensor,
             acc = acc / torch.tensor(float(L), device=acc.device)
         out.append(acc)
     return torch.stack(out, dim=1)
+
+
+def embedding_bags_bwd_ref(vocabs, indices: torch.Tensor, gout: torch.Tensor,
+                           weights: torch.Tensor | None = None,
+                           combiner: str = "sum") -> list:
+    """The tables' dense gradients [V_f, D] f32 for the bag gradients
+    ``gout`` [B, F, D]: each lookup's ``gout[b, f]`` (/ L for the mean,
+    then x its weight) added into the row it read, by ``index_add_`` in
+    (b, l) order; a lookup outside ``[-V, V)`` adds nothing (``jnp.take``'s
+    fill mode drops it), what JAX's autodiff of the gather gives."""
+    B, F, L = indices.shape
+    out = []
+    for f, V in enumerate(vocabs):
+        g = gout[:, f].float()
+        if combiner == "mean":
+            g = g / torch.tensor(float(L), device=g.device)
+        terms = g[:, None, :].expand(B, L, g.shape[1])
+        if weights is not None:
+            terms = terms * weights[:, f, :, None]
+        idx = indices[:, f].long()
+        idx = torch.where(idx < 0, idx + V, idx)
+        keep = ((idx >= 0) & (idx < V)).reshape(-1)
+        grad = torch.zeros((V, g.shape[1]), dtype=torch.float32,
+                           device=g.device)
+        out.append(grad.index_add_(0, idx.reshape(-1)[keep],
+                                   terms.reshape(B * L, -1)[keep]))
+    return out

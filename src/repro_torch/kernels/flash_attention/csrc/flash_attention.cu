@@ -6,7 +6,13 @@
 // head width 16-128.  The CUDA-core f32 kernel below (the first port of
 // this kernel) is built only with -DFA_CUDA_CORE_F32, then in place of
 // the 3xTF32 one, for the A/B of tools/flash_spmm_variants.py: the
-// wrapper never routes to it.
+// wrapper never routes to it.  The forward kernels store each row's
+// log-sum-exp where the caller asks (the autograd wrapper's forward), and
+// flash_attention_bwd.cuh holds the bf16 backward (the gradients of q, k
+// and v), reached through flash_attention_bwd_launch.  Each forward kernel
+// stores the lse in a compile-time instance of its own, so the serving
+// call runs the code it ran before the store was added (a runtime branch
+// in the bf16 epilogue cost llama's T = 4096 forward 17% on an H100).
 //
 // Replaces the TPU kernel `repro/kernels/flash_attention/kernel.py::
 // flash_attention_fwd` (`_fa_kernel`).  It computes what `_fa_kernel`
@@ -51,6 +57,7 @@
 #include <math.h>
 #include <stdio.h>
 
+#include "flash_attention_bwd.cuh"
 #include "flash_attention_tc.cuh"
 #include "flash_attention_tf32.cuh"
 
@@ -228,8 +235,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 #ifdef FA_CUDA_CORE_F32
 constexpr int kF32Path = 0;
 int launch_f32(int dh, const void* q, const void* k, const void* v, void* o,
-               void*, int B, int Tq, int Tk, int H, int Kh, float scale,
-               int causal, cudaStream_t s) {
+               float* lse, void*, int B, int Tq, int Tk, int H, int Kh,
+               float scale, int causal, cudaStream_t s) {
+  if (lse != nullptr) return cudaErrorNotSupported;   // no lse store here
   switch (dh) {
     case 16: return launch<16>(q, k, v, o, B, Tq, Tk, H, Kh, scale, causal, s);
     case 32: return launch<32>(q, k, v, o, B, Tq, Tk, H, Kh, scale, causal, s);
@@ -241,26 +249,39 @@ int launch_f32(int dh, const void* q, const void* k, const void* v, void* o,
 #else
 constexpr int kF32Path = 2;
 int launch_f32(int dh, const void* q, const void* k, const void* v, void* o,
-               void* scratch, int B, int Tq, int Tk, int H, int Kh,
-               float scale, int causal, cudaStream_t s) {
+               float* lse, void* scratch, int B, int Tq, int Tk, int H,
+               int Kh, float scale, int causal, cudaStream_t s) {
   switch (dh) {
-    case 16: return fa_tf32::launch<16>(q, k, v, o, scratch, B, Tq, Tk, H, Kh, scale, causal, s);
-    case 32: return fa_tf32::launch<32>(q, k, v, o, scratch, B, Tq, Tk, H, Kh, scale, causal, s);
-    case 64: return fa_tf32::launch<64>(q, k, v, o, scratch, B, Tq, Tk, H, Kh, scale, causal, s);
-    case 128: return fa_tf32::launch<128>(q, k, v, o, scratch, B, Tq, Tk, H, Kh, scale, causal, s);
+    case 16: return fa_tf32::launch<16>(q, k, v, o, lse, scratch, B, Tq, Tk, H, Kh, scale, causal, s);
+    case 32: return fa_tf32::launch<32>(q, k, v, o, lse, scratch, B, Tq, Tk, H, Kh, scale, causal, s);
+    case 64: return fa_tf32::launch<64>(q, k, v, o, lse, scratch, B, Tq, Tk, H, Kh, scale, causal, s);
+    case 128: return fa_tf32::launch<128>(q, k, v, o, lse, scratch, B, Tq, Tk, H, Kh, scale, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }
 #endif
 
 int launch_bf16(int dh, const void* q, const void* k, const void* v, void* o,
-                int B, int Tq, int Tk, int H, int Kh, float scale, int causal,
-                cudaStream_t s) {
+                float* lse, int B, int Tq, int Tk, int H, int Kh, float scale,
+                int causal, cudaStream_t s) {
   switch (dh) {
-    case 16: return fa_tc::launch<16>(q, k, v, o, B, Tq, Tk, H, Kh, scale, causal, s);
-    case 32: return fa_tc::launch<32>(q, k, v, o, B, Tq, Tk, H, Kh, scale, causal, s);
-    case 64: return fa_tc::launch<64>(q, k, v, o, B, Tq, Tk, H, Kh, scale, causal, s);
-    case 128: return fa_tc::launch<128>(q, k, v, o, B, Tq, Tk, H, Kh, scale, causal, s);
+    case 16: return fa_tc::launch<16>(q, k, v, o, lse, B, Tq, Tk, H, Kh, scale, causal, s);
+    case 32: return fa_tc::launch<32>(q, k, v, o, lse, B, Tq, Tk, H, Kh, scale, causal, s);
+    case 64: return fa_tc::launch<64>(q, k, v, o, lse, B, Tq, Tk, H, Kh, scale, causal, s);
+    case 128: return fa_tc::launch<128>(q, k, v, o, lse, B, Tq, Tk, H, Kh, scale, causal, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+int launch_bwd(int dh, const void* q, const void* k, const void* v,
+               const void* o, const float* lse, const void* dout, void* dq,
+               void* dk, void* dv, void* scratch, int B, int Tq, int Tk, int H,
+               int Kh, float scale, int causal, cudaStream_t s) {
+  switch (dh) {
+    case 16: return fa_bwd::launch<16>(q, k, v, o, lse, dout, dq, dk, dv, scratch, B, Tq, Tk, H, Kh, scale, causal, s);
+    case 32: return fa_bwd::launch<32>(q, k, v, o, lse, dout, dq, dk, dv, scratch, B, Tq, Tk, H, Kh, scale, causal, s);
+    case 64: return fa_bwd::launch<64>(q, k, v, o, lse, dout, dq, dk, dv, scratch, B, Tq, Tk, H, Kh, scale, causal, s);
+    case 128: return fa_bwd::launch<128>(q, k, v, o, lse, dout, dq, dk, dv, scratch, B, Tq, Tk, H, Kh, scale, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -277,24 +298,50 @@ extern "C" long long flash_attention_scratch_bytes(int B, int Tk, int Kh,
 // o [B, Tq, H, dh] = attention(q [B, Tq, H, dh], k, v [B, Tk, Kh, dh]),
 // all contiguous, 16-byte aligned and of one dtype (bf16 != 0: bfloat16,
 // else float32); dh one of 16, 32, 64, 128; scratch 16-byte aligned, of
-// flash_attention_scratch_bytes.  Sets *path to the kernel it launches
+// flash_attention_scratch_bytes.  lse, where not null, gets each row's
+// log-sum-exp of the scaled scores, f32 [B, H, Tq], for the backward
+// (null: the serving call, which stores nothing more).  Sets *path to the kernel it launches
 // (1: tensor cores, bf16; 2: tensor cores, f32 as 3xTF32; 0: CUDA cores,
 // f32, in the -DFA_CUDA_CORE_F32 build only) and returns the launch's
 // error code: a cudaError_t, or a negative code of the tensor-map
 // encoding (see flash_attention_error_string).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, void* scratch,
-                                      int B, int Tq, int Tk, int H, int Kh,
-                                      int dh, int bf16, float scale,
-                                      int causal, void* stream, int* path) {
+                                      const void* v, void* o, float* lse,
+                                      void* scratch, int B, int Tq, int Tk,
+                                      int H, int Kh, int dh, int bf16,
+                                      float scale, int causal, void* stream,
+                                      int* path) {
   if (B <= 0 || Tq <= 0 || Tk <= 0 || Kh <= 0 || H % Kh != 0 ||
       B > 65535 || H > 65535 || (!bf16 && !scratch))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   *path = bf16 ? 1 : kF32Path;
-  return bf16 ? launch_bf16(dh, q, k, v, o, B, Tq, Tk, H, Kh, scale, causal, s)
-              : launch_f32(dh, q, k, v, o, scratch, B, Tq, Tk, H, Kh, scale,
-                           causal, s);
+  return bf16 ? launch_bf16(dh, q, k, v, o, lse, B, Tq, Tk, H, Kh, scale,
+                            causal, s)
+              : launch_f32(dh, q, k, v, o, lse, scratch, B, Tq, Tk, H, Kh,
+                           scale, causal, s);
+}
+
+// Bytes of scratch the backward needs for these shapes (delta, f32).
+extern "C" long long flash_attention_bwd_scratch_bytes(int B, int Tq, int H) {
+  return fa_bwd::scratch_bytes(B, Tq, H);
+}
+
+// dq [B, Tq, H, dh], dk and dv [B, Tk, Kh, dh] of the bf16 attention at q,
+// k, v with output o and lse (flash_attention_launch's) and output
+// gradient dout: every tensor contiguous and 16-byte aligned, bf16 but lse
+// (f32 [B, H, Tq]); dh one of 16, 32, 64, 128; scratch of
+// flash_attention_bwd_scratch_bytes.  Three launches (delta, dK and dV,
+// dQ); returns the first error.
+extern "C" int flash_attention_bwd_launch(
+    const void* q, const void* k, const void* v, const void* o,
+    const float* lse, const void* dout, void* dq, void* dk, void* dv,
+    void* scratch, int B, int Tq, int Tk, int H, int Kh, int dh, float scale,
+    int causal, void* stream) {
+  if (B <= 0 || Tq <= 0 || Tk <= 0 || Kh <= 0 || H % Kh != 0 || !scratch)
+    return cudaErrorInvalidValue;
+  return launch_bwd(dh, q, k, v, o, lse, dout, dq, dk, dv, scratch, B, Tq, Tk,
+                    H, Kh, scale, causal, static_cast<cudaStream_t>(stream));
 }
 
 // Text of a launch error code, for the wrapper's exception.

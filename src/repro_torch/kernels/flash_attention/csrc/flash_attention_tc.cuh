@@ -199,12 +199,15 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-template <int DH>
+// LSE: the instance that stores each row's log-sum-exp into lse (the
+// autograd forward); the serving instance (false) is the code without it
+template <int DH, bool LSE>
 __global__ void __launch_bounds__(THREADS, 1)
 fa_fwd_tc(const __grid_constant__ CUtensorMap tq,
           const __grid_constant__ CUtensorMap tk,
           const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
-          int B, int Tq, int Tk, int H, int Kh, float scale_log2e, int causal) {
+          float* __restrict__ lse, int B, int Tq, int Tk, int H, int Kh,
+          float scale_log2e, int causal) {
   using G = Geom<DH>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -278,7 +281,10 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap tq,
     // whatever setmaxnreg gives them); one step a fence lets the scores
     // die as they go and costs 2-3% at dh 128, 16-19% at dh 64 (H100,
     // tools/flash_tc_variants.py)
-    constexpr int FENCE_STEPS = DH == 32 || DH == 128 ? 1 : BK / 16;
+    // (the lse instance at dh 64 spills 8 bytes at 8 steps a fence and
+    // none at 4, on an H100: it takes 4)
+    constexpr int FENCE_STEPS = DH == 32 || DH == 128 ? 1
+                                : LSE && DH == 64 ? 4 : BK / 16;
 
     float acc[DH / 2];
 #pragma unroll
@@ -387,6 +393,21 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap tq,
             __fdiv_rn(acc[4 * c8 + 2 * i], den),
             __fdiv_rn(acc[4 * c8 + 2 * i + 1], den));
     }
+    if constexpr (LSE) {
+      // each row's log-sum-exp of the scaled scores, for the backward,
+      // once the accumulator is stored (its registers free: at dh 64 a
+      // store beside the output's spilled)
+      if (cq == 0) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int row = row0 + 8 * i;
+          if (row < Tq)
+            lse[(static_cast<long long>(b) * H + h) * Tq + row] =
+                (m[i] * scale_log2e + __log2f(fmaxf(l[i], 1e-30f)))
+                * 0.6931471805599453f;
+        }
+      }
+    }
   }
 }
 
@@ -412,8 +433,8 @@ int encode(CUtensorMap* map, const void* x, int B, int T, int heads, int rows) {
 }
 
 template <int DH>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Tq, int Tk, int H, int Kh, float scale, int causal,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Tq, int Tk, int H, int Kh, float scale, int causal,
            cudaStream_t s) {
   CUtensorMap mq, mk, mv;
   int err = encode<DH>(&mq, q, B, Tq, H, BQ);
@@ -422,12 +443,12 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   if (err) return err;
   const long long blocks = static_cast<long long>((Tq + BQ - 1) / BQ) * H * B;
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  auto kern = fa_fwd_tc<DH>;
+  auto kern = lse != nullptr ? fa_fwd_tc<DH, true> : fa_fwd_tc<DH, false>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Geom<DH>::SMEM);
   if (e != cudaSuccess) return e;
   kern<<<static_cast<unsigned>(blocks), THREADS, Geom<DH>::SMEM, s>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), B, Tq, Tk, H, Kh,
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, B, Tq, Tk, H, Kh,
       scale * 1.4426950408889634f, causal);
   return cudaGetLastError();
 }

@@ -287,12 +287,15 @@ __global__ void split_vt(const float* __restrict__ v, float* __restrict__ hi,
 
 // ---- the attention kernel ----
 
-template <int DH>
+// LSE: the instance that stores each row's log-sum-exp into lse; the
+// serving instance (false) is the code without it, as in the bf16 kernel
+template <int DH, bool LSE>
 __global__ void __launch_bounds__(Cfg<DH>::THREADS, 1)
 fa_fwd_tf32(const __grid_constant__ CUtensorMap tq,
             const __grid_constant__ CUtensorMap tk,
             const __grid_constant__ CUtensorMap tv, float* __restrict__ o,
-            int B, int Tq, int Tk, int H, int Kh, float scale, int causal) {
+            float* __restrict__ lse, int B, int Tq, int Tk, int H, int Kh,
+            float scale, int causal) {
   using C = Cfg<DH>;
   constexpr int BQ = C::BQ, BK = C::BK, STAGES = C::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -494,6 +497,11 @@ fa_fwd_tf32(const __grid_constant__ CUtensorMap tq,
       const int row = row0 + 8 * i;
       if (row >= Tq) continue;
       const float den = fmaxf(l[i], 1e-30f);
+      if constexpr (LSE) {
+        // the row's log-sum-exp of the (pre-scaled) scores, for a backward
+        if (cq == 0)
+          lse[(static_cast<long long>(b) * H + h) * Tq + row] = m[i] + logf(den);
+      }
       float* orow = o + ((static_cast<long long>(b) * Tq + row) * H + h) * DH + cq;
 #pragma unroll
       for (int c8 = 0; c8 < DH / 8; ++c8)
@@ -513,9 +521,9 @@ inline long long scratch_bytes(int B, int Tk, int Kh, int dh) {
 }
 
 template <int DH>
-int launch(const void* q, const void* k, const void* v, void* o, void* scratch,
-           int B, int Tq, int Tk, int H, int Kh, float scale, int causal,
-           cudaStream_t s) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           void* scratch, int B, int Tq, int Tk, int H, int Kh, float scale,
+           int causal, cudaStream_t s) {
   using C = Cfg<DH>;
   const int Tk8 = (Tk + 7) / 8 * 8;
   const long long nk = static_cast<long long>(B) * Tk * Kh * DH;
@@ -569,12 +577,13 @@ int launch(const void* q, const void* k, const void* v, void* o, void* scratch,
   }
   const long long blocks = static_cast<long long>((Tq + C::BQ - 1) / C::BQ) * H * B;
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  auto kern = fa_fwd_tf32<DH>;
+  auto kern = lse != nullptr ? fa_fwd_tf32<DH, true> : fa_fwd_tf32<DH, false>;
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            C::SMEM);
   if (e != cudaSuccess) return e;
   kern<<<static_cast<unsigned>(blocks), C::THREADS, C::SMEM, s>>>(
-      mq, mk, mv, static_cast<float*>(o), B, Tq, Tk, H, Kh, scale, causal);
+      mq, mk, mv, static_cast<float*>(o), lse, B, Tq, Tk, H, Kh, scale,
+      causal);
   return cudaGetLastError();
 }
 

@@ -17,6 +17,17 @@ wrapper allocates); on a CPU tensor it runs the plain version
 one device, ``dh`` one of the head widths the kernels are built for.  The
 library is built with ``nvcc`` for ``sm_90a`` at first use
 (``kernels/_build.py``) and loaded with ``ctypes``.
+
+Gradients: when grad mode is on and q, k or v requires grad, the call
+goes through ``FlashAttention`` (a ``torch.autograd.Function``).  Its
+forward launches the same kernel with the per-row log-sum-exp stored
+(``lse [B, H, Tq]`` f32); its backward launches the bf16 backward kernel
+(``csrc/flash_attention_bwd.cuh``: delta, then dK and dV over key tiles,
+then dQ over query tiles, no float atomics, so the same bits every run)
+on a CUDA tensor, and on a CPU tensor the plain backward
+``ref.flash_attention_bwd_ref``, the formula that kernel is held to.  A
+CUDA float32 input that requires grad raises ``NotImplementedError``: no
+main path trains attention in f32, and the backward kernel is bf16 only.
 """
 from __future__ import annotations
 
@@ -28,7 +39,8 @@ import pathlib
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_bwd_ref, flash_attention_fwd_ref, flash_attention_ref)
 
 HERE = pathlib.Path(__file__).resolve().parent
 SOURCE = HERE / "csrc" / "flash_attention.cu"
@@ -40,8 +52,9 @@ DTYPES = (torch.float32, torch.bfloat16)
 # only from a library built with -DFA_CUDA_CORE_F32, for an A/B
 PATHS = ("cuda_core", "tensor_core", "tensor_core_tf32x3")
 
-launches = 0   # kernel launches made by flash_attention, every path
+launches = 0   # forward kernel launches made by flash_attention
 path_launches = dict.fromkeys(PATHS, 0)   # the same launches by kernel
+bwd_launches = 0   # backward kernel launches (one a backward: 3 kernels)
 
 
 def build() -> tuple[pathlib.Path, str]:
@@ -52,12 +65,17 @@ def build() -> tuple[pathlib.Path, str]:
 def load(path: pathlib.Path) -> ctypes.CDLL:
     """The kernel library at ``path`` with its C entry points typed."""
     lib = ctypes.CDLL(str(path))
-    lib.flash_attention_launch.argtypes = [ctypes.c_void_p] * 5 + [
+    lib.flash_attention_launch.argtypes = [ctypes.c_void_p] * 6 + [
         ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
                              ctypes.POINTER(ctypes.c_int)]
     lib.flash_attention_launch.restype = ctypes.c_int
     lib.flash_attention_scratch_bytes.argtypes = [ctypes.c_int] * 5
     lib.flash_attention_scratch_bytes.restype = ctypes.c_longlong
+    lib.flash_attention_bwd_launch.argtypes = [ctypes.c_void_p] * 10 + [
+        ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    lib.flash_attention_bwd_launch.restype = ctypes.c_int
+    lib.flash_attention_bwd_scratch_bytes.argtypes = [ctypes.c_int] * 3
+    lib.flash_attention_bwd_scratch_bytes.restype = ctypes.c_longlong
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -101,18 +119,14 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                              f"loads need one")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
-    """q: [B, Tq, H, dh]; k/v: [B, Tk, Kh, dh] -> [B, Tq, H, dh] in q's
-    dtype.  Each kernel launch adds one to the module's ``launches`` and
-    to its kernel's entry of ``path_launches``."""
+def _forward(q, k, v, causal: bool, with_lse: bool):
+    """One forward launch on checked CUDA inputs -> (out, lse or None)."""
     global launches
-    _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal)
     B, Tq, H, dh = q.shape
     Tk, Kh = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     lib = _library()
     bf16 = int(q.dtype == torch.bfloat16)
     scratch = torch.empty(lib.flash_attention_scratch_bytes(B, Tk, Kh, dh,
@@ -123,6 +137,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             scratch.data_ptr() if scratch.numel() else None, B, Tq, Tk, H,
             Kh, dh, bf16, 1.0 / math.sqrt(dh), int(causal), stream,
             ctypes.byref(path))
@@ -131,4 +146,98 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            + lib.flash_attention_error_string(err).decode())
     launches += 1
     path_launches[PATHS[path.value]] += 1
-    return out
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, dout, causal: bool = True):
+    """(dq, dk, dv) of the attention at q, k, v with output ``o`` and
+    ``lse`` [B, H, Tq] f32 (the forward's), for the output gradient
+    ``dout``: on CUDA tensors one call of the bf16 backward kernel (adds
+    one to ``bwd_launches``), on CPU tensors the plain backward.  Every
+    input contiguous; q, k, v, o and dout bf16 on the card."""
+    global bwd_launches
+    _check(q, k, v)
+    if dout.shape != q.shape or o.shape != q.shape \
+            or lse.shape != (q.shape[0], q.shape[2], q.shape[1]):
+        raise ValueError(f"o {list(o.shape)}, dout {list(dout.shape)} and "
+                         f"lse {list(lse.shape)} do not fit q "
+                         f"{list(q.shape)}")
+    if q.device.type == "cpu":
+        dq, dk, dv = flash_attention_bwd_ref(q, k, v, o, lse, dout, causal)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    if q.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"the flash-attention backward kernel is bf16 only, not "
+            f"{q.dtype}: no main path of the port trains attention in f32")
+    for name, t, dt in (("o", o, q.dtype), ("dout", dout, q.dtype),
+                        ("lse", lse, torch.float32)):
+        if t.dtype != dt or t.device != q.device or not t.is_contiguous() \
+                or t.data_ptr() % 16:
+            raise ValueError(f"{name} is {t.dtype} on {t.device} "
+                             f"(contiguous={t.is_contiguous()}); the "
+                             f"backward needs contiguous, 16-byte aligned "
+                             f"{dt} on {q.device}")
+    B, Tq, H, dh = q.shape
+    Tk, Kh = k.shape[1], k.shape[2]
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    lib = _library()
+    scratch = torch.empty(lib.flash_attention_bwd_scratch_bytes(B, Tq, H),
+                          dtype=torch.uint8, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), scratch.data_ptr(), B, Tq, Tk, H, Kh, dh,
+            1.0 / math.sqrt(dh), int(causal), stream)
+    if err:
+        raise RuntimeError("flash_attention backward launch failed: "
+                           + lib.flash_attention_error_string(err).decode())
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with its gradient: the forward kernel with the
+    lse store, and the backward kernel (the plain backward on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        if q.device.type == "cpu":
+            out, lse = flash_attention_fwd_ref(q, k, v, causal)
+        else:
+            out, lse = _forward(q, k, v, causal, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        if dout.data_ptr() % 16:      # the kernel reads 16-byte rows
+            dout = dout.clone()
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
+                                         ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """q: [B, Tq, H, dh]; k/v: [B, Tk, Kh, dh] -> [B, Tq, H, dh] in q's
+    dtype.  Each forward kernel launch adds one to the module's
+    ``launches`` and to its kernel's entry of ``path_launches``; with grad
+    on and an input that requires it, the output has a ``grad_fn``
+    (``FlashAttention``) and each backward adds one to ``bwd_launches``."""
+    _check(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if q.device.type == "cuda" and q.dtype == torch.float32:
+            raise NotImplementedError(
+                "flash_attention with grad in float32 on the card: the "
+                "backward kernel is bf16 only, and no main path of the "
+                "port trains attention in f32 (cast q, k, v to bfloat16)")
+        return FlashAttention.apply(q, k, v, causal)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal)
+    return _forward(q, k, v, causal, with_lse=False)[0]

@@ -17,24 +17,75 @@ import torch
 NEG_INF = -1e30
 
 
+def _scores(q, k, causal: bool, t0: int = 0):
+    """The scaled, masked f32 scores of query rows ``t0..`` of ``q``
+    against every key: [B, Kh, G, Tq', Tk]."""
+    B, Tq, H, dh = q.shape
+    Tk, Kh = k.shape[1], k.shape[2]
+    qf = (q.float() * (1.0 / math.sqrt(dh))).reshape(B, Tq, Kh, H // Kh, dh)
+    s = torch.einsum("btkgd,bskd->bkgts", qf, k.float())
+    if causal:
+        rows = t0 + torch.arange(Tq, device=q.device)[:, None]
+        cols = torch.arange(Tk, device=q.device)[None, :]
+        s = s.masked_fill(cols > rows, NEG_INF)
+    return s
+
+
+def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, causal: bool = True
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """q: [B, Tq, H, dh]; k/v: [B, Tk, Kh, dh] -> (out [B, Tq, H, dh] in
+    q's dtype, lse [B, H, Tq] f32: each row's log-sum-exp of the scaled
+    scores, m + log(max(l, 1e-30)), what the forward kernels store)."""
+    B, Tq, H, dh = q.shape
+    s = _scores(q, k, causal)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1).clamp(min=1e-30)                   # [B, Kh, G, Tq]
+    acc = torch.einsum("bkgts,bskd->btkgd", p, v.float())
+    out = acc / l.permute(0, 3, 1, 2)[..., None]
+    lse = (m[..., 0] + torch.log(l)).reshape(B, H, Tq)
+    return out.reshape(B, Tq, H, dh).to(q.dtype), lse
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True) -> torch.Tensor:
     """q: [B, Tq, H, dh]; k/v: [B, Tk, Kh, dh] -> [B, Tq, H, dh]."""
+    return flash_attention_fwd_ref(q, k, v, causal)[0]
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, dout, causal: bool = True,
+                            chunk: int = 512):
+    """The plain backward of the forward above, given its output ``o``
+    and ``lse`` [B, H, Tq] and the output gradient ``dout``: (dq, dk, dv)
+    f32, in f32 math over query tiles of ``chunk`` rows (so the
+    probabilities of a tile, [B, H, chunk, Tk] f32, are all it holds):
+    delta = rowsum(dout o), P = exp(S - lse), dV = P^T dO, dS = P (dO V^T -
+    delta), dQ = dS K / sqrt(dh), dK = dS^T Q / sqrt(dh).  The backward
+    kernel (``csrc/flash_attention_bwd.cuh``) is held to it."""
     B, Tq, H, dh = q.shape
     Tk, Kh = k.shape[1], k.shape[2]
     G = H // Kh
-    qf = (q.float() * (1.0 / math.sqrt(dh))).reshape(B, Tq, Kh, G, dh)
-    s = torch.einsum("btkgd,bskd->bkgts", qf, k.float())
-    if causal:
-        rows = torch.arange(Tq, device=q.device)[:, None]
-        cols = torch.arange(Tk, device=q.device)[None, :]
-        s = s.masked_fill(cols > rows, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1)
-    acc = torch.einsum("bkgts,bskd->btkgd", p, v.float())
-    out = acc / l.clamp(min=1e-30).permute(0, 3, 1, 2)[..., None]
-    return out.reshape(B, Tq, H, dh).to(q.dtype)
+    scale = 1.0 / math.sqrt(dh)
+    kf, vf = k.float(), v.float()
+    dq = torch.empty((B, Tq, H, dh), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((B, Tk, Kh, dh), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for t0 in range(0, Tq, chunk):
+        t1 = min(t0 + chunk, Tq)
+        s = _scores(q[:, t0:t1], k, causal, t0)           # [B,Kh,G,t,Tk]
+        lse_t = lse[:, :, t0:t1].reshape(B, Kh, G, t1 - t0, 1)
+        p = torch.exp(s - lse_t)
+        do = dout[:, t0:t1].float().reshape(B, t1 - t0, Kh, G, dh)
+        delta = (do * o[:, t0:t1].float().reshape(do.shape)).sum(-1)
+        dv += torch.einsum("bkgts,btkgd->bskd", p, do)
+        dp = torch.einsum("btkgd,bskd->bkgts", do, vf)
+        ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+        dq[:, t0:t1] = (torch.einsum("bkgts,bskd->btkgd", ds, kf)
+                        * scale).reshape(B, t1 - t0, H, dh)
+        qf = q[:, t0:t1].float().reshape(B, t1 - t0, Kh, G, dh)
+        dk += torch.einsum("bkgts,btkgd->bskd", ds, qf) * scale
+    return dq, dk, dv
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:

@@ -23,23 +23,40 @@ where ``D % 4 == 0`` and x is 16-byte aligned), as ``csrc/spmm.cu`` says;
 ``ref.py::spmm_ordered`` sums in the order each shape sums.  The
 kernel is built with ``nvcc`` for ``sm_90a`` at first use
 (``kernels/_build.py``) and loaded with ``ctypes``.
+
+Gradients: with grad on and an input that requires it, both calls go
+through ``torch.autograd.Function``s.  ``scatter_spmm``'s backward is
+``g[dst]`` (a gather, what XLA's autodiff of ``segment_sum`` gives).
+``spmm_sorted_coo``'s backward computes dx = A^T g on the card by the
+same kernel over the transposed edges (``transpose_edges``: the kept
+edges sorted by source, their destinations as the sources and row
+pointers over the sources), which the caller builds once a graph and
+passes as ``transposed=`` (``models.gnn.add_transposed`` keeps them in
+the graph), and dcoeff[e] = <x[src[e]], g[dst[e]]> in
+plain PyTorch, only where coeff needs a gradient.  On CPU tensors both
+backwards are the plain ones of ``ref.py``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import pathlib
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.spmm.ref import scatter_spmm_ref, spmm_sorted_coo_ref
+from repro_torch.kernels.spmm.ref import (scatter_spmm_bwd_ref,
+                                          scatter_spmm_ref, source_rows,
+                                          spmm_sorted_coo_bwd_ref,
+                                          spmm_sorted_coo_ref, take_rows)
 
 HERE = pathlib.Path(__file__).resolve().parent
 SOURCE = HERE / "csrc" / "spmm.cu"
 NVCC_FLAGS = _build.SM90A_FLAGS
 
 launches = 0   # kernel launches made by scatter_spmm / spmm_sorted_coo
+bwd_launches = 0   # of them, the transposed launches of the backward
 
 
 def build() -> tuple[pathlib.Path, str]:
@@ -131,12 +148,14 @@ def geometry(D: int, aligned: bool = True) -> tuple[int, int]:
 
 
 def launch(x, src, coeff, rowptr, n_nodes: int,
-           shape: tuple[int, int] | None = None) -> torch.Tensor:
+           shape: tuple[int, int] | None = None,
+           transposed: bool = False) -> torch.Tensor:
     """One launch of the kernel on checked CUDA inputs and their row
     pointers: [n_nodes, D] f32, with the warp ``shape`` (lanes, vec) that
     ``geometry`` picks unless given (the C entry refuses one it was not
-    built for)."""
-    global launches
+    built for).  ``transposed``: a backward's launch over the transposed
+    edges, counted in ``bwd_launches`` too."""
+    global launches, bwd_launches
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"the kernel runs on cuda, not {dev}")
@@ -159,7 +178,92 @@ def launch(x, src, coeff, rowptr, n_nodes: int,
         raise RuntimeError("spmm kernel launch failed: "
                            + lib.spmm_error_string(err).decode())
     launches += 1
+    bwd_launches += int(transposed)
     return out
+
+
+class Transposed(NamedTuple):
+    """An edge list transposed for ``spmm_sorted_coo``'s backward: ``perm``
+    [E] int64, the edges in a stable order by the row of ``x`` their
+    ``src`` names, those that carry no gradient (a destination dropped, or
+    a source outside ``[-n_src, n_src)``: ``ref.source_rows``) last;
+    ``src`` [E] int32, their destinations; ``rowptr`` int32 [n_src + 1]
+    over those rows (the edges without gradient lie past its end)."""
+    perm: torch.Tensor
+    src: torch.Tensor
+    rowptr: torch.Tensor
+
+
+def transpose_edges(src: torch.Tensor, dst: torch.Tensor, n_src: int,
+                    n_nodes: int) -> Transposed:
+    """The transposed edges of (``src``, ``dst``) for ``n_src`` source
+    rows and ``n_nodes`` destinations (a stable sort; no host sync)."""
+    rows, valid = source_rows(src, n_src)
+    keep = valid & (dst >= 0) & (dst < n_nodes)
+    # the edges without gradient sort last, past every row's pointers
+    key, perm = torch.sort(torch.where(keep, rows, n_src), stable=True)
+    rowptr = torch.searchsorted(
+        key, torch.arange(n_src + 1, dtype=key.dtype, device=key.device),
+        out_int32=True)
+    return Transposed(perm, dst[perm].contiguous(), rowptr)
+
+
+class ScatterSpmm(torch.autograd.Function):
+    """``scatter_spmm`` with its gradient ``g[dst]``."""
+
+    @staticmethod
+    def forward(ctx, msgs, dst, n_nodes, rowptr):
+        ctx.save_for_backward(dst)
+        ctx.n_nodes = n_nodes
+        if msgs.device.type == "cpu":
+            return scatter_spmm_ref(msgs, dst, n_nodes)
+        return launch(msgs, None, None, rowptr, n_nodes)
+
+    @staticmethod
+    def backward(ctx, g):
+        (dst,) = ctx.saved_tensors
+        return scatter_spmm_bwd_ref(g, dst, ctx.n_nodes), None, None, None
+
+
+class SpmmSortedCoo(torch.autograd.Function):
+    """``spmm_sorted_coo`` with its gradients: dx = A^T g by the kernel
+    over the transposed edges on the card, dcoeff plain."""
+
+    @staticmethod
+    def forward(ctx, x, coeff, src, dst, n_nodes, rowptr, transposed):
+        ctx.save_for_backward(x, coeff, src, dst)
+        ctx.n_nodes, ctx.transposed = n_nodes, transposed
+        if x.device.type == "cpu":
+            return spmm_sorted_coo_ref(x, src, dst, n_nodes, coeff)
+        return launch(x, src, coeff, rowptr, n_nodes)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, coeff, src, dst = ctx.saved_tensors
+        n = ctx.n_nodes
+        g = g.float().contiguous()
+        if x.device.type == "cpu":
+            dx, dcoeff = spmm_sorted_coo_bwd_ref(g, x, src, dst, n, coeff)
+        else:
+            dx = dcoeff = None
+            if ctx.needs_input_grad[0]:
+                t = ctx.transposed
+                dx = launch(g, t.src, None if coeff is None
+                            else coeff[t.perm].contiguous(), t.rowptr,
+                            x.shape[0], transposed=True)
+            if coeff is not None and ctx.needs_input_grad[1]:
+                keep = (dst >= 0) & (dst < n)
+                gd = g[dst.long().clamp(0, max(n - 1, 0))]
+                dcoeff = torch.where(keep, (take_rows(x, src) * gd).sum(-1),
+                                     0.0)
+        if not ctx.needs_input_grad[1]:
+            dcoeff = None
+        return dx, dcoeff, None, None, None, None, None
+
+
+def wants_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
 
 
 def scatter_spmm(msgs: torch.Tensor, dst: torch.Tensor, n_nodes: int,
@@ -169,6 +273,8 @@ def scatter_spmm(msgs: torch.Tensor, dst: torch.Tensor, n_nodes: int,
     Returns the [n_nodes, D] f32 segment sums.  Each kernel launch adds
     one to the module's ``launches``."""
     rowptr = _check(msgs, None, dst, None, n_nodes, rowptr)
+    if wants_grad(msgs):
+        return ScatterSpmm.apply(msgs, dst, n_nodes, rowptr)
     if msgs.device.type == "cpu":
         return scatter_spmm_ref(msgs, dst, n_nodes)
     return launch(msgs, None, None, rowptr, n_nodes)
@@ -176,11 +282,23 @@ def scatter_spmm(msgs: torch.Tensor, dst: torch.Tensor, n_nodes: int,
 
 def spmm_sorted_coo(x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
                     n_nodes: int, coeff: torch.Tensor | None = None,
-                    rowptr: torch.Tensor | None = None) -> torch.Tensor:
+                    rowptr: torch.Tensor | None = None,
+                    transposed: Transposed | None = None) -> torch.Tensor:
     """A @ X over a COO edge list sorted by dst (the GNN hot path): the
     segment sum of ``x[src] * coeff`` by ``dst``, [n_nodes, D] f32, with
-    the gather and the scale fused into the kernel."""
+    the gather and the scale fused into the kernel.  ``transposed``:
+    ``transpose_edges(src, dst, len(x), n_nodes)``, which the backward
+    runs over on the card; needed there when x requires grad."""
     rowptr = _check(x, src, dst, coeff, n_nodes, rowptr)
+    if wants_grad(x, coeff):
+        if transposed is None and x.device.type == "cuda" and \
+                x.requires_grad:
+            raise ValueError(
+                "spmm_sorted_coo: x requires grad, and its backward on the "
+                "card runs over transpose_edges(src, dst, len(x), n_nodes): "
+                "build them once a graph and pass them as transposed=")
+        return SpmmSortedCoo.apply(x, coeff, src, dst, n_nodes, rowptr,
+                                   transposed)
     if x.device.type == "cpu":
         return spmm_sorted_coo_ref(x, src, dst, n_nodes, coeff)
     return launch(x, src, coeff, rowptr, n_nodes)

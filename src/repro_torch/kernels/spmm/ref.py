@@ -62,3 +62,46 @@ def spmm_ordered(x: torch.Tensor, src: torch.Tensor | None,
     while part.shape[1] > 1:
         part = part[:, 0::2] + part[:, 1::2]
     return part[:, 0]
+
+
+def source_rows(src: torch.Tensor, n: int) -> tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """(rows, valid): the row of ``n`` each ``src`` names (negative from
+    the end) and whether it names one.  ``take_rows`` reads the clamped
+    row where it does not, but JAX's gradient of that gather drops such an
+    index (its scatter-add drops out-of-bounds updates)."""
+    idx = src.long()
+    idx = torch.where(idx < 0, idx + n, idx)
+    return idx.clamp(0, max(n - 1, 0)), (idx >= 0) & (idx < n)
+
+
+def scatter_spmm_bwd_ref(g: torch.Tensor, dst: torch.Tensor,
+                         n_nodes: int) -> torch.Tensor:
+    """The gradient of ``scatter_spmm_ref`` with respect to its messages,
+    given the output gradient ``g`` [n_nodes, D]: ``g[dst]``, 0 for an
+    edge whose destination was dropped (what XLA's autodiff of
+    ``segment_sum`` gives)."""
+    keep = (dst >= 0) & (dst < n_nodes)
+    rows = g.float()[dst.long().clamp(0, max(n_nodes - 1, 0))]
+    return torch.where(keep[:, None], rows, 0.0)
+
+
+def spmm_sorted_coo_bwd_ref(g: torch.Tensor, x: torch.Tensor,
+                            src: torch.Tensor, dst: torch.Tensor,
+                            n_nodes: int,
+                            coeff: torch.Tensor | None = None
+                            ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The plain backward of ``spmm_sorted_coo_ref`` for the output
+    gradient ``g`` [n_nodes, D]: (dx = A^T g [len(x), D] f32, the sum over
+    the kept edges e of coeff[e] g[dst[e]] into row src[e] of x, where
+    src[e] names one (``source_rows``); dcoeff [E] = <x[src[e]],
+    g[dst[e]]>, 0 where dst[e] was dropped, or None without ``coeff``)."""
+    gd = scatter_spmm_bwd_ref(g, dst, n_nodes)            # [E, D]
+    msgs = gd if coeff is None else gd * coeff[:, None]
+    dx = torch.zeros((x.shape[0], g.shape[1]), dtype=torch.float32,
+                     device=g.device)
+    rows, valid = source_rows(src, x.shape[0])
+    dx.index_add_(0, rows[valid], msgs[valid])
+    dcoeff = None if coeff is None else (take_rows(x, src).float()
+                                         * gd).sum(-1)
+    return dx, dcoeff

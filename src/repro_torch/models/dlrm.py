@@ -1,5 +1,5 @@
 """DLRM (RM2-class): sparse embedding bags -> dot interaction -> MLPs (the
-port of ``repro.models.dlrm``; serving forward and retrieval).
+port of ``repro.models.dlrm``; forward, loss and retrieval).
 
 The lookups are the EmbeddingBag kernel (``kernels/embedding_bag``): on
 the card one launch gathers and reduces all ``n_sparse`` fields of a

@@ -1,5 +1,5 @@
 """GNN model zoo: GCN, GatedGCN, MeshGraphNet, GraphCast (the port of
-``repro.models.gnn``; serving forwards).
+``repro.models.gnn``; forwards and the loss).
 
 All four share the bulk message-passing substrate (``graph/segment_ops``),
 whose sums run on the scatter-SpMM kernel for CUDA tensors.  Each model is
@@ -15,10 +15,13 @@ mesh, and the result is decoded back to the grid (arXiv:2212.12794).
 The kernel takes each edge set sorted by destination, where JAX's
 ``segment_sum`` takes any order.  ``sort_edges`` prepares a graph once:
 each edge set sorted (stable, edge features permuted alike, a sorted set
-kept as it is) and its row pointers in ``Graph.rowptr``.  ``build_graph``
-returns prepared graphs; ``gnn_forward`` prepares a graph that is not,
-so it accepts what JAX's accepts, and no layer sorts, checks or searches
-the destinations again.  With a mesh registered (``dist.ctx``) the gcn
+kept as it is) and its row pointers in ``Graph.rowptr``;
+``add_transposed`` adds, in ``Graph.transposed``, the transposed edges
+that the backward of the gcn's sums runs over on the card.  ``build_graph``
+returns prepared graphs; ``gnn_forward`` prepares a graph that is not
+(the transposed edges only when a gradient is wanted), so it accepts what
+JAX's accepts, and no layer sorts, checks or searches the destinations
+again.  With a mesh registered (``dist.ctx``) the gcn
 branch takes ``graph.partition.spmm_partitioned``, as JAX's does: the
 graph's ``edge_index`` is then ``partition_edges``' bucketed layout over
 the mesh's ranks and ``x`` this process's node blocks.
@@ -33,7 +36,8 @@ from torch import nn
 
 from repro_torch.core.state import resolve_device
 from repro_torch.graph.segment_ops import scatter_sum, spmm, sym_norm_coeff
-from repro_torch.kernels.spmm.ops import row_pointers
+from repro_torch.kernels.spmm.ops import (row_pointers, transpose_edges,
+                                         wants_grad)
 from repro_torch.models.common import (ParamTree, count_params, dense_init,
                                        layer_norm, matmul, mlp_apply,
                                        mlp_init, tree_from_numpy)
@@ -57,6 +61,10 @@ class Graph(NamedTuple):
     # the port's own: {edge-set field: int32 [n_dst + 1] row pointers of
     # the sorted set}, from sort_edges (None: not prepared yet)
     rowptr: Any = None
+    # {edge-set field: spmm_ops.Transposed} of the sets whose sums take
+    # spmm (the gcn's edge_index), for its backward on the card, from
+    # add_transposed (None: not built)
+    transposed: Any = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,7 +172,8 @@ def sort_edges(cfg: GNNConfig, g: Graph) -> Graph:
     """``g`` with each edge set int32 and sorted by destination (stable),
     ``g.e`` permuted with ``edge_index``, sorted sets kept as they are;
     and ``rowptr`` holding each set's row pointers over its destination
-    nodes (the grid's, or the mesh's of ``cfg.mesh_refinement``)."""
+    nodes (the grid's, or the mesh's of ``cfg.mesh_refinement``); no
+    transposed edges."""
     n_grid = g.x.shape[0]
     n_mesh = icosphere_sizes(cfg.mesh_refinement)[0]
     n_dst = dict(edge_index=n_grid, mesh_edge_index=n_mesh,
@@ -175,7 +184,19 @@ def sort_edges(cfg: GNNConfig, g: Graph) -> Graph:
         if getattr(g, k) is not None:
             sets[k] = _sorted_edges(getattr(g, k))[0]
     rowptr = {k: row_pointers(ei[1], n_dst[k]) for k, ei in sets.items()}
-    return g._replace(e=e, rowptr=rowptr, **sets)
+    return g._replace(e=e, rowptr=rowptr, transposed=None, **sets)
+
+
+def add_transposed(cfg: GNNConfig, g: Graph) -> Graph:
+    """Sorted ``g`` with ``transposed``: the transposed edges of each set
+    whose sums go through ``spmm`` (the gcn's ``edge_index``; the other
+    kinds sum through ``scatter_sum``, whose backward is a gather), built
+    once for a graph that trains."""
+    if cfg.kind != "gcn":
+        return g
+    n = g.x.shape[0]
+    return g._replace(transposed=dict(edge_index=transpose_edges(
+        g.edge_index[0], g.edge_index[1], n, n)))
 
 
 def _interaction_block(lp, h_src, h_dst, e, edge_index, n_dst, rowptr):
@@ -205,11 +226,15 @@ def gnn_forward(cfg: GNNConfig, params, g: Graph):
     n = g.x.shape[0]
     rp = g.rowptr["edge_index"]
     if cfg.kind == "gcn":
+        if g.transposed is None and wants_grad(g.x, *params["w"],
+                                               *params["b"]):
+            g = add_transposed(cfg, g)
+        tr = None if g.transposed is None else g.transposed["edge_index"]
         coeff = sym_norm_coeff(g.edge_index, n)
         h = g.x.to(cd)
         for i in range(cfg.n_layers):
             h = matmul(h, params["w"][i]) + params["b"][i]
-            agg = spmm(h, g.edge_index, n, coeff, "sum", rp)
+            agg = spmm(h, g.edge_index, n, coeff, "sum", rp, tr)
             h = agg.to(cd) + h  # + self loop
             if i < cfg.n_layers - 1:
                 h = torch.relu(h)
@@ -304,10 +329,9 @@ def _graphcast_forward(cfg: GNNConfig, params, g: Graph):
     return mlp_apply(params["dec"], h_grid)
 
 
-@torch.no_grad()
 def gnn_loss(cfg: GNNConfig, params, batch):
-    """Node-level loss (forward only): classification (int labels) or
-    regression (float)."""
+    """Node-level loss: classification (int labels) or regression
+    (float)."""
     out = gnn_forward(cfg, params, batch["graph"])
     labels = batch["labels"]
     mask = batch.get("mask")

@@ -1,6 +1,6 @@
 """Decoder-only LM: GQA + RoPE (+ optional qk-norm), dense or MoE FFN (the
-port of ``repro.models.transformer``; serving forward, prefill and
-decode).
+port of ``repro.models.transformer``; training forward and loss, prefill
+and decode).
 
 Parameters are stacked over layers (``[L, ...]``), as in the JAX
 package, and the forward is a loop over the stack.  Prefill attention is
@@ -17,19 +17,26 @@ Matrix products run in ``cfg.compute_dtype`` (bf16) on weights cast from
 their f32 master copy at each use, as JAX's ``wcast`` does.  What is
 dropped, with its reason:
 
-* ``ct_cast`` pins a backward's cotangent dtype: this port has no
-  backward yet;
 * the sharding pins (``wcast``'s ``constrain``, ``model_size``) are no-ops
   on one device: ``wcast(w)`` is ``w.to(cfg.compute_dtype)``;
-* ``remat`` and ``attn_chunk`` stay in ``LMConfig`` for its fields' sake
-  and are not read: a forward keeps no activations for a backward, and
-  the kernel's key tile is its own;
+* ``attn_chunk`` stays in ``LMConfig`` for its fields' sake and is not
+  read: the kernel's key tile is its own;
 * ``_ffn_moe``'s ``[S, E, cap]`` dispatch and combine einsums: every
   dispatched row holds one nonzero, so the port gathers the tokens into
   ``[E, cap, D]`` and the expert outputs back to ``[S, K, D]`` instead,
   the same function without the ``S x E x cap`` products (2.2e16 flops a
   layer at phi3.5-moe's 32k prefill).  ``_ffn_moe_ref`` keeps the einsum
   form as the plain version, for the tests and the card check.
+
+What is kept for training: ``ct_cast``, JAX's identity that casts the
+cotangent back to x's dtype, at the layer input and at q, k and v; and
+``cfg.remat``, which runs each layer under ``torch.utils.checkpoint``
+(``use_reentrant=False``) as ``jax.checkpoint`` does, so a layer's
+activations are recomputed in the backward (the attention forward kernel
+runs twice a layer, and being deterministic it recomputes the same lse).
+The attention's backward is the flash backward kernel
+(``kernels/flash_attention``) on the card, its plain backward on the
+CPU.
 
 The MoE FFN keeps JAX's semantics: routing on the bf16 router product
 cast to f32, top-k by a stable descending sort (``lax.top_k``'s order:
@@ -50,6 +57,7 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.core.state import resolve_device
@@ -245,6 +253,26 @@ def _norm(cfg, x, scale, bias=None):
 # attention
 # --------------------------------------------------------------------------
 
+class _CtCast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype)
+
+
+def ct_cast(x):
+    """Identity that casts the cotangent back to x's dtype (JAX's
+    ``ct_cast``): the backward residual and QKV streams stay in the
+    compute dtype."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _CtCast.apply(x)
+    return x
+
+
 def decode_attention(q, k_cache, v_cache, lengths):
     """Single-token decode: q [B,1,H,dh]; caches [B,T,Kh,dh]; lengths [B]
     -> [B,1,H,dh] f32.  Plain PyTorch, as the JAX package's is plain jnp:
@@ -293,7 +321,7 @@ def _attn(cfg: LMConfig, lp, x, positions, kv_cache=None, lengths=None):
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     if kv_cache is None:
-        o = flash_attention(q, k, v, causal=True)
+        o = flash_attention(ct_cast(q), ct_cast(k), ct_cast(v), causal=True)
         new_cache = None
     else:
         ck, cv = kv_cache                     # [B, Tmax, K, dh]
@@ -370,7 +398,8 @@ def reset_moe_dropped() -> None:
 
 def moe_dropped() -> int:
     """The (token, k) pairs the MoE FFNs' capacities dropped since
-    ``reset_moe_dropped`` (one host read a device; 0 for dense configs)."""
+    ``reset_moe_dropped`` (one host read a device; 0 for dense configs; a
+    layer recomputed under ``cfg.remat`` counts again)."""
     return sum(int(t) for t in _dropped.values())
 
 
@@ -611,6 +640,7 @@ def _ffn_dense(cfg: LMConfig, lp, x, prefix="ffn_"):
 
 def _layer(cfg: LMConfig, lp, x, positions, kv_cache=None, lengths=None):
     """One layer -> (x, aux, new cache)."""
+    x = ct_cast(x)   # the backward residual stream in the compute dtype
     a, new_cache = _attn(cfg, lp, _norm(cfg, x, lp["ln1"], lp.get("ln1b")),
                          positions, kv_cache, lengths)
     x = x + a
@@ -640,10 +670,21 @@ def lm_trunk(cfg: LMConfig, params, tokens, positions=None):
         positions = torch.arange(T, device=tokens.device).expand(B, T)
     x = params["embed"][tokens].to(cfg.compute_dtype)
     aux = torch.zeros((), device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
-        x, a, _ = _layer(cfg, _layer_params(params, i), x, positions)
+        lp = _layer_params(params, i)
+        if remat:
+            x, a = torch.utils.checkpoint.checkpoint(
+                _layer_xa, cfg, lp, x, positions, use_reentrant=False)
+        else:
+            x, a = _layer_xa(cfg, lp, x, positions)
         aux = aux + a
     return rms_norm(x, params["final_norm"]), aux
+
+
+def _layer_xa(cfg, lp, x, positions):
+    x, a, _ = _layer(cfg, lp, x, positions)
+    return x, a
 
 
 def lm_forward(cfg: LMConfig, params, tokens, positions=None):
@@ -656,8 +697,8 @@ def lm_forward(cfg: LMConfig, params, tokens, positions=None):
 
 def lm_loss(cfg: LMConfig, params, batch):
     """batch: dict(tokens [B,T], targets [B,T]).  Cross-entropy from the
-    compute-dtype logits with f32 reductions (forward only), plus 0.01 x
-    aux / n_layers for a MoE config."""
+    compute-dtype logits with f32 reductions, plus 0.01 x aux / n_layers
+    for a MoE config."""
     logits, aux = lm_forward(cfg, params, batch["tokens"])
     tgt = logits.gather(-1, batch["targets"][..., None].long())[..., 0]
     lse = torch.logsumexp(logits.float(), dim=-1)

@@ -1,0 +1,146 @@
+"""The backward kernels and the flash forward's lse store on the card,
+against their plain versions (``gpu``: each test skips, from a fixture,
+without a card; this file imports no JAX).
+
+* flash backward (bf16): dq, dk and dv against
+  ``ref.flash_attention_bwd_ref`` on the same q, k, v, o, lse and dout,
+  entry by entry within 2e-2 x (|ref| + median |ref|), the forward's bf16
+  limit (``chip_smoke.py`` phase 13); two launches give the same bits;
+* the lse store: both forward kernels' lse against the plain forward's,
+  within 1e-3 absolute (the kernels' exp2 / log2 in f32 against the plain
+  exp and log), and the output unchanged by the store, bit for bit;
+* the SpMM's transposed launch: dx against ``spmm_sorted_coo_bwd_ref``
+  within 1e-4 x max(1, max |ref|);
+* the bag backward: every table's gradient against
+  ``embedding_bags_bwd_ref`` within 1e-5 x max(1, max |ref|), and the
+  same bits on a second launch.
+"""
+import pytest
+import torch
+
+from repro_torch.kernels.embedding_bag import ops as bag_ops
+from repro_torch.kernels.embedding_bag.ref import embedding_bags_bwd_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                     flash_attention_fwd_ref)
+from repro_torch.kernels.spmm import ops as spmm_ops
+from repro_torch.kernels.spmm.ref import spmm_sorted_coo_bwd_ref
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU "
+                    "mode (chip_smoke.py runs the main-path shapes there)")
+    return torch.device("cuda")
+
+
+def excess(got, want):
+    """The largest |got - want| over 2e-2 (|want| + median |want|)."""
+    d = (got.double() - want.double()).abs()
+    w = want.double().abs()
+    return float((d / (2e-2 * (w + w.median()))).max())
+
+
+def scaled(got, want):
+    return float((got.double() - want.double()).abs().max()
+                 / max(1.0, float(want.double().abs().max())))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("B,T,H,Kh", [(2, 200, 4, 2), (1, 129, 6, 1)])
+def test_flash_backward_kernel_against_plain(card, B, T, H, Kh, dh):
+    g = torch.Generator(device=card).manual_seed(dh + T)
+    q = torch.randn((B, T, H, dh), generator=g, device=card).bfloat16()
+    k, v = (torch.randn((B, T, Kh, dh), generator=g, device=card).bfloat16()
+            for _ in range(2))
+    do = torch.randn((B, T, H, dh), generator=g, device=card).bfloat16()
+    o, lse = flash_attention_fwd_ref(q, k, v)
+    before = fa_ops.bwd_launches
+    got = fa_ops.flash_attention_bwd(q, k, v, o, lse, do)
+    again = fa_ops.flash_attention_bwd(q, k, v, o, lse, do)
+    assert fa_ops.bwd_launches == before + 2
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do)
+    for name, a, b, c in zip("qkv", got, again, want):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b), name
+        assert excess(a, c) <= 1, (name, excess(a, c))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dh", [16, 64, 128])
+def test_flash_forward_lse_store(card, dtype, dh):
+    g = torch.Generator(device=card).manual_seed(dh)
+    B, T, H, Kh = 2, 300, 4, 2
+    q = torch.randn((B, T, H, dh), generator=g, device=card).to(dtype)
+    k, v = (torch.randn((B, T, Kh, dh), generator=g, device=card).to(dtype)
+            for _ in range(2))
+    out, lse = fa_ops._forward(q, k, v, True, with_lse=True)
+    plain_out, plain_lse = flash_attention_fwd_ref(q, k, v)
+    assert torch.equal(out, fa_ops._forward(q, k, v, True, False)[0])
+    assert float((lse - plain_lse).abs().max()) < 1e-3
+
+
+@pytest.mark.gpu
+def test_flash_autograd_on_the_card(card):
+    q, k, v = (torch.randn((1, 96, 4, 64), device=card).bfloat16()
+               .requires_grad_() for _ in range(3))
+    out = fa_ops.flash_attention(q, k, v)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    before = fa_ops.bwd_launches
+    out.float().square().sum().backward()
+    assert fa_ops.bwd_launches == before + 1
+    assert all(t.grad is not None and t.grad.abs().sum() > 0
+               for t in (q, k, v))
+    with pytest.raises(NotImplementedError, match="f32"):
+        fa_ops.flash_attention(*(t.detach().float().requires_grad_()
+                                 for t in (q, k, v)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [7, 16, 64])
+def test_spmm_transposed_launch_against_plain(card, D):
+    g = torch.Generator(device=card).manual_seed(D)
+    n, e = 500, 4000
+    src = torch.randint(-5, n + 5, (e,), generator=g, device=card,
+                        dtype=torch.int32)
+    dst = torch.sort(torch.randint(-3, n + 3, (e,), generator=g,
+                                   device=card, dtype=torch.int32))[0]
+    x = torch.randn((n, D), generator=g, device=card).requires_grad_()
+    coeff = torch.randn((e,), generator=g, device=card).requires_grad_()
+    gout = torch.randn((n, D), generator=g, device=card)
+    before = spmm_ops.bwd_launches
+    with pytest.raises(ValueError, match="transposed="):
+        spmm_ops.spmm_sorted_coo(x, src, dst, n, coeff)
+    tr = spmm_ops.transpose_edges(src, dst, n, n)
+    out = spmm_ops.spmm_sorted_coo(x, src, dst, n, coeff, transposed=tr)
+    dx, dc = torch.autograd.grad(out, (x, coeff), gout)
+    assert spmm_ops.bwd_launches == before + 1
+    want_dx, want_dc = spmm_sorted_coo_bwd_ref(gout, x.detach(), src, dst,
+                                               n, coeff.detach())
+    assert scaled(dx, want_dx) <= 1e-4
+    assert scaled(dc, want_dc) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_bag_backward_kernel_against_plain(card, combiner, weighted):
+    g = torch.Generator(device=card).manual_seed(7)
+    vocabs, B, L, D = (1000, 37, 5000), 257, 4, 64
+    tables = [torch.randn((v, D), generator=g, device=card) for v in vocabs]
+    idx = torch.stack([torch.randint(-v, v, (B, L), generator=g, device=card)
+                       for v in vocabs], 1).to(torch.int32)
+    idx[0, 0, 0] = 10 ** 6                     # a dropped lookup
+    w = torch.rand((B, len(vocabs), L), generator=g, device=card) \
+        if weighted else None
+    gout = torch.randn((B, len(vocabs), D), generator=g, device=card)
+    before = bag_ops.bwd_launches
+    got = bag_ops.launch_bwd(tables, idx, gout, w, combiner)
+    again = bag_ops.launch_bwd(tables, idx, gout, w, combiner)
+    assert bag_ops.bwd_launches == before + 2
+    want = embedding_bags_bwd_ref(vocabs, idx, gout, w, combiner)
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, b)
+        assert scaled(a, c) <= 1e-5

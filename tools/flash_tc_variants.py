@@ -74,10 +74,14 @@ def variant_sources() -> dict:
 
 
 def spills(report: str) -> dict:
-    """{dh: spill stores + loads in bytes} of the tensor-core kernels."""
-    return {int(m[1]): f["spill_stores"] + f["spill_loads"]
-            for name, f in _build.ptxas_functions(report).items()
-            if (m := re.search(r"fa_fwd_tcILi(\d+)E", name))}
+    """{dh: spill stores + loads in bytes} of the tensor-core kernels (the
+    larger of the serving instance's and the lse store's)."""
+    out: dict = {}
+    for name, f in _build.ptxas_functions(report).items():
+        if m := re.search(r"fa_fwd_tcILi(\d+)E", name):
+            out[int(m[1])] = max(out.get(int(m[1]), 0),
+                                 f["spill_stores"] + f["spill_loads"])
+    return out
 
 
 def launcher(lib_path):
