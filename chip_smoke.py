@@ -426,9 +426,11 @@ after phase 47, each printing the card's name and power limit:
      T = 4096, B = 1, and phi3.5-moe at 1 layer, its plain run on the
      kernel run's experts (bf16: each leaf's ||d|| / ||ref|| within 2e-2);
      gcn-cora on ogb_products and DLRM-RM2 train_batch on the cut tables
-     (f32: 1e-4 x the leaf's max |ref|), graphcast on full_graph_sm (1e-3,
-     its 16 processor layers: ``GRAD_TOL_GRAPHCAST``); each kernel
-     launched on the kernel path and none on the plain one
+     (f32: 1e-4 x the leaf's max |ref|), graphcast on full_graph_sm (both
+     f32 steps against its f64 step, whose every sum is ``index_add_``:
+     the kernel step's worst leaf within max(1e-3, 2x the plain step's
+     worst), its 16 processor layers: ``GRAD_TOL_GRAPHCAST``); each
+     kernel launched on the kernel path and none on the plain one
  51. the training main path at full width: ``steps.build_plan`` for
      llama3.2-1b train_4k, all 16 layers, remat on, T = 4096, B = 4 (cut
      from 256 by memory and time), 4 AdamW steps under deterministic
@@ -466,6 +468,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
+import torch.utils.checkpoint  # noqa: E402
 from torch.nn.attention import SDPBackend, sdpa_kernel  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -2956,19 +2959,20 @@ def check_close(name, got, want, rtol) -> tuple[float, float]:
     return err, rel
 
 
+def index_add_sum(msgs, edge_index, n_nodes, rowptr=None):
+    """``gnn.scatter_sum`` by ``index_add_`` in the messages' dtype (no
+    spmm kernel; a built graph's destinations are all in range)."""
+    out = msgs.new_zeros((n_nodes, *msgs.shape[1:]))
+    return out.index_add_(0, edge_index[1].long(), msgs)
+
+
 def plain_forward(cfg, params, g, dtype):
     """GraphCast's ``gnn_forward`` in ``dtype`` on the card in plain torch
-    ops: its segment sums by ``index_add_`` (no spmm kernel; a built
-    graph's destinations are all in range) in ``dtype`` too.  Its MLPs run
+    ops: its segment sums by ``index_add_`` in ``dtype`` too.  Its MLPs run
     in the activations' dtype and it has no layer norm, so in float64
     nothing rounds to f32."""
     assert cfg.kind == "graphcast"
-
-    def plain_sum(msgs, edge_index, n_nodes, rowptr=None):
-        out = msgs.new_zeros((n_nodes, *msgs.shape[1:]))
-        return out.index_add_(0, edge_index[1].long(), msgs)
-
-    with mock.patch.object(gnn, "scatter_sum", plain_sum):
+    with mock.patch.object(gnn, "scatter_sum", index_add_sum):
         return gnn.gnn_forward(
             dataclasses.replace(cfg, compute_dtype=dtype), params, g)
 
@@ -4247,7 +4251,11 @@ GRAD_TOL_BF16 = 2e-2       # phase 50: ||d|| / ||ref|| of a bf16 LM leaf
 GRAD_TOL_F32 = 1e-4        # phase 50: max |d| / max |ref| of an f32 leaf
 # phase 50, GraphCast's leaves: phase 9 finds both f32 forwards (kernel and
 # plain) ~4e-4 off an f64 one (sums in other orders through 16 processor
-# layers of 512-wide MLPs); a gradient goes back through all of them
+# layers of 512-wide MLPs); a gradient goes back through all of them, and
+# the plain step's index_add_ adds in an order that changes from run to
+# run, so both f32 steps are held to the f64 step: the kernel step's
+# worst leaf within this or twice the plain f32 step's worst, whichever
+# is more (phase 9's rule for the forward)
 GRAD_TOL_GRAPHCAST = 1e-3
 
 
@@ -4314,7 +4322,7 @@ def flash_bwd_case(name, B, T, H, Kh, dh, gen, dev) -> dict:
     fault = flash_attention_bwd_ref(q, k.roll(1, dims=2), v.roll(1, dims=2),
                                     o, lse, do)
     fault_excess = max(flash_bwd_excess(a, w) for a, w in zip(fault, want))
-    del fault, got, again, want
+    del fault, got, again
     if not fault_excess > 1:
         raise AssertionError(f"{tag}: the limit passes a planted fault "
                              f"({fault_excess})")
@@ -4326,9 +4334,25 @@ def flash_bwd_case(name, B, T, H, Kh, dh, gen, dev) -> dict:
     dos = do.transpose(1, 2)
     library = lambda: torch.autograd.grad(  # noqa: E731
         lib_out, (qs, ks, vs), dos, retain_graph=True)
+    # SDPA's backward under the same limit, a number only: its dk and dv
+    # summed over the G copies of each KV head, in f32
+    lq, lk, lv = (t.transpose(1, 2).float() for t in library())
+    lib_excess = {n: flash_bwd_excess(a, w) for n, a, w in zip(
+        ("dq", "dk", "dv"),
+        (lq, *(t.reshape(B, T, Kh, G, dh).sum(3) for t in (lk, lv))), want)}
+    del lq, lk, lv, want
+    # each launch of the backward alone, on buffers of its own (the prep
+    # pass first: the others read its scratch)
+    bufs = fa_ops.bwd_buffers(q, k, v)
+    split = {part: cuda_ms(lambda p=bit: fa_ops.bwd_launch(
+        q, k, v, o, lse, do, True, bufs, p), budget_ms=100) for part, bit in (
+            ("prep", fa_ops.BWD_PREP), ("dkdv", fa_ops.BWD_DKDV),
+            ("dq", fa_ops.BWD_DQ))}
+    del bufs
     bound, by, nbytes, flops = flash_bwd_bound(B, T, H, Kh, dh)
     row = dict(shape=name, B=B, T=T, H=H, Kh=Kh, dh=dh, max_abs_err=err,
                excess=excess, fault_excess=fault_excess, lse_max_abs_err=lse_err,
+               library_excess=lib_excess, split_ms=split,
                ms=cuda_ms(kern), plain_ms=cuda_ms(plain, min_reps=1),
                library_ms=cuda_ms(library), bound_ms=bound, bound_by=by,
                bytes=nbytes, flops=flops)
@@ -4348,23 +4372,54 @@ def flash_bwd_case(name, B, T, H, Kh, dh, gen, dev) -> dict:
           f"ms, bound {bound:.4f} ms by {by} ({flops / 1e9:.1f} Gflop at 989 "
           f"TFLOP/s, {nbytes / 1e9:.4f} GB); dq/dk/dv at {excess} x the "
           f"elementwise limit (max |d| {err}), a planted fault at "
-          f"{fault_excess:.3g} x; lse max |d| {lse_err:.3g}; forward with "
-          f"lse {row['fwd_lse_ms']:.4f} ms, serving (lse off) "
+          f"{fault_excess:.3g} x, SDPA's backward at {lib_excess} x; lse "
+          f"max |d| {lse_err:.3g}; launches alone (ms) {split}; forward "
+          f"with lse {row['fwd_lse_ms']:.4f} ms, serving (lse off) "
           f"{row['fwd_serve_ms']:.4f} ms", flush=True)
     return row
+
+
+def flash_bwd_ptxas() -> list[dict]:
+    """Phase 48: one row a backward kernel instance (kernel and head width
+    read from the mangled name) from the flash library's ptxas report,
+    printed with any ptxas warning on wgmma; raises if one spills."""
+    report = fa_ops.build()[1]
+    rows = []
+    for name, info in _build.ptxas_functions(report).items():
+        m = re.search(r"(fa_bwd_\w+?)ILi(\d+)E", name)
+        if m:
+            rows.append(dict(kernel=m[1], dh=int(m[2]), **info))
+    for r in sorted(rows, key=lambda r: (r["kernel"], r["dh"])):
+        print(f"[48] ptxas {r['kernel']} dh={r['dh']}: {r.get('registers')} "
+              f"registers, {r.get('spill_stores')} / {r.get('spill_loads')} "
+              f"bytes spill stores / loads, {r.get('stack')} bytes stack",
+              flush=True)
+    for line in report.splitlines():
+        if "fa_bwd" in line and ("wgmma" in line or "setmaxnreg" in line):
+            print(f"[48] ptxas: {line.strip()}", flush=True)
+    want = {(k, dh) for k in ("fa_bwd_prep", "fa_bwd_dkdv", "fa_bwd_dq")
+            for dh in fa_ops.HEAD_DIMS}
+    got = {(r["kernel"], r["dh"]) for r in rows}
+    spills = [r for r in rows if r.get("spill_stores", 1)
+              or r.get("spill_loads", 1)]
+    if got != want or spills:
+        raise AssertionError(f"flash backward instances {sorted(got)} (want "
+                             f"{sorted(want)}); spilling: {spills}")
+    return rows
 
 
 def flash_bwd_phase(smi, dev) -> dict:
     """Phase 48: the flash backward kernel at smoke and main-path shapes."""
     t0 = time.time()
     card_line("48", smi)
+    ptxas = flash_bwd_ptxas()
     gen = torch.Generator(device=dev).manual_seed(48)
     rows = [flash_bwd_case(f"smoke dh{dh}", 2, 300, 4, 2, dh, gen, dev)
             for dh in (16, 32, 64, 128)]
     rows += [flash_bwd_case(*shape, gen, dev) for shape in FLASH_BWD_SHAPES]
     torch.cuda.empty_cache()
     print(f"[48] done in {time.time() - t0:.1f}s", flush=True)
-    return dict(shapes=rows, card=smi)
+    return dict(shapes=rows, ptxas=ptxas, card=smi)
 
 
 def random_graph(n, e, gen, dev):
@@ -4616,12 +4671,24 @@ def grad_step(loss_fn, params):
     return loss.detach().float(), grads
 
 
+def leaf_dist(a, b) -> tuple[float, float]:
+    """(max |a - b| / max |b|, ||a - b|| / ||b||) of one gradient leaf."""
+    a, b = a.double(), b.double()
+    d = a - b
+    return (float(d.abs().max()) / max(float(b.abs().max()), 1e-30),
+            float(d.norm()) / max(float(b.norm()), 1e-30))
+
+
 def family_case(tag, loss_fn, params, kernels, bf16, moe=False,
-                tol=None) -> dict:
+                tol=None, loss64=None) -> dict:
     """Phase 50 at one family: the grad step through the kernels (each of
     ``kernels`` launched) against the step through the plain versions
     (none launched), the loss and every leaf; a MoE step's plain run on
-    the kernel run's experts (``pinned_routes``)."""
+    the kernel run's experts (``pinned_routes``).  With ``loss64`` (a
+    float64 loss in plain torch ops) both f32 steps are held to its
+    gradient instead: the kernel step's worst leaf no farther from it
+    than ``tol`` or twice the plain step's worst, whichever is more; the
+    kernel step's distance from the plain one is then a number only."""
     t0 = time.time()
     before = launch_counts()
     routes: list = []
@@ -4637,6 +4704,7 @@ def family_case(tag, loss_fn, params, kernels, bf16, moe=False,
                            else contextlib.nullcontext()):
         p_loss, p_grads = grad_step(loss_fn, params)
     parted = routes[-1] if moe else None
+    r_grads = grad_step(loss64, params)[1] if loss64 else None
     if launch_counts() != before:
         raise AssertionError(f"{tag}: the plain step launched a kernel")
     for p in tree_leaves(params):
@@ -4645,29 +4713,44 @@ def family_case(tag, loss_fn, params, kernels, bf16, moe=False,
     loss_d = abs(float(k_loss) - float(p_loss))
     worst_max, worst_norm = 0.0, 0.0
     for i, (a, b) in enumerate(zip(k_grads, p_grads)):
-        a, b = a.double(), b.double()
-        ref_max, ref_norm = float(b.abs().max()), float(b.norm())
-        d_max = float((a - b).abs().max()) / max(ref_max, 1e-30)
-        d_norm = float((a - b).norm()) / max(ref_norm, 1e-30)
+        d_max, d_norm = leaf_dist(a, b)
         if not torch.isfinite(a).all():
             raise AssertionError(f"{tag}: leaf {i} has a non-finite entry")
-        if (d_norm if bf16 else d_max) > tol:
+        if not loss64 and (d_norm if bf16 else d_max) > tol:
             raise AssertionError(f"{tag}: leaf {i} {tuple(a.shape)} off by "
                                  f"{d_max:.3g} of max |ref|, {d_norm:.3g} "
                                  f"of ||ref||")
         worst_max, worst_norm = max(worst_max, d_max), max(worst_norm, d_norm)
+    vs64 = None
+    if loss64:
+        kern64, plain64 = ([max((leaf_dist(a, r)[0], i, tuple(a.shape))
+                                for i, (a, r) in enumerate(zip(g, r_grads)))
+                            for g in (k_grads, p_grads)])
+        limit = max(tol, 2 * plain64[0])
+        vs64 = dict(kernel=kern64[0], plain=plain64[0], limit=limit)
+        if not kern64[0] <= limit:
+            raise AssertionError(
+                f"{tag}: leaf {kern64[1]} {kern64[2]} of the kernel step off "
+                f"the f64 step by {kern64[0]:.3g} of max |ref|; the plain "
+                f"f32 step's worst (leaf {plain64[1]}) {plain64[0]:.3g}, limit "
+                f"{limit:.3g}")
     if not loss_d <= (1e-2 if bf16 else 1e-5) * max(1.0, abs(float(p_loss))):
         raise AssertionError(f"{tag}: loss {float(k_loss)} vs plain "
                              f"{float(p_loss)}")
     row = dict(family=tag, loss=float(k_loss), plain_loss=float(p_loss),
                leaves=len(k_grads), launches=launched,
                max_rel_err=worst_max, max_norm_rel_err=worst_norm,
-               kernel_step_s=t_kern, routes_parted=parted)
+               kernel_step_s=t_kern, routes_parted=parted, vs_f64=vs64)
+    held = (f"the worst leaf of the kernel step {vs64['kernel']:.3g} of its "
+            f"max |ref| off the f64 step, the plain f32 step's "
+            f"{vs64['plain']:.3g} (limit {vs64['limit']:.3g}: max({tol:g}, "
+            f"2x the plain)); the kernel step against the plain one"
+            if loss64 else f"limit {tol:g} of "
+            f"{'||ref||' if bf16 else 'max |ref|'}")
     print(f"[50] {tag}: loss {float(k_loss):.6f} (plain {float(p_loss):.6f}); "
-          f"{len(k_grads)} gradient leaves, the worst at {worst_max:.3g} of "
-          f"its max |ref| and {worst_norm:.3g} of its ||ref|| (limit "
-          f"{tol:g} of {'||ref||' if bf16 else 'max |ref|'}); launches "
-          f"{ {n: c for n, c in launched.items() if c} }"
+          f"{len(k_grads)} gradient leaves, {held}: the worst at "
+          f"{worst_max:.3g} of its max |ref| and {worst_norm:.3g} of its "
+          f"||ref||; launches {dict((n, c) for n, c in launched.items() if c)}"
           + (f"; the plain run on the kernel run's experts ({parted} "
              f"token-layers' own routers parted)" if moe else ""),
           flush=True)
@@ -4675,13 +4758,50 @@ def family_case(tag, loss_fn, params, kernels, bf16, moe=False,
     return row
 
 
-def family_phase(smi, dev) -> dict:
-    """Phase 50: one grad step a family against its plain version."""
-    t0 = time.time()
-    card_line("50", smi)
-    set_dist_mesh(None)
-    gen = torch.Generator(device=dev).manual_seed(50)
-    rows = []
+def graphcast_train_case(gen, dev):
+    """Phase 50's GraphCast step: (cfg, params, batch) on full_graph_sm,
+    regression targets from ``gen``."""
+    spec = next(s for s in gnn_shapes() if s.name == "full_graph_sm")
+    cfg = dataclasses.replace(gnn_archs.GRAPHCAST,
+                              d_in=dict(spec.dims)["d_feat"])
+    g = build_graph(cfg, spec, np.random.default_rng(0), device=dev)
+    n = g.x.shape[0]
+    batch = dict(graph=g, labels=torch.randn((n, cfg.d_out), generator=gen,
+                                             device=dev),
+                 mask=torch.ones(n, device=dev))
+    return cfg, gnn.init_gnn_params(cfg, gen), batch
+
+
+def graphcast_loss64(cfg, batch):
+    """``gnn.gnn_loss``'s regression loss of GraphCast with everything in
+    float64: ``plain_forward`` (``index_add_`` sums, no kernel) and the
+    masked mean square error without the loss's cast to f32.  Each
+    processor block is recomputed in the backward (its activations at
+    f64 over the multimesh's edges would not fit the card), under the
+    same plain sums."""
+    labels, mask = batch["labels"].double(), batch["mask"].double()
+    block = gnn._interaction_block
+
+    def plain_block(*args):
+        with mock.patch.object(gnn, "scatter_sum", index_add_sum):
+            return block(*args)
+
+    def remat(*args):
+        return torch.utils.checkpoint.checkpoint(plain_block, *args,
+                                                 use_reentrant=False)
+
+    def loss(params):
+        with mock.patch.object(gnn, "_interaction_block", remat):
+            out = plain_forward(cfg, params, batch["graph"], torch.float64)
+        err = (out - labels).square().mean(-1)
+        return (err * mask).sum() / mask.sum().clamp(min=1.0)
+    return loss
+
+
+def family_cases(gen, dev):
+    """Phase 50's grad steps in order, each drawn from ``gen`` once the
+    one before it is done with: (tag, loss_fn, params, kernels, options
+    of ``family_case``) a family."""
     T = TRAIN_T
     for arch, layers in (("llama3.2-1b", 2), ("phi3.5-moe-42b-a6.6b", 1)):
         cfg = lm_cfg_for(arch, layers)
@@ -4690,11 +4810,11 @@ def family_phase(smi, dev) -> dict:
         params = transformer.init_lm_params(cfg, gen)
         batch = dict(tokens=toks[:, :-1].contiguous(),
                      targets=toks[:, 1:].contiguous())
-        rows.append(family_case(
-            f"{arch} {layers} layer(s) T={T}",
-            lambda p: transformer.lm_loss(cfg, p, batch), params,
-            ("flash", "flash_bwd"), bf16=True, moe=bool(cfg.n_experts)))
-        del params
+        yield (f"{arch} {layers} layer(s) T={T}",
+               lambda p, cfg=cfg, batch=batch: transformer.lm_loss(
+                   cfg, p, batch), params, ("flash", "flash_bwd"),
+               dict(bf16=True, moe=bool(cfg.n_experts)))
+        del toks, params, batch
         torch.cuda.empty_cache()
     # gcn-cora on ogb_products (the graph drawn on the card)
     d = ogb_dims()
@@ -4706,35 +4826,43 @@ def family_phase(smi, dev) -> dict:
     batch = dict(graph=g, labels=torch.randint(
         0, cfg.d_out, (d["n_nodes"],), generator=gen, device=dev,
         dtype=torch.int32), mask=torch.ones(d["n_nodes"], device=dev))
-    params = gnn.init_gnn_params(cfg, gen)
-    rows.append(family_case("gcn-cora ogb_products",
-                            lambda p: gnn.gnn_loss(cfg, p, batch), params,
-                            ("spmm", "spmm_bwd"), bf16=False))
-    del g, ei, batch, params
+    yield ("gcn-cora ogb_products",
+           lambda p, cfg=cfg, batch=batch: gnn.gnn_loss(cfg, p, batch),
+           gnn.init_gnn_params(cfg, gen), ("spmm", "spmm_bwd"),
+           dict(bf16=False))
+    del g, ei, batch
     torch.cuda.empty_cache()
-    # graphcast on full_graph_sm
-    spec = next(s for s in gnn_shapes() if s.name == "full_graph_sm")
-    cfg = dataclasses.replace(gnn_archs.GRAPHCAST,
-                              d_in=dict(spec.dims)["d_feat"])
-    g = build_graph(cfg, spec, np.random.default_rng(0), device=dev)
-    n = g.x.shape[0]
-    batch = dict(graph=g, labels=torch.randn((n, cfg.d_out), generator=gen,
-                                             device=dev),
-                 mask=torch.ones(n, device=dev))
-    params = gnn.init_gnn_params(cfg, gen)
-    rows.append(family_case("graphcast full_graph_sm",
-                            lambda p: gnn.gnn_loss(cfg, p, batch), params,
-                            ("spmm",), bf16=False, tol=GRAD_TOL_GRAPHCAST))
-    del g, batch, params
+    # graphcast on full_graph_sm, held to its f64 step
+    cfg, params, batch = graphcast_train_case(gen, dev)
+    yield ("graphcast full_graph_sm",
+           lambda p, cfg=cfg, batch=batch: gnn.gnn_loss(cfg, p, batch),
+           params, ("spmm",),
+           dict(bf16=False, tol=GRAD_TOL_GRAPHCAST,
+                loss64=graphcast_loss64(cfg, batch)))
+    del params, batch
+    torch.cuda.empty_cache()
     # DLRM-RM2 train_batch on the cut tables
     cfg = dlrm_cut_cfg()
     params = dlrm.init_dlrm_params(cfg, gen)
     batch = dlrm_train_batch(cfg, dev)
-    rows.append(family_case("dlrm-rm2 train_batch (cut tables)",
-                            lambda p: dlrm.dlrm_loss(cfg, p, batch), params,
-                            ("bag", "bag_bwd"), bf16=False))
+    yield ("dlrm-rm2 train_batch (cut tables)",
+           lambda p, cfg=cfg, batch=batch: dlrm.dlrm_loss(cfg, p, batch),
+           params, ("bag", "bag_bwd"), dict(bf16=False))
     del params, batch
     torch.cuda.empty_cache()
+
+
+def family_phase(smi, dev) -> dict:
+    """Phase 50: one grad step a family against its plain version."""
+    t0 = time.time()
+    card_line("50", smi)
+    set_dist_mesh(None)
+    gen = torch.Generator(device=dev).manual_seed(50)
+    rows = []
+    for case in family_cases(gen, dev):
+        tag, loss_fn, params, kernels, options = case
+        rows.append(family_case(tag, loss_fn, params, kernels, **options))
+        del case, loss_fn, params, options
     print(f"[50] done in {time.time() - t0:.1f}s", flush=True)
     return dict(families=rows, card=smi,
                 bag_bwd_launches=rows[-1]["launches"]["bag_bwd"],

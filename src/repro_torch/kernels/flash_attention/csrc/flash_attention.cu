@@ -276,12 +276,12 @@ int launch_bf16(int dh, const void* q, const void* k, const void* v, void* o,
 int launch_bwd(int dh, const void* q, const void* k, const void* v,
                const void* o, const float* lse, const void* dout, void* dq,
                void* dk, void* dv, void* scratch, int B, int Tq, int Tk, int H,
-               int Kh, float scale, int causal, cudaStream_t s) {
+               int Kh, float scale, int causal, int parts, cudaStream_t s) {
   switch (dh) {
-    case 16: return fa_bwd::launch<16>(q, k, v, o, lse, dout, dq, dk, dv, scratch, B, Tq, Tk, H, Kh, scale, causal, s);
-    case 32: return fa_bwd::launch<32>(q, k, v, o, lse, dout, dq, dk, dv, scratch, B, Tq, Tk, H, Kh, scale, causal, s);
-    case 64: return fa_bwd::launch<64>(q, k, v, o, lse, dout, dq, dk, dv, scratch, B, Tq, Tk, H, Kh, scale, causal, s);
-    case 128: return fa_bwd::launch<128>(q, k, v, o, lse, dout, dq, dk, dv, scratch, B, Tq, Tk, H, Kh, scale, causal, s);
+    case 16: return fa_bwd::launch<16>(q, k, v, o, lse, dout, dq, dk, dv, scratch, B, Tq, Tk, H, Kh, scale, causal, parts, s);
+    case 32: return fa_bwd::launch<32>(q, k, v, o, lse, dout, dq, dk, dv, scratch, B, Tq, Tk, H, Kh, scale, causal, parts, s);
+    case 64: return fa_bwd::launch<64>(q, k, v, o, lse, dout, dq, dk, dv, scratch, B, Tq, Tk, H, Kh, scale, causal, parts, s);
+    case 128: return fa_bwd::launch<128>(q, k, v, o, lse, dout, dq, dk, dv, scratch, B, Tq, Tk, H, Kh, scale, causal, parts, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -322,7 +322,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                            scale, causal, s);
 }
 
-// Bytes of scratch the backward needs for these shapes (delta, f32).
+// Bytes of scratch the backward needs for these shapes (lse log2(e) and
+// delta, f32).
 extern "C" long long flash_attention_bwd_scratch_bytes(int B, int Tq, int H) {
   return fa_bwd::scratch_bytes(B, Tq, H);
 }
@@ -331,17 +332,20 @@ extern "C" long long flash_attention_bwd_scratch_bytes(int B, int Tq, int H) {
 // k, v with output o and lse (flash_attention_launch's) and output
 // gradient dout: every tensor contiguous and 16-byte aligned, bf16 but lse
 // (f32 [B, H, Tq]); dh one of 16, 32, 64, 128; scratch of
-// flash_attention_bwd_scratch_bytes.  Three launches (delta, dK and dV,
-// dQ); returns the first error.
+// flash_attention_bwd_scratch_bytes, 16-byte aligned.  Three launches
+// (the prep pass, dK and dV, dQ), each where `parts` has its bit (1, 2, 4;
+// 7 is the backward, a part alone is for timing it); returns the first
+// error: a cudaError_t, or a negative code of the tensor-map encoding.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const float* lse, const void* dout, void* dq, void* dk, void* dv,
     void* scratch, int B, int Tq, int Tk, int H, int Kh, int dh, float scale,
-    int causal, void* stream) {
+    int causal, int parts, void* stream) {
   if (B <= 0 || Tq <= 0 || Tk <= 0 || Kh <= 0 || H % Kh != 0 || !scratch)
     return cudaErrorInvalidValue;
   return launch_bwd(dh, q, k, v, o, lse, dout, dq, dk, dv, scratch, B, Tq, Tk,
-                    H, Kh, scale, causal, static_cast<cudaStream_t>(stream));
+                    H, Kh, scale, causal, parts,
+                    static_cast<cudaStream_t>(stream));
 }
 
 // Text of a launch error code, for the wrapper's exception.

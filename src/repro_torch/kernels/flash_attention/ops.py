@@ -22,9 +22,12 @@ Gradients: when grad mode is on and q, k or v requires grad, the call
 goes through ``FlashAttention`` (a ``torch.autograd.Function``).  Its
 forward launches the same kernel with the per-row log-sum-exp stored
 (``lse [B, H, Tq]`` f32); its backward launches the bf16 backward kernel
-(``csrc/flash_attention_bwd.cuh``: delta, then dK and dV over key tiles,
-then dQ over query tiles, no float atomics, so the same bits every run)
-on a CUDA tensor, and on a CPU tensor the plain backward
+(``csrc/flash_attention_bwd.cuh``: wgmma on TMA-staged tiles with no
+transposed copies; a prep pass for delta, then dK and dV over pairs of
+key tiles that balance the causal work, then dQ over query tiles; no
+float atomics, so the same bits every run; it does twice the bound's
+tensor-core operations, the recomputed S and dP and the hi and lo terms
+of P and dS) on a CUDA tensor, and on a CPU tensor the plain backward
 ``ref.flash_attention_bwd_ref``, the formula that kernel is held to.  A
 CUDA float32 input that requires grad raises ``NotImplementedError``: no
 main path trains attention in f32, and the backward kernel is bf16 only.
@@ -55,6 +58,10 @@ PATHS = ("cuda_core", "tensor_core", "tensor_core_tf32x3")
 launches = 0   # forward kernel launches made by flash_attention
 path_launches = dict.fromkeys(PATHS, 0)   # the same launches by kernel
 bwd_launches = 0   # backward kernel launches (one a backward: 3 kernels)
+# the C entry's parts of a backward: the prep pass (delta, lse log2 e),
+# dK and dV, dQ; a part alone times that launch
+BWD_PREP, BWD_DKDV, BWD_DQ = 1, 2, 4
+BWD_ALL = BWD_PREP | BWD_DKDV | BWD_DQ
 
 
 def build() -> tuple[pathlib.Path, str]:
@@ -72,7 +79,8 @@ def load(path: pathlib.Path) -> ctypes.CDLL:
     lib.flash_attention_scratch_bytes.argtypes = [ctypes.c_int] * 5
     lib.flash_attention_scratch_bytes.restype = ctypes.c_longlong
     lib.flash_attention_bwd_launch.argtypes = [ctypes.c_void_p] * 10 + [
-        ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_void_p]
     lib.flash_attention_bwd_launch.restype = ctypes.c_int
     lib.flash_attention_bwd_scratch_bytes.argtypes = [ctypes.c_int] * 3
     lib.flash_attention_bwd_scratch_bytes.restype = ctypes.c_longlong
@@ -177,24 +185,38 @@ def flash_attention_bwd(q, k, v, o, lse, dout, causal: bool = True):
                              f"(contiguous={t.is_contiguous()}); the "
                              f"backward needs contiguous, 16-byte aligned "
                              f"{dt} on {q.device}")
+    bufs = bwd_buffers(q, k, v)
+    bwd_launch(q, k, v, o, lse, dout, causal, bufs)
+    bwd_launches += 1
+    return bufs[:3]
+
+
+def bwd_buffers(q, k, v) -> tuple[torch.Tensor, ...]:
+    """(dq, dk, dv, scratch) for a backward launch on CUDA q, k, v."""
+    B, Tq, H, _ = q.shape
+    nbytes = _library().flash_attention_bwd_scratch_bytes(B, Tq, H)
+    return (*(torch.empty_like(t) for t in (q, k, v)),
+            torch.empty(nbytes, dtype=torch.uint8, device=q.device))
+
+
+def bwd_launch(q, k, v, o, lse, dout, causal: bool, bufs,
+               parts: int = BWD_ALL) -> None:
+    """The backward kernel's ``parts`` (``BWD_*``) into ``bufs`` (of
+    ``bwd_buffers``) on checked CUDA inputs; raises if a launch fails.
+    Counts nothing: ``flash_attention_bwd`` counts the whole backward."""
     B, Tq, H, dh = q.shape
     Tk, Kh = k.shape[1], k.shape[2]
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     lib = _library()
-    scratch = torch.empty(lib.flash_attention_bwd_scratch_bytes(B, Tq, H),
-                          dtype=torch.uint8, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), scratch.data_ptr(), B, Tq, Tk, H, Kh, dh,
-            1.0 / math.sqrt(dh), int(causal), stream)
+            lse.data_ptr(), dout.data_ptr(),
+            *(t.data_ptr() for t in bufs), B, Tq, Tk, H, Kh, dh,
+            1.0 / math.sqrt(dh), int(causal), parts, stream)
     if err:
         raise RuntimeError("flash_attention backward launch failed: "
                            + lib.flash_attention_error_string(err).decode())
-    bwd_launches += 1
-    return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):

@@ -5,7 +5,9 @@ without a card; this file imports no JAX).
 * flash backward (bf16): dq, dk and dv against
   ``ref.flash_attention_bwd_ref`` on the same q, k, v, o, lse and dout,
   entry by entry within 2e-2 x (|ref| + median |ref|), the forward's bf16
-  limit (``chip_smoke.py`` phase 13); two launches give the same bits;
+  limit (``chip_smoke.py`` phase 13), at G = 1-7, at T exactly one tile
+  and one past it, at Tq != Tk and unmasked; two launches give the same
+  bits, also at T = 1024;
 * the lse store: both forward kernels' lse against the plain forward's,
   within 1e-3 absolute (the kernels' exp2 / log2 in f32 against the plain
   exp and log), and the output unchanged by the store, bit for bit;
@@ -47,16 +49,24 @@ def scaled(got, want):
                  / max(1.0, float(want.double().abs().max())))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dh", [16, 32, 64, 128])
-@pytest.mark.parametrize("B,T,H,Kh", [(2, 200, 4, 2), (1, 129, 6, 1)])
-def test_flash_backward_kernel_against_plain(card, B, T, H, Kh, dh):
-    g = torch.Generator(device=card).manual_seed(dh + T)
+def flash_bwd_inputs(card, B, T, H, Kh, dh, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
     q = torch.randn((B, T, H, dh), generator=g, device=card).bfloat16()
     k, v = (torch.randn((B, T, Kh, dh), generator=g, device=card).bfloat16()
             for _ in range(2))
     do = torch.randn((B, T, H, dh), generator=g, device=card).bfloat16()
-    o, lse = flash_attention_fwd_ref(q, k, v)
+    return (q, k, v, *flash_attention_fwd_ref(q, k, v), do)
+
+
+# (B, T, H, Kh): G = 2 and 6; arctic's G = 7 (56/8 cut to 14/2); T one
+# query step (64) and one block tile (128) exactly, and one past each
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("B,T,H,Kh", [(2, 200, 4, 2), (1, 129, 6, 1),
+                                      (1, 200, 14, 2), (2, 64, 4, 2),
+                                      (2, 128, 4, 2), (1, 65, 4, 1)])
+def test_flash_backward_kernel_against_plain(card, B, T, H, Kh, dh):
+    q, k, v, o, lse, do = flash_bwd_inputs(card, B, T, H, Kh, dh, dh + T)
     before = fa_ops.bwd_launches
     got = fa_ops.flash_attention_bwd(q, k, v, o, lse, do)
     again = fa_ops.flash_attention_bwd(q, k, v, o, lse, do)
@@ -65,6 +75,44 @@ def test_flash_backward_kernel_against_plain(card, B, T, H, Kh, dh):
     for name, a, b, c in zip("qkv", got, again, want):
         assert a.dtype == torch.bfloat16 and torch.equal(a, b), name
         assert excess(a, c) <= 1, (name, excess(a, c))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Tq,Tk", [(200, 200), (100, 300), (300, 100)])
+def test_flash_backward_kernel_unequal_lengths_and_unmasked(card, Tq, Tk,
+                                                            causal):
+    """Tq != Tk (the mask is col > row, both from 0) and the unmasked
+    backward, against the plain one; the keys that no query sees (at and
+    after Tq, causal) get exact zeros, and the limit holds on the rest
+    (over all keys, their zeros would be the median)."""
+    g = torch.Generator(device=card).manual_seed(Tq + Tk)
+    q, do = (torch.randn((2, Tq, 4, 64), generator=g, device=card)
+             .bfloat16() for _ in range(2))
+    k, v = (torch.randn((2, Tk, 2, 64), generator=g, device=card).bfloat16()
+            for _ in range(2))
+    o, lse = flash_attention_fwd_ref(q, k, v, causal)
+    got = fa_ops.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
+    seen = min(Tq, Tk) if causal else Tk
+    for name, a, c in zip("qkv", got, want):
+        if name != "q":
+            assert not a[:, seen:].any(), name
+            a, c = a[:, :seen], c[:, :seen]
+        assert excess(a, c) <= 1, (name, excess(a, c))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_backward_same_bits_on_a_second_launch(card, dh):
+    """Many blocks in flight (T = 1024, 16/4 heads, B = 2): a second
+    launch, after other work on the card, gives the same bits."""
+    q, k, v, o, lse, do = flash_bwd_inputs(card, 2, 1024, 16, 4, dh, dh)
+    got = fa_ops.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.randn((1 << 20,), device=card).sum()
+    again = fa_ops.flash_attention_bwd(q, k, v, o, lse, do)
+    for name, a, b in zip("qkv", got, again):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.gpu
