@@ -417,8 +417,13 @@ after phase 47, each printing the card's name and power limit:
      card), D = 16 and 7, against the plain backward (1e-4 x max(1,
      max |ref|)), with ``torch.sparse.mm``'s time; the bag backward at
      train_batch (B = 65,536, 26 x 4 lookups) on tables cut to 2^20 rows
-     against ``index_add_`` (1e-5), with ``F.embedding_bag``'s backward
-     time and the byte bound; launch counts
+     and at skew4 (the same shape, each row floor(V u^4)): bit for bit
+     ``ref.embedding_bags_bwd_ordered``, the same bits twice, within 1e-5
+     of ``index_add_``, untouched rows +0.0 over an allocator poisoned
+     with NaN; the call, the key pass, both sorts (CUB's over the key
+     bits, ``torch.sort``), the segments and rows kernels alone, beside
+     the byte bound, the gather floor, ``index_add_`` and
+     ``F.embedding_bag``'s backward; launch counts
  50. one family at a time: one grad step against the same step with every
      kernel replaced by its plain version (the flash forward and
      backward, the SpMM, the bag forward and backward), the loss and
@@ -430,7 +435,9 @@ after phase 47, each printing the card's name and power limit:
      f32 steps against its f64 step, whose every sum is ``index_add_``:
      the kernel step's worst leaf within max(1e-3, 2x the plain step's
      worst), its 16 processor layers: ``GRAD_TOL_GRAPHCAST``); each
-     kernel launched on the kernel path and none on the plain one
+     kernel launched on the kernel path and none on the plain one; the
+     DLRM step's device time by part under ``torch.profiler`` (the bag
+     backward's kernels and its sort, the bag forward, the matmuls)
  51. the training main path at full width: ``steps.build_plan`` for
      llama3.2-1b train_4k, all 16 layers, remat on, T = 4096, B = 4 (cut
      from 256 by memory and time), 4 AdamW steps under deterministic
@@ -521,7 +528,7 @@ from repro_torch.configs.registry import ARCHS  # noqa: E402
 from repro_torch.data.pipeline import LMBatchSpec, lm_batch  # noqa: E402
 from repro_torch.dist.sharding import tree_leaves, tree_map  # noqa: E402
 from repro_torch.kernels.embedding_bag.ref import (  # noqa: E402
-    embedding_bags_bwd_ref)
+    embedding_bags_bwd_ordered, embedding_bags_bwd_ref)
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     flash_attention_bwd_ref, flash_attention_fwd_ref)
 from repro_torch.kernels.spmm.ref import (scatter_spmm_bwd_ref,  # noqa: E402
@@ -4516,72 +4523,180 @@ def spmm_bag_bwd_phase(smi, dev) -> dict:
     del ei, coeff, tr, cperm, at
     torch.cuda.empty_cache()
 
-    # ---- the bag backward at train_batch on the cut tables ----
+    # ---- the bag backward at train_batch on the cut tables, and skew4 ----
     cfg = dlrm_cut_cfg()
     tables = bag_ops.prepare_tables(dlrm.init_dlrm_params(cfg, gen)["tables"])
+    idx = dlrm_train_batch(cfg, dev)["sparse"]
+    bag_rows = [bag_bwd_case("train_batch", tables, idx, gen, dev)]
+    bag_rows.append(bag_bwd_case(
+        "skew4", tables, skew4_indices(tables, *idx.shape, gen), gen, dev))
+    del tables, idx
+    torch.cuda.empty_cache()
+    print(f"[49] done in {time.time() - t0:.1f}s", flush=True)
+    return dict(spmm=spmm_rows, bag=bag_rows[0], bag_skew4=bag_rows[1],
+                card=smi)
+
+
+def skew4_indices(tables, B, F, L, gen) -> torch.Tensor:
+    """Phase 49's skewed batch: [B, F, L] int32, each lookup's row
+    floor(V_f u^4) for u uniform from ``gen`` (at V = 1,024 about 17.7% of
+    a field's lookups, ~46K at train_batch, read row 0)."""
+    dev = tables[0].device
+    V = torch.tensor([t.shape[0] for t in tables], dtype=torch.float64,
+                     device=dev)[None, :, None]
+    u = torch.rand((B, F, L), generator=gen, device=dev, dtype=torch.float64)
+    return (V * u ** 4).floor().clamp_max(V - 1).to(torch.int32)
+
+
+def bag_bwd_case(name, tables, idx, gen, dev) -> dict:
+    """Phase 49's bag backward at one batch: the call (``launch_bwd``)
+    equal bit for bit to ``embedding_bags_bwd_ordered`` and to itself
+    twice, within 1e-5 of the plain ``index_add_``, its untouched rows
+    +0.0 where the allocator hands it a freed buffer of NaN; the call, its
+    parts alone (the key pass, both sorts, the segments and rows kernels)
+    and the plain and library backwards timed, beside the bound and the
+    gather floor."""
     vocabs = [t.shape[0] for t in tables]
-    batch = dlrm_train_batch(cfg, dev)
-    idx = batch["sparse"]
     B, Fn, L = idx.shape
-    D = cfg.embed_dim
+    D, total, n = tables.D, tables.total, idx.numel()
     gout = torch.randn((B, Fn, D), generator=gen, device=dev)
     kern = lambda: bag_ops.launch_bwd(tables, idx, gout)  # noqa: E731
     plain = lambda: embedding_bags_bwd_ref(vocabs, idx, gout)  # noqa: E731
-    before = bag_ops.bwd_launches
+    before = bag_ops.bwd_launches, bag_ops.bwd_key_launches
     got, again = kern(), kern()
-    if bag_ops.bwd_launches != before + 2:
-        raise AssertionError("bag backward: not one launch a call")
+    if (bag_ops.bwd_launches, bag_ops.bwd_key_launches) != (
+            before[0] + 2, before[1] + 2):
+        raise AssertionError(f"bag backward {name}: not one launch of each "
+                             f"kernel a call")
+    ordered = embedding_bags_bwd_ordered(vocabs, idx, gout,
+                                         segment=bag_ops.SEGMENT)
+    if not all(map(same_bits, got, ordered)):
+        raise AssertionError(f"bag backward {name}: not the ordered sum's "
+                             f"bits")
+    if not all(map(same_bits, got, again)):
+        raise AssertionError(f"bag backward {name}: two calls differ")
+    touched = [(w != 0).any(1) for w in ordered]
+    del again, ordered
     want = plain()
-    err = 0.0
-    for f, (a, b, w) in enumerate(zip(got, again, want)):
-        if not torch.equal(a, b):
-            raise AssertionError(f"bag backward: field {f} differs between "
-                                 f"two launches")
-        err = max(err, check(f"bag backward field {f}", a, w, 1e-5))
-    del got, again, want
-    keys, pos, total = bag_ops.bwd_keys(tables, idx)
-    grad = torch.zeros((total, D), device=dev)
-    kernel_only = lambda: bag_ops.bwd_kernel(  # noqa: E731
-        keys, pos, gout, None, grad, Fn, L, "sum")
+    err = max(check(f"bag backward {name} field {f}", a, w, 1e-5)
+              for f, (a, w) in enumerate(zip(got, want)))
+    # both against the sums in float64: how much of that is each one's
+    # own f32 rounding
+    exact = bag_bwd_f64(vocabs, idx, gout)
+    vs64 = {which: max(float((a.double() - e).abs().max())
+                       / max(1.0, float(e.abs().max()))
+                       for a, e in zip(res, exact))
+            for which, res in (("kernel", got), ("index_add_", want))}
+    vs_plain = max(float((a - w).abs().max()) / max(1.0, float(w.abs().max()))
+                   for a, w in zip(got, want))
+    del got, want, exact
+    # the allocator's only free block poisoned with NaN: every allocation
+    # of the call comes out of it, the output too
+    torch.cuda.empty_cache()
+    nbytes_out = total * D * 4
+    poison = torch.full((nbytes_out // 4 + (1 << 28),), float("nan"),
+                        device=dev)
+    lo, hi = poison.data_ptr(), poison.data_ptr() + poison.numel() * 4
+    del poison
+    got = kern()
+    start = got[0].data_ptr()
+    if not (lo <= start and start + nbytes_out <= hi):
+        raise AssertionError(f"bag backward {name}: the output missed the "
+                             f"poisoned block")
+    for f, (a, u) in enumerate(zip(got, touched)):
+        if not (a[~u].view(torch.int32) == 0).all():
+            raise AssertionError(f"bag backward {name} field {f}: an "
+                                 f"untouched row is not +0.0")
+    untouched = sum(int((~u).sum()) for u in touched)
+    del got, touched
+    torch.cuda.empty_cache()
+    # the parts alone
+    keys, pos = bag_ops.bwd_key_pass(tables, idx)
+    sorted_k, sorted_p, _ = bag_ops.bwd_keys(tables, idx)
+    grad = torch.empty((total, D), device=dev)
+
+    def part(which):
+        return lambda: bag_ops.bwd_kernel(sorted_k, sorted_p, gout, None,
+                                          grad, L, "sum", which)
+    parts = dict(
+        keys_ms=cuda_ms(lambda: bag_ops.bwd_key_pass(tables, idx)),
+        sort_cub_ms=cuda_ms(lambda: bag_ops.bwd_sort(keys, pos, total)),
+        # the other candidate: torch.sort of the int32 keys, all 32 bits
+        sort_torch_ms=cuda_ms(lambda: torch.sort(keys, stable=True)),
+        segments_ms=cuda_ms(part(bag_ops.BWD_SEGMENTS)),
+        rows_ms=cuda_ms(part(bag_ops.BWD_ROWS)))
+    valid = sorted_k[sorted_k < total]
+    runs = torch.unique_consecutive(valid, return_counts=True)[1]
+    starts = torch.cumsum(runs, 0) - runs
+    spanning = int(((starts // bag_ops.SEGMENT) != (
+        (starts + runs - 1) // bag_ops.SEGMENT)).sum())
+    hottest = int(runs.max()) if runs.numel() else 0
+    del keys, pos, sorted_k, sorted_p, grad, valid, runs, starts
+    # the library's backward: F.embedding_bag over the tables side by side
     first = torch.tensor([0] + vocabs[:-1], device=dev).cumsum(0)
     flat = (idx.long() + first[None, :, None]).reshape(B * Fn, L)
     weight = torch.cat(list(tables)).requires_grad_()
     lib_out = F.embedding_bag(flat, weight, mode="sum")
     library = lambda: torch.autograd.grad(  # noqa: E731
         lib_out, weight, gout.reshape(B * Fn, D), retain_graph=True)
-    # the call's bound: the indices and bag gradients read, the dense
-    # gradients written whole; the kernel's own: the sorted keys and
-    # positions and the bag gradients read, the touched rows written
-    nbytes = idx.numel() * 4 + gout.numel() * 4 + total * D * 4
-    bound = 1e3 * nbytes / H100_BYTES_PER_S
-    touched = int(torch.unique_consecutive(keys[keys < total]).numel())
-    kernel_bytes = keys.numel() * 16 + gout.numel() * 4 + touched * D * 4
-    kernel_bound = 1e3 * kernel_bytes / H100_BYTES_PER_S
-    bag_row = dict(B=B, F=Fn, L=L, D=D, rows=total, touched_rows=touched,
-                   max_abs_err=err, ms=cuda_ms(kern),
-                   keys_ms=cuda_ms(lambda: bag_ops.bwd_keys(tables, idx)),
-                   zero_ms=cuda_ms(lambda: torch.zeros((total, D),
-                                                       device=dev)),
-                   kernel_ms=cuda_ms(kernel_only),
-                   plain_ms=cuda_ms(plain), library_ms=cuda_ms(library),
-                   bound_ms=bound, bound_by="bytes", bytes=nbytes,
-                   kernel_bound_ms=kernel_bound, kernel_bytes=kernel_bytes)
-    print(f"[49] bag backward train_batch (B={B}, {Fn} x {L} lookups, D={D}, "
-          f"{total} rows, {touched} touched): the call {bag_row['ms']:.4f} ms "
-          f"against its bound {bound:.4f} ms by bytes ({nbytes / 1e9:.3f} "
-          f"GB: indices, bag gradients, the dense gradients written whole); "
-          f"its parts: the sort of the keys {bag_row['keys_ms']:.4f} ms, the "
-          f"zero fill {bag_row['zero_ms']:.4f} ms, the kernel "
-          f"{bag_row['kernel_ms']:.4f} ms against its own bound "
-          f"{kernel_bound:.4f} ms ({kernel_bytes / 1e9:.3f} GB: keys and "
-          f"positions, bag gradients, touched rows); plain (index_add_) "
-          f"{bag_row['plain_ms']:.4f} ms, F.embedding_bag backward "
-          f"{bag_row['library_ms']:.4f} ms; max |d| {err:.3g}; launches "
-          f"{bag_ops.bwd_launches - before}", flush=True)
-    del lib_out, weight, grad, keys, pos, tables
-    torch.cuda.empty_cache()
-    print(f"[49] done in {time.time() - t0:.1f}s", flush=True)
-    return dict(spmm=spmm_rows, bag=bag_row, card=smi)
+    # the bound: the indices and bag gradients read once, the dense
+    # gradients written whole; the gather floor: every bag gradient read
+    # from memory once a lookup
+    nbytes = n * 4 + gout.numel() * 4 + nbytes_out
+    floor_bytes = n * 4 + n * D * 4 + nbytes_out
+    row = dict(batch=name, B=B, F=Fn, L=L, D=D, rows=total,
+               touched_rows=total - untouched, untouched_rows=untouched,
+               runs_spanning_segments=spanning, hottest_row_lookups=hottest,
+               segment=bag_ops.SEGMENT, sort="cub",
+               sort_bits=bag_ops.bwd_bits(n, total), max_abs_err=err,
+               rel_err=vs_plain, rel_err_vs_f64=vs64,
+               ms=cuda_ms(kern), **parts, plain_ms=cuda_ms(plain),
+               library_ms=cuda_ms(library), bound_ms=1e3 * nbytes
+               / H100_BYTES_PER_S, bound_by="bytes", bytes=nbytes,
+               gather_floor_ms=1e3 * floor_bytes / H100_BYTES_PER_S,
+               gather_floor_bytes=floor_bytes,
+               zero_fill=False,
+               bits_equal_ordered=True, same_bits_twice=True,
+               poisoned_zeros=True)
+    del lib_out, weight, flat
+    print(f"[49] bag backward {name} (B={B}, {Fn} x {L} lookups, D={D}, "
+          f"{total} rows, {total - untouched} touched, the hottest read "
+          f"{hottest} times, {spanning} runs over several segments of "
+          f"{bag_ops.SEGMENT}): the call {row['ms']:.4f} ms against its "
+          f"bound {row['bound_ms']:.4f} ms by bytes ({nbytes / 1e9:.3f} GB: "
+          f"indices, bag gradients, the dense gradients written whole; "
+          f"{row['bound_ms'] / row['ms']:.1%} of it) and its gather floor "
+          f"{row['gather_floor_ms']:.4f} ms ({floor_bytes / 1e9:.3f} GB: "
+          f"each bag gradient read once a lookup); alone: the key pass "
+          f"{parts['keys_ms']:.4f} ms, the sort over {row['sort_bits']} "
+          f"bits of int32 keys by CUB {parts['sort_cub_ms']:.4f} ms and by "
+          f"torch.sort {parts['sort_torch_ms']:.4f} ms (CUB's ships), the "
+          f"segments kernel {parts['segments_ms']:.4f} ms, the rows kernel "
+          f"{parts['rows_ms']:.4f} ms; no zero fill; plain "
+          f"(index_add_) {row['plain_ms']:.4f} ms, F.embedding_bag backward "
+          f"{row['library_ms']:.4f} ms; the ordered sum's bits, the same "
+          f"bits twice, max |d| {err:.3g} against index_add_ "
+          f"({vs_plain:.3g} of max(1, max |ref|); against an f64 sum the "
+          f"kernel {vs64['kernel']:.3g}, index_add_ {vs64['index_add_']:.3g})"
+          f", {untouched} untouched rows +0.0 over a poisoned allocator",
+          flush=True)
+    return row
+
+
+def bag_bwd_f64(vocabs, idx, gout) -> list:
+    """The tables' gradients (sum, no weights) by ``index_add_`` in
+    float64: phase 49's yardstick for both f32 backwards."""
+    (B, Fn, L), D = idx.shape, gout.shape[2]
+    out = []
+    for f, V in enumerate(vocabs):
+        i = idx[:, f].long()
+        i = torch.where(i < 0, i + V, i)
+        keep = ((i >= 0) & (i < V)).reshape(-1)
+        terms = gout[:, f].double()[:, None, :].expand(B, L, -1)
+        out.append(torch.zeros((V, D), dtype=torch.float64,
+                               device=gout.device).index_add_(
+            0, i.reshape(-1)[keep], terms.reshape(B * L, D)[keep]))
+    return out
 
 
 @contextlib.contextmanager
@@ -4657,7 +4772,8 @@ def pinned_routes(record: list, replay: bool):
 def launch_counts() -> dict:
     return dict(flash=fa_ops.launches, flash_bwd=fa_ops.bwd_launches,
                 spmm=spmm_ops.launches, spmm_bwd=spmm_ops.bwd_launches,
-                bag=bag_ops.launches, bag_bwd=bag_ops.bwd_launches)
+                bag=bag_ops.launches, bag_bwd=bag_ops.bwd_launches,
+                bag_bwd_keys=bag_ops.bwd_key_launches)
 
 
 def grad_step(loss_fn, params):
@@ -4680,7 +4796,7 @@ def leaf_dist(a, b) -> tuple[float, float]:
 
 
 def family_case(tag, loss_fn, params, kernels, bf16, moe=False,
-                tol=None, loss64=None) -> dict:
+                tol=None, loss64=None, parts=None) -> dict:
     """Phase 50 at one family: the grad step through the kernels (each of
     ``kernels`` launched) against the step through the plain versions
     (none launched), the loss and every leaf; a MoE step's plain run on
@@ -4688,7 +4804,9 @@ def family_case(tag, loss_fn, params, kernels, bf16, moe=False,
     float64 loss in plain torch ops) both f32 steps are held to its
     gradient instead: the kernel step's worst leaf no farther from it
     than ``tol`` or twice the plain step's worst, whichever is more; the
-    kernel step's distance from the plain one is then a number only."""
+    kernel step's distance from the plain one is then a number only.
+    With ``parts``, one more kernel step under ``torch.profiler``
+    (``step_breakdown``) gives its device time by those parts."""
     t0 = time.time()
     before = launch_counts()
     routes: list = []
@@ -4755,6 +4873,20 @@ def family_case(tag, loss_fn, params, kernels, bf16, moe=False,
              f"token-layers' own routers parted)" if moe else ""),
           flush=True)
     del k_grads, p_grads
+    if parts:
+        row["breakdown"] = step_breakdown(lambda: grad_step(loss_fn, params),
+                                          parts)
+        for p in tree_leaves(params):
+            p.requires_grad_(False)
+        b = row["breakdown"]
+        print(f"[50] {tag}: one kernel grad step under torch.profiler: "
+              + (f"wall {b['wall_s']:.4f} s, device {b['device_ms']:.3f} ms "
+                 f"(idle share <= {b['idle_share']:.3f}); by part "
+                 f"{ {k: round(v, 4) for k, v in b['parts_ms'].items()} } ms;"
+                 f" the largest others "
+                 f"{[(k, round(v, 4)) for k, v in b['top_other_ms']]}"
+                 if "parts_ms" in b else f"not measured: {b['reason']}"),
+              flush=True)
     return row
 
 
@@ -4847,7 +4979,8 @@ def family_cases(gen, dev):
     batch = dlrm_train_batch(cfg, dev)
     yield ("dlrm-rm2 train_batch (cut tables)",
            lambda p, cfg=cfg, batch=batch: dlrm.dlrm_loss(cfg, p, batch),
-           params, ("bag", "bag_bwd"), dict(bf16=False))
+           params, ("bag", "bag_bwd", "bag_bwd_keys"),
+           dict(bf16=False, parts=DLRM_STEP_PARTS))
     del params, batch
     torch.cuda.empty_cache()
 
@@ -4866,53 +4999,80 @@ def family_phase(smi, dev) -> dict:
     print(f"[50] done in {time.time() - t0:.1f}s", flush=True)
     return dict(families=rows, card=smi,
                 bag_bwd_launches=rows[-1]["launches"]["bag_bwd"],
+                bag_bwd_key_launches=rows[-1]["launches"]["bag_bwd_keys"],
+                bag_step_breakdown=rows[-1].get("breakdown"),
                 spmm_bwd_launches=rows[2]["launches"]["spmm_bwd"])
 
 
 STEP_PARTS = (("flash forward", ("fa_fwd_tc",)),
               ("flash backward", ("fa_bwd_",)),
               ("matmuls", ("gemm", "nvjet", "xmma", "cutlass")))
+# phase 50's DLRM step: the bag backward's kernels (key pass, segments,
+# rows), its sort (CUB's radix sort kernels), the bag forward
+DLRM_STEP_PARTS = (("bag backward kernels", ("bag_bwd_",)),
+                   ("bag backward sort", ("deviceradixsort",)),
+                   ("bag forward", ("bag_tile_kernel", "bag_chunk_kernel")),
+                   ("matmuls", ("gemm", "nvjet", "xmma", "cutlass")))
 
 
-def step_breakdown(fn) -> dict:
-    """One call of ``fn`` under ``torch.profiler``: the wall, the device
-    time by part (``STEP_PARTS`` by kernel name; the rest "other", its
-    largest kernels named) and the idle share 1 - device / wall (an upper
-    bound: the profiler's host cost inflates the wall); the reason where
-    the profiler gives no device time."""
+def step_breakdown(fn, parts=STEP_PARTS) -> dict:
+    """Two calls of ``fn`` under ``torch.profiler``: the first a warm-up
+    whose trace is dropped (the profiler's start-up skews the first), the
+    second traced.  Of that one: the wall, the device time by part
+    (``parts`` by kernel name; the rest "other", its largest kernels
+    named; the profiler's own step annotation left out), the kernels a
+    part counted, and the idle share 1 - device / wall (an upper bound:
+    the profiler's host cost inflates the wall).  Where the profiler
+    gives no device time, or no kernel of one of ``parts`` (a trace that
+    misses a launched kernel cannot be trusted for the rest), only the
+    reason."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    from torch.profiler import ProfilerActivity, profile, schedule
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   schedule=schedule(wait=0, warmup=1, active=1, repeat=1))
     err = profiler_error(prof.start)
     if err:
         return dict(reason=err)
-    t0 = time.time()
+    wall = 0.0
     try:
         fn()
         torch.cuda.synchronize()
-    finally:
+        err = profiler_error(prof.step)
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
         wall = time.time() - t0
-        err = profiler_error(prof.stop)
+        err = err or profiler_error(prof.step)
+    finally:
+        err = profiler_error(prof.stop) or err
     if err:
         return dict(reason=err)
-    parts, other = {name: 0.0 for name, _ in STEP_PARTS}, {}
-    parts["other"] = 0.0
+    by_part, other = {name: 0.0 for name, _ in parts}, {}
+    by_part["other"] = 0.0
+    counts = dict.fromkeys(by_part, 0)
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        if e.device_type != DeviceType.CUDA \
+                or e.key.startswith("ProfilerStep"):
             continue
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0))
-        part = next((name for name, keys in STEP_PARTS
+        part = next((name for name, keys in parts
                      if any(k in e.key.lower() for k in keys)), "other")
-        parts[part] += us / 1e3
+        by_part[part] += us / 1e3
+        counts[part] += e.count
         if part == "other":
             other[e.key[:70]] = us / 1e3
-    device_ms = sum(parts.values())
+    device_ms = sum(by_part.values())
     if not device_ms:
         return dict(reason="no device time in the trace")
+    missing = [name for name, _ in parts if not counts[name]]
+    if missing:
+        return dict(reason=f"no kernel of {missing} in the trace (kernels "
+                    f"by part {counts})")
     top = sorted(other.items(), key=lambda kv: -kv[1])[:6]
-    return dict(wall_s=wall, device_ms=device_ms, parts_ms=parts,
-                idle_share=1 - device_ms / 1e3 / wall, top_other_ms=top)
+    return dict(wall_s=wall, device_ms=device_ms, parts_ms=by_part,
+                kernels=counts, idle_share=1 - device_ms / 1e3 / wall,
+                top_other_ms=top)
 
 
 def to_dev(tree, dev):
@@ -5128,12 +5288,14 @@ def training_entries(tr) -> list:
                           "forward, which JAX takes by XLA's autodiff of "
                           "the gather",
          "launches": tr["families"]["bag_bwd_launches"],
+         "key_launches": tr["families"]["bag_bwd_key_launches"],
          "max_abs_err": bag["max_abs_err"], "ms": bag["ms"],
-         "kernel_ms": bag["kernel_ms"],
-         "kernel_bound_ms": bag["kernel_bound_ms"],
          "plain_ms": bag["plain_ms"],
          "bound_ms": bag["bound_ms"], "bound_by": "bytes",
-         "library_ms": bag["library_ms"], "shape": bag,
+         "library_ms": bag["library_ms"],
+         "gather_floor_ms": bag["gather_floor_ms"], "shape": bag,
+         "skew4": tr["bwd"]["bag_skew4"],
+         "step_breakdown": tr["families"]["bag_step_breakdown"],
          "card": tr["bwd"]["card"]}]
 
 

@@ -53,7 +53,9 @@
 // would otherwise evict the rows that L2 can keep.  Built with
 // -DBAG_WARP_PER_BAG the entry launches the first port's kernel (one warp
 // a bag, lanes over the columns in strips of 32, one lookup at a time;
-// the same bits), for `tools/bag_variants.py`.
+// the same bits), for `tools/bag_variants.py`.  The backward's segment
+// S (below) is BAG_BWD_SEGMENT, 32 unless built with
+// -DBAG_BWD_SEGMENT=<S> (`tools/bag_parent_ab.py` times 32 to 256).
 //
 // What bounds it: bytes.  The indices (4 B each), the distinct rows the
 // batch touches (D * 4 B each) and the output (D * 4 B a bag).  For
@@ -63,6 +65,7 @@
 // a row from memory at every lookup, repeats included, so the gather
 // itself reads ~4.0 GB: with the indices and the output 6.03 GB, 1.80 ms
 // (the gather floor `chip_smoke.py` prints beside the bound).
+#include <cub/device/device_radix_sort.cuh>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -402,93 +405,404 @@ cudaError_t by_lanes(int lanes, int lt, const Args& a) {
 //
 // Replaces no TPU kernel (the JAX package has no Pallas backward; XLA's
 // autodiff of the gather scatter-adds each bag's cotangent into a dense
-// zero table).  The wrapper sorts every lookup of the batch, all F fields
-// at once, by a key: its table row plus the rows of the tables before it
-// (a stable torch.sort, so a row's lookups stay in (b, l) order), and a
-// dropped lookup (an index outside [-V, V)) the key `total`, past every
-// row.  A warp takes 32 consecutive sorted lookups; each lookup that
-// starts a run of one key (a row the batch touches) is the warp's, and the
-// warp walks that run to its end, lanes over the row's columns (strips of
-// 128, four a lane), summing the bag gradients gout[b, f] (÷ L for the
-// mean, then × the lookup's weight) in the run's order from 0.f, and
-// writes the row once.  No atomics: every run gives the same bits, and
-// all F fields are one launch.  The rows no lookup touches stay as the
-// wrapper zeroed them.  Bound: bytes (the sorted keys and positions, the
-// bag gradients each touched row reads, the weights, and the dense
-// gradients written whole, zeros included).
-constexpr int BWD_COLS = 4;       // columns a lane in a strip of 128
+// zero table).  Every lookup of the batch, all F fields at once, gets a
+// key: its table row plus the rows of the tables before it, or `total`,
+// past every row, for a dropped lookup (an index outside [-V, V)).  Keys
+// and positions are int32: the wrapper refuses a total of rows or a B F L
+// of 2^31 or more.  Three kernels and a sort, no float atomics, so every
+// run gives the same bits:
+//
+//   * `bag_bwd_keys_kernel` writes each lookup's key and its flat (b, f,
+//     l) position, in (b, f, l) order.
+//   * The wrapper sorts the (key, position) pairs stably over the low
+//     ceil(log2(total + 1)) bits only, 24 at DLRM-RM2's train_batch
+//     (`embedding_bag_bwd_sort`: CUB's radix sort).  The lookups then come
+//     table by table, and each row's in (b, l) order.
+//   * `bag_bwd_segments_kernel` cuts the sorted lookups into segments of
+//     S = BWD_S (`ref.py::SEGMENT`, 32) fixed when the library is built, a
+//     group of lanes a segment, the lanes
+//     over a row's columns (16 lanes of float4 at D = 64: two segments a
+//     warp).  A group walks its segment BWD_STEP lookups a step, every
+//     bag-gradient load of a step in flight before the first add, and
+//     sums each run fragment (the segment's lookups of one key) from 0.f
+//     in sorted order: gout[b, f] divided by L for the mean (`__fdiv_rn`),
+//     times the weight (`__fmul_rn`), added by `__fadd_rn`.  A run that
+//     lies inside the segment is its row's gradient, written once by
+//     streaming stores.  A fragment that goes on into the segment before
+//     or after goes to the partial buffer [n_segments, 2, D]: slot 0 if it
+//     opens the segment, else slot 1.  No group walks more than S
+//     lookups, however many a row has.
+//   * `bag_bwd_rows_kernel` takes BWD_TILE rows a block and finds each
+//     row's run [a, b) of sorted lookups by binary search: the tile's
+//     range by two warps, 32 probes a round; then each row within it, from
+//     shared memory where the range holds at most BWD_STAGE lookups.  It
+//     writes every row the segments kernel did not: +0.0 where no lookup
+//     reads the row, and for a run over segments a / S .. (b - 1) / S the
+//     sum from 0.f of its fragments' partials in segment order (slot 1 of
+//     the first, slot 0 of the others).  Streaming stores.
+//
+// So each row of the [total, D] gradient is written exactly once, and the
+// wrapper fills nothing.  `ref.py::embedding_bags_bwd_ordered` is the
+// same sums in the same order; where no run crosses a segment, they are
+// the CPU's `index_add_` bit for bit.
+//
+// What bounds it: bytes.  The call must read the indices and the bag
+// gradients and write the dense gradients whole: at DLRM-RM2's
+// train_batch (B = 65,536, 26 x 4 lookups, D = 64, tables cut to 2^20
+// rows, 14.7M rows) 27 MB + 436 MB + 3.77 GB, 1.26 ms over 3.35 TB/s.
+// The two kernels together move more: the segments kernel writes the
+// touched rows (1.0 GB there) and reads a bag gradient at each lookup,
+// which L2 serves only in part (one field's bag gradients are 16.8 MB,
+// but the lookups in flight span several fields); the rows kernel writes
+// the rest.  A smaller S narrows that span but lengthens the partial
+// sums of a hot row: on an H100 80GB HBM3 the two kernels were fastest
+// at S = 32 of 32 to 256, both at train_batch and at a batch whose
+// hottest row has 46,536 lookups (`tools/bag_parent_ab.py`).
+#ifndef BAG_BWD_SEGMENT
+#define BAG_BWD_SEGMENT 32
+#endif
+constexpr int BWD_THREADS = 256;   // threads a block of the rows kernel
+constexpr int BWD_TILE = 512;      // rows a block of the rows kernel
+constexpr int BWD_UNROLL = 8;      // partials in flight a lane (rows kernel)
+constexpr int BWD_STEP = 8;        // lookups a step (segments kernel)
+constexpr int BWD_STAGE = 4096;    // sorted keys a rows block stages
+constexpr int BWD_S = BAG_BWD_SEGMENT;   // sorted lookups a segment
+static_assert(BWD_S > 0, "BAG_BWD_SEGMENT must be positive");
+constexpr int BWD_SEGMENTS = 1;    // `parts` bits of the C entry
+constexpr int BWD_ROWS = 2;
 
-__global__ void bag_bwd_kernel(const long long* __restrict__ keys,
-                               const long long* __restrict__ pos,
-                               const float* __restrict__ gout,
-                               const float* __restrict__ w,
-                               float* __restrict__ grad, long long n,
-                               long long total, int F, int L, int D,
-                               int mean) {
-  const long long warp = (static_cast<long long>(blockIdx.x) * blockDim.x
-                          + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  const long long i = warp * 32 + lane;
-  const long long key = i < n ? keys[i] : total;
-  const bool start = i < n && key < total && (i == 0 || keys[i - 1] != key);
-  unsigned runs = __ballot_sync(FULL, start);
+// W floats a lane of a row (1, 2 or 4): the backward's stores,
+// streaming, or plain for the partials, which the rows kernel reads back
+template <int W, bool STREAM>
+__device__ __forceinline__ void bwd_store(float* p, const float (&v)[W]) {
+  if constexpr (STREAM) {
+    store_row<W>(p, v);
+  } else if constexpr (W == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (W == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+
+// the first index in [lo, hi) whose key is >= x (hi if none); keys in
+// shared or global memory
+__device__ __forceinline__ int first_at_least(const int* keys, int lo,
+                                              int hi, int x) {
+  while (lo < hi) {
+    const int mid = lo + (hi - lo) / 2;
+    if (keys[mid] < x) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// the same over [0, n) by a whole warp, 32 probes a round: each round
+// keeps the one step of the range between the last probe below x and
+// the first at or above it
+__device__ __forceinline__ int warp_first_at_least(
+    const int* __restrict__ keys, int n, int x) {
+  const int lane = threadIdx.x & 31;
+  long long lo = 0, hi = n;                // the answer is in [lo, hi]
+  while (hi > lo) {                        // 64 bits: no overflow near 2^31
+    const long long step = (hi - lo + 31) / 32;
+    const long long probe = lo + (lane + 1) * step - 1;
+    const bool below = probe < hi && __ldg(keys + probe) < x;
+    const int c = __popc(__ballot_sync(FULL, below));
+    if (step == 1) return (int)(lo + c);
+    hi = min(hi, lo + (c + 1) * step - 1);
+    lo += c * step;
+  }
+  return (int)lo;
+}
+
+// each lookup's key (global row, or total) and flat position
+__global__ void __launch_bounds__(256)
+bag_bwd_keys_kernel(const int* __restrict__ idx,
+                    const long long* __restrict__ vocabs,
+                    const long long* __restrict__ firsts,
+                    int* __restrict__ keys, int* __restrict__ pos, int n,
+                    int F, int L, int total) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n) return;
+  const int f = (p / L) % F;
+  const long long r = take_row(__ldcs(idx + p), __ldg(vocabs + f));
+  keys[p] = r >= 0 ? static_cast<int>(__ldg(firsts + f) + r) : total;
+  pos[p] = p;
+}
+
+// a group of LANES lanes, W floats each, a segment of BWD_S sorted lookups
+// (see above); lshift is log2 L where L is a power of two, else -1
+template <int LANES, int W>
+__global__ void __launch_bounds__(WARPS * 32)
+bag_bwd_segments_kernel(const int* __restrict__ keys,
+                        const int* __restrict__ pos,
+                        const float* __restrict__ gout,
+                        const float* __restrict__ w,
+                        float* __restrict__ grad,
+                        float* __restrict__ partial, int n, int total, int L,
+                        int lshift, int D, int mean) {
+  constexpr int G = 32 / LANES;                  // segments a warp
+  constexpr int C = BWD_STEP;                    // lookups a step
+  constexpr int S = BWD_S;
+  const int lane = threadIdx.x & 31, t = lane % LANES;
+  const long long seg =
+      ((long long)blockIdx.x * WARPS + (threadIdx.x >> 5)) * G + lane / LANES;
+  const long long base = seg * S;
+  const int len = base < n ? (int)min((long long)S, n - base) : 0;
+  // the keys just before and just after the segment (-1: none)
+  const int before = len && base > 0 ? __ldg(keys + base - 1) : -1;
+  const int after = len && base + len < n ? __ldg(keys + base + len) : -1;
+  const bool weighted = w != nullptr;
   const float fl = static_cast<float>(L);
-  while (runs) {
-    const int j = __ffs(runs) - 1;
-    runs &= runs - 1;
-    const long long s = warp * 32 + j;
-    const long long r = __shfl_sync(FULL, key, j);
-    for (int c0 = 0; c0 < D; c0 += 32 * BWD_COLS) {
-      float acc[BWD_COLS];
+  const int strips = (D + LANES * W - 1) / (LANES * W);
+  for (int s = 0; s < strips; ++s) {             // no shuffles below
+    const int c = (s * LANES + t) * W;
+    const bool cols = c < D;
+    float acc[W];
 #pragma unroll
-      for (int u = 0; u < BWD_COLS; ++u) acc[u] = 0.f;
-      for (long long e = s; e < n && keys[e] == r; ++e) {
-        const long long p = pos[e];             // flat (b, f, l)
-        const long long bf = p / L;             // b F + f
-        const float* g = gout + bf * D;
-        const float wt = w != nullptr ? w[p] : 1.f;
+    for (int u = 0; u < W; ++u) acc[u] = 0.f;
+    for (int e0 = 0; e0 < len; e0 += C) {
+      int k[C], p[C];
 #pragma unroll
-        for (int u = 0; u < BWD_COLS; ++u) {
-          const int c = c0 + lane + 32 * u;
-          if (c < D) {
-            float t = g[c];
-            if (mean) t = __fdiv_rn(t, fl);
-            if (w != nullptr) t = __fmul_rn(t, wt);
-            acc[u] = __fadd_rn(acc[u], t);
-          }
-        }
+      for (int i = 0; i < C; ++i) {
+        const bool in = e0 + i < len;
+        k[i] = in ? __ldg(keys + base + e0 + i) : total;
+        p[i] = in ? __ldg(pos + base + e0 + i) : 0;
+      }
+      float v[C][W], wt[C];
+#pragma unroll
+      for (int i = 0; i < C; ++i) {
+        const bool use = k[i] < total;
+        const int bf = lshift >= 0 ? p[i] >> lshift : p[i] / L;   // b F + f
+        if (use && cols) load_row<W>(gout + (long long)bf * D + c, v[i]);
+        wt[i] = use && weighted ? __ldg(w + p[i]) : 1.f;
       }
 #pragma unroll
-      for (int u = 0; u < BWD_COLS; ++u) {
-        const int c = c0 + lane + 32 * u;
-        if (c < D) grad[r * D + c] = acc[u];
+      for (int i = 0; i < C; ++i) {
+        if (k[i] >= total) break;       // dropped lookups sort last
+        const int e = e0 + i;
+        if (cols)
+#pragma unroll
+          for (int u = 0; u < W; ++u) {
+            float x = v[i][u];
+            if (mean) x = __fdiv_rn(x, fl);
+            if (weighted) x = __fmul_rn(x, wt[i]);
+            acc[u] = __fadd_rn(acc[u], x);
+          }
+        const bool end = e == len - 1;
+        const int next = end ? after
+                             : i + 1 < C ? k[i + 1]
+                                         : __ldg(keys + base + e + 1);
+        if (end || next != k[i]) {               // the fragment closes
+          // it opens the segment and goes on from the one before; it
+          // closes the segment and goes on into the next
+          const bool head = before == k[i];
+          const bool tail = end && after == k[i];
+          if (cols) {
+            if (head || tail)
+              bwd_store<W, false>(
+                  partial + (seg * 2 + (head ? 0 : 1)) * D + c, acc);
+            else
+              bwd_store<W, true>(grad + (long long)k[i] * D + c, acc);
+          }
+#pragma unroll
+          for (int u = 0; u < W; ++u) acc[u] = 0.f;
+        }
       }
     }
   }
 }
 
+// BWD_TILE rows a block: each row's run [a, b) of sorted lookups by
+// binary search (the tile's range first, by two warps; then each row
+// within it, in shared memory where the range has at most BWD_STAGE
+// lookups), zeros to the rows no lookup reads and the partials' sums to
+// the runs that span segments; the segments kernel wrote the rest
+template <int LANES, int W>
+__global__ void __launch_bounds__(BWD_THREADS)
+bag_bwd_rows_kernel(const int* __restrict__ keys,
+                    const float* __restrict__ partial,
+                    float* __restrict__ grad, int n, int total, int D) {
+  constexpr int G = 32 / LANES;                  // rows a warp step
+  constexpr int S = BWD_S;
+  __shared__ int run[BWD_TILE + 1];   // row j's lookups: [run[j], run[j+1])
+  __shared__ int staged[BWD_STAGE];
+  const int r0 = blockIdx.x * BWD_TILE;
+  const int rows = min(BWD_TILE, total - r0);
+  if (threadIdx.x < 64) {             // warps 0 and 1: the tile's range
+    const int at = threadIdx.x < 32 ? 0 : rows;
+    const int i = warp_first_at_least(keys, n, r0 + at);
+    if ((threadIdx.x & 31) == 0) run[at] = i;
+  }
+  __syncthreads();
+  const int lo = run[0], hi = run[rows];
+  const bool stage = hi - lo <= BWD_STAGE;
+  if (stage)
+    for (int e = lo + threadIdx.x; e < hi; e += BWD_THREADS)
+      staged[e - lo] = __ldg(keys + e);
+  __syncthreads();
+  const int* tk = stage ? staged : keys + lo;   // the tile's keys
+  for (int j = threadIdx.x + 1; j < rows; j += BWD_THREADS)
+    run[j] = lo + first_at_least(tk, 0, hi - lo, r0 + j);
+  __syncthreads();
+  const int lane = threadIdx.x & 31, t = lane % LANES;
+  const int strips = (D + LANES * W - 1) / (LANES * W);
+  for (int j = (threadIdx.x >> 5) * G + lane / LANES; j < rows;
+       j += BWD_THREADS / 32 * G) {
+    const int a = run[j], b = run[j + 1];
+    const bool touched = a < b;
+    const int s0 = a / S, s1 = touched ? (b - 1) / S : s0 - 1;
+    if (touched && s0 == s1) continue;           // the segments kernel's
+    float* out = grad + (long long)(r0 + j) * D;
+    for (int s = 0; s < strips; ++s) {
+      const int c = (s * LANES + t) * W;
+      if (c >= D) break;
+      float acc[W];
+#pragma unroll
+      for (int u = 0; u < W; ++u) acc[u] = 0.f;
+      for (int q0 = s0; q0 <= s1; q0 += BWD_UNROLL) {  // segment order
+        float v[BWD_UNROLL][W];
+#pragma unroll
+        for (int i = 0; i < BWD_UNROLL; ++i)
+          if (q0 + i <= s1)
+            load_row<W>(partial + ((long long)(q0 + i) * 2
+                                   + (q0 + i == s0 ? 1 : 0)) * D + c,
+                        v[i]);
+#pragma unroll
+        for (int i = 0; i < BWD_UNROLL; ++i)
+          if (q0 + i <= s1)
+#pragma unroll
+            for (int u = 0; u < W; ++u) acc[u] = __fadd_rn(acc[u], v[i][u]);
+      }
+      bwd_store<W, true>(out + c, acc);
+    }
+  }
+}
+
+struct BwdArgs {
+  const int* keys;
+  const int* pos;
+  const float* gout;
+  const float* w;
+  float* grad;
+  float* partial;
+  int n, total, L, lshift, D, mean, parts;
+  cudaStream_t s;
+};
+
+template <int LANES, int W>
+cudaError_t bwd_go(const BwdArgs& a) {
+  if ((a.parts & BWD_SEGMENTS) && a.n > 0) {
+    constexpr int G = 32 / LANES;                // segments a warp
+    const long long segs = (a.n + (long long)BWD_S - 1) / BWD_S;
+    unsigned blocks;
+    if (cudaError_t e = grid((segs + G - 1) / G, &blocks)) return e;
+    bag_bwd_segments_kernel<LANES, W><<<blocks, WARPS * 32, 0, a.s>>>(
+        a.keys, a.pos, a.gout, a.w, a.grad, a.partial, a.n, a.total, a.L,
+        a.lshift, a.D, a.mean);
+    if (cudaError_t e = cudaGetLastError()) return e;
+  }
+  if ((a.parts & BWD_ROWS) && a.total > 0) {
+    const unsigned blocks = (unsigned)((a.total + BWD_TILE - 1) / BWD_TILE);
+    bag_bwd_rows_kernel<LANES, W><<<blocks, BWD_THREADS, 0, a.s>>>(
+        a.keys, a.partial, a.grad, a.n, a.total, a.D);
+  }
+  return cudaGetLastError();
+}
+
+template <int W>
+cudaError_t bwd_by_lanes(int lanes, const BwdArgs& a) {
+  switch (lanes) {
+    case 1: return bwd_go<1, W>(a);
+    case 2: return bwd_go<2, W>(a);
+    case 4: return bwd_go<4, W>(a);
+    case 8: return bwd_go<8, W>(a);
+    case 16: return bwd_go<16, W>(a);
+    case 32: return bwd_go<32, W>(a);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// grad [total, D] (zeroed by the caller; the F tables' gradients one
-// after the other) += the bags' gradients gout [B, F, D] at the n = B F L
-// lookups: keys [n] (int64, sorted: the global row of each lookup, or
-// total for a dropped one) and pos [n] (int64: its flat (b, f, l)
-// position), w [B, F, L] or null.  One launch; returns its error code.
-extern "C" int embedding_bag_bwd_launch(const long long* keys,
-                                        const long long* pos,
-                                        const float* gout, const float* w,
-                                        float* grad, long long n,
-                                        long long total, int F, int L, int D,
-                                        int mean, void* stream) {
-  if (n < 0 || total < 0 || F <= 0 || L <= 0 || D <= 0)
+// keys [n] and pos [n] (int32) for the n = B F L lookups
+// of idx [B, F, L]: each one's global row (its table's row plus the rows
+// of the tables before it: firsts [F], int64 on the device beside vocabs
+// [F]), or total for a dropped one, and its flat (b, f, l) position.
+// Returns the launch's error code.
+extern "C" int embedding_bag_bwd_keys(const int* idx, const void* vocabs,
+                                      const void* firsts, int* keys,
+                                      int* pos, long long n, int F, int L,
+                                      long long total, void* stream) {
+  if (n < 0 || n > 0x7fffffffLL || total < 0 || total > 0x7fffffffLL ||
+      F <= 0 || L < 0 || (n > 0 && L == 0))
     return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
-  const long long blocks = (n + 32 * WARPS - 1) / (32 * WARPS);
-  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  bag_bwd_kernel<<<static_cast<unsigned>(blocks), 32 * WARPS, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      keys, pos, gout, w, grad, n, total, F, L, D, mean);
+  bag_bwd_keys_kernel<<<(unsigned)((n + 255) / 256), 256, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      idx, static_cast<const long long*>(vocabs),
+      static_cast<const long long*>(firsts), keys, pos, (int)n, F, L,
+      (int)total);
   return cudaGetLastError();
+}
+
+// The stable sort of the (key, position) pairs by key bits [0, bits):
+// CUB's radix sort.  With temp null it only sets *bytes to the temporary
+// storage it needs (the wrapper allocates it).  Returns its error code.
+extern "C" int embedding_bag_bwd_sort(void* temp, unsigned long long* bytes,
+                                      const int* keys_in, int* keys_out,
+                                      const int* pos_in, int* pos_out,
+                                      long long n, int bits, void* stream) {
+  if (n < 0 || n > 0x7fffffffLL || bits < 1 || bits > 32)
+    return cudaErrorInvalidValue;
+  size_t b = static_cast<size_t>(*bytes);
+  const cudaError_t e = cub::DeviceRadixSort::SortPairs(
+      temp, b, reinterpret_cast<const unsigned*>(keys_in),
+      reinterpret_cast<unsigned*>(keys_out), pos_in, pos_out,
+      static_cast<int>(n), 0, bits, static_cast<cudaStream_t>(stream));
+  *bytes = b;
+  return e;
+}
+
+// grad [total, D] (the F tables' gradients one after the other, written
+// whole here: nothing needs to fill it) for the bags' gradients gout [B,
+// F, D] at the n = B F L lookups: keys [n] and pos [n] as sorted by
+// `embedding_bag_bwd_sort`; w [B, F, L] or null; partial [ceil(n / S), 2,
+// D] f32 scratch; S the segment, which must be the BWD_S the library was
+// built with (the wrapper sizes partial by it).  (lanes, vec) is the
+// shape of a group:
+// vec floats a lane, 1, 2 or 4 dividing D, with gout, grad and partial
+// aligned to 4 vec bytes; lanes a power of two up to 32 with lanes x vec
+// >= D below 32.  `parts` launches the segments kernel (1), the rows
+// kernel (2) or both (3).  Returns the first launch error code (0 on
+// success).
+extern "C" int embedding_bag_bwd_launch(const int* keys, const int* pos,
+                                        const float* gout, const float* w,
+                                        float* grad, float* partial,
+                                        long long n, long long total, int L,
+                                        int D, int mean, int segment,
+                                        int lanes, int vec, int parts,
+                                        void* stream) {
+  if (n < 0 || n > 0x7fffffffLL || total < 0 || total > 0x7fffffffLL ||
+      L < 0 || (n > 0 && L == 0) || D <= 0 || segment != BWD_S ||
+      parts < 1 || parts > 3)
+    return cudaErrorInvalidValue;
+  if ((vec != 1 && vec != 2 && vec != 4) || D % vec ||
+      reinterpret_cast<uintptr_t>(gout) % (4 * vec) ||
+      reinterpret_cast<uintptr_t>(grad) % (4 * vec) ||
+      reinterpret_cast<uintptr_t>(partial) % (4 * vec))
+    return cudaErrorInvalidValue;
+  if (lanes < 32 && lanes * vec < D) return cudaErrorInvalidValue;
+  const int lshift = L > 0 && !(L & (L - 1)) ? __builtin_ctz(L) : -1;
+  const BwdArgs a{keys, pos, gout, w, grad, partial, (int)n, (int)total,
+                  L, lshift, D, mean, parts,
+                  static_cast<cudaStream_t>(stream)};
+  switch (vec) {
+    case 1: return bwd_by_lanes<1>(lanes, a);
+    case 2: return bwd_by_lanes<2>(lanes, a);
+    default: return bwd_by_lanes<4>(lanes, a);
+  }
 }
 
 // out[B, F, D]; tables and vocabs are device arrays of F entries; idx and

@@ -29,11 +29,22 @@ goes through ``EmbeddingBags`` (a ``torch.autograd.Function`` whose
 inputs are the F tables; a ``prepare_tables`` handle stays valid, as the
 optimizer updates the tables in place).  Its backward returns each
 table's dense gradient ``[V_f, D]``, as JAX's autodiff of the gather
-does: on the card the backward kernel (``csrc/embedding_bag.cu``'s
-``bag_bwd_kernel``: the batch's lookups sorted once by row with a stable
-``torch.sort``, then one warp a touched row summing its bags' gradients
-in that order, all F fields in one launch, no atomics, so the same bits
-every run), on the CPU the plain ``index_add_`` of
+does, as views of one ``torch.empty`` buffer that the kernels write
+whole, each row once (``launch_bwd``): on the card ``bwd_keys`` (the key
+kernel writes each lookup's global row, its table's row plus the rows of
+the tables before it, as int32 with the total of rows for a dropped
+lookup, and its int32 position; then a stable sort of the pairs over the
+low ``total.bit_length()`` bits by CUB's radix sort, ``bwd_sort``) and
+``bwd_kernel`` (the segments kernel sums each run of one row within a
+segment of ``SEGMENT`` = 32 sorted lookups, fixed when the library is
+built, and writes the runs that lie in one segment; the rows kernel
+writes every other row: zeros, or the segment partials of a run that
+spans several, in segment order).  No float atomics, so the same bits
+every run: those of ``ref.embedding_bags_bwd_ordered``.  Keys and
+positions are int32: a call with 2^31 or more rows over all tables, or
+lookups, raises a ``ValueError`` (``bwd_bits``); every configuration of
+the repo is far below (DLRM-RM2 whole is 143,697,920 rows).  On the CPU
+the backward is the plain ``index_add_`` of
 ``ref.embedding_bags_bwd_ref``.  Weights get no gradient (no caller
 trains them): a weight that requires one raises.
 """
@@ -50,7 +61,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.embedding_bag.ref import (embedding_bags_bwd_ref,
+from repro_torch.kernels.embedding_bag.ref import (SEGMENT,
+                                                   embedding_bags_bwd_ref,
                                                    embedding_bags_ref)
 
 HERE = pathlib.Path(__file__).resolve().parent
@@ -61,8 +73,12 @@ LOAD_FLOATS = 32        # the kernel's LOAD_FLOATS: row floats a lane
 CHUNK = 8               # lookups a step of the kernel for any other L
 TILE_L = (1, 2, 4, 8)   # the L the tile kernel is built for
 
+BWD_SEGMENTS, BWD_ROWS = 1, 2   # the backward C entry's ``parts``
+BWD_ALL = BWD_SEGMENTS | BWD_ROWS
+
 launches = 0   # kernel launches made by embedding_bags / embedding_bag_fwd
-bwd_launches = 0   # backward kernel launches (one a backward)
+bwd_launches = 0   # backward launches (segments and rows kernels: one a call)
+bwd_key_launches = 0   # key kernel launches (one a backward)
 shape_launches = collections.Counter()   # the same launches by Geometry
 
 
@@ -94,8 +110,15 @@ def load(path: pathlib.Path) -> ctypes.CDLL:
     lib.embedding_bag_launch.argtypes = [ctypes.c_void_p] * 5 + [
         ctypes.c_longlong] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.embedding_bag_launch.restype = ctypes.c_int
-    lib.embedding_bag_bwd_launch.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_longlong] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.embedding_bag_bwd_keys.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_void_p]
+    lib.embedding_bag_bwd_keys.restype = ctypes.c_int
+    lib.embedding_bag_bwd_sort.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    lib.embedding_bag_bwd_sort.restype = ctypes.c_int
+    lib.embedding_bag_bwd_launch.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_longlong] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.embedding_bag_bwd_launch.restype = ctypes.c_int
     lib.embedding_bag_error_string.argtypes = [ctypes.c_int]
     lib.embedding_bag_error_string.restype = ctypes.c_char_p
@@ -136,6 +159,10 @@ def geometry(D: int, L: int, align: int = 16) -> Geometry:
     return Geometry(lanes, vec, lt, tile_rounds(lanes, vec, lt))
 
 
+def _error(err: int) -> str:
+    return _library().embedding_bag_error_string(err).decode()
+
+
 def _alignment(ptr: int) -> int:
     """The largest of 16, 8, 4, 2, 1 bytes that divides ``ptr``."""
     return next(a for a in (16, 8, 4, 2, 1) if ptr % a == 0)
@@ -169,13 +196,14 @@ def _key(tables) -> tuple:
 
 @functools.lru_cache(maxsize=16)
 def _checked(key: tuple, dev: torch.device
-             ) -> tuple[torch.Tensor | None, int, int]:
+             ) -> tuple[torch.Tensor | None, int, int, int]:
     """Check the tables from their ``_key`` for a launch on ``dev``
-    (ValueError otherwise).  Returns, on the card, the table pointers then
-    their row counts as an int64 device array (None on the CPU), D, and
-    the alignment in bytes (up to 16) that every table shares.  Cached by
-    the key, so a forward over the same tables makes no check and no
-    host-to-device copy (and no host sync)."""
+    (ValueError otherwise).  Returns, on the card, the table pointers,
+    their row counts and their first global rows (the rows of the tables
+    before each) as an int64 device array (None on the CPU), D, the
+    alignment in bytes (up to 16) that every table shares, and the total
+    of rows.  Cached by the key, so a call over the same tables makes no
+    check and no host-to-device copy (and no host sync)."""
     D = key[0][1][-1] if key[0][1] else None
     align = 16
     for f, (ptr, shape, stride, dtype, device) in enumerate(key):
@@ -187,27 +215,32 @@ def _checked(key: tuple, dev: torch.device
                 f"(contiguous={contiguous}); the kernel needs "
                 f"contiguous float32 [V, {D}] tables on {dev}")
         align = min(align, _alignment(ptr))
+    rows = [k[1][0] for k in key]
+    firsts = [sum(rows[:f]) for f in range(len(rows))]
     meta = None
     if dev.type == "cuda":
-        meta = torch.tensor([k[0] for k in key] + [k[1][0] for k in key],
+        meta = torch.tensor([k[0] for k in key] + rows + firsts,
                             dtype=torch.int64, device=dev)
-    return meta, D, align
+    return meta, D, align, sum(rows)
 
 
 class BagTables(tuple):
     """F tables checked for the kernel (``prepare_tables``): a tuple of
-    the tables, with ``meta`` (on the card, their pointers then their row
-    counts as int64; None on the CPU), ``D``, ``align`` (the bytes of
-    alignment, up to 16, that every table shares) and ``device``."""
+    the tables, with ``meta`` (on the card, their pointers, their row
+    counts and their first global rows as int64; None on the CPU), ``D``,
+    ``align`` (the bytes of alignment, up to 16, that every table
+    shares), ``total`` (their rows) and ``device``."""
     meta: torch.Tensor | None
     D: int
     align: int
+    total: int
     device: torch.device
 
 
 def _prepare(tables, dev: torch.device) -> BagTables:
     prepared = BagTables(tables)
-    prepared.meta, prepared.D, prepared.align = _checked(_key(prepared), dev)
+    prepared.meta, prepared.D, prepared.align, prepared.total = _checked(
+        _key(prepared), dev)
     prepared.device = dev
     return prepared
 
@@ -291,60 +324,137 @@ def launch(tables, indices: torch.Tensor,
     return out
 
 
+def bwd_bits(n: int, total: int) -> int:
+    """The key bits the backward's sort covers for ``n`` lookups into
+    ``total`` rows: ``total.bit_length()`` (keys run 0 .. total), at least
+    1.  Keys and positions are int32, so 2^31 or more of either raises a
+    ``ValueError``."""
+    if n >= 2 ** 31 or total >= 2 ** 31:
+        raise ValueError(f"the bag backward keys {n} lookups into {total} "
+                         f"rows as int32: both must stay below 2^31")
+    return max(1, total.bit_length())
+
+
+def bwd_key_pass(tables: BagTables, indices: torch.Tensor):
+    """One launch of the key kernel: (keys, pos), each lookup's global row
+    (``tables.total`` for a dropped one) and flat (b, f, l) position, both
+    int32 [B F L] in (b, f, l) order.  Adds one to the module's
+    ``bwd_key_launches``."""
+    global bwd_key_launches
+    _, F, L = indices.shape
+    n, total = indices.numel(), tables.total
+    bwd_bits(n, total)
+    dev = indices.device
+    keys = torch.empty(n, dtype=torch.int32, device=dev)
+    pos = torch.empty(n, dtype=torch.int32, device=dev)
+    if n:
+        meta = tables.meta
+        err = _library().embedding_bag_bwd_keys(
+            indices.data_ptr(), meta.data_ptr() + 8 * F,
+            meta.data_ptr() + 16 * F, keys.data_ptr(), pos.data_ptr(), n,
+            F, L, total,
+            torch._C._cuda_getCurrentRawStream(dev.index))
+        if err:
+            raise RuntimeError("embedding_bag key kernel launch failed: "
+                               + _error(err))
+        bwd_key_launches += 1
+    return keys, pos
+
+
+def bwd_sort(keys: torch.Tensor, pos: torch.Tensor, total: int):
+    """The (key, position) pairs sorted stably by key: CUB's radix sort
+    over the low ``bwd_bits`` bits, the positions carried as int32 (twice
+    as fast as ``torch.sort`` of the int32 keys on an H100, which sorts
+    all 32 bits and makes int64 positions: ``chip_smoke.py`` phase 49
+    times both)."""
+    n = keys.numel()
+    if not n:
+        return keys, pos
+    bits = bwd_bits(n, total)
+    lib = _library()
+    stream = torch._C._cuda_getCurrentRawStream(keys.device.index)
+    nbytes = ctypes.c_ulonglong(0)
+    out_k, out_p = torch.empty_like(keys), torch.empty_like(pos)
+    args = (keys.data_ptr(), out_k.data_ptr(), pos.data_ptr(),
+            out_p.data_ptr(), n, bits, stream)
+    err = lib.embedding_bag_bwd_sort(None, ctypes.byref(nbytes), *args)
+    if not err:
+        temp = torch.empty(nbytes.value, dtype=torch.uint8,
+                           device=keys.device)
+        err = lib.embedding_bag_bwd_sort(temp.data_ptr(),
+                                         ctypes.byref(nbytes), *args)
+    if err:
+        raise RuntimeError("embedding_bag backward sort failed: "
+                           + _error(err))
+    return out_k, out_p
+
+
 def bwd_keys(tables: BagTables, indices: torch.Tensor):
-    """The backward's index preparation on the card: (keys, pos, total),
-    each lookup's global row (its table's row plus the rows of the tables
-    before it; ``total`` for a lookup outside ``[-V, V)``) sorted by a
-    stable ``torch.sort``, and its flat (b, f, l) position."""
-    F = indices.shape[1]
-    total = sum(t.shape[0] for t in tables)
-    V = tables.meta[F:]                                # int64 row counts
-    first = torch.cumsum(V, 0) - V                     # each table's first row
-    idx = indices.long()
-    idx = torch.where(idx < 0, idx + V[:, None], idx)
-    keep = (idx >= 0) & (idx < V[:, None])
-    keys, pos = torch.sort(
-        torch.where(keep, idx + first[:, None], total).reshape(-1),
-        stable=True)
-    return keys, pos, total
+    """The backward's preparation on the card: (keys, pos, total), the key
+    pass (``bwd_key_pass``) sorted by ``bwd_sort``."""
+    keys, pos = bwd_key_pass(tables, indices)
+    keys, pos = bwd_sort(keys, pos, tables.total)
+    return keys, pos, tables.total
 
 
-def bwd_kernel(keys, pos, gout, weights, grad, F: int, L: int,
-               combiner: str) -> None:
-    """One launch of the backward kernel: ``grad`` [total, D] (zeroed)
-    gets the rows the sorted lookups touch.  Adds one to the module's
-    ``bwd_launches``."""
+def bwd_shape(D: int, align: int = 16) -> tuple[int, int]:
+    """The backward kernels' group for width ``D`` when the bag gradients,
+    the dense gradients and the partials share ``align`` bytes of
+    alignment: (lanes, vec), float4 where ``D % 4 == 0`` and ``align`` is
+    16, float2 where ``D % 2 == 0`` and it is 8, else scalar; the fewest
+    lanes, a power of two up to 32 (then strips), whose loads cover D.  At
+    D = 64, 16 lanes: two segments a warp."""
+    vec = 4 if D % 4 == 0 and align % 16 == 0 else \
+        2 if D % 2 == 0 and align % 8 == 0 else 1
+    return min(32, 1 << (-(-D // vec) - 1).bit_length()), vec
+
+
+def bwd_kernel(keys, pos, gout, weights, grad, L: int, combiner: str,
+               parts: int = BWD_ALL) -> None:
+    """The backward kernels on the sorted ``keys`` and ``pos``: ``grad``
+    [total, D] (any contents) gets every row, written once; ``parts``
+    launches the segments kernel, the rows kernel or both (phase 49 of
+    ``chip_smoke.py`` times each alone).  Adds one to the module's
+    ``bwd_launches`` where it launched a kernel (none for no lookups into
+    no rows)."""
     global bwd_launches
-    if keys.numel() == 0:
-        return
+    n, (total, D) = keys.numel(), grad.shape
+    partial = torch.empty((-(-n // SEGMENT), 2, D), dtype=torch.float32,
+                          device=grad.device)
+    align = min(_alignment(x.data_ptr()) for x in (gout, grad, partial))
     lib = _library()
     err = lib.embedding_bag_bwd_launch(
         keys.data_ptr(), pos.data_ptr(), gout.data_ptr(),
         None if weights is None else weights.data_ptr(), grad.data_ptr(),
-        keys.numel(), grad.shape[0], F, L, grad.shape[1],
-        int(combiner == "mean"),
+        partial.data_ptr(), n, total, L, D, int(combiner == "mean"),
+        SEGMENT, *bwd_shape(D, align), parts,
         torch._C._cuda_getCurrentRawStream(grad.device.index))
     if err:
         raise RuntimeError("embedding_bag backward launch failed: "
-                           + lib.embedding_bag_error_string(err).decode())
-    bwd_launches += 1
+                           + _error(err))
+    if (parts & BWD_SEGMENTS and n) or (parts & BWD_ROWS and total):
+        bwd_launches += 1
 
 
 def launch_bwd(tables, indices: torch.Tensor, gout: torch.Tensor,
                weights: torch.Tensor | None = None,
                combiner: str = "sum") -> list:
-    """The F tables' dense gradients [V_f, D] f32 (views of one zeroed
-    buffer) for the bag gradients ``gout`` [B, F, D]: ``bwd_keys``, then
-    one launch of the backward kernel, on CUDA inputs; ``tables`` a
-    ``BagTables`` handle or tensors."""
+    """The F tables' dense gradients [V_f, D] f32 (views of one
+    ``torch.empty`` buffer, each row written once by the kernels) for the
+    bag gradients ``gout`` [B, F, D]: ``bwd_keys``, then ``bwd_kernel``,
+    on CUDA inputs; ``tables`` a ``BagTables`` handle or tensors."""
     tables = _check(tables, indices, weights, combiner)
-    if indices.device.type != "cuda":
-        raise ValueError(f"the kernel runs on cuda, not {indices.device}")
+    dev = indices.device
+    if dev.type != "cuda":
+        raise ValueError(f"the kernel runs on cuda, not {dev}")
+    B, F, L = indices.shape
+    if gout.shape != (B, F, tables.D) or gout.device != dev:
+        raise ValueError(f"gout is {list(gout.shape)} on {gout.device}; the "
+                         f"backward needs [{B}, {F}, {tables.D}] on {dev}")
     keys, pos, total = bwd_keys(tables, indices)
-    grad = torch.zeros((total, tables.D), dtype=torch.float32,
-                       device=indices.device)
-    bwd_kernel(keys, pos, gout.float().contiguous(), weights, grad,
-               indices.shape[1], indices.shape[2], combiner)
+    grad = torch.empty((total, tables.D), dtype=torch.float32, device=dev)
+    bwd_kernel(keys, pos, gout.float().contiguous(), weights, grad, L,
+               combiner)
     return list(torch.split(grad, [t.shape[0] for t in tables]))
 
 

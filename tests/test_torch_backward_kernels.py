@@ -15,13 +15,21 @@ without a card; this file imports no JAX).
   within 1e-4 x max(1, max |ref|);
 * the bag backward: every table's gradient against
   ``embedding_bags_bwd_ref`` within 1e-5 x max(1, max |ref|), and the
-  same bits on a second launch.
+  same bits on a second launch; equal bit for bit to
+  ``ref.embedding_bags_bwd_ordered`` (the kernels' order of the sums) at D
+  5, 64 and 200 with hot rows over several segments, at F = 1, L = 1 and
+  3, an empty batch and one with every lookup dropped; the key pass and
+  CUB's sort the pairs of ``ref.bwd_keys_ref`` in its stable order; rows
+  no lookup reads exactly +0.0 where the allocator hands the output a
+  freed buffer of NaN.
 """
 import pytest
 import torch
 
 from repro_torch.kernels.embedding_bag import ops as bag_ops
-from repro_torch.kernels.embedding_bag.ref import embedding_bags_bwd_ref
+from repro_torch.kernels.embedding_bag.ref import (SEGMENT, bwd_keys_ref,
+                                                   embedding_bags_bwd_ordered,
+                                                   embedding_bags_bwd_ref)
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                      flash_attention_fwd_ref)
@@ -192,3 +200,109 @@ def test_bag_backward_kernel_against_plain(card, combiner, weighted):
     for a, b, c in zip(got, again, want):
         assert torch.equal(a, b)
         assert scaled(a, c) <= 1e-5
+
+
+def same_bits(got, want) -> bool:
+    return len(got) == len(want) and all(
+        a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                           b.contiguous().view(torch.int32))
+        for a, b in zip(got, want))
+
+
+def bag_bwd_case(card, vocabs, B, L, D, seed, weighted=False):
+    """(tables, indices, gout, weights) with negative indices, a dropped
+    lookup and two hot rows: field 0's last row at the first two lookups
+    of every bag, and, with two fields or more, field 1's row 3 at every
+    lookup of every other bag (both over several segments at B = 257)."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    tables = [torch.randn((v, D), generator=g, device=card) for v in vocabs]
+    idx = torch.stack([torch.randint(-v, v, (B, L), generator=g,
+                                     device=card) for v in vocabs],
+                      1).to(torch.int32)
+    if B and L:
+        idx[0, 0, 0] = 10 ** 6
+        idx[:, 0, :2] = -1
+        if len(vocabs) > 1:
+            idx[::2, 1, :] = 3
+    w = torch.rand((B, len(vocabs), L), generator=g, device=card) \
+        if weighted else None
+    gout = torch.randn((B, len(vocabs), D), generator=g, device=card)
+    return tables, idx, gout, w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [5, 64, 200, 520])
+@pytest.mark.parametrize("combiner,weighted", [("sum", False),
+                                               ("mean", True),
+                                               ("sum", True)])
+def test_bag_backward_is_the_ordered_sum(card, D, combiner, weighted):
+    vocabs = (1000, 37, 5000)
+    tables, idx, gout, w = bag_bwd_case(card, vocabs, 257, 4, D, D,
+                                        weighted)
+    before = bag_ops.bwd_launches, bag_ops.bwd_key_launches
+    got = bag_ops.launch_bwd(tables, idx, gout, w, combiner)
+    again = bag_ops.launch_bwd(tables, idx, gout, w, combiner)
+    assert (bag_ops.bwd_launches, bag_ops.bwd_key_launches) == (
+        before[0] + 2, before[1] + 2)
+    want = embedding_bags_bwd_ordered(vocabs, idx, gout, w, combiner,
+                                      segment=SEGMENT)
+    assert same_bits(got, want)
+    assert same_bits(again, got)
+    plain = embedding_bags_bwd_ref(vocabs, idx, gout, w, combiner)
+    for a, c in zip(got, plain):
+        assert scaled(a, c) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vocabs,B,L,combiner", [
+    ((300,), 257, 4, "sum"),            # F = 1
+    ((50, 9000), 300, 1, "mean"),       # L = 1
+    ((70, 20, 6000), 200, 3, "mean"),   # L = 3: no shift for the division
+    ((1000, 37, 5000), 0, 4, "sum"),    # an empty batch
+    ((8, 3), 129, 2, "sum")])           # tables far smaller than the batch
+def test_bag_backward_edge_batches(card, vocabs, B, L, combiner):
+    tables, idx, gout, _ = bag_bwd_case(card, vocabs, B, L, 64, 3)
+    got = bag_ops.launch_bwd(tables, idx, gout, None, combiner)
+    assert same_bits(got, embedding_bags_bwd_ordered(vocabs, idx, gout, None,
+                                                     combiner))
+    assert [tuple(a.shape) for a in got] == [(v, 64) for v in vocabs]
+
+
+@pytest.mark.gpu
+def test_bag_backward_with_every_lookup_dropped(card):
+    vocabs = (100, 30)
+    tables, idx, gout, _ = bag_bwd_case(card, vocabs, 65, 4, 8, 5)
+    idx[:] = -10 ** 6
+    got = bag_ops.launch_bwd(tables, idx, gout, None, "mean")
+    assert same_bits(got, [torch.zeros((v, 8), device=card)
+                           for v in vocabs])
+
+
+@pytest.mark.gpu
+def test_bag_backward_keys_are_the_plain_sort(card):
+    vocabs = (1000, 37, 5000)
+    tables, idx, _, _ = bag_bwd_case(card, vocabs, 257, 4, 64, 9)
+    keys, pos, total = bag_ops.bwd_keys(bag_ops.prepare_tables(tables), idx)
+    want_keys, want_pos, order = bwd_keys_ref(vocabs, idx)
+    assert total == sum(vocabs)
+    assert keys.dtype == pos.dtype == torch.int32
+    assert torch.equal(keys, want_keys[order])
+    assert torch.equal(pos, want_pos[order])
+
+
+@pytest.mark.gpu
+def test_bag_backward_writes_zeros_over_a_poisoned_allocator(card):
+    vocabs = (4096, 37, 20000)
+    tables, idx, gout, _ = bag_bwd_case(card, vocabs, 257, 4, 64, 11)
+    torch.cuda.synchronize()
+    poison = torch.full((sum(vocabs), 64), float("nan"), device=card)
+    ptr = poison.data_ptr()
+    del poison
+    got = bag_ops.launch_bwd(tables, idx, gout)
+    assert got[0].data_ptr() == ptr        # the freed NaN buffer, reused
+    want = embedding_bags_bwd_ordered(vocabs, idx, gout)
+    assert same_bits(got, want)
+    untouched = [(b == 0).all(1) for b in want]
+    assert sum(int(u.sum()) for u in untouched) > 0
+    for a, u in zip(got, untouched):
+        assert (a[u].view(torch.int32) == 0).all()

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from repro.configs.registry import ARCHS as J_ARCHS
+from repro.dist.ctx import set_dist_mesh as j_set_dist_mesh
 from repro.launch import steps as jsteps
 from repro.launch.mesh import make_host_mesh as j_mesh
 from repro_torch.configs.base import shape
@@ -60,7 +61,10 @@ def jax_leaves(tree):
 @pytest.fixture(scope="module")
 def meshes():
     yield j_mesh(1, 1), make_host_mesh(1, 1, device="cpu")
+    # both packages' build_plan register their mesh: clear both, or a
+    # later gcn forward in this process takes the partitioned branch
     set_dist_mesh(None)
+    j_set_dist_mesh(None)
 
 
 @pytest.mark.parametrize("arch,shape_name", CELLS)
