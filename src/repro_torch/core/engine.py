@@ -49,6 +49,16 @@ under the plan's safe twin until the values are exact again.  Its cycles
 count in the increment's; the device loop's counters and frames include
 it, the traced loop adds no trace row and no frame for it.
 
+On a sharded grid (``self.state`` a ``dist.cca.ShardedState``, placed by
+``dist.cca.shard_state`` or ``restore(shardings=)``: the port's
+counterparts of JAX's ``device_put`` under ``cca_state_shardings``) the
+same drivers run over the tiles: each chunk is ``dist.cca.run_chunk``,
+one tile step a tile a cycle, the counters and planes reduced over the
+ranks on the device and a frame (``dist.cca.snapshot``) taken of the
+whole grid, still one host read a chunk; the loss detector and the ingest
+guard reduce over the owned cells; the repair pass, ``values`` and the
+checkpoint read the leaves they need gathered.
+
 Durable state and recovery (DESIGN §9) are host-side, as in the JAX
 engine: ``checkpoint`` / ``restore`` and ``run_increment(ckpt=)`` write
 and read the JAX engine's checkpoint format; ``run_increment(recover=)``
@@ -64,6 +74,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import time
+import types
 from typing import NamedTuple
 
 import numpy as np
@@ -84,6 +95,26 @@ from repro_torch.obs.flight import render_wedge_report
 # this many consecutive chunks with no executed action and no hop while
 # work is pending => message-dependent deadlock (DESIGN §4.2)
 LIVELOCK_CHUNKS = 8
+
+
+def increment_reset_leaves(cfg: EngineConfig) -> tuple:
+    """The leaves zeroed as an increment starts: the counters and, under
+    their knobs, the per-query relax counters (``qlast`` persists, each
+    slot's absolute settle cycle), the fault counters (the loss detector
+    reconciles each increment on its own) and the telemetry planes (the
+    increment's final frame reconciles with the counters).  The one list
+    of both the whole and the sharded machine."""
+    return (("stat_hops", "stat_exec", "stat_stall", "stat_allocs")
+            + (("qchg",) if cfg.qbatch > 1 else ())
+            + (("flt",) if cfg.faults is not None else ())
+            + (("tm_cell", "tm_lane", "tm_hiw") if cfg.telemetry else ()))
+
+
+def _cca():
+    """``repro_torch.dist.cca``, the sharded machine (it imports this
+    module)."""
+    from repro_torch.dist import cca
+    return cca
 
 
 class CycleStats(NamedTuple):
@@ -295,10 +326,74 @@ class StreamingEngine:
         """Host-write a value into every rhizome root of ``vid`` (e.g. the
         BFS source gets level 0 before the stream), so the co-equal roots
         start value-synced."""
-        r, c, s = (torch.as_tensor(a, device=self.device) for a in
-                   rhizome_rcs(self.cfg, vid,
-                               np.arange(self.cfg.rhizome_cap)))
+        r, c, s = rhizome_rcs(self.cfg, vid, np.arange(self.cfg.rhizome_cap))
+        if self._sharded:
+            _cca().write_cells(self.state, "vals", r, c, (s, val_idx), value)
+            return
+        r, c, s = (torch.as_tensor(a, device=self.device) for a in (r, c, s))
         self.state.vals[r, c, s, val_idx] = value
+
+    # -- the state, whole or sharded over a mesh's tiles --
+
+    @property
+    def _sharded(self) -> bool:
+        return not isinstance(self.state, MachineState)
+
+    @property
+    def _device(self) -> torch.device:
+        """The state's device (a sharded state's: its tiles')."""
+        return self.state.device if self._sharded else self.device
+
+    def _leaves(self, *names):
+        """The named leaves of the whole machine (gathered from the owned
+        cells of a sharded state), as attributes."""
+        if self._sharded:
+            return types.SimpleNamespace(**{
+                k: _cca().gather_leaf(self.state, k) for k in names})
+        return types.SimpleNamespace(**{k: getattr(self.state, k)
+                                        for k in names})
+
+    def _over_cells(self, name: str, fn, op: str = "sum") -> torch.Tensor:
+        """``fn`` of the per-cell leaf ``name``: of the whole leaf, or of
+        each tile's owned cells reduced (``op``: ``"sum"`` or ``"max"``)
+        over the tiles and ranks, on the device."""
+        if self._sharded:
+            cca = _cca()
+            return cca.reduce_tiles(self.state, lambda t, g: fn(
+                cca.owned_cells(t, g, name)), op)
+        return fn(getattr(self.state, name))
+
+    def _whole(self) -> MachineState:
+        """The whole machine state (gathered, where sharded)."""
+        return (_cca().gather_state(self.state) if self._sharded
+                else self.state)
+
+    def _load(self, cfg: EngineConfig, edges, limit=None):
+        """``load_stream`` into the state; returns the spill."""
+        if self._sharded:
+            return _cca().load_stream(cfg, self.state, edges, limit)
+        self.state, spill = load_stream(cfg, self.state, edges, limit=limit)
+        return spill
+
+    def _chunk(self, cfg: EngineConfig, st, trace=None):
+        """One chunk (``run_chunk``, or ``dist.cca.run_chunk`` over the
+        tiles): ``(state, int32 [quiescent, cycles run])``."""
+        if self._sharded:
+            return _cca().run_chunk(cfg, self.app, st, trace=trace)
+        from repro_torch.kernels.cca_cycle.ops import cca_cycle_chunk
+        return cca_cycle_chunk(cfg, self.app, st, trace=trace)
+
+    def _counters(self, st) -> torch.Tensor:
+        """int32 ``[cycle, hops, execs, stalls, allocs]`` on the device."""
+        if self._sharded:
+            return _cca().counters(st)
+        return torch.stack([st.cycle, st.stat_hops, st.stat_exec,
+                            st.stat_stall, st.stat_allocs])
+
+    def _snapshot(self, cfg: EngineConfig, st, quiet=None) -> torch.Tensor:
+        if self._sharded:
+            return _cca().snapshot(cfg, st, quiet)
+        return obs_frames.snapshot(cfg, st, quiet)
 
     def run_increment(self, edges: np.ndarray, max_cycles: int | None = None,
                       collect_traces: bool = False, recover=None,
@@ -333,9 +428,11 @@ class StreamingEngine:
         from repro_torch.resilience.recover import (boundary_snapshot,
                                                     migrate_state)
         base_cfg = self.cfg
+        mesh = self.state.mesh if self._sharded else None
         # the boundary is the recovery point: quiescent, so migrate_state
-        # can re-seat it under an escalated config
-        snapshot = boundary_snapshot(self.state)
+        # can re-seat it under an escalated config (a sharded state's
+        # boundary gathered, and sharded again after the migration)
+        snapshot = boundary_snapshot(self._whole())
         for attempt in range(recover.max_attempts + 1):
             try:
                 return self._run_increment(edges, max_cycles, collect_traces)
@@ -363,34 +460,16 @@ class StreamingEngine:
                     time.sleep(delay)
                 self.cfg = new_cfg
                 self.state = migrate_state(new_cfg, self.app, snapshot)
+                if mesh is not None:
+                    self.state = _cca().shard_state(new_cfg, self.state,
+                                                    mesh)
                 self._ingest_budget = None  # re-learn under the new sizing
 
     def _run_increment(self, edges, max_cycles, collect_traces):
         cfg = self.cfg
         limit = max_cycles or cfg.max_cycles
-        self.state, spill = load_stream(cfg, self.state, edges,
-                                        limit=self._ingest_limit())
-        zero = torch.zeros((), dtype=torch.int32, device=self.device)
-        self.state = self.state._replace(
-            stat_hops=zero.clone(), stat_exec=zero.clone(),
-            stat_stall=zero.clone(), stat_allocs=zero.clone())
-        if cfg.qbatch > 1:
-            # the per-query relax counters count this increment's activity;
-            # qlast persists, each slot's absolute settle cycle
-            self.state = self.state._replace(
-                qchg=torch.zeros_like(self.state.qchg))
-        if cfg.faults is not None:
-            # the fault counters reset with the counters: the loss
-            # detector reconciles each increment on its own
-            self.state = self.state._replace(
-                flt=torch.zeros_like(self.state.flt))
-        if cfg.telemetry:
-            # the planes reset with the counters, so the increment's final
-            # frame reconciles with them
-            self.state = self.state._replace(
-                tm_cell=torch.zeros_like(self.state.tm_cell),
-                tm_lane=torch.zeros_like(self.state.tm_lane),
-                tm_hiw=torch.zeros_like(self.state.tm_hiw))
+        spill = self._load(cfg, edges, self._ingest_limit())
+        self._reset_increment(cfg)
         if collect_traces:
             cycles, spill, traces, frames = self._run_traced(cfg, spill,
                                                              limit)
@@ -412,9 +491,7 @@ class StreamingEngine:
             if not collect_traces and rings:
                 frames = obs_frames.FrameLog.from_rings(rings)
         if collect_traces or cfg.faults is not None:
-            counters = tuple(torch.stack(
-                [self.state.stat_hops, self.state.stat_exec,
-                 self.state.stat_stall, self.state.stat_allocs]).tolist())
+            counters = tuple(self._counters(self.state)[1:].tolist())
         if cfg.ingest_guard:
             # learn the next increment's admission budget from this one's
             # action-queue hi-water marks
@@ -425,6 +502,16 @@ class StreamingEngine:
         for k, v in zip(("hops", "execs", "stalls", "allocs"), counters):
             self.totals[k] += v
         return res
+
+    def _reset_increment(self, cfg: EngineConfig) -> None:
+        """``increment_reset_leaves(cfg)`` zeroed (on every tile, where
+        sharded)."""
+        if self._sharded:
+            _cca().reset_increment(cfg, self.state)
+            return
+        self.state = self.state._replace(**{
+            k: torch.zeros_like(getattr(self.state, k))
+            for k in increment_reset_leaves(cfg)})
 
     # -- the ingest guard: tm_hiw-gated admission (DESIGN §9) --
 
@@ -441,7 +528,8 @@ class StreamingEngine:
         cfg = self.cfg
         ceiling = cfg.queue_cap - cfg.aq_reserve - cfg.sys_reserve
         cap = cfg.io_cells * cfg.io_stream_cap
-        hiw = int(self.state.tm_hiw[..., TM_HW_AQ].max())
+        hiw = int(self._over_cells("tm_hiw", lambda t: t[..., TM_HW_AQ]
+                                   .max(), "max"))
         cur = cap if self._ingest_budget is None else self._ingest_budget
         if hiw >= ceiling:
             cur = max(cfg.io_cells, cur // 2)
@@ -456,7 +544,9 @@ class StreamingEngine:
         """Publish every state leaf, the stream cursor and the config
         fingerprint through ``ckpt`` (a
         :class:`repro_torch.train.Checkpointer`) at step ``step`` (default
-        ``stream_pos``).  Sound only at an increment boundary, where
+        ``stream_pos``); a sharded state's whole grid, gathered (every
+        process of a mesh gathers, the one holding rank 0 writes).  Sound
+        only at an increment boundary, where
         ``run_increment(ckpt=...)`` calls it.  ``block=False`` copies the
         state to host memory and writes on the writer thread.  The files
         are the JAX engine's: it restores them (strictly under its
@@ -464,25 +554,49 @@ class StreamingEngine:
         from repro_torch.resilience.checkpoint import stream_manifest
         step = self.stream_pos if step is None else step
         save = ckpt.save if block else ckpt.save_async
-        save(step, self.state._asdict(), extra=stream_manifest(self))
+        state = self._whole()
+        if self._sharded and 0 not in self.state.ranks:
+            return step        # one process of a mesh writes: rank 0's
+        save(step, state._asdict(), extra=stream_manifest(self))
         return step
 
     @classmethod
     def restore(cls, cfg: EngineConfig, app: str | DiffusionApp, ckpt,
-                step: int | None = None, strict: bool = True,
+                step: int | None = None, shardings=None, strict: bool = True,
                 verify: bool = True, device=None) -> "StreamingEngine":
         """An engine rebuilt from a boundary checkpoint on ``device``
         (``None``: the card): replaying the rest of the stream from its
         ``stream_pos`` reproduces the uninterrupted run bit-exactly.
-        ``strict`` refuses a checkpoint saved under another config or app;
-        it accepts one written by the JAX engine under either of its
-        backends (both run one state layout bit-exactly).  Every leaf
-        must have the dtype and shape ``init_state`` gives ``cfg``."""
+        ``shardings`` ``(mesh, specs)``, the specs
+        ``dist.sharding.cca_state_shardings(mesh, ...)`` gives (a spec
+        names no mesh, so the pair does), restores the state sharded over
+        ``mesh`` (``dist.cca.shard_state``) on its transport's device:
+        JAX's ``restore(shardings=)``.  ``strict`` refuses a checkpoint
+        saved under another config or app; it accepts one written by the
+        JAX engine under either of its backends (both run one state
+        layout bit-exactly).  Every leaf must have the dtype and shape
+        ``init_state`` gives ``cfg``."""
         from repro_torch.resilience.checkpoint import (JAX_BACKENDS,
                                                        config_fingerprint)
+        mesh = None
+        if shardings is not None:
+            from repro_torch.dist.sharding import cca_state_shardings
+            if not (isinstance(shardings, tuple) and len(shardings) == 2):
+                raise TypeError("shardings must be (mesh, "
+                                "cca_state_shardings(mesh, state))")
+            mesh, specs = shardings
+            if device is not None and torch.device(device) \
+                    != mesh.transport.device:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.transport.device}")
+            device = mesh.transport.device
         eng = cls(cfg, app, device=device)
-        like = init_state(eng.cfg, device="meta")._asdict()
-        tree, extra, step = ckpt.restore(like, step=step, verify=verify)
+        like = init_state(eng.cfg, device="meta")
+        if mesh is not None and specs != cca_state_shardings(mesh, like):
+            raise ValueError("shardings: the sharded engine lays the state "
+                             "out by cca_state_shardings' specs only")
+        tree, extra, step = ckpt.restore(like._asdict(), step=step,
+                                         verify=verify)
         if strict:
             fps = [config_fingerprint(eng.cfg, b) for b in JAX_BACKENDS]
             if extra.get("config") not in fps:
@@ -497,6 +611,8 @@ class StreamingEngine:
                     f"checkpoint app '{extra.get('app')}' != engine app "
                     f"'{eng.app.name}'")
         eng.state = state_from_numpy(eng.cfg, tree, device=eng.device)
+        if mesh is not None:
+            eng.state = _cca().shard_state(eng.cfg, eng.state, mesh)
         eng.stream_pos = int(extra.get("stream_pos", step))
         eng.total_cycles = int(extra.get("total_cycles", 0))
         eng.totals.update({k: int(v) for k, v in
@@ -524,8 +640,7 @@ class StreamingEngine:
                 # consumed at quiescence, so reload the rest
                 if cfg.ingest_guard:
                     self._update_ingest_budget()
-                self.state, spill = load_stream(cfg, self.state, spill,
-                                                limit=self._ingest_limit())
+                spill = self._load(cfg, spill, self._ingest_limit())
                 continue
             return cycles, q, noprog, counters, spill
 
@@ -538,12 +653,15 @@ class StreamingEngine:
         the corrupted, a count that does not read the injection's own
         bookkeeping."""
         from repro_torch.resilience.faults import FLT_CORRUPT, FLT_DROP
-        flt = self.state.flt.tolist()
+        st = self.state
+        flt = (_cca().reduce_tiles(st, lambda t, g: t.flt) if self._sharded
+               else st.flt).tolist()
         lost = flt[FLT_DROP] + flt[FLT_CORRUPT]
         if self.cfg.telemetry:
-            gap = int(self.state.stat_hops
-                      - self.state.tm_cell[..., TM_HOP].sum())
-            lost = max(lost, gap + flt[FLT_CORRUPT])
+            arrived = self._over_cells("tm_cell", lambda t: t[..., TM_HOP]
+                                       .sum(dtype=torch.int32))
+            hops = self._counters(st)[1]
+            lost = max(lost, int(hops - arrived) + flt[FLT_CORRUPT])
         return lost
 
     def _repair_entries(self) -> np.ndarray:
@@ -557,8 +675,9 @@ class StreamingEngine:
         one fault-free round."""
         cfg, app = self.cfg, self.app
         r, c, s = _roots(cfg, cfg.n_vertices)                  # [R, n]
-        vals = self.state.vals[..., 0].cpu().numpy()[r, c, s]
-        on = self.state.rhz_on.cpu().numpy()[r, c, s]
+        st = self._leaves("vals", "rhz_on")
+        vals = st.vals[..., 0].cpu().numpy()[r, c, s]
+        on = st.rhz_on.cpu().numpy()[r, c, s]
         on[0, :] = True                # the canonical root is always live
         v = functools.reduce(app.combine, vals)                  # [n]
         tgt = on & (v != np.float32(app.init_val))[None, :]
@@ -586,7 +705,7 @@ class StreamingEngine:
             entries = self._repair_entries()
             if not len(entries):
                 break                  # nothing durable to re-diffuse
-            self.state, spill = load_stream(cfg, self.state, entries)
+            spill = self._load(cfg, entries)
             cycles, q, noprog, _, spill = self._passes(
                 safe_cfg, spill, limit, rings, cycles)
             if not q and noprog >= LIVELOCK_CHUNKS:
@@ -618,14 +737,13 @@ class StreamingEngine:
         also a turn that launches nothing because the last chunk ended on
         quiescence (JAX's frozen chunk).  Returns ``(cycles, spill,
         (active, in_flight), frames or None)``."""
-        from repro_torch.kernels.cca_cycle.ops import cca_cycle_chunk
         trace = torch.empty((cfg.chunk, 2), dtype=torch.int32,
-                            device=self.device)
+                            device=self._device)
         ring = None
         if cfg.telemetry:
             ring = obs_frames.ring_store(
-                obs_frames.init_ring(cfg, self.device),
-                obs_frames.snapshot(cfg, self.state))
+                obs_frames.init_ring(cfg, self._device),
+                self._snapshot(cfg, self.state))
         rows = []
         cycles, last, noprog, quiet, qr = 0, 0, 0, False, None
         while cycles < limit:
@@ -633,21 +751,20 @@ class StreamingEngine:
             if not quiet:
                 # (a state quiescent at the end of a full chunk runs no
                 # cycle in the next: JAX's chunk freezes at once)
-                st, qr = cca_cycle_chunk(cfg, self.app, self.state,
-                                         trace=trace)
-                self.state = st
+                self.state, qr = self._chunk(cfg, self.state, trace)
             if ring is not None:
                 ring = obs_frames.ring_store(
-                    ring, obs_frames.snapshot(cfg, self.state, qr[0]))
+                    ring, self._snapshot(cfg, self.state, qr[0]))
             if not quiet:
-                buf = torch.cat([qr, (st.stat_exec + st.stat_hops)[None],
+                c = self._counters(self.state)
+                buf = torch.cat([qr, (c[2] + c[1])[None],
                                  trace.view(-1)]).cpu().numpy()
                 quiet, ran, prog = bool(buf[0]), int(buf[1]), int(buf[2])
                 rows.append(buf[3:3 + 2 * ran].reshape(ran, 2))
             cycles += ran
             if ran < cfg.chunk:          # quiescent within this chunk
                 if len(spill):
-                    self.state, spill = load_stream(cfg, self.state, spill)
+                    spill = self._load(cfg, spill)
                     quiet = False
                     continue
                 break
@@ -675,25 +792,21 @@ class StreamingEngine:
         the end.  Returns ``(cycles run, quiescent, no-progress chunks,
         (hops, execs, stalls, allocs))``; the counters are
         increment-cumulative."""
-        from repro_torch.kernels.cca_cycle.ops import cca_cycle_chunk
         st = self.state
         ring = None
         if cfg.telemetry:
             ring = obs_frames.ring_store(
-                obs_frames.init_ring(cfg, st.aq.device),
-                obs_frames.snapshot(cfg, st))
-        start, hops, execs, stalls, allocs = torch.stack(
-            [st.cycle, st.stat_hops, st.stat_exec, st.stat_stall,
-             st.stat_allocs]).tolist()
+                obs_frames.init_ring(cfg, self._device),
+                self._snapshot(cfg, st))
+        start, hops, execs, stalls, allocs = self._counters(st).tolist()
         cycle, last, noprog, q = start, hops + execs, 0, None
         while cycle - start < limit and noprog < LIVELOCK_CHUNKS:
-            st, qr = cca_cycle_chunk(cfg, self.app, st)
+            st, qr = self._chunk(cfg, st)
             if ring is not None:
                 stored = obs_frames.ring_store(
-                    ring, obs_frames.snapshot(cfg, st, qr[0]))
+                    ring, self._snapshot(cfg, st, qr[0]))
             cycle, hops, execs, stalls, allocs, q, ran = torch.cat(
-                [torch.stack([st.cycle, st.stat_hops, st.stat_exec,
-                              st.stat_stall, st.stat_allocs]), qr]).tolist()
+                [self._counters(st), qr]).tolist()
             # a state quiescent on entry runs no cycle, and JAX's loop no
             # chunk: its frame is not counted (its slot was still free)
             if ring is not None and ran:
@@ -703,7 +816,8 @@ class StreamingEngine:
             if q:
                 break
         if q is None:
-            q = bool(quiescent(st))
+            q = bool(_cca().quiescent(st) if self._sharded
+                     else quiescent(st))
         self.state = st
         if ring is not None:
             rings.append(ring.host())
@@ -717,14 +831,15 @@ class StreamingEngine:
         query-batched composite passes the combine of the query living in
         ``val_idx``)."""
         r, c, s = _roots(self.cfg, n or self.cfg.n_vertices)
-        v = self.state.vals[..., val_idx].cpu().numpy()[r, c, s]
+        v = self._leaves("vals").vals[..., val_idx].cpu().numpy()[r, c, s]
         return functools.reduce(combine or self.app.combine, v)
 
     def vertex_object_stats(self) -> dict:
         """Ghost usage and locality of the hierarchical vertex objects,
         and at ``rhizome_cap > 1`` the rhizome fan-out and the spread of
         the active co-equal roots over the mesh."""
-        cfg, st = self.cfg, self.state
+        cfg = self.cfg
+        st = self._leaves("gstate", "gaddr", "nfree", "rhz_on")
         gs = st.gstate.cpu().numpy()
         ga = st.gaddr.cpu().numpy()
         used = int(np.sum(st.nfree.cpu().numpy() - cfg.primary_slots))

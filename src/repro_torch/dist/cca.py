@@ -33,19 +33,27 @@ ranks reduce it into ``gquiet`` on the device, and the next tile step
 freezes on that flag (a tile quiescent alone does not), with no host read
 a cycle.
 
+Knobs.  Every knob of the unsharded machine runs on the tiles: the
+telemetry planes are per-cell leaves, tiled like the others (their halo
+cells count what nobody reads); a fault plan's decisions are a pure
+function of the global link and the cycle, so a halo sender decides as
+its owner does; the query counters are sums and a maximum as above.  A
+traced chunk gives each tile a row of its owned cells' ``(active,
+in_flight)`` a cycle, summed over the tiles and the ranks on the device
+(:func:`run_chunk`), and :func:`snapshot` takes the telemetry frame of the
+whole grid from the owned cells.
+
 The ``[IO]`` leaves depart from the rule (which would row-shard them over
 the data group, ``(dp, ...)``): ``io_edges`` is read-only within a chunk
 and large (768 MiB at the paper config), so each process keeps one whole
 copy (the tiles of ``LocalTiles`` share it), never exchanged; each IO cell
 advances its cursor ``io_pos[i]`` in the tile that owns grid cell ``(0,
 i)``, and only there is that entry current.
-
-Not carried yet (``NotImplementedError``): telemetry, faults and query
-batching (``qbatch > 1``), and traces.
 """
 from __future__ import annotations
 
 import math
+import types
 from typing import NamedTuple
 
 import numpy as np
@@ -53,13 +61,14 @@ import torch
 
 from repro_torch.core.apps import DiffusionApp
 from repro_torch.core.config import EngineConfig
-from repro_torch.core.engine import LIVELOCK_CHUNKS
+from repro_torch.core.engine import LIVELOCK_CHUNKS, increment_reset_leaves
 from repro_torch.core.engine import quiescent as tile_quiescent
 from repro_torch.core.ingest import _io_cells
 from repro_torch.core.ingest import load_stream as _load_stream
 from repro_torch.core.state import MachineState, Tile, init_state
 from repro_torch.dist.ctx import dp_axes_active, model_size
 from repro_torch.kernels.cca_cycle import ops
+from repro_torch.obs import frames as obs_frames
 
 HALO = 2   # the hop stage's reach in one cycle, in cells
 # what the hop stage reads of another cell
@@ -68,19 +77,6 @@ IO_LEAVES = ("io_edges", "io_n", "io_pos")
 SUM_LEAVES = ("stat_hops", "stat_exec", "stat_stall", "stat_allocs", "flt",
               "qchg")
 COUNTERS = ("cycle", "stat_hops", "stat_exec", "stat_stall", "stat_allocs")
-
-
-def check_config(cfg: EngineConfig) -> None:
-    """Raise ``NotImplementedError`` for what the sharded engine does not
-    carry yet."""
-    cfg.validate()
-    for name, on in (("telemetry", cfg.telemetry),
-                     ("faults", cfg.faults is not None),
-                     ("qbatch > 1", cfg.qbatch > 1)):
-        if on:
-            raise NotImplementedError(
-                f"the sharded engine does not carry {name} yet (ROADMAP "
-                "queue 1 item 7)")
 
 
 class Grid(NamedTuple):
@@ -247,9 +243,10 @@ class ShardedState:
     per-cell leaves ``[hp, wp, ...]`` (``grid.shape``) at ``geoms[k]``;
     the ``HOP_LEAVES`` of all of them are views into one int32 buffer
     ``hop``, exchanged by ``plan``.  ``recs[k]`` is tile ``k``'s last
-    launch record and ``gquiet`` (int32 ``[]``) the grid's quiescence,
-    reduced over the ranks after every cycle.  Tensors are updated in
-    place: a tile step's launch arguments stay valid."""
+    launch record, ``trows[k]`` its trace row of a traced cycle, and
+    ``gquiet`` (int32 ``[]``) the grid's quiescence, reduced over the
+    ranks after every cycle.  Tensors are updated in place: a tile step's
+    launch arguments stay valid."""
 
     def __init__(self, cfg, mesh, grid, ranks, tiles, hop, plan, device):
         self.cfg, self.mesh, self.grid = cfg, mesh, grid
@@ -260,6 +257,8 @@ class ShardedState:
         self.hop, self.plan, self.device = hop, plan, device
         self.recs = torch.zeros((len(ranks), 8), dtype=torch.int32,
                                 device=device)
+        self.trows = torch.zeros((len(ranks), 1, 2), dtype=torch.int32,
+                                 device=device)
         self.gquiet = torch.zeros((), dtype=torch.int32, device=device)
         self._steps = {}
 
@@ -290,14 +289,14 @@ class ShardedState:
         self.tiles[k] = new._replace(**{n: getattr(old, n) for n in
                                         HOP_LEAVES + IO_LEAVES})
 
-    def steps(self, cfg, app, path, n_ctas) -> list:
+    def steps(self, cfg, app, path, n_ctas, traced: bool) -> list:
         """The tiles' ``ops.TileStep`` launchers (on the card), made once
-        a config, app and route."""
-        key = (cfg, app.code, app.name, path, n_ctas)
+        a config, app, route and trace."""
+        key = (cfg, app.code, app.name, path, n_ctas, traced)
         if key not in self._steps:
             self._steps[key] = [
                 ops.TileStep(cfg, app, st, g, self.gquiet, self.recs[k],
-                             path, n_ctas)
+                             path, n_ctas, self.trows[k] if traced else None)
                 for k, (st, g) in enumerate(zip(self.tiles, self.geoms))]
         return self._steps[key]
 
@@ -306,8 +305,10 @@ def shard_state(cfg: EngineConfig, st: MachineState, mesh) -> ShardedState:
     """This process's tiles of the global state ``st`` on ``mesh`` (its
     transport's device), laid out by :func:`cca_state_shardings`' rule
     with halos, the ``[IO]`` leaves whole (see the module's docstring),
-    rank 0's counters the state's and the others' zero."""
-    check_config(cfg)
+    rank 0's counters the state's and the others' zero.  Raises
+    ``ValueError`` for a state whose leaves are not ``cfg``'s."""
+    cfg.validate()
+    ops._check(cfg, st)
     if mesh.transport is None:
         raise ValueError("shard_state needs a mesh with a transport")
     grid = Grid.of(cfg, mesh)     # the rule's divisibility, or ValueError
@@ -331,7 +332,7 @@ def shard_state(cfg: EngineConfig, st: MachineState, mesh) -> ShardedState:
             off += hp * wp * n
         gi0, gi1 = max(t.r0, 0), min(t.r0 + hp, grid.H)
         gj0, gj1 = max(t.c0, 0), min(t.c0 + wp, grid.W)
-        for name in ops.PER_CELL_LEAVES:
+        for name in ops.cell_leaves(cfg):
             src = getattr(st, name)
             out = views.get(name)
             if out is None:
@@ -369,37 +370,70 @@ def _io_pos(sst: ShardedState) -> torch.Tensor:
     return sst.transport.all_sum(mine[None])
 
 
+def owned_cells(st: MachineState, g: Tile, name: str) -> torch.Tensor:
+    """The owned cells of a tile's per-cell leaf ``name``."""
+    return getattr(st, name)[g.or0:g.or1, g.oc0:g.oc1]
+
+
+def gather_leaf(sst: ShardedState, name: str) -> torch.Tensor:
+    """The whole grid's per-cell leaf ``name``, on every process, from
+    every rank's owned cells."""
+    grid = sst.grid
+    blocks = []
+    for st, g in zip(sst.tiles, sst.geoms):
+        b = owned_cells(st, g, name)
+        blocks.append(b.to(torch.uint8) if b.dtype == torch.bool
+                      else b.contiguous())
+    blocks = sst.transport.all_gather(blocks)
+    rows = [torch.cat(blocks[r * grid.cols:(r + 1) * grid.cols], dim=1)
+            for r in range(grid.rows)]
+    full = torch.cat(rows, dim=0)
+    return full.bool() if getattr(sst.tiles[0], name).dtype == torch.bool \
+        else full
+
+
+def reduce_tiles(sst: ShardedState, fn, op: str = "sum") -> torch.Tensor:
+    """``fn(tile state, its Tile)`` of every tile, summed (``op="sum"``)
+    or the maximum (``"max"``) over every rank, on the device."""
+    vals = torch.stack([fn(st, g) for st, g in zip(sst.tiles, sst.geoms)])
+    return (sst.transport.all_sum if op == "sum"
+            else sst.transport.all_max)(vals)
+
+
 def gather_state(sst: ShardedState) -> MachineState:
     """The global state, on every process, from every rank's owned cells
     (the counters summed, ``qlast`` the maximum)."""
-    grid, tr = sst.grid, sst.transport
-    leaves = {}
-    for name in ops.PER_CELL_LEAVES:
-        blocks = []
-        for st, g in zip(sst.tiles, sst.geoms):
-            b = getattr(st, name)[g.or0:g.or1, g.oc0:g.oc1]
-            blocks.append(b.to(torch.uint8) if b.dtype == torch.bool
-                          else b.contiguous())
-        blocks = tr.all_gather(blocks)
-        rows = [torch.cat(blocks[r * grid.cols:(r + 1) * grid.cols], dim=1)
-                for r in range(grid.rows)]
-        full = torch.cat(rows, dim=0)
-        leaves[name] = (full.bool() if getattr(sst.tiles[0], name).dtype
-                        == torch.bool else full)
+    leaves = {name: gather_leaf(sst, name)
+              for name in ops.cell_leaves(sst.cfg)}
     t0 = sst.tiles[0]
     leaves.update(io_edges=t0.io_edges.clone(), io_n=t0.io_n.clone(),
                   io_pos=_io_pos(sst))
     for name in MachineState._fields:
         if name in leaves:
             continue
-        vals = torch.stack([getattr(st, name) for st in sst.tiles])
         if name in SUM_LEAVES:
-            leaves[name] = tr.all_sum(vals)
+            leaves[name] = reduce_tiles(sst, lambda st, g: getattr(st, name))
         elif name == "qlast":
-            leaves[name] = tr.all_max(vals)
+            leaves[name] = reduce_tiles(sst, lambda st, g: st.qlast, "max")
         else:
             leaves[name] = getattr(t0, name).clone()
     return MachineState(**leaves)
+
+
+def write_cells(sst: ShardedState, name: str, rows, cols, index: tuple,
+                value) -> None:
+    """``leaf[rows, cols, *index] = value`` of the global per-cell leaf
+    ``name`` (``rows``, ``cols``: global cell coordinates, numpy), written
+    in the tiles that own those cells."""
+    rows, cols = np.asarray(rows).reshape(-1), np.asarray(cols).reshape(-1)
+    index = [np.broadcast_to(np.asarray(i), rows.shape) for i in index]
+    for st, g in zip(sst.tiles, sst.geoms):
+        r, c = rows - g.r0, cols - g.c0
+        mine = (r >= g.or0) & (r < g.or1) & (c >= g.oc0) & (c < g.oc1)
+        if mine.any():
+            at = tuple(torch.as_tensor(a[mine], device=sst.device)
+                       for a in (r, c, *index))
+            getattr(st, name)[at] = value
 
 
 def quiescent(sst: ShardedState) -> torch.Tensor:
@@ -444,28 +478,67 @@ def reset_counters(sst: ShardedState) -> None:
             getattr(st, k).zero_()
 
 
+def reset_increment(cfg: EngineConfig, sst: ShardedState) -> None:
+    """The leaves an increment starts from zero
+    (``core.engine.increment_reset_leaves``), zeroed on every tile."""
+    names = increment_reset_leaves(cfg)
+    for st in sst.tiles:
+        for k in names:
+            getattr(st, k).zero_()
+
+
+def snapshot(cfg: EngineConfig, sst: ShardedState,
+             quiet: torch.Tensor | None = None) -> torch.Tensor:
+    """``obs.frames.snapshot`` of the sharded machine, on the device: the
+    whole grid's planes from the owned cells, the counters summed, and
+    the grid's quiescence (``quiet``, else ``gquiet``)."""
+    c = counters(sst)
+    whole = types.SimpleNamespace(
+        cycle=c[0], stat_hops=c[1], stat_exec=c[2], stat_stall=c[3],
+        stat_allocs=c[4], **{k: gather_leaf(sst, k) for k in (
+            "aq_n", "pk_n", "ch_n")},
+        **{k: gather_leaf(sst, k) if cfg.telemetry
+           else getattr(sst.tiles[0], k) for k in ops.TM_PLANES})
+    return obs_frames.snapshot(cfg, whole,
+                               sst.gquiet if quiet is None else quiet)
+
+
 def run_chunk(cfg: EngineConfig, app: DiffusionApp, sst: ShardedState,
               n_cycles: int | None = None, path: str = "auto",
-              n_ctas: int | None = None):
+              n_ctas: int | None = None, trace: torch.Tensor | None = None):
     """``n_cycles`` (default ``cfg.chunk``) cycles of the sharded machine,
     frozen once the grid is quiescent: each cycle every local tile's step
     (the cycle kernel's tile instance on the card, ``ref.tile_step_ref``
     on the CPU), the quiescence flag reduced over the ranks and the halo
-    exchanged, all on the device.  Returns ``(sst, int32 [quiescent at
-    end, cycles run])`` on the device, as ``core.engine.run_chunk``."""
-    check_config(cfg)
+    exchanged, all on the device.  ``trace``, an int32 ``[n_cycles, 2]``
+    tensor on the tiles' device, gets each cycle's ``(active, in_flight)``
+    row of the whole grid (rows ``0 .. cycles run - 1``), the tiles' rows
+    summed over the ranks.  Returns ``(sst, int32 [quiescent at end,
+    cycles run])`` on the device, as ``core.engine.run_chunk``."""
+    cfg.validate()
     n = cfg.chunk if n_cycles is None else int(n_cycles)
+    dev = sst.tiles[0].aq.device
+    if trace is not None and (
+            trace.device != dev or trace.dtype != torch.int32
+            or tuple(trace.shape) != (n, 2) or not trace.is_contiguous()):
+        raise ValueError(f"trace is {trace.dtype}{list(trace.shape)} on "
+                         f"{trace.device}; a chunk needs a contiguous "
+                         f"torch.int32[{n}, 2] on {dev}")
     c0 = sst.tiles[0].cycle.clone()
+    traced = trace is not None
     card = sst.device.type == "cuda"
-    steps = sst.steps(cfg, app, path, n_ctas) if card else None
-    for _ in range(n):
+    steps = sst.steps(cfg, app, path, n_ctas, traced) if card else None
+    for t in range(n):
         for k, (st, g) in enumerate(zip(sst.tiles, sst.geoms)):
             if card:
                 steps[k]()
             else:
-                sst.bind(k, ops.cca_tile_step(cfg, app, st, g, sst.gquiet,
-                                              sst.recs[k], path, n_ctas))
+                sst.bind(k, ops.cca_tile_step(
+                    cfg, app, st, g, sst.gquiet, sst.recs[k], path, n_ctas,
+                    sst.trows[k] if traced else None))
         sst.reduce_quiet()
+        if traced:
+            trace[t] = sst.transport.all_sum(sst.trows)[0]
         sst.exchange()
     return sst, torch.stack([sst.gquiet, sst.tiles[0].cycle - c0])
 

@@ -17,8 +17,9 @@ KERNELS = ("cca_cycle", "spmm", "embedding_bag", "flash_attention")
 
 def build_all():
     """Build every kernel, one nvcc each, all started together; ``(library
-    path, ptxas report)`` in the order of ``KERNELS``."""
+    path, ptxas report)`` in the order of ``KERNELS``, then the cycle
+    kernels' second library, of their tile instances."""
     from repro_torch.kernels import _build
-    return _build.build_all([
-        importlib.import_module(f"repro_torch.kernels.{name}.ops").build
-        for name in KERNELS])
+    ops = [importlib.import_module(f"repro_torch.kernels.{name}.ops")
+           for name in KERNELS]
+    return _build.build_all([o.build for o in ops] + [ops[0].build_tiles])

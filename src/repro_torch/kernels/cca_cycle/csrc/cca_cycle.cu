@@ -133,14 +133,21 @@
 // admission, so a maximum is the reference's last write.
 //
 // Tiles (dist/cca.py, DESIGN §5) are a fourth compile-time parameter
-// (`kTl`; only without telemetry, faults and query batching): one cycle of
-// a tile of a grid sharded over ranks, its arrays the tile's cells and a
-// halo two cells deep, routing, addresses, the allocator and the IO cells
-// in the grid's coordinates (TileGeo), the counters and the quiescence test
-// over its owned cells, the first quiescence test the grid's (a flag the
-// ranks reduce between launches).  Every tile adjustment sits in an `if
+// (`kTl`), with each mix of the other three that the kernels have: one
+// cycle of a tile of a grid sharded over ranks, its arrays the tile's cells
+// and a halo two cells deep, routing, addresses, the allocator, the IO cells
+// and the fault hash in the grid's coordinates (TileGeo), the counters, the
+// fault and query counts, the trace row and the quiescence test over its
+// owned cells, the first quiescence test the grid's (a flag the ranks
+// reduce between launches).  A halo cell runs the hop stage, so that the
+// owned cells receive from it exactly, and counts nothing; its telemetry
+// entries count what nobody reads.  Every tile adjustment sits in an `if
 // constexpr (kTile)` branch beside the code it replaces, so the instances
 // without kTl compile from the same text as before.
+//
+// One library holds the twelve instances without kTl, a second, built from
+// the same text with -DCCA_TILES=1, the twelve tile instances: two nvcc
+// runs side by side build them in half the time one would take.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -148,6 +155,10 @@
 #include <string.h>
 
 namespace cg = cooperative_groups;
+
+#ifndef CCA_TILES
+#define CCA_TILES 0   // this library's instances: 0 the whole grid's, 1 tiles
+#endif
 
 namespace {
 
@@ -671,14 +682,22 @@ __device__ void hop_read(const Dims& D, const Leaves& P, const C& X, int c,
     }
     if constexpr (C::kFaults) {
       if (grant && link_dead(D, P, row, col, d, cyc)) {
-        n.blackout += n_adm;
+        if constexpr (C::kTile) {   // a halo sender counts nothing
+          if (X.owns(D, c)) n.blackout += n_adm;
+        } else {
+          n.blackout += n_adm;
+        }
         grant = 0;
       }
     }
     if (grant) {
       int* box = X.box(d, c);
       copy_rec(X, box, win);
-      if constexpr (C::kFaults) grant |= fault_flags(D, box, 4 * c + d, cyc);
+      if constexpr (C::kFaults) {
+        int link = 4 * c + d;
+        if constexpr (C::kTile) link = 4 * (row * X.GW + col) + d;
+        grant |= fault_flags(D, box, link, cyc);
+      }
     }
   }
   X.granted(d, c) = grant;
@@ -708,7 +727,11 @@ __device__ int hop_write(const Dims& D, const C& X, int c, int d,
     }
     if (flags & GRANT_DROP) {
       hops = 1;   // a departure, never delivered
-      n.drop += 1;
+      if constexpr (C::kTile) {   // a halo receiver counts nothing
+        if (X.owns(D, c)) n.drop += 1;
+      } else {
+        n.drop += 1;
+      }
     } else if (g) {
       int msg[MSGW];
       if constexpr (C::kQb) {
@@ -730,7 +753,13 @@ __device__ int hop_write(const Dims& D, const C& X, int c, int d,
         hops = delivered;
         if (delivered && tb == d) rin = g - 1;
       }
-      if (delivered && (flags & GRANT_DUP)) n.dup += 1;
+      if (delivered && (flags & GRANT_DUP)) {
+        if constexpr (C::kTile) {
+          if (X.owns(D, c)) n.dup += 1;
+        } else {
+          n.dup += 1;
+        }
+      }
     }
   }
   int g = X.granted(d, c);
@@ -780,6 +809,8 @@ __device__ void park(const Dims& D, const Leaves& P, const C& X, int c) {
     const int* hp = ring + fmod_(h, D.PK) * W;
     copy_msg(head, hp);
     int tb = yx_tb(D, fdiv(head[1], D.S), c / D.W, c % D.W);
+    if constexpr (C::kTile)
+      tb = yx_tb_w(X.GW, fdiv(head[1], D.S), X.grow(D, c), X.gcol(D, c));
     if (deliver(D, X, c, head, tb, msg_lane(D, head[0], head[1]), false,
                 [hp](int w) { return hp[w]; })) {
       X.pk_n[l] = n - 1;
@@ -933,6 +964,8 @@ __device__ bool staging(const Dims& D, const Leaves& P, const C& X, int c,
       return 0;
     };
     int tb = yx_tb(D, fdiv(emis[1], S), c / D.W, c % D.W);
+    if constexpr (C::kTile)
+      tb = yx_tb_w(X.GW, fdiv(emis[1], S), X.grow(D, c), X.gcol(D, c));
     ok_total = deliver(D, X, c, emis, tb, msg_lane(D, emis[0], emis[1]),
                        X.aq_n[l] < D.Q, ext);
     if (!ok_total && D.L > 1 && tb != TB_AQ && X.pk_n[l] < D.PK) {
@@ -1303,8 +1336,10 @@ __device__ void io(const Dims& D, const Leaves& P, const C& X, int i) {
     const int lc = -X.tr0 * D.W + i - X.tc0;
     int tb = yx_tb_w(X.GW, fdiv(tgt, D.S), 0, i);
     if (deliver(D, X, lc, msg, tb, msg_lane(D, msg[0], msg[1]),
-                X.aq_n[X.l(lc)] < D.Q - D.aq_reserve - D.sys_reserve))
+                X.aq_n[X.l(lc)] < D.Q - D.aq_reserve - D.sys_reserve)) {
       X.io_pos[i] = pos + 1;
+      if constexpr (C::kTelemetry) X.count(lc, TM_IO);
+    }
     return;
   }
   int tb = yx_tb(D, fdiv(tgt, D.S), 0, i);
@@ -1392,13 +1427,13 @@ __device__ __forceinline__ int& qsum_cycle(const C& X) {
 // quiescence test (the one after a launch's last cycle too), and each warp
 // adds its sums into the cycle's trace row: no barrier of its own.
 //
-// The tile instance (kTl) runs at most one cycle (D.n_cycles 1): its first
+// The tile instances (kTl) run at most one cycle (D.n_cycles 1): the first
 // quiescence test is the grid's, the flag the ranks reduced after the last
 // cycle (*gquiet: a tile quiescent alone must not freeze), and the test
 // after the cycle is over the cells it owns, for the ranks to reduce again.
-// It counts, tests and runs the exec stages of its owned cells only; the
-// hop stage runs over every cell of its arrays, so that the owned cells
-// receive from the halo exactly.
+// They count, trace, test and run the exec stages of their owned cells
+// only; the hop stage runs over every cell of the arrays, so that the owned
+// cells receive from the halo exactly.
 template <bool kCluster, bool kTm, bool kFlt, bool kQ, bool kTl>
 __device__ int run_cycles(const Dims& D, const Leaves& P,
                           const Cells<kCluster, kTm, kFlt, kQ, kTl>& X,
@@ -1431,8 +1466,11 @@ __device__ int run_cycles(const Dims& D, const Leaves& P,
     }
     if (P.trace && ran > 0) {
       int in_flight = 0;
-      for (int c = first; c < end; c += nt)
+      for (int c = first; c < end; c += nt) {
+        if constexpr (kTl)
+          if (!X.owns(D, c)) continue;
         in_flight += cell_in_flight(D, X, c);
+      }
       trace_add(P.trace + 2 * (ran - 1) + 1, in_flight);
     }
     clk.stamp(0);
@@ -1642,10 +1680,9 @@ extern "C" int cca_cycle_launch(void* const* ptrs, int n_ptrs,
   if (Q.qb < 1 || Q.qb > MAX_QB || Q.msgw != MSGW + Q.qb - 1 ||
       (D.faults && Q.qb > 1))
     return cudaErrorInvalidValue;
-  // the tile instances run one cycle of the plain machine, against a flag
-  if (Td.tile && (D.telemetry || D.faults || Q.qb > 1 || D.n_cycles > 1 ||
-                  !T.gquiet || P.trace))
-    return ERR_TILE;
+  // the tile instances run one cycle, against the grid's flag
+  if (Td.tile && (D.n_cycles > 1 || !T.gquiet)) return ERR_TILE;
+  if (!Td.tile != !CCA_TILES) return ERR_LIBRARY;
   if (D.n_ctas > 0) {
     int err = cluster_launch(D, P, Td.tile, T, (cudaStream_t)stream);
     if (err) return err;
@@ -1654,15 +1691,15 @@ extern "C" int cca_cycle_launch(void* const* ptrs, int n_ptrs,
   }
   int cells = D.H * D.W;
   int threads = cells < 1024 ? cells : 1024;
+  constexpr bool kTl = CCA_TILES;
   void (*launch)(const Dims&, const Leaves&, const TileGeo<true>&, int,
                  cudaStream_t) =
-      Td.tile ? block_launch<false, false, false, true>
-      : Q.qb > 1 ? (D.telemetry ? block_launch<true, false, true, false>
-                                : block_launch<false, false, true, false>)
-      : D.telemetry ? (D.faults ? block_launch<true, true, false, false>
-                                : block_launch<true, false, false, false>)
-                    : (D.faults ? block_launch<false, true, false, false>
-                                : block_launch<false, false, false, false>);
+      Q.qb > 1 ? (D.telemetry ? block_launch<true, false, true, kTl>
+                              : block_launch<false, false, true, kTl>)
+      : D.telemetry ? (D.faults ? block_launch<true, true, false, kTl>
+                                : block_launch<true, false, false, kTl>)
+                    : (D.faults ? block_launch<false, true, false, kTl>
+                                : block_launch<false, false, false, kTl>);
   launch(D, P, T, threads, (cudaStream_t)stream);
   int err = cudaGetLastError();
   if (!err) *path = 0;

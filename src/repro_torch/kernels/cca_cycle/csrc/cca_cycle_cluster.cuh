@@ -42,10 +42,13 @@ enum {
                         // band lacks the IO cells or outgrows the SM
   ERR_SMEM = -2,        // the wrapper's byte count differs from the layout
   ERR_NO_CLUSTER = -3,  // the card fits no cluster of this geometry
-  ERR_TILE = -4,        // a tile launch with telemetry, faults, query
-                        // batching, a trace, more than one cycle or no flag
+  ERR_TILE = -4,        // a tile launch of more than one cycle, or
+                        // without the grid's quiescence flag
+  ERR_LIBRARY = -5,     // a launch of the mode (tile or whole grid) whose
+                        // instances this library was not built with
 };
 constexpr int CLUSTER_THREADS = 512;   // a CTA's threads at most
+constexpr int N_INSTANCES = 16;        // launch_instance's numbers
 constexpr int SMEM_LIMIT = 232448;     // opt-in shared memory a CTA, sm_90
 
 // A CTA's shared memory: int word offsets of each per-cell leaf (its band's
@@ -126,9 +129,11 @@ inline const char* cluster_error_string(int err) {
       return "cudaOccupancyMaxActiveClusters: the card fits no cluster of "
              "this geometry";
     case ERR_TILE:
-      return "tile launch refused: the tile instances run one cycle without "
-             "telemetry, faults, query batching or a trace, and need the "
-             "grid's quiescence flag";
+      return "tile launch refused: a tile instance runs one cycle, and "
+             "needs the grid's quiescence flag";
+    case ERR_LIBRARY:
+      return "launch refused: this library holds the other mode's "
+             "instances (CCA_TILES: 0 the whole grid's, 1 the tiles')";
   }
   return "unknown cca_cycle error";
 }
@@ -306,28 +311,32 @@ int launch_instance(void (*kernel)(const Dims, const Leaves, A...),
   cfg.attrs = attr;
   cfg.numAttrs = 1;
 
-  // device, n_ctas, threads, bytes, instance
-  static int checked[5] = {-1, 0, 0, 0, 0};
+  // a slot an instance: the device, n_ctas, threads and bytes last checked
+  static int checked[N_INSTANCES][4] = {};
+  static bool seen[N_INSTANCES] = {};
   int dev = 0;
   e = cudaGetDevice(&dev);
   if (e) return e;
-  if (checked[0] != dev || checked[1] != D.n_ctas || checked[2] != threads ||
-      checked[3] != L.bytes || checked[4] != instance) {
+  int* slot = checked[instance];
+  if (!seen[instance] || slot[0] != dev || slot[1] != D.n_ctas ||
+      slot[2] != threads || slot[3] != L.bytes) {
     int clusters = 0;
     e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
     if (e) return e;
     if (clusters < 1) return ERR_NO_CLUSTER;
-    checked[0] = dev; checked[1] = D.n_ctas; checked[2] = threads;
-    checked[3] = L.bytes; checked[4] = instance;
+    slot[0] = dev; slot[1] = D.n_ctas; slot[2] = threads; slot[3] = L.bytes;
+    seen[instance] = true;
   }
   e = cudaLaunchKernelEx(&cfg, kernel, Dv, P, args...);
   if (e) return e;
   return cudaGetLastError();
 }
 
-// Launch the cluster kernel for D's geometry on `stream`: its tile
-// instance where `tile`, else its telemetry instance where D.telemetry,
-// its fault instance where D.faults, its query-batched one where Q > 1.
+// Launch the cluster kernel for D's geometry on `stream`: its telemetry
+// instance where D.telemetry, its fault instance where D.faults, its
+// query-batched one where Q > 1, each in its tile instance where `tile`
+// (a library built with CCA_TILES 1 holds only those, one built without
+// it only the others).
 // Returns 0, a CUDA error code or an ERR_* code; never launches anything
 // else.
 int cluster_launch(const Dims& D, const Leaves& P, int tile,
@@ -336,11 +345,22 @@ int cluster_launch(const Dims& D, const Leaves& P, int tile,
   const ClusterLayout L = layout_of(D, P.q);
   if (L.bytes != D.smem_bytes) return ERR_SMEM;
   // instance: 8 x tile + 4 x query batching + 2 x telemetry + faults
-  if (tile) {
-    void (*tk)(const Dims, const Leaves, TileGeo<true>) =
-        cca_cycle_cluster_kernel<false, false, false, true, TileGeo<true>>;
-    return launch_instance(tk, 8, D, L, stream, D, P, T);
-  }
+  const int instance = 4 * (P.q.qb > 1) + 2 * D.telemetry + D.faults;
+#if CCA_TILES
+  using G = TileGeo<true>;
+  void (*tk)(const Dims, const Leaves, G) =
+      P.q.qb > 1
+          ? (D.telemetry
+                 ? cca_cycle_cluster_kernel<true, false, true, true, G>
+                 : cca_cycle_cluster_kernel<false, false, true, true, G>)
+      : D.telemetry
+          ? (D.faults ? cca_cycle_cluster_kernel<true, true, false, true, G>
+                      : cca_cycle_cluster_kernel<true, false, false, true, G>)
+          : (D.faults
+                 ? cca_cycle_cluster_kernel<false, true, false, true, G>
+                 : cca_cycle_cluster_kernel<false, false, false, true, G>);
+  return launch_instance(tk, 8 + instance, D, L, stream, D, P, T);
+#else
   void (*kernel)(const Dims, const Leaves) =
       P.q.qb > 1
           ? (D.telemetry ? cca_cycle_cluster_kernel<true, false, true, false>
@@ -350,9 +370,8 @@ int cluster_launch(const Dims& D, const Leaves& P, int tile,
                       : cca_cycle_cluster_kernel<true, false, false, false>)
           : (D.faults ? cca_cycle_cluster_kernel<false, true, false, false>
                       : cca_cycle_cluster_kernel<false, false, false, false>);
-  return launch_instance(kernel,
-                         4 * (P.q.qb > 1) + 2 * D.telemetry + D.faults, D, L,
-                         stream, D, P);
+  return launch_instance(kernel, instance, D, L, stream, D, P);
+#endif
 }
 
 }  // namespace

@@ -27,6 +27,11 @@ slot, and the per-query counters ``qchg`` / ``qlast``; the slot apps
 reach the kernel as a table of Q app codes in `struct Dims`, so a new
 mix of tenants is a new table for the next launch.
 
+``TileStep`` and ``cca_tile_step`` run one cycle of a tile of a grid
+sharded over ranks (``repro_torch.dist.cca``): the kernels' tile
+instances, one for each of the knob mixes above (``instance``), each
+counting, testing and tracing its owned cells only.
+
 Two kernels compute the same chunk (``path``):
 
   cluster  the grid in row bands over the CTAs of one thread-block
@@ -42,7 +47,8 @@ fits).  Nothing falls back: a refused launch raises.
 
 The kernels are built with ``nvcc`` for ``sm_90a`` at first use, into
 ``build/<hash of sources and flags>/`` beside this file, and loaded with
-``ctypes`` (``kernels/_build.py``).
+``ctypes`` (``kernels/_build.py``): one library of the whole grid's
+instances (``build``) and one of the tile instances (``build_tiles``).
 """
 from __future__ import annotations
 
@@ -65,6 +71,8 @@ from repro_torch.resilience.faults import fault_key
 HERE = pathlib.Path(__file__).resolve().parent
 SOURCE = HERE / "csrc" / "cca_cycle.cu"
 NVCC_FLAGS = _build.SM90A_FLAGS + ("--fmad=false",)   # bit-exact f32 sums
+# the second library, of the tile instances (built beside the first)
+TILE_FLAGS = NVCC_FLAGS + ("-DCCA_TILES=1",)
 
 PATHS = ("block", "cluster")   # the C entry's path codes 0, 1
 ALLOCATORS = ("vicinity", "random")   # `struct Dims`' allocator codes
@@ -72,7 +80,17 @@ ALLOCATORS = ("vicinity", "random")   # `struct Dims`' allocator codes
 launches = 0   # kernel launches made by cca_cycle_chunk and tile steps
 path_launches = dict.fromkeys(PATHS, 0)   # the same launches by kernel
 query_launches = dict.fromkeys(PATHS, 0)  # those of them at qbatch > 1
-tile_launches = dict.fromkeys(PATHS, 0)   # those of them tile steps
+# those of them tile steps, by kernel and instance ("cluster tl+tm", ...;
+# `instance`); `tile_launches_by_path` sums them by kernel
+tile_launches = {}
+
+def tile_launches_by_path() -> dict:
+    """``tile_launches`` summed by kernel: ``{"block": n, "cluster": n}``."""
+    out = dict.fromkeys(PATHS, 0)
+    for key, n in tile_launches.items():
+        out[key.split()[0]] += n
+    return out
+
 
 # state leaves handed to the kernel, in the order of `struct Leaves`
 KERNEL_LEAVES = (
@@ -97,10 +115,17 @@ SMEM_LIMIT = 232_448      # opt-in shared memory of one CTA on sm_90
 
 
 def build() -> tuple[pathlib.Path, str]:
-    """Compile the kernel library if these sources and flags have not
-    been built yet.  Returns ``(library path, nvcc's -Xptxas -v
-    report)``."""
+    """Compile the kernel library (the instances of the whole grid) if
+    these sources and flags have not been built yet.  Returns ``(library
+    path, nvcc's -Xptxas -v report)``."""
     return _build.build(SOURCE, NVCC_FLAGS)
+
+
+def build_tiles() -> tuple[pathlib.Path, str]:
+    """``build`` of the second library, the same source's tile instances
+    (``-DCCA_TILES=1``): two nvcc runs side by side take half the time one
+    takes over all 24 instances."""
+    return _build.build(SOURCE, TILE_FLAGS)
 
 
 def load(path: pathlib.Path) -> ctypes.CDLL:
@@ -118,8 +143,9 @@ def load(path: pathlib.Path) -> ctypes.CDLL:
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    return load(build()[0])
+def _library(tiles: bool = False) -> ctypes.CDLL:
+    """The library of the whole grid's instances, or of the tiles'."""
+    return load((build_tiles if tiles else build)()[0])
 
 
 @functools.cache
@@ -288,16 +314,31 @@ def _tile_leaf_shape(cfg: EngineConfig, name: str, want: tuple,
     """The shape a tile's leaf ``name`` must have (``want``: the grid's)."""
     if name == "io_edges":
         return (want[0], t.shape[1] if t.dim() == 3 else -1, 3)
-    if name in PER_CELL_LEAVES:
+    if name in cell_leaves(cfg):
         return tuple(tile_shape) + want[2:]
     return want
 
 
-# the leaves laid out [H, W, ...] a cell (the telemetry planes only when
-# telemetry is on)
+# the leaves laid out [H, W, ...] a cell, but the telemetry planes
 PER_CELL_LEAVES = tuple(k for k in KERNEL_LEAVES if k not in (
     "io_edges", "io_n", "io_pos", "cycle", "stat_hops", "stat_exec",
     "stat_stall", "stat_allocs", "tm_cell", "tm_lane", "tm_hiw", "flt"))
+TM_PLANES = ("tm_cell", "tm_lane", "tm_hiw")
+
+
+def cell_leaves(cfg: EngineConfig) -> tuple:
+    """The leaves ``cfg`` lays out ``[H, W, ...]`` a cell: the telemetry
+    planes too where telemetry is on (else they are 1x1 dummies)."""
+    return PER_CELL_LEAVES + (TM_PLANES if cfg.telemetry else ())
+
+
+def instance(cfg: EngineConfig) -> str:
+    """The name of the tile instance a launch under ``cfg`` takes: ``tl``
+    and its knobs, ``+tm`` (telemetry), ``+flt`` (faults), ``+q`` (query
+    batching)."""
+    return "tl" + "".join(k for k, on in (
+        ("+q", cfg.qbatch > 1), ("+tm", cfg.telemetry),
+        ("+flt", cfg.faults is not None)) if on)
 
 
 def _check_trace(trace, n_cycles: int, dev: torch.device) -> None:
@@ -401,11 +442,8 @@ def tile_route(cfg: EngineConfig, shape: tuple[int, int], path: str = "auto",
     return geometry
 
 
-def _check_tile_call(cfg: EngineConfig, st: MachineState, gquiet, rec):
-    if cfg.telemetry or cfg.faults is not None or cfg.qbatch > 1:
-        raise NotImplementedError(
-            "the cycle kernel's tile instances run the machine without "
-            "telemetry, faults or query batching (ROADMAP queue 1 item 7)")
+def _check_tile_call(cfg: EngineConfig, st: MachineState, gquiet, rec,
+                     trace):
     dev = _check(cfg, st, tuple(st.aq_n.shape))
     for name, t, shape in (("gquiet", gquiet, ()), ("rec", rec, (8,))):
         if t.device != dev or t.dtype != torch.int32 or \
@@ -413,33 +451,41 @@ def _check_tile_call(cfg: EngineConfig, st: MachineState, gquiet, rec):
             raise ValueError(f"{name} is {t.dtype}{list(t.shape)} on "
                              f"{t.device}; the tile step needs a contiguous "
                              f"torch.int32{list(shape)} on {dev}")
+    _check_trace(trace, 1, dev)
     return dev
 
 
 class TileStep:
     """One tile's cycle on the card, its launch arguments prepared once:
-    each call launches the cycle kernel's tile instance on the state's
-    leaves, in place, and adds one to the launch counts (``launches``,
-    ``path_launches``, ``tile_launches``).  A launch runs one cycle of
-    the tile unless ``gquiet`` (int32 ``[]``, the grid's quiescence, which
-    the ranks reduce after every cycle) is set, and writes the launch
-    record into ``rec`` (int32 ``[8]``: the tile's cycle and counters, the
-    quiescence of its owned cells after the cycle, the cycles run).  The
-    tensors must not be reallocated between calls."""
+    each call launches the cycle kernel's tile instance for ``cfg``'s
+    knobs (``instance``: telemetry, faults, query batching) on the
+    state's leaves, in place, and adds one to the launch counts
+    (``launches``, ``path_launches`` and ``tile_launches``).  A launch
+    runs one cycle of the tile unless ``gquiet`` (int32 ``[]``, the grid's
+    quiescence, which the ranks reduce after every cycle) is set, and
+    writes the launch record
+    into ``rec`` (int32 ``[8]``: the tile's cycle and counters, the
+    quiescence of its owned cells after the cycle, the cycles run).
+    Given ``trace`` (int32 ``[1, 2]``, the tile's own row), it writes the
+    cycle's ``(active, in_flight)`` counts of its owned cells there, for
+    the caller to sum over the tiles.  The tensors must not be reallocated
+    between calls."""
 
     def __init__(self, cfg: EngineConfig, app: DiffusionApp,
                  st: MachineState, tile, gquiet: torch.Tensor,
                  rec: torch.Tensor, path: str = "auto",
-                 n_ctas: int | None = None):
+                 n_ctas: int | None = None,
+                 trace: torch.Tensor | None = None):
         cfg.validate()
-        dev = _check_tile_call(cfg, st, gquiet, rec)
+        dev = _check_tile_call(cfg, st, gquiet, rec, trace)
         if dev.type != "cuda":
             raise ValueError(f"TileStep launches on cuda, not {dev}")
         shape = tuple(st.aq_n.shape)
         geometry = tile_route(cfg, shape, path, n_ctas)
-        self.lib = _library()
-        tensors, dims = _launch_args(cfg, app, st, 1, geometry, None,
+        self.lib = _library(tiles=True)
+        tensors, dims = _launch_args(cfg, app, st, 1, geometry, trace,
                                      tuple(tile), gquiet, rec)
+        self.instance = instance(cfg)
         self._keep = tensors          # the scratch must outlive the calls
         self.ptrs = (ctypes.c_void_p * len(tensors))(
             *[0 if t is None else t.data_ptr() for t in tensors])
@@ -462,24 +508,27 @@ class TileStep:
                                + self.lib.cca_cycle_error_string(err)
                                .decode())
         launches += 1
-        path_launches[PATHS[kernel.value]] += 1
-        tile_launches[PATHS[kernel.value]] += 1
+        path = PATHS[kernel.value]
+        path_launches[path] += 1
+        key = f"{path} {self.instance}"
+        tile_launches[key] = tile_launches.get(key, 0) + 1
 
 
 def cca_tile_step(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
                   tile, gquiet: torch.Tensor, rec: torch.Tensor,
-                  path: str = "auto", n_ctas: int | None = None):
+                  path: str = "auto", n_ctas: int | None = None,
+                  trace: torch.Tensor | None = None):
     """One cycle of a tile (``core.state.Tile``) unless the grid is
-    quiescent (``gquiet``), its record into ``rec``; see
-    :class:`TileStep`.  On the card one launch of the tile instance, which
-    updates the state in place; on the CPU the plain version
-    (``ref.tile_step_ref``), which returns a new state.  Returns the
-    state."""
+    quiescent (``gquiet``), its record into ``rec`` and, given ``trace``,
+    its row; see :class:`TileStep`.  On the card one launch of the tile
+    instance, which updates the state in place; on the CPU the plain
+    version (``ref.tile_step_ref``), which returns a new state.  Returns
+    the state."""
     if st.aq.device.type == "cuda":
-        TileStep(cfg, app, st, tile, gquiet, rec, path, n_ctas)()
+        TileStep(cfg, app, st, tile, gquiet, rec, path, n_ctas, trace)()
         return st
-    dev = _check_tile_call(cfg, st, gquiet, rec)
+    dev = _check_tile_call(cfg, st, gquiet, rec, trace)
     if dev.type != "cpu":
         raise ValueError(f"cca_tile_step runs on cuda or cpu, not {dev}")
     tile_route(cfg, tuple(st.aq_n.shape), path, n_ctas)
-    return tile_step_ref(cfg, app, st, tile, gquiet, rec)
+    return tile_step_ref(cfg, app, st, tile, gquiet, rec, trace)

@@ -17,7 +17,7 @@ import torch
 from repro_torch.core.apps import DiffusionApp
 from repro_torch.core.config import EngineConfig
 from repro_torch.core.engine import cycle_body, cycle_step, quiescent
-from repro_torch.core.state import MachineState
+from repro_torch.core.state import MachineState, owned
 
 
 def frozen_cycles(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
@@ -65,17 +65,27 @@ def cca_cycle_chunk_ref(cfg: EngineConfig, app: DiffusionApp,
 
 
 def tile_step_ref(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
-                  tile, gquiet: torch.Tensor, rec: torch.Tensor):
+                  tile, gquiet: torch.Tensor, rec: torch.Tensor,
+                  trace: torch.Tensor | None = None):
     """The plain version of one tile step (``ops.cca_tile_step``): a
     ``cycle_body`` of the tile (``core.state.Tile``) unless the grid was
     quiescent at entry (``gquiet``; a tile quiescent alone does not
     freeze), then the record, the tile's cycle and counters, the
     quiescence of its owned cells after the cycle and the cycles run, into
-    ``rec``.  Returns the new state."""
+    ``rec``, and given ``trace`` (int32 ``[1, 2]``) the cycle's ``(active,
+    in_flight)`` counts of its owned cells (zeros for a frozen step).
+    Returns the new state."""
     frozen = bool(gquiet)
+    row = torch.zeros(2, dtype=torch.int32)
     with torch.inference_mode():
         if not frozen:
-            st, _ = cycle_body(cfg, app, st, tile)
+            st, (active_a, popped, _) = cycle_body(cfg, app, st, tile)
+            if trace is not None:
+                own = tile.own_mask(*st.aq_n.shape, st.aq_n.device)
+                flight = st.ch_n.sum(dim=(2, 3)) + st.pk_n
+                row = torch.stack([
+                    owned(active_a | popped, own).sum(dtype=torch.int32),
+                    flight[own].sum(dtype=torch.int32)])
         q = frozen or bool(quiescent(st, tile))
     st = st._replace(**{k: v.clone() for k, v in st._asdict().items()
                         if v.is_inference()})
@@ -83,4 +93,6 @@ def tile_step_ref(cfg: EngineConfig, app: DiffusionApp, st: MachineState,
                            st.stat_stall, st.stat_allocs,
                            torch.tensor(int(q)), torch.tensor(int(not frozen)),
                            torch.tensor(0)]).to(rec))
+    if trace is not None:
+        trace[0] = row
     return st

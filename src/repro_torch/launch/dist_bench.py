@@ -5,7 +5,10 @@ fields).
 Each row times ``timed_chunks`` fixed-length chunks (``dist.cca.
 run_chunk_body``) of the scale's BFS stream (seed 0) on a ``(devices, 1)``
 mesh, after one untimed chunk whose seconds, the kernel build included,
-are ``compile_s``:
+are ``compile_s``; ``knob`` names the machine's knobs: ``plain``,
+``telemetry`` (the planes accumulated on every tile) or ``faults`` (a
+zero-rate plan, ``FaultPlan(seed=7)``: every message sealed and checked,
+nothing injected).  Each count of ranks takes a row of each knob:
 
     # tiles of one process on one card (LocalTiles), 1/2/4/8 ranks
     PYTHONPATH=src python -m repro_torch.launch.dist_bench --scale mid
@@ -33,6 +36,7 @@ import time
 import numpy as np
 import torch
 
+KNOBS = ("plain", "telemetry", "faults")
 # scale -> (height, width, n_vertices, stream_edges, chunk, timed_chunks)
 SCALES = {
     "ci": (8, 8, 64, 160, 32, 6),
@@ -57,13 +61,26 @@ def scale_config(scale: str):
     return cfg, edges
 
 
-def loaded_state(scale: str, device):
+def knob_config(cfg, knob: str):
+    """``cfg`` under ``knob`` (one of ``KNOBS``)."""
+    import dataclasses
+    if knob == "telemetry":
+        return dataclasses.replace(cfg, telemetry=True)
+    if knob == "faults":
+        from repro_torch.resilience import FaultPlan
+        return dataclasses.replace(cfg, faults=FaultPlan(seed=7))
+    if knob != "plain":
+        raise ValueError(f"knob must be one of {KNOBS}, not {knob!r}")
+    return cfg
+
+
+def loaded_state(scale: str, device, knob: str = "plain"):
     """``(cfg, app, state, edges)``: the engine seeded at vertex 0 with
-    the scale's stream loaded, on ``device``."""
+    the scale's stream loaded, on ``device``, under ``knob``."""
     from repro_torch.core import StreamingEngine
     from repro_torch.core.ingest import load_stream
     cfg, edges = scale_config(scale)
-    eng = StreamingEngine(cfg, "bfs", device=device)
+    eng = StreamingEngine(knob_config(cfg, knob), "bfs", device=device)
     eng.seed(0, 0.0)
     st, spill = load_stream(eng.cfg, eng.state, edges)
     if len(spill):
@@ -76,12 +93,12 @@ def card_name() -> str:
         else "cpu"
 
 
-def time_rows(scale: str, mesh) -> dict:
+def time_rows(scale: str, mesh, knob: str = "plain") -> dict:
     """One row: the scale's stream sharded over ``mesh`` (a ``(devices,
-    1)`` mesh with a transport)."""
+    1)`` mesh with a transport), under ``knob``."""
     from repro_torch.dist import cca
     dev = mesh.transport.device
-    cfg, app, st, _ = loaded_state(scale, dev)
+    cfg, app, st, _ = loaded_state(scale, dev, knob)
     H, W, _, _, chunk, timed = SCALES[scale]
 
     def sync():
@@ -101,7 +118,8 @@ def time_rows(scale: str, mesh) -> dict:
     mesh.transport.barrier()
     wall = time.perf_counter() - t0
     cycles = timed * cfg.chunk
-    return dict(devices=mesh.size, grid=f"{H}x{W}", chunk=cfg.chunk,
+    return dict(devices=mesh.size, grid=f"{H}x{W}", knob=knob,
+                chunk=cfg.chunk,
                 timed_chunks=timed, compile_s=round(compile_s, 4),
                 wall_s=round(wall, 6),
                 cell_cycles_per_s=round(H * W * cycles / wall, 1),
@@ -109,10 +127,11 @@ def time_rows(scale: str, mesh) -> dict:
 
 
 def run_local(scale: str, device_counts=(1, 2, 4, 8), device=None) -> list:
-    """Rows for ``LocalTiles`` meshes of each count, in this process."""
+    """Rows for ``LocalTiles`` meshes of each count and each knob, in this
+    process."""
     from repro_torch.launch.mesh import make_host_mesh
-    return [time_rows(scale, make_host_mesh(d, 1, device=device))
-            for d in device_counts]
+    return [time_rows(scale, make_host_mesh(d, 1, device=device), k)
+            for d in device_counts for k in KNOBS]
 
 
 def process_group_row(scale: str) -> dict | None:

@@ -99,7 +99,9 @@ def snapshot(cfg: EngineConfig, st: MachineState,
     """One frame of ``st``, flat int32 ``[frame_words]`` on the state's
     device.  ``quiet``, a 0-d or 1-element tensor, is the state's
     quiescence when the caller holds it (a launch record's first word),
-    else it is reduced here."""
+    else it is reduced here.  ``st`` needs only the leaves a frame reads
+    (``dist.cca.snapshot`` passes the whole grid's, gathered from the
+    tiles)."""
     if quiet is None:
         from repro_torch.core.engine import quiescent   # engine imports us
         quiet = quiescent(st)

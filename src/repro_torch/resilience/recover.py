@@ -16,7 +16,9 @@ loaded as it is.  :func:`migrate_state` uses that a boundary is
 quiescent (every queue, channel, park ring, future queue and active
 register empty): only the durable storage leaves carry information, and
 their shapes do not depend on lanes or queue_cap, so migration copies
-them into a fresh ``init_state`` of the new config.
+them into a fresh ``init_state`` of the new config.  Both functions take
+a whole state: a sharded engine gathers its boundary
+(``dist.cca.gather_state``) and shards the migrated state again.
 """
 from __future__ import annotations
 

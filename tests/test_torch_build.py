@@ -134,3 +134,20 @@ def test_every_kernel_builds_for_sm90a(name, tmp_path, fake_cuda,
     assert lib.parent.parent == tmp_path / name / "build"
     assert lib.name == f"lib{name}.so" and lib.exists()
     assert "registers" in report
+
+
+def test_cycle_kernels_build_two_libraries(tmp_path, fake_cuda,
+                                           monkeypatch):
+    """The cycle kernels build as two libraries from one source, side by
+    side in ``build_all``: the whole grid's instances and, under
+    ``-DCCA_TILES=1``, the tile instances."""
+    ops = importlib.import_module("repro_torch.kernels.cca_cycle.ops")
+    assert ops.TILE_FLAGS == ops.NVCC_FLAGS + ("-DCCA_TILES=1",)
+    src = kernel_source(tmp_path, "cca_cycle", ops.SOURCE.read_text())
+    monkeypatch.setattr(ops, "SOURCE", src)
+    whole, tiles = ops.build()[0], ops.build_tiles()[0]
+    assert whole != tiles and whole.name == tiles.name == "libcca_cycle.so"
+    assert fake_cuda.read_text().count("call") == 2
+    monkeypatch.setattr(kernels, "KERNELS", ("cca_cycle",))
+    assert [lib for lib, _ in kernels.build_all()] == [whole, tiles]
+    assert fake_cuda.read_text().count("call") == 2        # both reused

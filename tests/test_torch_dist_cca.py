@@ -140,9 +140,11 @@ def test_layout_follows_the_rule_but_io():
     assert not sst.tiles[0].aq_n[:2].any()
     # counters: rank 0's the state's, the others' zero
     assert [int(t.stat_hops) for t in sst.tiles[1:]] == [0] * 7
-    with pytest.raises(ValueError):
+    # refused: a mesh the grid does not tile, a state of another config's
+    # shapes (every knob is carried: tests/test_torch_dist_engine.py)
+    with pytest.raises(ValueError, match="does not tile"):
         cca.shard_state(eng.cfg, st, make_host_mesh(3, 1, device="cpu"))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="tm_cell"):
         cca.shard_state(dataclasses.replace(eng.cfg, telemetry=True), st,
                         mesh)
 

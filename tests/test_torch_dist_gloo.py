@@ -9,6 +9,7 @@ frozen ``run_chunk``; BFS equals the oracle.  The ranks are spawned from a
 fixture with a ``file://`` store in the test's temporary directory (no
 port), each with its own timeout, so a hung rank fails the test.
 """
+import contextlib
 import os
 import pathlib
 import subprocess
@@ -65,9 +66,12 @@ RANK = textwrap.dedent("""
 """)
 
 
-def spawn(script: str, world: int, tmp_path, *args) -> list:
-    """Run ``script`` in ``world`` processes (argv: rank, world, the
-    store's init method, ``args``); fail on a rank's error or timeout."""
+@contextlib.contextmanager
+def ranks(script: str, world: int, tmp_path, *args):
+    """``script`` in ``world`` processes (argv: rank, world, the store's
+    init method, ``args``) while the block runs; on leaving it, wait for
+    them and fail on a rank's error or timeout (kill them if the block
+    raised).  Yields the list the ranks' outputs go into."""
     env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="",
                GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
     init = f"file://{tmp_path}/store"
@@ -77,6 +81,7 @@ def spawn(script: str, world: int, tmp_path, *args) -> list:
         for r in range(world)]
     outs = []
     try:
+        yield outs
         for p in procs:
             try:
                 outs.append(p.communicate(timeout=RANK_TIMEOUT_S))
@@ -90,7 +95,15 @@ def spawn(script: str, world: int, tmp_path, *args) -> list:
     for r, (p, (o, e)) in enumerate(zip(procs, outs)):
         assert p.returncode == 0 and f"RANK_OK {r}" in o, \
             f"rank {r} (rc {p.returncode}):\n{o[-2000:]}\n{e[-4000:]}"
-    return [o for o, _ in outs]
+    outs[:] = [o for o, _ in outs]
+
+
+def spawn(script: str, world: int, tmp_path, *args) -> list:
+    """Run ``script`` in ``world`` processes (``ranks``); returns their
+    outputs."""
+    with ranks(script, world, tmp_path, *args) as outs:
+        pass
+    return outs
 
 
 @pytest.fixture(scope="module")

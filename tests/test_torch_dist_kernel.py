@@ -52,7 +52,7 @@ def test_tiles_equal_plain_and_unsharded(card, mesh_shape, path):
                                                     device=card))
     p_sst = cca.shard_state(cfg, plain_st, make_host_mesh(*mesh_shape,
                                                           device="cpu"))
-    before = dict(ops.tile_launches)
+    before = ops.tile_launches_by_path()
     chunks = 0
     for chunk in range(70):
         k_sst, kr = cca.run_chunk(cfg, app, k_sst, path=path)
@@ -67,7 +67,8 @@ def test_tiles_equal_plain_and_unsharded(card, mesh_shape, path):
             break
     assert bool(kr[0]), "did not quiesce"
     n = mesh_shape[0] * mesh_shape[1]
-    got = {p: ops.tile_launches[p] - before[p] for p in ops.PATHS}
+    now = ops.tile_launches_by_path()
+    got = {p: now[p] - before[p] for p in ops.PATHS}
     assert got == {p: (n * chunks * cfg.chunk if p == path else 0)
                    for p in ops.PATHS}
     # vertex i's root: slot i // 64 of cell i % 64
@@ -77,16 +78,25 @@ def test_tiles_equal_plain_and_unsharded(card, mesh_shape, path):
 
 
 def test_tile_step_refuses_what_it_does_not_carry(card):
+    """Every knob is carried (``tests/test_torch_dist_kernel2.py``); what
+    a tile step still refuses is a state of another config's shapes, a
+    trace that is not its one row and a record of the wrong shape."""
     cfg = EngineConfig(height=8, width=8, n_vertices=64, chunk=8,
                        telemetry=True)
     st = init_state(cfg, device=card)
     tile = Tile(0, 0, 0, 8, 0, 8)
     q = torch.zeros((), dtype=torch.int32, device=card)
     rec = torch.zeros(8, dtype=torch.int32, device=card)
-    with pytest.raises(NotImplementedError):
-        ops.cca_tile_step(cfg, BFS, st, tile, q, rec)
-    cfg = EngineConfig(height=8, width=8, n_vertices=64, chunk=8)
-    st = init_state(cfg, device=card)
+    plain = EngineConfig(height=8, width=8, n_vertices=64, chunk=8)
+    with pytest.raises(ValueError, match="tm_cell"):
+        ops.cca_tile_step(cfg, BFS, init_state(plain, device=card), tile, q,
+                          rec)
+    with pytest.raises(ValueError, match="trace"):
+        ops.cca_tile_step(cfg, BFS, st, tile, q, rec,
+                          trace=torch.zeros((2, 2), dtype=torch.int32,
+                                            device=card))
     with pytest.raises(ValueError):
         ops.cca_tile_step(cfg, BFS, st, tile, q,
                           torch.zeros(7, dtype=torch.int32, device=card))
+    ops.cca_tile_step(cfg, BFS, st, tile, q, rec)
+    assert rec[6].item() == 1

@@ -218,7 +218,7 @@ def test_engine_rejects_unported_apps_and_options():
     with pytest.raises(NotImplementedError, match="n_io_cells"):
         StreamingEngine(dataclasses.replace(cfg, n_io_cells=3), "bfs",
                         device="cpu")
-    # restoring onto a mesh waits for the distribution slice
+    # shardings are a (mesh, specs) pair: a spec names no mesh
     with pytest.raises(TypeError, match="shardings"):
         StreamingEngine.restore(cfg, "bfs", None, shardings=object())
 

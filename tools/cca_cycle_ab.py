@@ -21,13 +21,99 @@ kernels' fault instances, every message sealed and checked, nothing
 injected; a checkout whose port carries faults), for the price of the
 seals and the fault branch against the same checkout without it.
 
-One card; ~15 s a run, the build included.
+It also times 14 of the kernels' instances, those a checkout has since
+the tile instance came (plain, telemetry, faults, both, a query batch
+and a query batch with telemetry on each kernel, and the plain tile
+instance on each), one chunk each from one input, in the line's
+``instances`` (ms a launch, or for a tile a 4-tile cycle): the plain and
+fault mixes one K=64 chunk of the stream's last increment (a zero-rate
+plan for faults), the query batches one K=64 chunk of a Q=2 batch (bfs,
+sssp) of the 2,000-vertex / 20K-edge stream's first increment on the same
+config, the tile instance 32 cycles of the last increment's state over a
+(4, 1) mesh of ``LocalTiles``; the median of three, each from a fresh
+copy of the input, after an untimed one.  A newer checkout's new
+instances are not timed here.
+
+One card; ~40 s a run, the build included.
 """
+import dataclasses
 import json
 import pathlib
+import re
 import sys
 
 import torch
+
+
+def instance_ms(cfg, eng, st) -> dict:
+    """ms of one chunk on each of the 14 instances, by CUDA events."""
+    from repro_torch.core import StreamingEngine
+    from repro_torch.core.ingest import load_stream
+    from repro_torch.core.state import init_state
+    from repro_torch.dist import cca
+    from repro_torch.graph.streams import StreamSpec, make_stream
+    from repro_torch.kernels.cca_cycle import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.mq import batch_app
+    from repro_torch.resilience import FaultPlan
+
+    def ms(make, run, reps=3):
+        """The median ms of ``run(make())`` over ``reps`` runs by CUDA
+        events, each on a fresh ``make()``, after an untimed one (the
+        instance's first launch sets its attributes)."""
+        run(make())
+        times = []
+        for _ in range(reps):
+            x = make()
+            torch.cuda.synchronize()
+            a, b = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            a.record()
+            run(x)
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        return sorted(times)[reps // 2]
+
+    def with_layout(c, s):
+        """A copy of ``s`` with ``c``'s (zero) telemetry planes and fault
+        counters."""
+        lay = init_state(c, device="meta")
+        s = s._replace(**{k: v.clone() for k, v in s._asdict().items()})
+        return s._replace(**{k: torch.zeros(
+            getattr(lay, k).shape, dtype=torch.int32, device=s.aq.device)
+            for k in ("tm_cell", "tm_lane", "tm_hiw", "flt")})
+
+    out = {}
+    base = dataclasses.replace(cfg, telemetry=False, faults=None)
+    mixes = {"": base, "_telemetry": dataclasses.replace(base, telemetry=True),
+             "_faults": dataclasses.replace(base, faults=FaultPlan(seed=7))}
+    mixes["_telemetry_faults"] = dataclasses.replace(mixes["_faults"],
+                                                     telemetry=True)
+    for path in ("cluster", "block"):
+        for name, c in mixes.items():
+            out[path + name] = ms(lambda: with_layout(c, st),
+                                  lambda s: ops.cca_cycle_chunk(
+                                      c, eng.app, s, 64, path=path))
+    qeng = StreamingEngine(base, batch_app(["bfs", "sssp"]))
+    qeng.seed(0, 0.0, val_idx=0)
+    qeng.seed(0, 0.0, val_idx=1)
+    e = make_stream(StreamSpec(increments=10, sampling="edge", seed=1,
+                               n_vertices=2_000, n_edges=20_000))[0]
+    qst, _ = load_stream(qeng.cfg, qeng.state, e)
+    for path in ("cluster", "block"):
+        for name, tm in (("_query", False), ("_telemetry_query", True)):
+            c = dataclasses.replace(qeng.cfg, telemetry=tm)
+            out[path + name] = ms(lambda: with_layout(c, qst),
+                                  lambda s: ops.cca_cycle_chunk(
+                                      c, qeng.app, s, 64, path=path))
+    for path in ("cluster", "block"):
+        out[path + "_tile"] = ms(
+            lambda: cca.shard_state(base, with_layout(base, st),
+                                    make_host_mesh(4, 1)),
+            lambda sst: cca.run_chunk(base, eng.app, sst, 32,
+                                      path=path)) / 32
+    return out
 
 
 def main(tree: str, tag: str, telemetry: bool = False,
@@ -48,10 +134,19 @@ def main(tree: str, tag: str, telemetry: bool = False,
     cfg = EngineConfig(height=32, width=32, n_vertices=n, edge_cap=8,
                        ghost_slots=ghosts, queue_cap=64, chan_cap=16,
                        futq_cap=16, io_stream_cap=2 ** 21, chunk=512, **kw)
-    ptxas = {name[-48:]: (info.get("registers"), info.get("spill_stores"),
-                          info.get("spill_loads"))
-             for name, info in _build.ptxas_functions(ops.build()[1]).items()
-             if "cca_cycle" in name}
+    ptxas, report = {}, ops.build()[1]
+    if hasattr(ops, "build_tiles"):      # a checkout with two libraries
+        report += ops.build_tiles()[1]
+    for name, info in _build.ptxas_functions(report).items():
+        hit = re.search(r"(cca_cycle_cluster_kernel|cca_cycle_kernel)"
+                        r"ILb([01])ELb([01])ELb([01])ELb([01])E", name)
+        if hit:
+            ptxas[("cluster" if "cluster" in hit[1] else "block")
+                  + "".join(f"+{k}" for k, b in zip(
+                      ("tm", "flt", "q", "tl"), hit.groups()[1:])
+                      if b == "1")
+                  ] = (info.get("registers"), info.get("spill_stores"),
+                       info.get("spill_loads"))
     incs = make_stream(StreamSpec(increments=10, sampling="edge", seed=1,
                                   n_vertices=n, n_edges=m))
     eng = StreamingEngine(cfg, "bfs")
@@ -95,11 +190,11 @@ def main(tree: str, tag: str, telemetry: bool = False,
         b.record()
         torch.cuda.synchronize()
         chunk_ms.append(a.elapsed_time(b))
-    print(json.dumps(dict(tree=tag, card=torch.cuda.get_device_name(0),
-                          telemetry=telemetry, faults=faults,
-                          launches=len(events),
-                          stream_ms_per_launch=stream_ms,
-                          chunk_ms=chunk_ms, ptxas=ptxas)), flush=True)
+    row = dict(tree=tag, card=torch.cuda.get_device_name(0),
+               telemetry=telemetry, faults=faults, launches=len(events),
+               stream_ms_per_launch=stream_ms, chunk_ms=chunk_ms,
+               ptxas=ptxas, instances=instance_ms(cfg, eng, st))
+    print(json.dumps(row), flush=True)
 
 
 if __name__ == "__main__":
