@@ -74,7 +74,8 @@ the skew and lanes experiments, right after phase 19:
      stream of ``tests/test_lanes.py`` at lanes=4, the hub stream of
      ``tests/test_rhizome.py`` at rhizome_cap=4 (bfs), and widest and
      reliable at rhizome_cap=2, lanes=2 on a weighted stream (the plain
-     version on a CPU copy of each chunk's input); (b) the
+     version's chunks computed on the CPU from the same start by worker
+     processes while the earlier phases run); (b) the
      32x32 paper-scale skew config (rhizome_cap=4, lanes=2, 16,384
      vertices), whose cells fit no cluster band: a mid-stream state, one
      K=64 chunk on the one-block kernel
@@ -259,7 +260,8 @@ phase 39, each with its time:
      (4, 2): chunk by chunk, every leaf of the gathered tiles == the
      unsharded kernel's run and the launch records equal, and == the
      plain tile step on the CPU (every mesh on the parity config, (2, 2)
-     on the pinned stream, cut for time: the plain tiles run on the CPU);
+     on the pinned stream; the plain tiles computed by worker processes
+     while the earlier phases run, as phase 20a's);
      BFS == oracle; every tile step one launch of the tile instance
  41. the 32x32 fingerprint stream (2,000 / 20K, 2,372 cycles) tiled over
      (4, 1) and (2, 2), each increment to quiescence through
@@ -303,6 +305,31 @@ set to 0 just before it and read just after:
      cycles and counters, every slot == the oracle from its source
  56. phase 17's traced bfs stream through the engine over (4, 1): every
      trace row and counter equal to the unsharded engine's
+
+Serving over a mesh (``LocalTiles`` on one card; ``tools/dist_nccl_smoke.py``
+runs the same over NCCL on four cards):
+
+ 57. the tenant layer on a sharded cell grid, right after phase 56:
+     ``serve_bench.serve_batch("paper")`` (32x32, 4,096 vertices, 20,000
+     edges, Q = 8 ``QUERY_MIX``, lanes 8, rhizome 4, telemetry and the
+     ingest guard) with the session's state sharded over (4, 1) once the
+     CC tenant is admitted, every beat through ``FrontDesk.step``: the
+     batch cycles, every receipt, the deferrals and every tenant's values
+     equal phase 38's unsharded batch exactly, every launch the
+     ``tl+q+tm`` tile instance's; then 12 tenants through 8 slots at ci
+     scale over (2, 2) (four admitted mid-stream, a recycled slot's app
+     changed, the ``tm_hiw`` gate read), every beat's counters, receipts,
+     slots and state digests equal to the same run unsharded on the card;
+     launches by instance, ms a 4-tile cycle, the walls
+ 58. LM serving over (2, 2), right after phase 47: llama3.2-1b whole (16
+     layers at full width), each rank drawing its blocks
+     (``init_lm_params(mesh=, rank=)``, held bit for bit to the whole
+     draw from the same seed), the prefill at B = 2, T = 4,096 and 16
+     decode steps at 8 slots (slot b starting at step b, the cache the
+     model's own) against the whole model on the same card, within 3e-2
+     x max(1, max |ref|), and both decodes' distance from the whole model
+     in f32; the flash launches (one a rank and layer), each rank's bytes
+     of weights, the ms of both prefills
 
 The GNN and DLRM serving forwards (every aggregation a launch of the
 scatter-SpMM kernel, every DLRM lookup one launch of the EmbeddingBag
@@ -478,10 +505,11 @@ after phase 47, each printing the card's name and power limit:
      equal to the straight run's bit for bit; ``train()`` on lm100m, with
      and without ``--compress``, 3 steps each
 
-It ends with the kernels line (JSON; the flash kernel's ``launches``
-summed over its three main paths: llama3.2-1b's prefill_32k run and the
-two MoE prefills; the two backward kernels' from their training paths)
-and the ok line (JSON, last).
+Each phase group prints its seconds (``[clock]``).  It ends with the
+kernels line (JSON; the flash kernel's ``launches`` summed over its four
+main paths: llama3.2-1b's prefill_32k run, the two MoE prefills and
+phase 58's prefill over (2, 2); the two backward kernels' from their
+training paths) and the ok line (JSON, last).
 """
 import collections
 import contextlib
@@ -528,7 +556,8 @@ from repro_torch.data.graphs import build_graph  # noqa: E402
 from repro_torch.data.pipeline import (RecSysBatchSpec,  # noqa: E402
                                        recsys_batch)
 from repro_torch.graph.segment_ops import sym_norm_coeff  # noqa: E402
-from repro_torch.core.state import TM_HOP, init_state  # noqa: E402
+from repro_torch.core.state import (TM_HOP, MachineState,  # noqa: E402
+                                    init_state)
 from repro_torch.graph.streams import StreamSpec, make_stream  # noqa: E402
 from repro_torch.kernels.cca_cycle import ops  # noqa: E402
 from repro_torch.kernels.cca_cycle.ref import cca_cycle_chunk_ref  # noqa: E402
@@ -556,7 +585,9 @@ from repro_torch.resilience import (FLT_CORRUPT, FLT_DROP,  # noqa: E402
 from repro_torch.configs.base import shape as spec_shape  # noqa: E402
 from repro_torch.configs.registry import ARCHS  # noqa: E402
 from repro_torch.data.pipeline import LMBatchSpec, lm_batch  # noqa: E402
-from repro_torch.dist.sharding import tree_leaves, tree_map  # noqa: E402
+from repro_torch.dist.sharding import (Placed, block_slices,  # noqa: E402
+                                       gather_placed, map_specs,
+                                       shard_block, tree_leaves, tree_map)
 from repro_torch.kernels.embedding_bag.ref import (  # noqa: E402
     embedding_bags_bwd_ordered, embedding_bags_bwd_ref)
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
@@ -625,9 +656,89 @@ def to_device(st, dev):
     return st._replace(**{k: v.to(dev) for k, v in st._asdict().items()})
 
 
+def to_numpy(st) -> dict:
+    """Numpy copies of every leaf (a CPU leaf's ``numpy()`` would share
+    its memory, and ``load_stream`` writes ``io_edges`` in place)."""
+    return {k: v.cpu().numpy().copy() for k, v in st._asdict().items()}
+
+
+def from_numpy(leaves: dict, dev):
+    return MachineState(**{k: torch.from_numpy(v).to(dev)
+                           for k, v in leaves.items()})
+
+
+# ---- plain references on the CPU, in worker processes (phases 20a, 40) --
+#
+# Phases 20a and 40 hold the kernels chunk by chunk to the plain version
+# run on the CPU (on an 8x8 grid ~2.5x the speed of its thousands of tiny
+# launches a cycle on the card).  Its chunks depend on nothing the card
+# computes, so worker processes compute them from the same start while
+# the earlier phases run, and each phase holds its kernels to them.
+
+PLAIN_WORKERS = 4
+
+
+def plain_chunks(cfg, app, seed, incs) -> list:
+    """``chunks_vs_plain``'s plain side from a seeded engine on the CPU:
+    each increment loaded and the counters reset, chunks to quiescence;
+    the state after each chunk (numpy leaves) and its record."""
+    torch.set_num_threads(1)
+    eng = StreamingEngine(cfg, app, device="cpu")
+    eng.seed(0, seed)
+    cfg, st, out = eng.cfg, eng.state, []
+    for e in incs:
+        st, spill = load_stream(cfg, st, e)
+        assert len(spill) == 0
+        st, q = fresh_stats(st), False
+        while not q:
+            st, rec = cca_cycle_chunk_ref(cfg, eng.app, st)
+            q = bool(rec[0])
+            out.append((to_numpy(st), rec.tolist()))
+    return out
+
+
+def plain_tiles(cfg, incs, mesh_shape) -> list:
+    """``sharded_stream``'s plain tiles: the seeded BFS engine's state
+    tiled over a ``mesh_shape`` mesh of ``LocalTiles`` on the CPU, each
+    increment loaded, chunks to quiescence; the gathered state after each
+    chunk (numpy leaves) and its record."""
+    torch.set_num_threads(1)
+    eng = StreamingEngine(cfg, "bfs", device="cpu")
+    eng.seed(0, 0.0)
+    cfg = eng.cfg
+    sst = cca.shard_state(cfg, eng.state,
+                          make_host_mesh(*mesh_shape, device="cpu"))
+    out = []
+    for e in incs:
+        assert len(cca.load_stream(cfg, sst, e)) == 0
+        cca.reset_counters(sst)
+        q = False
+        while not q:
+            sst, rec = cca.run_chunk(cfg, BFS, sst)
+            q = bool(rec[0])
+            out.append((to_numpy(cca.gather_state(sst)), rec.tolist()))
+    return out
+
+
+def start_plain_jobs() -> tuple:
+    """The pool and its jobs: ``{("20a", case name) or ("40", stream,
+    mesh): future}``."""
+    import concurrent.futures
+    import multiprocessing
+    pool = concurrent.futures.ProcessPoolExecutor(
+        PLAIN_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    jobs = {}
+    for name, cfg, app, incs, seed in lane_rhizome_cases():
+        jobs[("20a", name)] = pool.submit(plain_chunks, cfg, app, seed, incs)
+    for name, cfg, incs, plain in dist_parity_streams():
+        for m in plain:
+            jobs[("40", name, m)] = pool.submit(plain_tiles, cfg, incs, m)
+    return pool, jobs
+
+
 def kernel_vs_plain(cfg, app, st, n_cycles=None, paths=("auto",),
                     traced=False, plain_on_cpu=False,
-                    also_without_telemetry=False):
+                    also_without_telemetry=False, plain=None):
     """One chunk through the kernel (once for each of ``paths``) and the
     plain version from the same input; returns the max abs difference (0)
     or raises.  ``traced``: each call fills a trace tensor, and the
@@ -638,7 +749,9 @@ def kernel_vs_plain(cfg, app, st, n_cycles=None, paths=("auto",),
     brings its result back.  ``also_without_telemetry`` (``cfg`` has
     telemetry on): each path also runs with telemetry off, and those runs
     equal the plain version's on every leaf but the planes (telemetry
-    touches no other leaf), which stay their zero dummies."""
+    touches no other leaf), which stay their zero dummies.  ``plain``,
+    where given, is the plain version's ``(state, record)`` from this
+    input, computed beforehand (``plain_chunks``)."""
     n = cfg.chunk if n_cycles is None else n_cycles
     dev = st.aq.device
 
@@ -657,11 +770,15 @@ def kernel_vs_plain(cfg, app, st, n_cycles=None, paths=("auto",),
             runs.append((off,) + ops.cca_cycle_chunk(c, app, clone(s),
                                                      n_cycles, path=p,
                                                      trace=tr) + (tr,))
-    src = to_device(st, "cpu") if plain_on_cpu else st
-    want = rows(src.aq.device)
-    sr, cr = cca_cycle_chunk_ref(cfg, app, src, n_cycles, want)
-    sr, cr = to_device(sr, dev), cr.to(dev)
-    want = want.to(dev) if traced else None
+    if plain is not None:
+        sr, cr = plain
+        want = None
+    else:
+        src = to_device(st, "cpu") if plain_on_cpu else st
+        want = rows(src.aq.device)
+        sr, cr = cca_cycle_chunk_ref(cfg, app, src, n_cycles, want)
+        sr, cr = to_device(sr, dev), cr.to(dev)
+        want = want.to(dev) if traced else None
     torch.cuda.synchronize()
     worst, ran = 0.0, int(cr[1])
     for off, sk, ck, tk in runs:
@@ -679,16 +796,21 @@ def kernel_vs_plain(cfg, app, st, n_cycles=None, paths=("auto",),
     return worst, sr, bool(cr[0])
 
 
-def chunks_vs_plain(tag, cfg, app, st, incs, max_chunks=None, **kw):
+def chunks_vs_plain(tag, cfg, app, st, incs, max_chunks=None, plain=None,
+                    **kw):
     """``kernel_vs_plain`` on both kernels (cluster, then forced onto the
     one-block kernel), the plain version on the CPU (``plain_on_cpu``: the
     8x8 grids this runs), chunk by chunk over ``incs`` from ``st``: each
     increment loaded (``None`` loads nothing), the counters, planes and
     ``flt`` reset, then run to quiescence, or until ``max_chunks`` chunks
     in all; raises unless every cycle-kernel launch since the start was
-    one of these.  ``kw`` goes to ``kernel_vs_plain``.  Returns ``(max abs
-    difference (0), state, chunks, cycles)``."""
+    one of these.  ``plain``, where given, is the plain version's chunks
+    from the same start, computed beforehand on the CPU (``plain_chunks``,
+    in a worker process): each chunk's kernels are held to it.  ``kw``
+    goes to ``kernel_vs_plain``.  Returns ``(max abs difference (0),
+    state, chunks, cycles)``."""
     worst, chunks, cycles = 0.0, 0, 0
+    plain = iter(plain) if plain is not None else None
     before = dict(ops.path_launches)
     for e in incs:
         if e is not None:
@@ -697,9 +819,15 @@ def chunks_vs_plain(tag, cfg, app, st, incs, max_chunks=None, **kw):
         st, q = fresh_stats(st), False
         c0 = int(st.cycle)
         while not q and chunks != max_chunks:
+            pre = None
+            if plain is not None:
+                leaves, rec = next(plain)
+                pre = (from_numpy(leaves, st.aq.device),
+                       torch.tensor(rec, dtype=torch.int32,
+                                    device=st.aq.device))
             d, st, q = kernel_vs_plain(cfg, app, st,
                                        paths=("cluster", "block"),
-                                       plain_on_cpu=True, **kw)
+                                       plain_on_cpu=True, plain=pre, **kw)
             worst, chunks = max(worst, d), chunks + 1
         cycles += int(st.cycle) - c0
     per = 2 if kw.get("also_without_telemetry") else 1
@@ -892,13 +1020,9 @@ def weighted_increments(seed=1, n=64, m=320):
     return [e[: m // 2], e[m // 2:]]
 
 
-def lane_rhizome_phases() -> float:
-    """Phase 20a: the lane, park, rhizome and max-app branches of both
-    cycle kernels against the plain version, every leaf and the launch
-    record equal, chunk by chunk to quiescence.  Returns the max abs
-    difference (0)."""
-    worst = 0.0
-    cases = (
+def lane_rhizome_cases() -> tuple:
+    """Phase 20a's cases: (name, config, app, increments, seed value)."""
+    return (
         ("8x8 hub lanes=4", EngineConfig(lanes=4, **HUB_KW), "bfs",
          [pe.hub_stream(128, 200)], 0.0),
         ("8x8 hub rhizome_cap=4 bfs", EngineConfig(rhizome_cap=4,
@@ -908,18 +1032,33 @@ def lane_rhizome_phases() -> float:
          "widest", weighted_increments(), MAX_APP_SEEDS["widest"]),
         ("8x8 reliable rhizome_cap=2 lanes=2", EngineConfig(**MAX_APP_KW),
          "reliable", weighted_increments(), MAX_APP_SEEDS["reliable"]))
-    for name, cfg, app, incs, seed in cases:
+
+
+def lane_rhizome_phases(jobs: dict) -> float:
+    """Phase 20a: the lane, park, rhizome and max-app branches of both
+    cycle kernels against the plain version, every leaf and the launch
+    record equal, chunk by chunk to quiescence (the plain chunks from
+    ``jobs``, computed on the CPU by a worker).  Returns the max abs
+    difference (0)."""
+    worst = 0.0
+    for name, cfg, app, incs, seed in lane_rhizome_cases():
         t0 = time.time()
+        plain = jobs[("20a", name)].result()
+        t_wait = time.time() - t0
         eng = StreamingEngine(cfg, app)
         eng.seed(0, seed)
         d, st, chunks, cycles = chunks_vs_plain(f"20a {name}", cfg, eng.app,
-                                                eng.state, incs)
+                                                eng.state, incs, plain=plain)
+        if chunks != len(plain):
+            raise AssertionError(f"20a {name}: {chunks} chunks, the plain "
+                                 f"version {len(plain)}")
         worst = max(worst, d)
         print(f"[20a] {name}, {app}: both kernels (cluster "
               f"{ops.cluster_geometry(cfg)}) == plain on every leaf and the "
               f"record over {chunks} chunks, {cycles} cycles, "
               f"{int(st.stat_stall)} stalls in the last increment (max |d| "
-              f"{worst}; {time.time() - t0:.1f}s)", flush=True)
+              f"{worst}; {time.time() - t0:.1f}s, {t_wait:.1f}s of it "
+              f"waiting for the plain chunks)", flush=True)
     return worst
 
 
@@ -2359,10 +2498,11 @@ def mq_phase_replay() -> dict:
     return out
 
 
-def mq_phase_serve() -> dict:
+def mq_phase_serve() -> tuple[dict, dict]:
     """Phase 38: ``bench_serve("paper")`` at full size, every tenant ==
     its serial run and the bfs / sssp / cc / widest tenants == the
-    oracles."""
+    oracles.  Returns the record and the batch (its cycles, receipts,
+    deferrals and each tenant's values, for phase 57)."""
     t0 = time.time()
     reset_counts()
     qb = dict(ops.query_launches)
@@ -2407,7 +2547,9 @@ def mq_phase_serve() -> dict:
     return dict(record={k: rec[k] for k in (
         "batch_cycles", "serial_cycles_total", "speedup", "p50_cycles",
         "p99_cycles", "deferrals", "all_exact", "wall_s")},
-        launches=la, query_launches=lq)
+        launches=la, query_launches=lq), dict(
+        batch_cycles=rec["batch_cycles"], receipts=rec["receipts"],
+        deferrals=rec["deferrals"], values=values)
 
 
 def mq_phase_paper(t_block_ns: float) -> dict:
@@ -2480,31 +2622,28 @@ def reset_launch_counts() -> None:
     ops.tile_launches = {}
 
 
-def sharded_stream(cfg, incs, mesh_shape, plain: bool) -> dict:
+def sharded_stream(cfg, incs, mesh_shape, plain: list | None) -> dict:
     """One stream chunk by chunk, three ways from one seeded state: the
     unsharded kernel, the grid tiled over a ``mesh_shape`` mesh of
-    ``LocalTiles`` on the card (the tile instance) and, where ``plain``,
-    the same tiles on the CPU (the plain tile step).  Every chunk every
-    leaf of the gathered tiles equals the unsharded run's (and the plain
-    tiles'), the launch records too; BFS == oracle at the end.  Returns
-    the chunks, cycles and the tile launches by kernel."""
+    ``LocalTiles`` on the card (the tile instance) and, where ``plain``
+    (``plain_tiles``' chunks, computed by a worker), the same tiles on
+    the CPU (the plain tile step).  Every chunk every leaf of the gathered
+    tiles equals the unsharded run's (and the plain tiles'), the launch
+    records too; BFS == oracle at the end.  Returns the chunks, cycles
+    and the tile launches by kernel."""
     eng = StreamingEngine(cfg, "bfs")
     eng.seed(0, 0.0)
     cfg, one = eng.cfg, eng.state
     k_sst = cca.shard_state(cfg, one, make_host_mesh(*mesh_shape))
-    p_sst = (cca.shard_state(cfg, to_device(one, "cpu"),
-                             make_host_mesh(*mesh_shape, device="cpu"))
-             if plain else None)
+    p_chunks = iter(plain) if plain is not None else None
     before = ops.tile_launches_by_path()
     chunks = cycles = 0
     for e in incs:
         one, spill = load_stream(cfg, one, e)
         assert len(spill) == 0
         one = fresh_stats(one)
-        for sst in (k_sst, p_sst):
-            if sst is not None:
-                assert len(cca.load_stream(cfg, sst, e)) == 0
-                cca.reset_counters(sst)
+        assert len(cca.load_stream(cfg, k_sst, e)) == 0
+        cca.reset_counters(k_sst)
         c0, q = int(one.cycle), False
         while not q:
             k_sst, kr = cca.run_chunk(cfg, BFS, k_sst)
@@ -2514,12 +2653,15 @@ def sharded_stream(cfg, incs, mesh_shape, plain: bool) -> dict:
             if not torch.equal(kr, r1):
                 raise AssertionError(f"{mesh_shape}: record {kr.tolist()} "
                                      f"!= unsharded {r1.tolist()}")
-            if p_sst is not None:
-                p_sst, pr = cca.run_chunk(cfg, BFS, p_sst)
-                leaf_diff(got, to_device(cca.gather_state(p_sst), "cuda"))
-                assert pr.tolist() == kr.tolist()
+            if p_chunks is not None:
+                leaves, pr = next(p_chunks)
+                leaf_diff(got, from_numpy(leaves, "cuda"))
+                assert pr == kr.tolist()
             q, chunks = bool(kr[0]), chunks + 1
         cycles += int(one.cycle) - c0
+    if plain is not None and chunks != len(plain):
+        raise AssertionError(f"{mesh_shape}: {chunks} chunks, the plain "
+                             f"tiles {len(plain)}")
     eng.state = one
     want = bfs_levels(cfg.n_vertices, np.concatenate(incs), 0)
     if not (eng.values() == want).all():
@@ -2533,23 +2675,31 @@ def sharded_stream(cfg, incs, mesh_shape, plain: bool) -> dict:
     return dict(chunks=chunks, cycles=cycles, tile_launches=got)
 
 
-def dist_phase_parity() -> dict:
-    """Phase 40: the JAX parity config and the pinned 8x8 stream, tiled
-    over every mesh of ``DIST_MESHES``, held chunk by chunk against the
-    unsharded kernel, and against the plain tile step on the CPU (every
-    mesh on the parity config, (2, 2) on the pinned stream; phase 52 holds
-    every knob's tile instance to it on the pinned stream)."""
-    out = {}
+def dist_parity_streams() -> tuple:
+    """Phase 40's streams: (name, config, increments, the meshes held to
+    the plain tiles)."""
     pinned = json.loads((ROOT / "tests" / "data"
                          / "pre_lanes_reference.json").read_text())
     streams = (("parity", *dist_bench.scale_config("ci"), DIST_MESHES),
                ("pinned", EngineConfig(**pinned["cfg"]),
                 make_stream(StreamSpec(**pinned["spec"])), ((2, 2),)))
-    for name, cfg, incs, plain in streams:
-        incs = [incs] if isinstance(incs, np.ndarray) else incs
+    return tuple((name, cfg, [incs] if isinstance(incs, np.ndarray)
+                  else incs, plain) for name, cfg, incs, plain in streams)
+
+
+def dist_phase_parity(jobs: dict) -> dict:
+    """Phase 40: the JAX parity config and the pinned 8x8 stream, tiled
+    over every mesh of ``DIST_MESHES``, held chunk by chunk against the
+    unsharded kernel, and against the plain tile step on the CPU (every
+    mesh on the parity config, (2, 2) on the pinned stream; phase 52 holds
+    every knob's tile instance to it on the pinned stream), its chunks
+    from ``jobs``, computed by workers."""
+    out = {}
+    for name, cfg, incs, plain in dist_parity_streams():
         for m in DIST_MESHES:
             t0 = time.time()
-            r = sharded_stream(cfg, incs, m, m in plain)
+            r = sharded_stream(cfg, incs, m, jobs[("40", name, m)].result()
+                               if m in plain else None)
             r["wall_s"] = round(time.time() - t0, 3)
             out[f"{name} {m[0]}x{m[1]}"] = r
             print(f"[40] {name} on a {m[0]}x{m[1]} mesh of LocalTiles: "
@@ -2714,10 +2864,10 @@ def dist_phase_gcn() -> dict:
     return dict(max_abs_err=err, wall_s=wall, edge_slots=int(part.shape[1]))
 
 
-def dist_phases(cfg_p, st) -> dict:
+def dist_phases(cfg_p, st, jobs) -> dict:
     """Phases 40-44, each with its time."""
     out = {}
-    for name, fn in (("parity", dist_phase_parity),
+    for name, fn in (("parity", lambda: dist_phase_parity(jobs)),
                      ("fingerprint", dist_phase_fingerprint),
                      ("paper", lambda: dist_phase_paper(cfg_p, st)),
                      ("bench", dist_phase_bench), ("gcn", dist_phase_gcn)):
@@ -3093,6 +3243,259 @@ def tile_phases(cfg_p, st, incs, want, cca_ptxas) -> dict:
         print(f"[52-56] {name}: {time.time() - t0:.1f}s", flush=True)
         torch.cuda.empty_cache()
     return out
+
+
+# ---- serving over a mesh (phases 57-58) ----
+
+# phase 57's recycling run: the tenants queued after the label-flood one,
+# the first seven at the first beat, the other four at the second (each
+# admitted when a slot frees)
+RECYCLE_FIRST = tuple(m for m in sb.QUERY_MIX if m[0] != "cc")
+RECYCLE_LATER = (("sssp", 101), ("bfs", 77), ("widest", 200), ("bfs", 150))
+RECYCLE_DRAIN = 6          # empty beats after the ci stream
+
+
+def shard_session(shape):
+    """A ``_place`` hook: the session's state sharded over a ``shape``
+    mesh of ``LocalTiles`` (``dist.cca.shard_state``)."""
+    mesh = make_host_mesh(*shape)
+
+    def place(ses):
+        ses.eng.state = cca.shard_state(ses.eng.cfg, ses.eng.state, mesh)
+    return place
+
+
+def recycle_run(place=None) -> tuple[list, bool]:
+    """12 tenants through the 8 slots of a ci-scale serving session (the
+    serving preset, telemetry on: the gate reads ``tm_hiw``), beat by beat
+    through ``FrontDesk.step``: a beat's counters, the receipts so far,
+    the deferrals, the slots and the state's digests.  Returns the beats
+    and whether a recycled slot took another app (``_rebuild``)."""
+    p = sb.SCALES["ci"]
+    apps = [a for a, _ in sb.QUERY_MIX]
+    ses = MQSession(sb._serve_cfg(p), qbatch=len(apps), apps=apps)
+    ses.admit("cc", 0, slot=apps.index("cc"))
+    if place is not None:
+        place(ses)
+    fd = FrontDesk(ses)
+    for app, src in RECYCLE_FIRST:
+        fd.submit(app, src)
+    beats, rebuilt = [], False
+    for i, e in enumerate(sb._stream(p) + [np.zeros((0, 3), np.int32)]
+                          * RECYCLE_DRAIN):
+        if i == 1:
+            for app, src in RECYCLE_LATER:
+                fd.submit(app, src)
+        r = fd.step(e)
+        rebuilt |= [a.name for a in ses.slot_apps] != apps
+        beats.append(json.loads(json.dumps(dict(
+            counters=[r.cycles, r.hops, r.execs, r.stalls, r.allocs],
+            receipts=list(fd.receipts), deferrals=fd.deferrals,
+            pending=len(fd.pending), slots=sb._slots(ses),
+            state=sb._digests(ses.eng)), default=int)))
+    return beats, rebuilt
+
+
+def mesh_phase_tenants(serve38: dict) -> dict:
+    """Phase 57: the tenant layer on a sharded cell grid.  (a)
+    ``serve_batch("paper")`` with the session's state sharded over (4, 1)
+    once the CC tenant is admitted, every beat through ``FrontDesk.step``:
+    its cycles, receipts, deferrals and every tenant's values equal phase
+    38's unsharded batch exactly, every launch the ``tl+q+tm`` tile
+    instance's.  (b) The ci recycling run over (2, 2) against the same run
+    unsharded on the card, beat by beat."""
+    t_all = time.time()
+    reset_launch_counts()
+    a, b = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    torch.cuda.synchronize()
+    a.record()
+    ses, fd, cycles, values, wall = sb.serve_batch(
+        "paper", _place=shard_session((4, 1)))
+    b.record()
+    torch.cuda.synchronize()
+    dev_ms = a.elapsed_time(b)
+    la = tile_launch_line("tl+q+tm")
+    stepped = sum(la.values()) // 4
+    receipts = json.loads(json.dumps(fd.receipts, default=int))
+    if (cycles, fd.deferrals) != (serve38["batch_cycles"],
+                                  serve38["deferrals"]):
+        raise AssertionError(f"57: {cycles} cycles, {fd.deferrals} "
+                             f"deferrals; phase 38 {serve38['batch_cycles']}"
+                             f", {serve38['deferrals']}")
+    if receipts != json.loads(json.dumps(serve38["receipts"],
+                                         default=int)):
+        raise AssertionError("57: the receipts differ from phase 38's")
+    slot_of = {(r["app"], r["source"]): r["slot"] for r in receipts}
+    for key, want in serve38["values"].items():
+        got = values[slot_of[key]]
+        if not (got.shape == want.shape and np.isfinite(got).all()
+                and np.array_equal(got.view(np.int32),
+                                   want.view(np.int32))):
+            raise AssertionError(f"57: tenant {key}'s values differ")
+    print(f"[57] serve_batch('paper') (32x32, Q=8, lanes 8, rhizome 4, "
+          f"telemetry, the ingest guard) sharded over 4x1 tiles after the "
+          f"CC admission: {cycles} cycles, {len(receipts)} receipts, "
+          f"{fd.deferrals} deferrals and every tenant's values == phase "
+          f"38's unsharded batch exactly; tile launches {la}, "
+          f"{dev_ms / stepped:.4f} ms a 4-tile cycle (CUDA events over the "
+          f"batch), wall {wall:.3f}s", flush=True)
+    t0 = time.time()
+    one, rebuilt1 = recycle_run()
+    t_one = time.time() - t0
+    reset_launch_counts()
+    t0 = time.time()
+    tiled, rebuilt = recycle_run(shard_session((2, 2)))
+    t_tiled = time.time() - t0
+    la_ci = tile_launch_line("tl+q+tm")
+    for i, (x, y) in enumerate(zip(tiled, one)):
+        if x != y:
+            raise AssertionError(f"57 recycling: beat {i} differs")
+    served = len(tiled[-1]["receipts"])
+    if not (rebuilt and rebuilt1) or served != 1 + len(RECYCLE_FIRST) \
+            + len(RECYCLE_LATER) or len(tiled) != len(one):
+        raise AssertionError(f"57 recycling: {served} served, rebuilt "
+                             f"{rebuilt}")
+    print(f"[57] recycling at ci scale over 2x2 tiles: {served} tenants "
+          f"through 8 slots, 4 admitted mid-stream, a recycled slot's app "
+          f"changed (the composite rebuilt), {tiled[-1]['deferrals']} "
+          f"deferrals; every beat's counters, receipts, slots and state "
+          f"digests == the unsharded session's on the card; tile launches "
+          f"{la_ci}; wall {t_tiled:.3f}s (unsharded {t_one:.3f}s) "
+          f"({time.time() - t_all:.1f}s)", flush=True)
+    return dict(cycles=cycles, receipts=len(receipts),
+                deferrals=fd.deferrals, launches=la, wall_s=wall,
+                device_ms=dev_ms, ms_per_tile_cycle=dev_ms / stepped,
+                recycling=dict(beats=len(tiled), served=served,
+                               launches=la_ci, wall_s=t_tiled,
+                               unsharded_wall_s=t_one))
+
+
+def lm_limit(ref) -> float:
+    """The bf16 LM limit, 3e-2 x max(1, max |ref|)."""
+    return 3e-2 * max(1.0, float(ref.abs().max()))
+
+
+def mesh_phase_lm(dev) -> dict:
+    """Phase 58: llama3.2-1b whole (16 layers, full width, f32 weights,
+    bf16 compute) over a (2, 2) mesh of ``LocalTiles``: each rank draws
+    its blocks (``init_lm_params(mesh=, rank=)``), held bit for bit to
+    the whole draw from the same seed; the prefill at B = 2, T = 4,096
+    (the flash counts set to 0 just before) and 16 decode steps at 8
+    slots, each against the whole model on the same card within the bf16
+    LM limit, and both beside the whole model in f32."""
+    t_all = time.time()
+    cfg = lm_archs.LLAMA32_1B
+    mesh = make_host_mesh(2, 2)
+    specs = transformer.lm_param_specs(cfg, mesh)
+    seed = 58
+    whole = transformer.init_lm_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed))
+    blocks = [transformer.init_lm_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), mesh, r)
+        for r in mesh.local_ranks]
+    P = Placed(mesh, specs, blocks)
+    for r, tree in zip(mesh.local_ranks, blocks):
+        for got, want in zip(tree_leaves(tree), tree_leaves(map_specs(
+                lambda w, sp: shard_block(w, mesh, sp, r), whole, specs))):
+            if not torch.equal(got, want):
+                raise AssertionError("58: a rank's draw is not its block of "
+                                     "the whole draw")
+    nbytes = [sum(t.numel() * t.element_size() for t in tree_leaves(b))
+              for b in blocks]
+    whole_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(whole))
+    tok = torch.randint(0, cfg.vocab, (2, 4096), dtype=torch.int32,
+                        device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(7))
+    with torch.no_grad():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        ref, _ = transformer.lm_forward(cfg, whole, tok)
+        ev[1].record()
+        set_dist_mesh(mesh)
+        try:
+            fa_ops.launches = 0
+            fa_ops.path_launches = dict.fromkeys(fa_ops.PATHS, 0)
+            ev[2].record()
+            got, _ = transformer.lm_forward(cfg, P, tok)
+            ev[3].record()
+            torch.cuda.synchronize()
+            launches = fa_ops.launches
+            by_path = dict(fa_ops.path_launches)
+            err = 0.0
+            for r, blk in zip(mesh.local_ranks, got.blocks):
+                part = ref[block_slices(mesh, tuple(ref.shape), got.specs,
+                                        r)]
+                err = max(err, float((blk.float() - part.float()).abs()
+                                     .max()))
+            limit = lm_limit(ref)
+            max_ref = float(ref.abs().max())
+            del ref, got
+            if launches != 4 * cfg.n_layers or \
+                    by_path["tensor_core"] != launches:
+                raise AssertionError(f"58: flash launches {by_path}, not "
+                                     f"one a rank and layer on the bf16 "
+                                     f"tensor-core kernel")
+            if not err <= limit:
+                raise AssertionError(f"58: prefill off the whole model by "
+                                     f"{err}, over {limit}")
+            # 16 decode steps at 8 slots, slot b starting at step b (as
+            # serve() feeds a free slot at length 0), the cache the
+            # model's own; the f32 model beside both
+            B, Tmax = 8, 64
+            g = torch.Generator(device=dev).manual_seed(9)
+            cache = transformer.init_kv_cache(cfg, B, Tmax, device=dev)
+            pcache = tuple(c.clone() for c in cache)
+            cache32 = tuple(c.clone() for c in cache)
+            cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+            start = torch.arange(B, device=dev, dtype=torch.int32)
+            dec_err, vs32 = 0.0, {"whole": 0.0, "mesh": 0.0}
+            for step in range(16):
+                lengths = (step - start).clamp(min=0)
+                t1 = torch.randint(0, cfg.vocab, (B, 1), dtype=torch.int32,
+                                   device=dev, generator=g)
+                set_dist_mesh(None)
+                want, cache = transformer.lm_decode_step(cfg, whole, t1,
+                                                         cache, lengths)
+                w32, cache32 = transformer.lm_decode_step(
+                    cfg32, whole, t1, cache32, lengths)
+                set_dist_mesh(mesh)
+                out, pcache = transformer.lm_decode_step(cfg, P, t1, pcache,
+                                                         lengths)
+                out = gather_placed(out)
+                d = float((out - want).abs().max())
+                if not d <= lm_limit(want):
+                    raise AssertionError(f"58: decode step {step} off by "
+                                         f"{d}, over {lm_limit(want)}")
+                scale = max(1.0, float(w32.abs().max()))
+                for k, x in (("whole", want), ("mesh", out)):
+                    vs32[k] = max(vs32[k],
+                                  float((x - w32).abs().max()) / scale)
+                dec_err = max(dec_err, d / max(1.0, float(want.abs()
+                                                          .max())))
+        finally:
+            set_dist_mesh(None)
+    ms_whole, ms_mesh = ev[0].elapsed_time(ev[1]), ev[2].elapsed_time(ev[3])
+    print(f"[58] llama3.2-1b whole (16 layers) over 2x2 LocalTiles, each "
+          f"rank's draw its block of the whole draw: weights a rank "
+          f"{[round(n / 2**30, 3) for n in nbytes]} GiB of the whole "
+          f"{whole_bytes / 2**30:.3f} GiB; prefill B=2 T=4096 off the whole "
+          f"model by {err:.4g} (limit {limit:.4g}, max |ref| "
+          f"{max_ref:.4g}), {by_path} flash launches ({launches // 4} a "
+          f"rank), {ms_mesh:.2f} ms against the whole model's {ms_whole:.2f} "
+          f"ms (CUDA events, first calls); 16 decode steps at 8 slots each "
+          f"within the limit (worst {dec_err:.4g} of max(1, max |ref|); "
+          f"from the f32 model the mesh {vs32['mesh']:.4g}, the whole bf16 "
+          f"model {vs32['whole']:.4g}) ({time.time() - t_all:.1f}s)",
+          flush=True)
+    return dict(flash_launches=launches, flash_by_path=by_path,
+                launches_per_rank=launches // 4, rank_bytes=nbytes,
+                whole_bytes=whole_bytes, prefill_err=err,
+                prefill_limit=limit, decode_worst_rel=dec_err,
+                decode_vs_f32_rel=vs32,
+                prefill_ms=ms_mesh, whole_prefill_ms=ms_whole,
+                seconds=time.time() - t_all)
 
 
 def experiment_phases(smi: str) -> dict:
@@ -5708,8 +6111,22 @@ def training_entries(tr) -> list:
          "card": tr["bwd"]["card"]}]
 
 
+class PhaseClock:
+    """Each phase group's seconds, printed as it ends."""
+
+    def __init__(self):
+        self.t, self.seconds = time.time(), {}
+
+    def mark(self, label: str) -> None:
+        now = time.time()
+        self.seconds[label] = now - self.t
+        print(f"[clock] phases {label}: {now - self.t:.1f}s", flush=True)
+        self.t = now
+
+
 def main() -> None:
     t_start = time.time()
+    clock = PhaseClock()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda is not "
                          "available); the port's smoke runs on the card")
@@ -5732,6 +6149,9 @@ def main() -> None:
     print(f"[build] {', '.join(b[0].name for b in builds[:-1])} and the "
           f"cycle kernels' tile library in {build_s:.1f}s (in parallel)")
     cca_ptxas = cycle_ptxas(builds[0][1] + builds[-1][1])
+    clock.mark("1-2")
+    # phases 20a's and 40's plain chunks, on the CPU meanwhile
+    pool, plain_jobs = start_plain_jobs()
 
     # ---- 3a. kernel vs plain, pinned 8x8, chunk by chunk ----
     t0 = time.time()
@@ -5753,6 +6173,7 @@ def main() -> None:
           f"(n_ctas, rows, bytes a CTA): kernel == plain on every leaf over "
           f"{chunks} chunks (max |d| {worst}; {time.time() - t0:.1f}s)",
           flush=True)
+    clock.mark("3a")
 
     # ---- 3b. kernel vs plain, 32x32 paper config, mid-stream states ----
     ci = dict(n_vertices=2000, n_edges=20_000)
@@ -5779,6 +6200,7 @@ def main() -> None:
         eng.run_increment(e, max_cycles=2_000_000)
     want = bfs_levels(ci["n_vertices"], np.concatenate(incs), 0)
     assert (eng.values() == want).all(), "32x32 ci BFS != oracle"
+    clock.mark("3b")
 
     # ---- 4. fingerprints through the kernel ----
     t0 = time.time()
@@ -5799,6 +6221,7 @@ def main() -> None:
           f"({sum(r['cycles'] for r in rows)} cycles; both fingerprints "
           f"{time.time() - t0:.1f}s, every launch on the cluster kernel)",
           flush=True)
+    clock.mark("4")
 
     # ---- 5. the paper's stream at full size, through the kernel ----
     t0 = time.time()
@@ -5856,6 +6279,7 @@ def main() -> None:
           f"({1e6 * kern_ms / cycles:.1f} ns per machine cycle; kernel "
           f"{kern_ms / 1e3:.4f}s of the wall); peak "
           f"{peak / 2**20:.1f} MiB allocated; BFS == oracle", flush=True)
+    clock.mark("5")
 
     # ---- 6. one K=512 chunk at full size: both kernels, plain, bound ----
     st, _ = load_stream(cfg_p, snapshot, incs[-1])
@@ -5898,6 +6322,7 @@ def main() -> None:
           f"{bound_ms:.4f} ms (2 x {mutable / 2**20:.1f} MiB mutable state "
           f"over 3.35 TB/s); both kernels == plain (max |d| {d})",
           flush=True)
+    clock.mark("6")
 
     # ---- 16-18. the paper experiments' branches, the experiments, replays
     worst = max(worst, branch_phases(pinned))
@@ -5905,6 +6330,7 @@ def main() -> None:
     pe._CACHE.clear()                 # seven engines' 0.8 GB IO buffers
     torch.cuda.empty_cache()
     engine_bench = replay_phases()
+    clock.mark("16-18")
 
     # ---- 19. the trace rows' cost: the K=512 chunk of phase 6, in turns ----
     trace = torch.empty((512, 2), dtype=torch.int32, device=st.aq.device)
@@ -5931,12 +6357,14 @@ def main() -> None:
           f"traced {turns['traced'][0]:.4f} / {turns['traced'][1]:.4f} ms "
           f"({t_traced / t_untraced:.4f}x); both == plain on every leaf, "
           f"the trace rows == the plain version's", flush=True)
+    clock.mark("19")
 
     # ---- 20-22. lanes, parking, rhizomes and the max apps; the skew and
     # lanes experiments ----
-    worst = max(worst, lane_rhizome_phases(), skew_state_phase())
+    worst = max(worst, lane_rhizome_phases(plain_jobs), skew_state_phase())
     skew_replay = skew_replay_phases()
     skew_paper = skew_paper_phases()
+    clock.mark("20-22")
 
     # ---- 23-26. telemetry: the kernels' telemetry instances, the
     # fingerprint, the three paths at full width, the cost ----
@@ -5948,6 +6376,7 @@ def main() -> None:
     tm_cost = telemetry_phase_cost(cfg_t, st_t, s_plain_t, cfg_p, st,
                                    s_plain)
     del st_t, s_plain_t
+    clock.mark("23-26")
 
     # ---- 27-30. faults, seals and repair: the kernels' fault instances,
     # the fingerprint, the paper stream under faults, the cost ----
@@ -5958,6 +6387,7 @@ def main() -> None:
     flt_cost = fault_phase_cost(incs, cfg_p, st, s_plain, cfg_f, st_f,
                                 s_plain_f)
     del st_f, s_plain_f
+    clock.mark("27-30")
 
     # ---- 31-35. durable state, recovery and the ingest guard: kill and
     # resume at full size, recovery, the guard, the replays, the cost ----
@@ -5966,24 +6396,38 @@ def main() -> None:
     res_guard = resilience_phase_guard(cfg_p, incs, want, plain_rows)
     res_replay = resilience_phase_replay()
     res_cost = resilience_phase_cost()
+    clock.mark("31-35")
 
     # ---- 36-39. multi-tenant serving: the query-batched instances, the
     # fingerprint, bench_serve at full size, the paper stream under Q=8 ----
     d_mq, mq_chunk = mq_phase_kernels()
     worst = max(worst, d_mq)
     mq_replays = mq_phase_replay()
-    mq_serve = mq_phase_serve()
+    mq_serve, serve38 = mq_phase_serve()
     mq_paper = mq_phase_paper(1e6 * t_block / ran)
+    clock.mark("36-39")
 
     # ---- 40-44. distribution: the grid tiled over ranks, one cycle a tile
     # step of the kernels' tile instance, the halo exchanged a cycle ----
-    dist = dist_phases(cfg_p, st)
+    dist = dist_phases(cfg_p, st, plain_jobs)
+    pool.shutdown()
+    clock.mark("40-44")
 
     # ---- 52-56. the sharded engine with every knob: the new tile
     # instances against the plain tile step, then the paper stream with
     # telemetry, the paper plan, a Q=8 batch and a traced stream, each
     # through the engine over four tiles ----
     tiles = tile_phases(cfg_p, st, incs, want, cca_ptxas)
+    clock.mark("52-56")
+
+    # ---- 57. the tenant layer on a sharded cell grid: phase 38's batch
+    # over (4, 1), and 12 tenants through 8 slots over (2, 2) ----
+    t0 = time.time()
+    tenants = mesh_phase_tenants(serve38)
+    del serve38
+    print(f"[57] done in {time.time() - t0:.1f}s", flush=True)
+    clock.mark("57")
+    torch.cuda.empty_cache()
 
     cca_entry = {
         "name": "cca_cycle_chunk", "route": "cuda",
@@ -6023,7 +6467,12 @@ def main() -> None:
                         tiles["faults"]["mid"]["launches"],
                     "Q=8 batch, 2K / 20K (55)": tiles["batch"]["launches"],
                     "paper stream, traced (56)":
-                        tiles["traced"]["launches"]},
+                        tiles["traced"]["launches"],
+                    "serve_batch('paper') over (4, 1) (57)":
+                        tenants["launches"],
+                    "ci recycling over (2, 2) (57)":
+                        tenants["recycling"]["launches"]},
+                tenants=tenants,
                 telemetry=tiles["telemetry"], faults=tiles["faults"],
                 batch=tiles["batch"], traced=tiles["traced"],
                 knob_cost=tiles["knob_cost"],
@@ -6076,12 +6525,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     bag_entry = dlrm_phases(smi, torch.device("cuda"))
     torch.cuda.empty_cache()          # DLRM's ~42 GiB freed before the LM
+    clock.mark("7-11")
 
     # ---- 12. the flash-attention kernels' ptxas reports ----
     print(f"[12] {builds[3][0].name} (built with the others in "
           f"{build_s:.1f}s)")
     ptxas = flash_ptxas(builds[3][1])
     flash_entry = lm_phases(smi, torch.device("cuda"), ptxas)
+    clock.mark("12-15")
 
     # ---- 45-47. MoE serving: the FFN against its plain version, EP, the
     # prefills and serve() at full width; two more main paths of flash ----
@@ -6095,15 +6546,28 @@ def main() -> None:
             = r["flash_launches"]
         for k, n in r["flash_by_path"].items():
             by_path[k] += n
+    print(f"[45-47] done in {time.time() - t0:.1f}s", flush=True)
+    clock.mark("45-47")
+    torch.cuda.empty_cache()
+
+    # ---- 58. LM serving over a (2, 2) mesh: llama3.2-1b whole, each
+    # rank's blocks; the flash kernel once a rank and layer ----
+    mesh_lm = mesh_phase_lm(torch.device("cuda"))
+    runs["llama3.2-1b whole over (2, 2) prefill B=2 T=4096 (58)"] = \
+        mesh_lm["flash_launches"]
+    for k, n in mesh_lm["flash_by_path"].items():
+        by_path[k] += n
     flash_entry.update(launches=sum(runs.values()), launches_by_path=by_path,
-                       launches_by_main_path=runs, moe=moe)
-    print(f"[45-47] done in {time.time() - t0:.1f}s; flash launches by main "
+                       launches_by_main_path=runs, moe=moe, mesh=mesh_lm)
+    print(f"[58] done in {mesh_lm['seconds']:.1f}s; flash launches by main "
           f"path {runs}", flush=True)
+    clock.mark("58")
     torch.cuda.empty_cache()
 
     # ---- 48-51. training: the backward kernels, one step a family, the
     # training main path at full width ----
     tr = training_phases(smi, torch.device("cuda"))
+    clock.mark("48-51")
     spmm_entry["backward"] = dict(
         rows=tr["bwd"]["spmm"], launches=tr["families"]["spmm_bwd_launches"],
         launches_path="phase 50's gcn-cora ogb_products grad step")

@@ -358,9 +358,7 @@ class StreamingEngine:
         each tile's owned cells reduced (``op``: ``"sum"`` or ``"max"``)
         over the tiles and ranks, on the device."""
         if self._sharded:
-            cca = _cca()
-            return cca.reduce_tiles(self.state, lambda t, g: fn(
-                cca.owned_cells(t, g, name)), op)
+            return _cca().reduce_owned(self.state, name, fn, op)
         return fn(getattr(self.state, name))
 
     def _whole(self) -> MachineState:

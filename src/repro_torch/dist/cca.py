@@ -420,20 +420,91 @@ def gather_state(sst: ShardedState) -> MachineState:
     return MachineState(**leaves)
 
 
+def reduce_owned(sst: ShardedState, name: str, fn,
+                 op: str = "sum") -> torch.Tensor:
+    """``fn`` of each tile's owned cells of the per-cell leaf ``name``,
+    reduced (``op``: ``"sum"`` or ``"max"``) over the tiles and ranks, on
+    the device: e.g. the grid's largest action-queue hi-water mark."""
+    return reduce_tiles(sst, lambda st, g: fn(owned_cells(st, g, name)), op)
+
+
 def write_cells(sst: ShardedState, name: str, rows, cols, index: tuple,
                 value) -> None:
     """``leaf[rows, cols, *index] = value`` of the global per-cell leaf
-    ``name`` (``rows``, ``cols``: global cell coordinates, numpy), written
-    in the tiles that own those cells."""
+    ``name`` (``rows``, ``cols``: global cell coordinates, numpy;
+    ``value`` a scalar or an array of their shape), written in the tiles
+    that own those cells."""
     rows, cols = np.asarray(rows).reshape(-1), np.asarray(cols).reshape(-1)
     index = [np.broadcast_to(np.asarray(i), rows.shape) for i in index]
+    vals = None if np.ndim(value) == 0 else \
+        np.broadcast_to(np.asarray(value), rows.shape)
     for st, g in zip(sst.tiles, sst.geoms):
         r, c = rows - g.r0, cols - g.c0
         mine = (r >= g.or0) & (r < g.or1) & (c >= g.oc0) & (c < g.oc1)
         if mine.any():
             at = tuple(torch.as_tensor(a[mine], device=sst.device)
                        for a in (r, c, *index))
-            getattr(st, name)[at] = value
+            leaf = getattr(st, name)
+            leaf[at] = value if vals is None else torch.as_tensor(
+                np.ascontiguousarray(vals[mine]), dtype=leaf.dtype,
+                device=sst.device)
+
+
+def write_plane(sst: ShardedState, name: str, q, value) -> None:
+    """``leaf[..., q] = value`` on every cell of every tile, the halo
+    included (a halo never holds a plane older than its owner's); ``q``
+    ``...`` writes the whole leaf."""
+    for st in sst.tiles:
+        leaf = getattr(st, name)
+        if q is Ellipsis:
+            leaf[...] = value
+        else:
+            leaf[..., q] = value
+
+
+def reset_slot(sst: ShardedState, q: int) -> None:
+    """Slot ``q``'s counters as an admission starts them, on every tile:
+    ``qchg[q] = 0`` (a sum over the tiles) and ``qlast[q] = cycle`` (a
+    maximum over them)."""
+    for st in sst.tiles:
+        st.qchg[q] = 0
+        st.qlast[q] = st.cycle
+
+
+def slot_counters(sst: ShardedState) -> torch.Tensor:
+    """int32 ``[2 Q + 1]`` on the device: ``qchg`` summed and ``qlast`` the
+    maximum over every tile and rank, then the cycle: an increment's
+    per-slot record in one host read, the same on every process."""
+    chg = reduce_tiles(sst, lambda st, g: st.qchg)
+    last = reduce_tiles(sst, lambda st, g: st.qlast, "max")
+    return torch.cat([chg, last, sst.tiles[0].cycle[None]])
+
+
+def push_action(sst: ShardedState, r: int, c: int, msg: np.ndarray,
+                queue_cap: int) -> None:
+    """Push ``msg`` (int32 ``[msg_words]``) onto the action queue of
+    global cell ``(r, c)``, in the tile that owns it.  Raises
+    ``RuntimeError`` on every process where that queue is full (the test
+    reduced over the ranks).  The halo is exchanged after the push, so
+    every mirror of the cell holds its new queue count (``aq_n`` is a hop
+    leaf) before the next cycle's hop stage reads it."""
+    dev = sst.device
+    full = torch.zeros(len(sst.tiles), dtype=torch.int32, device=dev)
+    mine = []
+    for k, (st, g) in enumerate(zip(sst.tiles, sst.geoms)):
+        i, j = r - g.r0, c - g.c0
+        if g.or0 <= i < g.or1 and g.oc0 <= j < g.oc1:
+            full[k] = (st.aq_n[i, j] >= queue_cap).to(torch.int32)
+            mine.append((st, i, j))
+    if int(sst.transport.all_max(full[:, None])[0]):
+        raise RuntimeError(f"action queue of cell ({r}, {c}) full at an "
+                           "increment boundary")
+    m = torch.from_numpy(np.ascontiguousarray(msg, np.int32)).to(dev)
+    for st, i, j in mine:
+        n = st.aq_n[i, j]
+        st.aq[i, j, (st.aq_head[i, j] + n) % queue_cap] = m
+        st.aq_n[i, j] += 1
+    sst.exchange()
 
 
 def quiescent(sst: ShardedState) -> torch.Tensor:

@@ -157,10 +157,12 @@ def resolve_spec(mesh, shape, axes) -> tuple:
 def constrain(x, *axes):
     """``x`` unchanged.  JAX's ``constrain`` pins an array's sharding for
     GSPMD inside a traced program; eager PyTorch has no such constraint,
-    and the port shards by laying tensors out per rank itself
-    (``repro_torch.dist.cca``, ``graph.partition``, the MoE experts of
-    ``models.transformer._ffn_moe_ep``); the LM's other weights stay
-    whole.  Checks the axis count, as JAX's does."""
+    and the port's layouts are explicit: it lays tensors out per rank
+    itself (``dist.sharding.lay_out``, ``repro_torch.dist.cca``,
+    ``graph.partition``) and its forward over a mesh computes on each
+    rank's blocks, gathering and summing where GSPMD would
+    (``models.transformer``'s forward on a ``Placed`` tree).  Checks the
+    axis count, as JAX's does."""
     if _DIST_MESH is not None and len(axes) != x.dim():
         raise ValueError(
             f"constrain: got {len(axes)} axes for rank-{x.dim()} array")

@@ -20,6 +20,10 @@ from the mesh or does not divide (``ctx.resolve_spec``).
 from __future__ import annotations
 
 import math
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
 
 from repro_torch.dist.ctx import dp_axes_active, model_size, resolve_spec
 
@@ -143,6 +147,91 @@ def block_slices(mesh, shape, spec, rank: int) -> tuple:
 def shard_block(x, mesh, spec, rank: int):
     """The block of ``x`` that ``rank`` holds under ``spec`` (a view)."""
     return x[block_slices(mesh, tuple(x.shape), spec, rank)]
+
+
+# ------------------------------------------------- laying a tree out ---
+
+class Placed(NamedTuple):
+    """A tree laid out over ``mesh`` for this process (the port of a tree
+    of ``jax.Array``s placed by ``NamedSharding``s): ``blocks[k]`` is the
+    tree of rank ``mesh.local_ranks[k]``'s blocks, each leaf the block its
+    spec in ``specs`` (a tree of the same structure, every spec resolved
+    against its leaf's shape) gives that rank.  On ``LocalTiles`` the
+    process holds every rank's blocks, over a process group its own."""
+    mesh: Any
+    specs: Any
+    blocks: list
+
+
+def map_specs(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree and the tree of its specs (a leaf is
+    anything with a ``shape``; its spec the tuple at the same place)."""
+    if hasattr(tree, "shape"):
+        return fn(tree, specs)
+    if isinstance(tree, dict):
+        return {k: map_specs(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_specs(fn, v, s) for v, s in zip(tree, specs)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_specs(fn, v, s) for v, s in zip(tree, specs))
+    raise TypeError(f"not a tree of arrays: {type(tree).__name__}")
+
+
+def _tensor(x, device) -> torch.Tensor:
+    """A contiguous tensor of its own on ``device`` (never a view of the
+    whole leaf it was cut from)."""
+    if isinstance(x, np.ndarray):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    return x.to(device).clone(memory_format=torch.contiguous_format)
+
+
+def lay_out(tree, mesh, specs) -> Placed:
+    """``tree`` (whole leaves: tensors or numpy arrays) cut into the blocks
+    of this process's ranks by ``specs`` (JAX's ``device_put`` under
+    ``NamedSharding``s), each block a tensor of its own on the mesh's
+    device.  Each spec is resolved against its leaf's shape first
+    (``ctx.resolve_spec``): a dimension its axes do not divide stays
+    replicated."""
+    if mesh.transport is None:
+        raise ValueError("lay_out needs a mesh with a transport "
+                         "(LocalTiles or ProcessGroupTiles)")
+    specs = map_specs(lambda x, s: resolve_spec(mesh, tuple(x.shape), s),
+                      tree, specs)
+    dev = mesh.transport.device
+    return Placed(mesh, specs, [
+        map_specs(lambda x, s: _tensor(shard_block(x, mesh, s, r), dev),
+                  tree, specs) for r in mesh.local_ranks])
+
+
+def whole_shape(mesh, block_shape, spec) -> tuple:
+    """The shape of the leaf whose blocks by ``spec`` are ``block_shape``."""
+    out = []
+    for dim, entry in zip(block_shape, spec):
+        axes = () if entry is None else (
+            (entry,) if isinstance(entry, str) else tuple(entry))
+        out.append(dim * math.prod(mesh.shape[a] for a in axes))
+    return tuple(out)
+
+
+def gather_placed(placed: Placed):
+    """The whole tree on every process, from every rank's blocks (an
+    ``all_gather`` of each leaf over a process group)."""
+    mesh = placed.mesh
+    leaves = [[] for _ in placed.blocks]
+    for k, tree in enumerate(placed.blocks):
+        map_specs(lambda x, s: leaves[k].append(x), tree, placed.specs)
+    specs = []
+    map_specs(lambda x, s: specs.append(s), placed.blocks[0], placed.specs)
+    out = []
+    for i, spec in enumerate(specs):
+        blocks = mesh.transport.all_gather([lv[i] for lv in leaves])
+        shape = whole_shape(mesh, tuple(blocks[0].shape), spec)
+        whole = blocks[0].new_empty(shape)
+        for r, b in enumerate(blocks):
+            whole[block_slices(mesh, shape, spec, r)] = b
+        out.append(whole)
+    it = iter(out)
+    return map_specs(lambda x, s: next(it), placed.blocks[0], placed.specs)
 
 
 def lm_batch_shardings(mesh):

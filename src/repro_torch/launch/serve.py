@@ -26,10 +26,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.state import resolve_device
+from repro_torch.dist.ctx import get_dist_mesh
+from repro_torch.dist.sharding import Placed, gather_placed, lay_out
 from repro_torch.models.transformer import (LMConfig, init_kv_cache,
                                             init_lm_params, lm_decode_step,
-                                            lm_trunk, moe_dropped,
-                                            reset_moe_dropped)
+                                            lm_last_logits, lm_param_specs,
+                                            moe_dropped, reset_moe_dropped)
 from repro_torch.obs.metrics import render_summary, summarize
 
 # the JAX package's presets (``repro/launch/train.py``); they move to the
@@ -44,14 +46,27 @@ PRESETS = {
 }
 
 
+def _mesh():
+    """The registered mesh, where it has a transport and several ranks."""
+    mesh = get_dist_mesh()
+    if mesh is None or mesh.transport is None or mesh.size == 1:
+        return None
+    return mesh
+
+
 @torch.no_grad()
 def prefill(cfg: LMConfig, params, tokens: torch.Tensor) -> torch.Tensor:
     """tokens [B, T] -> the last token's logits [B, vocab] (compute dtype).
     The unembedding is applied to the last position only: the numbers of
     ``lm_forward(...)[0][:, -1]``, without the [B, T, vocab] logits.  A
-    MoE config's dropped (token, k) pairs go to ``moe_dropped``."""
-    x, _ = lm_trunk(cfg, params, tokens)
-    return x[:, -1] @ params["unembed"].to(cfg.compute_dtype)
+    MoE config's dropped (token, k) pairs go to ``moe_dropped``.  On the
+    registered mesh (several ranks, a transport) whole ``params`` are laid
+    out by ``lm_param_shardings`` (a ``Placed`` tree is taken as it is),
+    and the logits come ``Placed`` by batch rows."""
+    mesh = _mesh()
+    if mesh is not None and not isinstance(params, Placed):
+        params = lay_out(params, mesh, lm_param_specs(cfg, mesh))
+    return lm_last_logits(cfg, params, tokens)
 
 
 @torch.no_grad()
@@ -60,15 +75,27 @@ def serve(cfg: LMConfig, n_requests: int, batch: int, prompt_len: int = 16,
           device=None):
     """Serve ``n_requests`` random prompts through ``batch`` slots.
     ``params=None`` draws them from a generator seeded by ``seed`` on the
-    device (default ``cuda``).  Returns (generated tokens by request,
+    device (default ``cuda``).  On the registered mesh (several ranks, a
+    transport) every rank draws its blocks (``init_lm_params(mesh=,
+    rank=)``; whole ``params`` are laid out), the cache is laid out by
+    ``lm_cache_shardings`` and each step's logits are gathered whole to
+    pick the next tokens.  Returns (generated tokens by request,
     aggregate tokens/s, metrics); a step's latency runs until the host
     holds the next tokens.  ``moe_dropped`` in the metrics counts the
     (token, k) pairs the steps' MoE capacities dropped (the running count
     is reset at the start)."""
-    dev = resolve_device(device)
-    if params is None:
+    mesh = _mesh()
+    dev = mesh.transport.device if mesh is not None else \
+        resolve_device(device)
+    if params is None and mesh is not None:
+        params = Placed(mesh, lm_param_specs(cfg, mesh), [
+            init_lm_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           mesh, r) for r in mesh.local_ranks])
+    elif params is None:
         params = init_lm_params(
             cfg, torch.Generator(device=dev).manual_seed(seed))
+    elif mesh is not None and not isinstance(params, Placed):
+        params = lay_out(params, mesh, lm_param_specs(cfg, mesh))
     cache = init_kv_cache(cfg, batch, max_len, device=dev)
     lengths = np.zeros(batch, np.int32)       # host copy, sent each step
     rng = np.random.default_rng(seed)
@@ -104,6 +131,8 @@ def serve(cfg: LMConfig, n_requests: int, batch: int, prompt_len: int = 16,
         logits, cache = lm_decode_step(
             cfg, params, torch.tensor(nxt[:, None], device=dev), cache,
             torch.tensor(lengths, device=dev))
+        if mesh is not None:
+            logits = gather_placed(logits)
         cur = logits[:, -1].argmax(dim=-1).to(torch.int32).cpu().numpy()
         step_times.append(time.perf_counter() - ts)
         lengths += np.array([s is not None for s in slots], np.int32)

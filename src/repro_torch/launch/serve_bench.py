@@ -139,9 +139,11 @@ def serve_record(scale: str, receipts: list, serial_cycles: list,
         deferrals=deferrals)
 
 
-def serve_batch(scale: str, device=None):
+def serve_batch(scale: str, device=None, *, _place=None):
     """The batched half of ``bench_serve``: ``(session, front desk,
-    batch cycles, the values of each slot, wall seconds)``."""
+    batch cycles, the values of each slot, wall seconds)``.  ``_place``,
+    where given, is called with the session once the label-flood tenant
+    is admitted (e.g. to shard its state over a mesh)."""
     p = SCALES[scale]
     cfg = _serve_cfg(p)
     incs = _stream(p)
@@ -154,6 +156,8 @@ def serve_batch(scale: str, device=None):
             ses.admit(app, src)       # label flood: before the stream only
         else:
             fd.submit(app, src)
+    if _place is not None:
+        _place(ses)
     batch_cycles = 0
     for e in incs:
         batch_cycles += fd.step(e).cycles
@@ -216,7 +220,7 @@ def weighted_stream(n: int = 128, n_edges: int = 360, increments: int = 2,
 
 
 def _digests(eng) -> dict:
-    return state_digests(state_to_numpy(eng.state))
+    return state_digests(state_to_numpy(eng._whole()))
 
 
 def _values(ses, n=None) -> list:

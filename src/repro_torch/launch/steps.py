@@ -21,9 +21,14 @@ dropped, with its reason:
 * ``donate`` stays a field (JAX's buffer donation of the params and the
   optimizer state): the port's step updates those tensors in place, which
   is what donation buys, so nothing reads the field;
-* ``in_shardings`` are spec tuples, not placements: the port places no
-  tensor by them (``dist.ctx.constrain`` is an identity), they say where
-  each input would lie on the mesh.
+* ``in_shardings`` are spec tuples.  The ``lm_prefill`` and
+  ``lm_decode`` steps place their inputs by them (JAX's ``jit`` with
+  ``in_shardings``): on a mesh of more than one rank with a transport,
+  each input given whole is laid out for this process's ranks
+  (``dist.sharding.lay_out``; one already ``Placed`` is taken as it is)
+  and the step runs over the mesh, its outputs ``Placed``.  The other
+  steps place nothing (``dist.ctx.constrain`` is an identity): their
+  specs say where each input would lie on the mesh.
 """
 from __future__ import annotations
 
@@ -41,9 +46,10 @@ from repro_torch.dist.sharding import (cca_state_shardings,
                                        gnn_graph_shardings,
                                        gnn_param_shardings,
                                        lm_batch_shardings, lm_cache_shardings,
-                                       lm_param_shardings, pad_to, tree_leaves,
-                                       tree_map)
+                                       lm_param_shardings, lay_out, pad_to,
+                                       Placed, tree_leaves, tree_map)
 from repro_torch.launch.mesh import dp_axes
+from repro_torch.models.transformer import lm_params_meta
 from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_adamw
 
 META = torch.device("meta")
@@ -105,17 +111,6 @@ def _lm_cfg(bundle, overrides):
     return cfg
 
 
-def lm_params_meta(cfg) -> dict:
-    """``init_lm_params``' tree as meta tensors."""
-    from repro_torch.models.transformer import _param_specs
-
-    def make(spec):
-        if isinstance(spec, dict):
-            return {k: make(v) for k, v in spec.items()}
-        return _sds(spec[0], cfg.param_dtype)
-    return make(_param_specs(cfg))
-
-
 def _opt_shardings(pshard):
     from repro_torch.optim.adamw import AdamWState
     return AdamWState(step=(), m=pshard, v=pshard)
@@ -139,21 +134,40 @@ def _lm_train_plan(bundle: ArchBundle, spec: ShapeSpec, mesh,
                     donate=(0, 1), static_desc=f"{cfg.name} train B{B} T{T}")
 
 
+def _on_mesh(mesh, fn, args: tuple, shardings: tuple):
+    """``fn(*args)``: on a mesh of more than one rank with a transport,
+    over it (registered for the call), each argument laid out by its
+    shardings unless it is ``Placed`` already; otherwise as given."""
+    if mesh.transport is None or mesh.size == 1:
+        return fn(*args)
+    args = tuple(a if isinstance(a, Placed) else lay_out(a, mesh, s)
+                 for a, s in zip(args, shardings))
+    before = dist_ctx.get_dist_mesh()
+    dist_ctx.set_dist_mesh(mesh)
+    try:
+        return fn(*args)
+    finally:
+        dist_ctx.set_dist_mesh(before)
+
+
 def _lm_prefill_plan(bundle, spec, mesh, overrides=None) -> StepPlan:
-    from repro_torch.models.transformer import lm_forward
+    from repro_torch.models.transformer import lm_last_logits
     cfg = _lm_cfg(bundle, overrides)
     B, T = spec.dim("global_batch"), spec.dim("seq_len")
     params_shape = lm_params_meta(cfg)
     batch = dict(tokens=_sds((B, T), torch.int32))
 
+    shardings = (lm_param_shardings(mesh, params_shape),
+                 dict(tokens=(dp_axes(mesh), None)))
+
     @torch.no_grad()
     def step(params, batch):
-        logits, _ = lm_forward(cfg, params, batch["tokens"])
-        return logits[:, -1, :]  # serving returns last-token logits
+        # serving returns the last token's logits (lm_forward's [:, -1])
+        return _on_mesh(mesh, lambda p, t: lm_last_logits(cfg, p, t),
+                        (params, batch["tokens"]),
+                        (shardings[0], shardings[1]["tokens"]))
 
-    return StepPlan(step, (params_shape, batch),
-                    (lm_param_shardings(mesh, params_shape),
-                     dict(tokens=(dp_axes(mesh), None))),
+    return StepPlan(step, (params_shape, batch), shardings,
                     static_desc=f"{cfg.name} prefill B{B} T{T}")
 
 
@@ -167,17 +181,19 @@ def _lm_decode_plan(bundle, spec, mesh, overrides=None) -> StepPlan:
     toks = _sds((B, 1), torch.int32)
     lens = _sds((B,), torch.int32)
 
-    @torch.no_grad()
-    def step(params, tokens, cache, lengths):
-        return lm_decode_step(cfg, params, tokens, cache, lengths)
-
     dp = dp_axes(mesh)
     tok_spec = (dp, None) if B > 1 else (None, None)
     len_spec = (dp,) if B > 1 else (None,)
+    shardings = (lm_param_shardings(mesh, params_shape), tok_spec,
+                 lm_cache_shardings(mesh, cfg, B), len_spec)
+
+    @torch.no_grad()
+    def step(params, tokens, cache, lengths):
+        return _on_mesh(mesh, lambda *a: lm_decode_step(cfg, *a),
+                        (params, tokens, cache, lengths), shardings)
+
     return StepPlan(
-        step, (params_shape, toks, cache_shape, lens),
-        (lm_param_shardings(mesh, params_shape), tok_spec,
-         lm_cache_shardings(mesh, cfg, B), len_spec),
+        step, (params_shape, toks, cache_shape, lens), shardings,
         donate=(2,), static_desc=f"{cfg.name} decode B{B} KV{T}")
 
 

@@ -39,8 +39,8 @@ from repro_torch.dist.pipeline import pipelined_apply, split_stages
 from repro_torch.dist.sharding import tree_map
 from repro_torch.launch.steps import value_and_grad
 from repro_torch.models.common import rms_norm
-from repro_torch.models.transformer import (LMConfig, _layer, init_lm_params,
-                                            lm_loss)
+from repro_torch.models.transformer import (LMConfig, _layer, _Mesh,
+                                            init_lm_params, lm_loss)
 from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_adamw
 from repro_torch.optim.compression import (compress_with_feedback, decompress,
                                            init_residuals)
@@ -115,8 +115,8 @@ def make_pipeline_loss(cfg: LMConfig, n_stages: int, mesh=None,
 
         def stage_fn(sp, h):
             for i in range(next(iter(sp.values())).shape[0]):
-                h, _, _ = _layer(cfg, {k: v[i] for k, v in sp.items()}, h,
-                                 positions)
+                lp = {k: v[i] for k, v in sp.items()}
+                (h,), _ = _layer(cfg, _Mesh(), [lp], None, [h], [positions])
             return h
 
         x = pipelined_apply(stage_fn, stages, xs, mesh)

@@ -51,7 +51,10 @@ class FrontDesk:
         cfg = self.session.eng.cfg
         if not cfg.telemetry:
             return True
-        hiw = int(self.session.eng.state.tm_hiw[..., TM_HW_AQ].max())
+        # the largest mark over the grid's cells (over each tile's owned
+        # cells and the ranks, where sharded)
+        hiw = int(self.session.eng._over_cells(
+            "tm_hiw", lambda t: t[..., TM_HW_AQ].max(), "max"))
         ceiling = cfg.queue_cap - cfg.aq_reserve - cfg.sys_reserve
         return hiw < self.hiw_frac * ceiling
 

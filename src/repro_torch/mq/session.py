@@ -22,6 +22,15 @@ The port of ``repro/mq/session.py``.  The session wraps a
 Admission happens only at increment boundaries, where the machine is
 quiescent, so a recycled slot never sees a payload of its previous
 tenant.
+
+On a sharded state (``ses.eng.state = dist.cca.shard_state(cfg,
+ses.eng.state, mesh)``, JAX's ``device_put`` under
+``cca_state_shardings``) the session writes and reads only what each tile
+owns, through ``dist.cca``: a slot's planes on whole tiles, a seed pushed
+in the tile that owns its cell, a label flood in the owned cells, and
+the per-slot counters reduced over the ranks on the device.  Every host
+decision (a slot's state, its settle cycle, a full queue) comes from
+values reduced over the ranks, so every process decides alike.
 """
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ from repro_torch.core.config import EngineConfig
 from repro_torch.core.engine import StreamingEngine
 from repro_torch.core.msg import MSG_WORDS, OP_APP
 from repro_torch.core.state import root_addr
+from repro_torch.dist import cca
 from repro_torch.mq.app import batch_app
 
 # the value a source vertex starts from, by app (BFS / SSSP distance 0,
@@ -49,12 +59,16 @@ LABEL_APPS = ("cc",)
 
 def label_seed(eng: StreamingEngine, val_idx: int = 0) -> None:
     """A label-flood admission: every vertex's value ``val_idx`` at every
-    rhizome root becomes its own id."""
+    rhizome root becomes its own id (in the owning tiles, where
+    sharded)."""
     cfg = eng.cfg
     vids = np.arange(cfg.n_vertices, dtype=np.int64)[None, :]
     ks = np.arange(cfg.rhizome_cap, dtype=np.int64)[:, None]
     r, c, s = rhizome_rcs(cfg, vids, ks)
     labels = np.broadcast_to(vids.astype(np.float32), r.shape)
+    if eng._sharded:
+        cca.write_cells(eng.state, "vals", r, c, (s, val_idx), labels)
+        return
     dev = eng.state.vals.device
     idx = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                 for a in (r, c, s))
@@ -130,7 +144,7 @@ class MQSession:
         if self.slot_apps[slot].name != a.name:
             self._rebuild(slot, a)
         self._reset_slot_plane(slot)
-        cycle = int(self.eng.state.cycle)
+        cycle = int(self._cycle())
         if a.name in LABEL_APPS:
             self._write_labels(slot)
         else:
@@ -150,6 +164,11 @@ class MQSession:
         # next launch takes the new table of slot codes
         self.eng.app = self.composite
 
+    def _cycle(self) -> torch.Tensor:
+        """The machine's cycle (every tile's, where sharded)."""
+        st = self.eng.state
+        return st.tiles[0].cycle if self.eng._sharded else st.cycle
+
     def _slot_value(self, field: str, q: int) -> float:
         v = getattr(self.composite, field)
         return float(np.float32(v[q] if self.composite.qbatch > 1 else v))
@@ -160,6 +179,13 @@ class MQSession:
         st, q = self.eng.state, slot
         init = self._slot_value("init_val", q)
         neutral = self._slot_value("fwd_neutral", q)
+        if self.eng._sharded:
+            cca.write_plane(st, "vals", 0 if self.qbatch == 1 else q, init)
+            cca.write_plane(st, "fwd_val", ... if self.qbatch == 1 else q,
+                            neutral)
+            if self.qbatch > 1:
+                cca.reset_slot(st, q)
+            return
         with torch.no_grad():
             if self.qbatch == 1:
                 st.vals[..., 0] = init
@@ -193,6 +219,9 @@ class MQSession:
             m[2] = bits[0]
             m[MSG_WORDS:] = bits[1:]
             m[3] = np.int32(np.uint32(1 << slot))   # qsel: this tenant only
+        if self.eng._sharded:
+            cca.push_action(st, r, c, m, cfg.queue_cap)
+            return
         n, head = (int(x) for x in torch.stack(
             [st.aq_n[r, c], st.aq_head[r, c]]).tolist())
         if n >= cfg.queue_cap:
@@ -210,9 +239,13 @@ class MQSession:
         edges = np.asarray(edges, np.int32).reshape(-1, 3)
         res = self.eng.run_increment(edges, **kw)
         self.edges_seen += len(edges)
-        st = self.eng.state
-        qchg, qlast = st.qchg.tolist(), st.qlast.tolist()
-        end_cycle = int(st.cycle)
+        st, Q = self.eng.state, self.eng.cfg.qbatch
+        if self.eng._sharded:
+            rec = cca.slot_counters(st).tolist()
+            qchg, qlast, end_cycle = rec[:Q], rec[Q:2 * Q], rec[-1]
+        else:
+            qchg, qlast = st.qchg.tolist(), st.qlast.tolist()
+            end_cycle = int(st.cycle)
         for q, s in enumerate(self.slots):
             if s.state == "free":
                 continue

@@ -213,10 +213,16 @@ class Checkpointer:
         return max(steps) if steps else None
 
     def restore(self, tree_like, step: int | None = None,
-                verify: bool = True):
+                shardings=None, verify: bool = True):
         """``(tree, extra, step)``: the leaves of ``step`` (default the
         latest) as numpy arrays in the structure of ``tree_like``, matched
-        by name; raises ``IOError`` on a checksum mismatch."""
+        by name; raises ``IOError`` on a checksum mismatch.
+        ``shardings`` ``(mesh, specs)``, ``specs`` a spec a leaf in
+        ``tree_like``'s structure (e.g. ``lm_param_shardings``; a spec
+        names no mesh, so the pair does), restores the tree laid out over
+        the mesh (JAX's ``device_put`` of each leaf): a
+        ``dist.sharding.Placed`` of this process's ranks' blocks, each
+        ``shard_block`` of the whole leaf, on the mesh's device."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
@@ -241,4 +247,10 @@ class Checkpointer:
                 if digest != meta["sum"]:
                     raise IOError(f"checksum mismatch for {meta['name']} "
                                   f"@ step {step}")
-        return _unflatten(tree_like, iter(out)), manifest["extra"], step
+        tree = _unflatten(tree_like, iter(out))
+        if shardings is not None:
+            from repro_torch.dist.sharding import lay_out
+            if not (isinstance(shardings, tuple) and len(shardings) == 2):
+                raise TypeError("shardings must be (mesh, specs)")
+            tree = lay_out(tree, *shardings)
+        return tree, manifest["extra"], step

@@ -210,7 +210,9 @@ def test_ep_blocks_cut_by_the_sharding_rule():
             assert blk["layers"][name].shape == shp
             assert torch.equal(blk["layers"][name], sharding.shard_block(
                 full["layers"][name], mesh, spec, r))
-            assert torch.equal(blk["embed"], full["embed"])
+            assert torch.equal(blk["embed"], sharding.shard_block(
+                full["embed"], mesh,
+                sharding.lm_param_shardings(mesh, full)["embed"], r))
     lp = transformer._layer_params(blk, 0)
     x = torch.zeros((2, 8, cfg.d_model), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="neither the whole leaf"):
@@ -221,17 +223,41 @@ def test_ep_blocks_cut_by_the_sharding_rule():
 
 
 def test_ep_over_processes_needs_data_1():
-    """A process-per-rank mesh with ``data`` > 1 raises, saying why (a
-    stand-in for this process's rank of a 4-process group)."""
-    tr = object.__new__(ProcessGroupTiles)
-    tr.world, tr.rank, tr.local_ranks = 4, 0, (0,)
-    mesh = ctx.Mesh((2, 2), ("data", "model"), tr)
+    """Over processes at ``data`` > 1 EP runs on a whole batch, each
+    process routing its dp slice of it (it once raised here): this
+    process as rank 0 of a stand-in four-process group at (2, 2), each
+    of its collectives answered with what rank 0 receives over
+    ``LocalTiles``, sends what rank 0 sends there and returns what rank 0
+    returns, bit for bit."""
     cfg = config()
     lp = transformer._layer_params(transformer.init_lm_params(
         cfg, torch.Generator().manual_seed(0)), 0)
-    x = torch.zeros((2, 8, cfg.d_model), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="data 1"):
-        run(cfg, lp, x, mesh)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 8, cfg.d_model)).astype(np.float32)).bfloat16()
+    local = make_host_mesh(2, 2, device="cpu")
+    lt, calls = local.transport, []
+
+    def record(fn):
+        def call(mesh, axes, blocks, *dim):
+            out = fn(mesh, axes, blocks, *dim)
+            calls.append((blocks[0], out[0]))
+            return out
+        return call
+    lt.axis_sum, lt.axis_gather = record(lt.axis_sum), record(lt.axis_gather)
+    want, waux = run(cfg, lp, x, local)
+    assert len(calls) == 4      # model sum, two dp sums, the dp gather
+    replies = iter(calls)
+
+    def answer(mesh, axes, blocks, *dim):
+        sent, reply = next(replies)
+        assert torch.equal(blocks[0], sent)
+        return [reply]
+    tr = object.__new__(ProcessGroupTiles)
+    tr.world, tr.rank, tr.local_ranks = 4, 0, (0,)
+    tr.axis_sum = tr.axis_gather = answer
+    got, aux = run(cfg, lp, x, ctx.Mesh((2, 2), ("data", "model"), tr))
+    assert next(replies, None) is None
+    assert torch.equal(got, want) and torch.equal(aux, waux)
 
 
 def test_axis_groups_sums_and_gathers_on_local_tiles():

@@ -7,8 +7,9 @@ one mesh axis on subgroups, at (2, 2) over four processes.
 
 Each rank of the EP test runs it twice, from the whole expert leaves and
 from only its own block (``dist.sharding.shard_block`` by
-``lm_param_shardings``' spec), the two equal bit for bit; a (2, 1) mesh
-over the same processes raises ``NotImplementedError``.  The ranks are
+``lm_param_shardings``' spec), the two equal bit for bit; on a (2, 1)
+mesh over the same processes each routes its half of the batch and
+returns what ``LocalTiles`` at (2, 1) returns, bit for bit.  The ranks are
 spawned with a ``file://`` store and a timeout each, as in
 ``tests/test_torch_dist_gloo.py``.
 """
@@ -26,6 +27,7 @@ EP_RANK = textwrap.dedent("""
     from repro_torch.configs import lm_archs
     from repro_torch.dist import ctx, sharding
     from repro_torch.dist.transport import ProcessGroupTiles
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import transformer
 
     rank, world, init, ref, E, tol_bf16, tol_f32 = sys.argv[1:8]
@@ -57,11 +59,10 @@ EP_RANK = textwrap.dedent("""
                                - ref[f"{name}/out"]).max())
             assert err <= tol, (name, err, tol)
         ctx.set_dist_mesh(ctx.Mesh((world, 1), ("data", "model"), tr))
-        try:
-            transformer._ffn_moe_ep(cfg, lp, x)
-            raise AssertionError("EP over processes at data > 1 ran")
-        except NotImplementedError as e:
-            assert "data 1" in str(e)
+        got, aux = transformer._ffn_moe_ep(cfg, lp, x)
+        ctx.set_dist_mesh(make_host_mesh(world, 1, device="cpu"))
+        want, waux = transformer._ffn_moe_ep(cfg, lp, x)
+        assert torch.equal(got, want) and torch.equal(aux, waux)
     finally:
         ctx.set_dist_mesh(None)
         ProcessGroupTiles.close()

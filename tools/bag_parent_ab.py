@@ -14,8 +14,11 @@ lookup's row floor(V_f u^4) for u uniform from a seeded generator on the
 card):
 
 * both calls' gradients within 1e-5 x max(1, max |ref|) of the plain
-  ``index_add_`` (``ref.embedding_bags_bwd_ref``), and the share of rows
-  whose bits equal the earlier call's;
+  sum taken in float64 (``index_add_`` on float64, as ``chip_smoke.py``'s
+  phase 49 holds the kernel: f32 ``index_add_`` adds by atomics, so its
+  sum moves from run to run), f32 ``index_add_``'s distance
+  (``ref.embedding_bags_bwd_ref``) from the same sum printed beside
+  them, and the share of rows whose bits equal the earlier call's;
 * both calls timed in turns (earlier, this, this, earlier);
 * this tree's sort of the key pass's pairs (CUB's radix sort over the key
   bits) timed beside ``torch.sort`` of the int32 keys (all 32 bits);
@@ -53,6 +56,22 @@ CUT_ROWS = 1 << 20   # each table cut to 2^20 rows, as chip_smoke.py's 49-50
 REPS = 20
 TOL = 1e-5
 SEGMENTS = (32, 64, 128, 256)   # the S the kernels are built and timed at
+
+
+def f64_sum(vocabs, idx, gout) -> list:
+    """The tables' gradients (sum, no weights) by ``index_add_`` in
+    float64: the yardstick both calls are held to."""
+    (B, Fn, L), D = idx.shape, gout.shape[2]
+    out = []
+    for f, V in enumerate(vocabs):
+        i = idx[:, f].long()
+        i = torch.where(i < 0, i + V, i)
+        keep = ((i >= 0) & (i < V)).reshape(-1)
+        terms = gout[:, f].double()[:, None, :].expand(B, L, -1)
+        out.append(torch.zeros((V, D), dtype=torch.float64,
+                               device=gout.device).index_add_(
+            0, i.reshape(-1)[keep], terms.reshape(B * L, D)[keep]))
+    return out
 
 
 def load_earlier(tree: pathlib.Path):
@@ -135,19 +154,21 @@ def case(earlier, libs, name, tables, idx, dev) -> dict:
     old_tables = earlier.prepare_tables(list(tables))
     old = lambda: earlier.launch_bwd(old_tables, idx, gout)  # noqa: E731
     new = lambda: ops.launch_bwd(tables, idx, gout)  # noqa: E731
-    want = embedding_bags_bwd_ref(vocabs, idx, gout)
+    want = f64_sum(vocabs, idx, gout)
     got_old, got_new = old(), new()
     err, same_rows = {}, 0
-    for which, got in (("earlier", got_old), ("this", got_new)):
+    for which, got in (("earlier", got_old), ("this", got_new),
+                       ("index_add_ f32",
+                        embedding_bags_bwd_ref(vocabs, idx, gout))):
         err[which] = max(
-            float((a - w).abs().max()) / max(1.0, float(w.abs().max()))
-            for a, w in zip(got, want))
+            float((a.double() - w).abs().max())
+            / max(1.0, float(w.abs().max())) for a, w in zip(got, want))
     for a, b in zip(got_old, got_new):
         same_rows += int((a.view(torch.int32) == b.view(torch.int32))
                          .all(1).sum())
     del got_old, got_new, want
-    if max(err.values()) > TOL:
-        raise AssertionError(f"{name}: off index_add_ by {err} x max(1, "
+    if max(err["earlier"], err["this"]) > TOL:
+        raise AssertionError(f"{name}: off the f64 sum by {err} x max(1, "
                              f"max |ref|), over {TOL}")
     turns = in_turns(old, new)
     keys, pos = ops.bwd_key_pass(tables, idx)
@@ -182,8 +203,10 @@ def case(earlier, libs, name, tables, idx, dev) -> dict:
           f"rows): earlier {turns['earlier'][0]:.4f} / "
           f"{turns['earlier'][1]:.4f} ms, this {turns['this'][0]:.4f} / "
           f"{turns['this'][1]:.4f} ms in turns ({row['speedup']:.3f}x); "
-          f"off index_add_ by {err['earlier']:.3g} / {err['this']:.3g} of "
-          f"max(1, max |ref|); {row['same_bits_share']:.4%} of the rows the "
+          f"off the f64 sum by {err['earlier']:.3g} / {err['this']:.3g} of "
+          f"max(1, max |ref|) (f32 index_add_ "
+          f"{err['index_add_ f32']:.3g}); {row['same_bits_share']:.4%} of "
+          f"the rows the "
           f"earlier bits; the sorts over {row['sort_bits']} bits: "
           + ", ".join(f"{how} {ms:.4f} ms" for how, ms in sorts.items())
           + "; the kernels at S = "
